@@ -12,23 +12,33 @@ JSON object per line:
    compiled with one ``nvcc`` each, all started together, and the seconds
    it took;
 3. ``kernel`` lines: each kernel against its plain PyTorch version on the
-   card at the serving path's shapes, with its tolerance, its visit
-   counters against the ``tiling`` twins, and its time (CUDA events around
-   one call queued behind a device spin, median of 25 calls after warm-up,
-   L2 flushed before each), the plain
-   version's time, the bound (the larger of bytes over 3.35 TB/s and
-   operations over the peak rate of their type) and, for flash, the time of
-   ``F.scaled_dot_product_attention`` as a yardstick the port never calls;
+   card at the serving and training paths' shapes, with its tolerance, its
+   visit counters against the ``tiling`` twins, and its time (CUDA events
+   around one call queued behind a device spin, median of 25 calls after
+   warm-up, L2 flushed before each), the plain version's time, the bound
+   (the larger of bytes over 3.35 TB/s and operations over the peak rate
+   of their type) and, where one PyTorch call computes the same function,
+   its time (``F.scaled_dot_product_attention``, forward or backward) as a
+   yardstick the port never calls;
 4. ``model``: a 2-layer model at head_dim 128 run through prefill and
-   decode on the card (kernels) and on the CPU (plain versions) from the
-   same weights, logits and int8 caches compared;
+   decode, and through ``loss_fn`` and its backward, on the card (kernels)
+   and on the CPU (plain versions) from the same weights: logits, int8
+   caches, the loss and every parameter's gradient compared;
 5. ``serve``: the full-width, full-depth llama3-8b (random bf16 weights from
    ``--seed``) served by ``ServeEngine`` over a 16-request synthetic trace;
    the kernels' launch counters are zeroed just before the run and read
    just after it;
 6. ``profile``: ``torch.profiler`` over a short serve run after that one,
    device time by kernel and the card's idle share;
-7. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
+7. ``train``: llama3-8b at full width and 4 layers (random f32 master
+   weights from ``--seed``), policy bf16, remat on every block, AdamW,
+   batch 1 x 4096 tokens, through ``build_train_step``: 2 warm-up steps,
+   then 5 timed steps with the launch counters zeroed before and read
+   after, then ``torch.profiler`` over one more step;
+8. ``train_cli``: ``python -m repro_torch.launch.train --smoke`` on the
+   card for 4 steps with checkpoints, then again to 6 steps, which must
+   resume from step 4;
+9. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises after the lines are printed, and the script exits
@@ -38,11 +48,16 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
+import math
+import os
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -55,12 +70,28 @@ SLEEP_CYCLES = 2_000_000         # ~1 ms of device spin before each timing
 
 FLASH_SRC = "src/repro_torch/kernels/csrc/flash_fwd.cu"
 DECODE_SRC = "src/repro_torch/kernels/csrc/flash_decode.cu"
+BWD_SRC = "src/repro_torch/kernels/csrc/flash_bwd.cu"
 FLASH_TPU = "src/repro/kernels/flash/kernel.py:175"
 DECODE_TPU = "src/repro/kernels/kvq/kernel.py:163"
+BWD_TPU = {"delta": "src/repro/kernels/flash/kernel.py:418",
+           "dq": "src/repro/kernels/flash/kernel.py:434",
+           "dkv": "src/repro/kernels/flash/kernel.py:478"}
+TRAIN_LAYERS, TRAIN_SEQ = 4, 4096   # full width, depth cut to 4 layers
 
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def live_pairs(s: int, *, causal: bool = True, window: int = 0,
+               kv_len=None) -> int:
+    """The (query, key) entries of one head that pass the attention mask
+    (``flash/ref.py``'s ``_mask``): the work this run's inputs need."""
+    kvl = s if kv_len is None else kv_len
+    if not causal:
+        return s * kvl
+    return sum(max(0, min(i, kvl - 1) - (max(0, i - window + 1) if window
+                                         else 0) + 1) for i in range(s))
 
 
 class Smoke:
@@ -142,9 +173,7 @@ class Smoke:
         if window == 0:
             q4, k4, v4 = (x.reshape(b, -1, s, d) for x in (q, k, v))
             library_ms = self.time_ms(lambda: self._sdpa(q4, k4, v4))
-        # work this run's inputs need: keys each query row attends to
-        keys = sum(min(i + 1, window) if window else i + 1 for i in range(s))
-        flops = 4 * b * h * d * keys
+        flops = 4 * b * h * d * live_pairs(s, window=window)
         es = q.element_size()
         nbytes = (2 * b * h * s * d + 2 * b * hkv * s * d) * es \
             + 2 * b * h * s * 4
@@ -166,6 +195,113 @@ class Smoke:
         import torch.nn.functional as F
         return F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                               enable_gqa=True)
+
+    def check_flash_bwd(self, s: int, rdt, gdt, *, causal: bool = True,
+                        window: int = 0, kv_len=None) -> dict:
+        """The three backward kernels (delta, dQ, dKV) against their plain
+        versions on the same residuals, from the forward kernel; ``rdt``
+        is the dtype of the saved q, k, v, o, ``gdt`` that of dO and of
+        the gradients."""
+        torch = self.torch
+        from repro_torch.kernels.flash import ops, ref
+        b, h, hkv, d = 1, 32, 8, 128
+        g = h // hkv
+        gen = torch.Generator(device=self.dev).manual_seed(s + window + 7)
+        q, k, v = (torch.randn((b * n, s, d), generator=gen, device=self.dev)
+                   .to(rdt) for n in (h, hkv, hkv))
+        kw = dict(causal=causal, window=window, kv_len=kv_len)
+        o, m, l = ops.flash_attention_fwd(q, k, v, **kw)
+        do = torch.randn((b * h, s, d), generator=gen, device=self.dev).to(gdt)
+        scale = d ** -0.5
+        kvl = s if kv_len is None else kv_len
+        dq, dk, dv, cq, ck = ops.flash_attention_bwd(
+            q, k, v, o, m, l, do, grad_dtypes=(gdt,) * 3, counts=True, **kw)
+        delta = ops._bwd_delta(o, do)
+        pkw = dict(causal=causal, window=window, sm_scale=scale, kv_len=kvl)
+        delta_r = ref.bwd_delta_ref(o, do)
+        dq_r = ref.bwd_dq_ref(q, k, v, do, m, l, delta_r, dtype=gdt, **pkw)
+        dk_r, dv_r = ref.bwd_dkv_ref(q, k, v, do, m, l, delta_r,
+                                     dk_dtype=gdt, dv_dtype=gdt, **pkw)
+        self.sync()
+        # f32 gradients: summation order only; bf16 gradients: kernel and
+        # plain both accumulate in f32 and each rounds once to bf16
+        rel = 1e-4 if gdt == torch.float32 else 2e-2
+        errs, tols = {}, {}
+        for name, got, want in (("delta", delta, delta_r), ("dq", dq, dq_r),
+                                ("dk", dk, dk_r), ("dv", dv, dv_r)):
+            errs[name] = float((got.float() - want.float()).abs().max())
+            tols[name] = rel * float(want.float().abs().max()) + 1e-6
+        twin_q, twin_k = ops.expected_bwd_counts(s, g, **kw)
+        counts_ok = (cq.cpu().tolist() == [twin_q] * (b * h)
+                     and ck.cpu().tolist() == [twin_k] * (b * hkv))
+        ok = counts_ok and all(errs[n] <= tols[n] for n in errs)
+
+        args = (q, k, v, do, m, l, delta)
+        ckw = dict(dtype=gdt, counts=False, **pkw)
+        ms = {"delta": self.time_ms(lambda: ops._bwd_delta(o, do)),
+              "dq": self.time_ms(lambda: ops._bwd_dq(*args, **ckw)),
+              "dkv": self.time_ms(lambda: ops._bwd_dkv(*args, **ckw)),
+              "total": self.time_ms(lambda: ops.flash_attention_bwd(
+                  q, k, v, o, m, l, do, grad_dtypes=(gdt,) * 3, **kw))}
+        pargs = (q, k, v, do, m, l, delta_r)
+        plain_ms = {
+            "delta": self.time_ms(lambda: ref.bwd_delta_ref(o, do), n=20),
+            "dq": self.time_ms(lambda: ref.bwd_dq_ref(
+                *pargs, dtype=gdt, **pkw), n=20),
+            "dkv": self.time_ms(lambda: ref.bwd_dkv_ref(
+                *pargs, dk_dtype=gdt, dv_dtype=gdt, **pkw), n=20),
+            "total": self.time_ms(lambda: ref.flash_bwd_ref(
+                q, k, v, o, m, l, do, grad_dtypes=(gdt,) * 3, **kw), n=20)}
+        library_ms = None
+        if causal and window == 0 and kv_len is None and rdt == gdt:
+            library_ms = self._sdpa_bwd_ms(q, k, v, do, b, s, d)
+
+        # bound: each input read once, each output written once; five
+        # products over the live (q, k) entries for the whole backward
+        # (QK^T and dO V^T recomputed, dS K, P^T dO, dS^T Q), 2 D flops
+        # per entry each: three of them are dQ's, four dKV's (both
+        # recompute QK^T and dO V^T)
+        pairs = live_pairs(s, **kw) * b * h
+        gemm = 2 * d * pairs
+        er, eg = q.element_size(), do.element_size()
+        qo = b * h * s * d
+        kv = b * hkv * s * d
+        rows = b * h * s * 4
+        work = {"delta": (2 * qo, qo * (er + eg) + rows, "float32"),
+                "dq": (3 * gemm, (qo + 2 * kv) * er + qo * eg + 3 * rows
+                       + qo * eg, str(rdt)),
+                "dkv": (4 * gemm, (qo + 2 * kv) * er + qo * eg + 3 * rows
+                        + 2 * kv * eg, str(rdt)),
+                "total": (5 * gemm, (2 * qo + 2 * kv) * er + qo * eg
+                          + 2 * rows + (qo + 2 * kv) * eg, str(rdt))}
+        bound_ms, bound_by = {}, {}
+        for name, (flops, nbytes, dt) in work.items():
+            t_ops = flops / PEAK_FLOPS[dt.removeprefix("torch.")] * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            bound_ms[name] = max(t_ops, t_bytes)
+            bound_by[name] = "operations" if t_ops >= t_bytes else "bytes"
+        dname = lambda t: str(t).removeprefix("torch.")  # noqa: E731
+        return self.record({
+            "phase": "kernel", "name": "flash_bwd", "ok": ok,
+            "shape": {"B": b, "H": h, "Hkv": hkv, "D": d, "S": s,
+                      "causal": causal, "window": window, "kv_len": kv_len,
+                      "residual_dtype": dname(rdt),
+                      "grad_dtype": dname(gdt)},
+            "max_abs_err": errs, "tol": tols, "tol_rel": rel,
+            "counts_ok": counts_ok, "live_entries": pairs,
+            "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by})
+
+    def _sdpa_bwd_ms(self, q, k, v, do, b, s, d) -> float:
+        """The backward alone of ``scaled_dot_product_attention`` on the
+        same inputs (a retained graph, ``torch.autograd.grad``)."""
+        torch = self.torch
+        q4, k4, v4 = (x.detach().reshape(b, -1, s, d).requires_grad_()
+                      for x in (q, k, v))
+        out = self._sdpa(q4, k4, v4)
+        do4 = do.reshape(b, -1, s, d)
+        return self.time_ms(lambda: torch.autograd.grad(
+            out, (q4, k4, v4), do4, retain_graph=True))
 
     def check_decode(self, splits: int) -> dict:
         torch = self.torch
@@ -220,11 +356,13 @@ class Smoke:
             "flops": flops, "bytes": nbytes})
 
     def check_model(self) -> dict:
-        """A 2-layer model through prefill + decode on the card (kernels)
-        and on the CPU (plain versions), same weights, f32 policy."""
+        """A 2-layer model through prefill + decode and through the loss
+        and its backward, on the card (kernels) and on the CPU (plain
+        versions), same weights, f32 policy."""
         import numpy as np
         torch = self.torch
         from repro_torch import configs
+        from repro_torch.core.checkpoint import CheckpointConfig
         from repro_torch.core.mixed_precision import Policy
         from repro_torch.models import bridge, transformer as tf
         cfg = dataclasses.replace(
@@ -266,15 +404,38 @@ class Smoke:
                                              kvq_splits=2,
                                              active=act.to(self.dev))
                 decode_err = max(decode_err, rel(lg[:, live], lw[:, live]))
+        # training: loss_fn and its backward (remat on every block), the
+        # flash backward kernels on the card, the plain versions on the CPU
+        labels = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 100))
+                                  .astype(np.int32))
+        losses = {}
+        for name, model, dev in (("cpu", cpu, "cpu"), ("card", gpu, self.dev)):
+            model.requires_grad_()
+            loss, _ = tf.loss_fn(model, cfg, {"tokens": tokens.to(dev),
+                                              "labels": labels.to(dev)},
+                                 policy=pol, remat=CheckpointConfig())
+            loss.backward()
+            losses[name] = float(loss.detach())
         self.sync()
-        ok = prefill_err <= 1e-4 and decode_err <= 1e-3 and off_frac <= 1e-3
+        loss_err = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+        grads_c = dict(cpu.named_parameters())
+        grad_err = max(
+            float((p.grad.cpu() - grads_c[n].grad).abs().max()
+                  / grads_c[n].grad.abs().max())
+            for n, p in gpu.named_parameters())
+        # f32 on both sides, summation order only; the gradients compound
+        # it through two layers of backward
+        ok = (prefill_err <= 1e-4 and decode_err <= 1e-3 and off_frac <= 1e-3
+              and loss_err <= 1e-5 and grad_err <= 1e-3)
         return self.record({
             "phase": "model", "ok": ok, "cfg": {
                 "n_layers": 2, "d_model": 512, "n_heads": 4, "n_kv": 1,
                 "head_dim": 128, "vocab": 1000, "prompt": [2, 100]},
             "prefill_logits_rel_err": prefill_err, "prefill_tol": 1e-4,
             "int8_cache_off_by_one_frac": off_frac,
-            "decode_logits_rel_err": decode_err, "decode_tol": 1e-3})
+            "decode_logits_rel_err": decode_err, "decode_tol": 1e-3,
+            "loss": losses, "loss_rel_err": loss_err, "loss_tol": 1e-5,
+            "grad_rel_err_max": grad_err, "grad_tol": 1e-3})
 
     def run_serve(self) -> dict:
         torch = self.torch
@@ -344,21 +505,14 @@ class Smoke:
         self.profile_serve(engine, cfg)
         return rec
 
-    def profile_serve(self, engine, cfg) -> dict:
-        """Where a serving step's device time goes: ``torch.profiler`` over
-        8 requests (prompt 256, 16 new tokens) served after the measured
-        run, device time summed by kernel name."""
-        import numpy as np
+    def _profile(self, fn):
+        """``torch.profiler`` over ``fn()``: (wall s, device busy s, rows of
+        (device us, kernel name, launches)), busiest first."""
         from torch.profiler import ProfilerActivity, profile
-        from repro_torch.serve.trace import TraceRequest
-        rng = np.random.default_rng(1)
-        trace = [TraceRequest(0, rng.integers(0, cfg.vocab, 256)
-                              .astype(np.int32), 16) for _ in range(8)]
-        engine.reset()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.time()
-            summary = engine.run(trace)
+            out = fn()
             self.sync()
             wall = time.time() - t0
         rows = []
@@ -370,7 +524,19 @@ class Smoke:
             if dev_us > 0:
                 rows.append((dev_us, ev.key, ev.count))
         rows.sort(reverse=True)
-        busy_s = sum(r[0] for r in rows) / 1e6
+        return out, wall, sum(r[0] for r in rows) / 1e6, rows
+
+    def profile_serve(self, engine, cfg) -> dict:
+        """Where a serving step's device time goes: ``torch.profiler`` over
+        8 requests (prompt 256, 16 new tokens) served after the measured
+        run, device time summed by kernel name."""
+        import numpy as np
+        from repro_torch.serve.trace import TraceRequest
+        rng = np.random.default_rng(1)
+        trace = [TraceRequest(0, rng.integers(0, cfg.vocab, 256)
+                              .astype(np.int32), 16) for _ in range(8)]
+        engine.reset()
+        summary, wall, busy_s, rows = self._profile(lambda: engine.run(trace))
         return self.record({
             "phase": "profile", "wall_s": wall, "device_busy_s": busy_s,
             "idle_share": 1 - busy_s / wall if wall > 0 else None,
@@ -378,6 +544,123 @@ class Smoke:
             "decode_rounds": summary["diagnostics"]["decode_rounds"],
             "top_kernels_ms": [[name[:80], round(us / 1e3, 3), n]
                                for us, name, n in rows[:15]]})
+
+    def run_train(self) -> dict:
+        """llama3-8b at full width and TRAIN_LAYERS layers through
+        ``build_train_step`` as ``launch/train.py`` drives it, without
+        checkpoint I/O: random f32 master weights, policy bf16, remat on
+        every block, the AdamW defaults, batch 1 x TRAIN_SEQ."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.core.checkpoint import CheckpointConfig
+        from repro_torch.kernels.flash import ops as flash_ops
+        from repro_torch.launch.train import init_state, synthetic_lm_batches
+        from repro_torch.optim import adamw
+        from repro_torch.train.train_step import (TrainConfig,
+                                                  build_train_step,
+                                                  init_loss_scale)
+        kernels = {"flash_fwd": flash_ops.KERNEL,
+                   "flash_bwd_delta": flash_ops.BWD_DELTA,
+                   "flash_bwd_dq": flash_ops.BWD_DQ,
+                   "flash_bwd_dkv": flash_ops.BWD_DKV}
+        gc.collect()                     # the serve model is gone: free it
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        cfg = dataclasses.replace(configs.get_config("llama3-8b"),
+                                  n_layers=TRAIN_LAYERS)
+        tc = TrainConfig(policy="bf16", remat=CheckpointConfig(
+            enabled=True, policy="full", segment_size=1),
+            opt=adamw.AdamWConfig())
+        t0 = time.time()
+        model, opt = init_state(cfg, self.args.seed, self.dev)
+        ls = init_loss_scale(tc, self.dev)
+        step = build_train_step(cfg, tc)
+        data = synthetic_lm_batches(cfg, 1, TRAIN_SEQ, seed=self.args.seed,
+                                    device=self.dev)
+        n_params = sum(p.numel() for p in model.parameters())
+        self.sync()
+        init_s = time.time() - t0
+        records = []
+
+        def one_step():
+            nonlocal model, opt, ls
+            _, batch = next(data)
+            t = time.time()
+            model, opt, ls, m = step(model, opt, ls, batch)
+            vals = {k: float(v) for k, v in m.items()}   # syncs the step
+            vals["step_s"] = time.time() - t
+            records.append(vals)
+
+        for _ in range(2):                              # warm-up
+            one_step()
+        for kern in kernels.values():                   # the main path's
+            kern.launches = 0                           # counts
+        for _ in range(5):
+            one_step()
+        launches = {n: k.launches for n, k in kernels.items()}
+        self.train_launches = launches
+        _, wall, busy_s, rows = self._profile(one_step)
+        peak = torch.cuda.max_memory_allocated(self.dev)
+        timed = records[2:7]
+        step_s = statistics.median(r["step_s"] for r in timed)
+        L, n = cfg.n_layers, len(timed)
+        checks = {
+            "losses_finite": all(math.isfinite(r["loss"]) for r in records),
+            "grad_norms_finite": all(math.isfinite(r["grad_norm"])
+                                     for r in records),
+            "grads_finite": all(r["grads_finite"] for r in records),
+            # remat: every layer's forward runs twice (forward, recompute)
+            "flash_fwd_launches": launches["flash_fwd"] == 2 * L * n,
+            "bwd_launches": all(launches[k] == L * n for k in
+                                ("flash_bwd_delta", "flash_bwd_dq",
+                                 "flash_bwd_dkv")),
+            "fits": peak < 80e9,
+        }
+        return self.record({
+            "phase": "train", "ok": all(checks.values()), "checks": checks,
+            "arch": cfg.arch_id, "n_layers": L, "d_model": cfg.d_model,
+            "n_heads": cfg.n_heads, "n_kv": cfg.n_kv, "d_ff": cfg.d_ff,
+            "vocab": cfg.vocab, "params": n_params, "policy": "bf16",
+            "remat": "per block, full", "batch": 1, "seq": TRAIN_SEQ,
+            "losses": [r["loss"] for r in records],
+            "grad_norms": [r["grad_norm"] for r in records],
+            "step_s": [r["step_s"] for r in records],
+            "median_step_s": step_s, "tokens_per_s": TRAIN_SEQ / step_s,
+            "kernel_launches_5_steps": launches,
+            "max_memory_allocated_bytes": peak, "init_s": init_s,
+            "profile": {"wall_s": wall, "device_busy_s": busy_s,
+                        "idle_share": 1 - busy_s / wall if wall > 0
+                        else None,
+                        "top_kernels_ms": [[name[:80], round(us / 1e3, 3), c]
+                                           for us, name, c in rows[:40]]}})
+
+    def run_train_cli(self) -> dict:
+        """The trainer's CLI on the card at smoke size: 4 steps with a
+        checkpoint every 2, then a second run to 6 steps that resumes."""
+        ckpt = tempfile.mkdtemp(prefix="train_cli_")
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
+               "--ckpt-every", "2", "--ckpt-dir", ckpt, "--log-every", "1"]
+        try:
+            runs = [subprocess.run(cmd + extra, cwd=ROOT, env=env,
+                                   capture_output=True, text=True,
+                                   timeout=300)
+                    for extra in (["--steps", "4", "--fresh"],
+                                  ["--steps", "6"])]
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        checks = {
+            "first_exit_0": runs[0].returncode == 0,
+            "second_exit_0": runs[1].returncode == 0,
+            "on_the_card": "device: cuda" in runs[0].stdout,
+            "resumed": "resumed from step 4" in runs[1].stdout,
+            "trained_on": "step     5 loss" in runs[1].stdout,
+        }
+        return self.record({
+            "phase": "train_cli", "ok": all(checks.values()),
+            "checks": checks,
+            "stdout": [r.stdout[-1500:] for r in runs],
+            "stderr": [r.stderr[-1500:] for r in runs if r.returncode]})
 
 
 def nvidia_smi() -> str:
@@ -423,8 +706,16 @@ def main(argv=None) -> int:
     smoke.check_flash(100, torch.float32)
     smoke.check_flash(300, torch.float32, window=100)
     decode = [smoke.check_decode(sp) for sp in (1, 4)]
+    bf16, f32 = torch.bfloat16, torch.float32
+    bwd = [smoke.check_flash_bwd(TRAIN_SEQ, bf16, bf16),   # the train shape
+           smoke.check_flash_bwd(100, bf16, bf16),
+           smoke.check_flash_bwd(300, f32, f32, window=100),
+           smoke.check_flash_bwd(300, f32, f32, causal=False, kv_len=200),
+           smoke.check_flash_bwd(1024, bf16, f32)]        # bf16 residuals
     smoke.check_model()
     smoke.run_serve()
+    smoke.run_train()
+    smoke.run_train_cli()
     smoke.sync()
 
     def summary_row(name, rows, main, route_src, tpu):
@@ -436,10 +727,27 @@ def main(argv=None) -> int:
                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
                 "library_ms": main["library_ms"]}
 
+    def bwd_row(part, grads):
+        main = bwd[0]
+        return {"name": f"flash_bwd_{part}", "route": "cuda",
+                "source": BWD_SRC, "replaces": BWD_TPU[part],
+                "launches": smoke.train_launches[f"flash_bwd_{part}"],
+                "max_abs_err": max(r["max_abs_err"][g] for r in bwd
+                                   for g in grads),
+                "ms": main["kernel_ms"][part],
+                "plain_ms": main["plain_ms"][part],
+                "bound_ms": main["bound_ms"][part],
+                "bound_by": main["bound_by"][part],
+                # the whole backward (dq, dk, dv) in one library call
+                "library_ms": None if part == "delta"
+                else main["library_ms"]}
+
     kernels = {"kernels": [
         summary_row("flash_fwd", flash, flash[-1], FLASH_SRC, FLASH_TPU),
         summary_row("flash_decode", decode, decode[-1], DECODE_SRC,
-                    DECODE_TPU)]}
+                    DECODE_TPU),
+        bwd_row("delta", ("delta",)), bwd_row("dq", ("dq",)),
+        bwd_row("dkv", ("dk", "dv"))]}
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -1,0 +1,1 @@
+"""Atomic, checksummed checkpoints in the JAX package's on-disk format."""

@@ -258,5 +258,11 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   else if (dtype == 0 && D == 64)
     err = launch<float, 64>(q, k, v, o, mf, lf, cnt, bh, S, group, causal,
                             window, kv_len, sm_scale, st);
+  else if (dtype == 1 && D == 16)   // the smoke configurations' head_dim
+    err = launch<__nv_bfloat16, 16>(q, k, v, o, mf, lf, cnt, bh, S, group,
+                                     causal, window, kv_len, sm_scale, st);
+  else if (dtype == 0 && D == 16)
+    err = launch<float, 16>(q, k, v, o, mf, lf, cnt, bh, S, group, causal,
+                            window, kv_len, sm_scale, st);
   return (int)err;
 }

@@ -1,10 +1,16 @@
 """Public flash-attention op (counterpart of ``repro.kernels.flash.ops``).
 
 The op dispatches on the device of its tensors: CPU tensors go to the
-plain version in ``ref.py``; CUDA tensors go to the hand-written kernel
-``kernels/csrc/flash_fwd.cu`` or raise.  Nothing falls back from one to
-the other.  The TPU path's 128-lane padding and its shape fallback do
-not carry over: the kernel masks the ragged tail itself.
+plain versions in ``ref.py``; CUDA tensors go to the hand-written kernels
+``kernels/csrc/flash_fwd.cu`` (forward) and ``kernels/csrc/flash_bwd.cu``
+(backward: delta, dQ, dKV) or raise.  Nothing falls back from one to the
+other.  The TPU path's 128-lane padding and its shape fallback do not
+carry over: the kernels mask the ragged tail themselves.
+
+``flash_attention`` is differentiable: a ``torch.autograd.Function``
+saves (q, k, v, o, m, l) -- O(S*D) per head, never the S x S
+probabilities -- and its backward recomputes the probabilities from the
+f32 row stats (the counterpart of the JAX package's ``custom_vjp``).
 """
 from __future__ import annotations
 
@@ -14,13 +20,27 @@ from repro_torch.kernels import build, tiling
 from repro_torch.kernels.flash import ref
 
 BQ = BK = 64                       # the kernel's q and KV tile sizes
-SUPPORTED_HEAD_DIMS = (64, 128)
+SUPPORTED_HEAD_DIMS = (16, 64, 128)   # 16: the smoke configurations
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 KERNEL = build.Kernel("flash_fwd", "flash_fwd", [
     build.PTR, build.PTR, build.PTR, build.PTR, build.PTR, build.PTR,
     build.PTR, build.INT, build.INT, build.INT, build.INT, build.INT,
     build.INT, build.INT, build.INT, build.FLOAT, build.PTR])
+BWD_DELTA = build.Kernel("flash_bwd", "flash_bwd_delta", [
+    build.PTR, build.PTR, build.PTR, build.INT, build.INT, build.INT,
+    build.INT, build.INT, build.PTR])
+_BWD_ARGS = [build.PTR] * 7 + [build.INT] * 10 + [build.FLOAT, build.PTR]
+BWD_DQ = build.Kernel("flash_bwd", "flash_bwd_dq",
+                      _BWD_ARGS[:7] + [build.PTR, build.PTR] + _BWD_ARGS[7:])
+BWD_DKV = build.Kernel("flash_bwd", "flash_bwd_dkv",
+                       _BWD_ARGS[:7] + [build.PTR] * 3 + _BWD_ARGS[7:])
+#: (residual q/k/v/o, cotangent dO, gradients) dtypes the backward kernels
+#: take: the f32 policy, the bf16 policy, and bf16-saved residuals under
+#: f32 compute (``Policy.resid_bf16``)
+BWD_DTYPES = ((torch.float32, torch.float32, torch.float32),
+              (torch.bfloat16, torch.bfloat16, torch.bfloat16),
+              (torch.bfloat16, torch.float32, torch.float32))
 
 
 def expected_counts(s: int, *, causal: bool = True, window: int = 0,
@@ -31,6 +51,21 @@ def expected_counts(s: int, *, causal: bool = True, window: int = 0,
     return tiling.kv_visits(n_q * BQ, bq=BQ, bk=BK, causal=causal,
                             window=window, kv_len=s if kv_len is None
                             else kv_len)
+
+
+def expected_bwd_counts(s: int, group: int, *, causal: bool = True,
+                        window: int = 0, kv_len: int | None = None
+                        ) -> tuple[list[int], list[int]]:
+    """Analytic twins of the backward kernels' counters for a length-S
+    row: KV tiles the dQ kernel executes per 64-row q tile (the forward's
+    ``tiling.kv_visits``), and (q tile, query head) steps the dKV kernel
+    executes per 64-row KV tile: ``group`` x ``tiling.q_visits``, 0 for a
+    KV tile that lies wholly at or past ``kv_len``."""
+    n = -(-s // BQ) * BQ
+    kv_len = s if kv_len is None else kv_len
+    kw = dict(bq=BQ, bk=BK, causal=causal, window=window, kv_len=kv_len)
+    return (tiling.kv_visits(n, **kw),
+            [group * c for c in tiling.q_visits(n, **kw)])
 
 
 def _check_cuda(q, k, v):
@@ -91,19 +126,174 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
     return (o, m, l, cnt) if counts else (o, m, l)
 
 
+def _check_bwd_cuda(q, k, v, o, m, l, do, grad_dtypes):
+    tensors = (q, k, v, o, m, l, do)
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
+        raise ValueError("flash_attention_bwd: every input must be on one "
+                         "CUDA device")
+    if len(set(grad_dtypes)) != 1:
+        raise TypeError(f"flash_attention_bwd: the CUDA kernels write dq, "
+                        f"dk, dv in one dtype, got {grad_dtypes}")
+    combo = (q.dtype, do.dtype, grad_dtypes[0])
+    if (k.dtype != q.dtype or v.dtype != q.dtype or o.dtype != q.dtype
+            or combo not in BWD_DTYPES):
+        raise TypeError(f"flash_attention_bwd: the CUDA kernels take "
+                        f"(residual, dO, gradient) dtypes in {BWD_DTYPES}, "
+                        f"got q/k/v/o {q.dtype}/{k.dtype}/{v.dtype}/"
+                        f"{o.dtype}, dO {do.dtype}, grads {grad_dtypes}")
+    if m.dtype != torch.float32 or l.dtype != torch.float32:
+        raise TypeError("flash_attention_bwd: m and l must be float32")
+    if q.shape[-1] not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: head_dim {q.shape[-1]} not "
+                         f"in {SUPPORTED_HEAD_DIMS} for the CUDA kernels")
+    if not all(t.is_contiguous() for t in (q, k, v, o, m, l)):
+        raise ValueError("flash_attention_bwd: q, k, v, o, m, l must be "
+                         "contiguous")
+
+
+def flash_attention_bwd(q, k, v, o, m, l, do, *, causal: bool = True,
+                        window: int = 0, sm_scale: float | None = None,
+                        kv_len: int | None = None, grad_dtypes=None,
+                        counts: bool = False):
+    """Backward from the forward's residuals -> (dq, dk, dv).
+
+    q, o, do: (BH, S, D); k, v: (BHkv, S, D); m, l: (BH, S) f32 from
+    :func:`flash_attention_fwd`.  Gradients come out in ``grad_dtypes``
+    (dq, dk, dv; default the dtypes of q, k, v), written from f32
+    accumulators.  ``do`` may be strided (autograd hands over a transposed
+    view); it is made contiguous here.  With ``counts`` (CUDA only) also
+    the dQ kernel's (BH, n_q) and the dKV kernel's (BHkv, n_k) int32
+    counters, to be held against :func:`expected_bwd_counts`."""
+    bh, s, d = q.shape
+    bhkv = k.shape[0]
+    if (k.shape != (bhkv, s, d) or v.shape != k.shape or o.shape != q.shape
+            or do.shape != q.shape or m.shape != (bh, s)
+            or l.shape != (bh, s)):
+        raise ValueError("flash_attention_bwd: residual shapes do not match "
+                         f"q{tuple(q.shape)}")
+    if bhkv == 0 or bh % bhkv:
+        raise ValueError(f"flash_attention_bwd: {bh} query rows are not a "
+                         f"multiple of {bhkv} KV rows (GQA)")
+    kv_len = s if kv_len is None else int(kv_len)
+    if not 0 <= kv_len <= s:
+        raise ValueError(f"flash_attention_bwd: kv_len {kv_len} outside "
+                         f"[0, {s}]")
+    scale = float(sm_scale) if sm_scale is not None else d ** -0.5
+    grad_dtypes = (q.dtype, k.dtype, v.dtype) if grad_dtypes is None \
+        else tuple(grad_dtypes)
+    if not q.is_cuda:
+        if counts:
+            raise ValueError("flash_attention_bwd: counts come from the "
+                             "CUDA kernels; the plain version runs no tiles")
+        return ref.flash_bwd_ref(q, k, v, o, m, l, do, causal=causal,
+                                 window=window, sm_scale=scale,
+                                 kv_len=kv_len, grad_dtypes=grad_dtypes)
+    do = do.contiguous()
+    _check_bwd_cuda(q, k, v, o, m, l, do, grad_dtypes)
+    kw = dict(causal=causal, window=window, sm_scale=scale, kv_len=kv_len,
+              counts=counts)
+    delta = _bwd_delta(o, do)
+    dq, cnt_q = _bwd_dq(q, k, v, do, m, l, delta, dtype=grad_dtypes[0], **kw)
+    dk, dv, cnt_k = _bwd_dkv(q, k, v, do, m, l, delta, dtype=grad_dtypes[1],
+                             **kw)
+    return (dq, dk, dv, cnt_q, cnt_k) if counts else (dq, dk, dv)
+
+
+# The three launches of the CUDA backward, on inputs that
+# flash_attention_bwd has checked; separate so that each can be timed.
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _bwd_delta(o, do):
+    bh, s, d = o.shape
+    delta = torch.empty((bh, s), dtype=torch.float32, device=o.device)
+    BWD_DELTA(o.data_ptr(), do.data_ptr(), delta.data_ptr(), bh, s, d,
+              _DTYPES[o.dtype], _DTYPES[do.dtype], _stream(o))
+    return delta
+
+
+def _bwd_args(q, k, do, dtype, causal, window, sm_scale, kv_len):
+    bh, s, d = q.shape
+    return (bh, k.shape[0], s, d, _DTYPES[q.dtype], _DTYPES[do.dtype],
+            _DTYPES[dtype], int(bool(causal)), int(window), kv_len,
+            sm_scale, _stream(q))
+
+
+def _bwd_dq(q, k, v, do, m, l, delta, *, dtype, causal, window, sm_scale,
+            kv_len, counts):
+    bh, s, _ = q.shape
+    dq = torch.empty(q.shape, dtype=dtype, device=q.device)
+    cnt = torch.empty((bh, -(-s // BQ)), dtype=torch.int32,
+                      device=q.device) if counts else None
+    BWD_DQ(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           m.data_ptr(), l.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+           None if cnt is None else cnt.data_ptr(),
+           *_bwd_args(q, k, do, dtype, causal, window, sm_scale, kv_len))
+    return dq, cnt
+
+
+def _bwd_dkv(q, k, v, do, m, l, delta, *, dtype, causal, window, sm_scale,
+             kv_len, counts):
+    bhkv, s, _ = k.shape
+    dk = torch.empty(k.shape, dtype=dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=dtype, device=k.device)
+    cnt = torch.empty((bhkv, -(-s // BK)), dtype=torch.int32,
+                      device=k.device) if counts else None
+    BWD_DKV(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            m.data_ptr(), l.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), None if cnt is None else cnt.data_ptr(),
+            *_bwd_args(q, k, do, dtype, causal, window, sm_scale, kv_len))
+    return dk, dv, cnt
+
+
+class _FlashFn(torch.autograd.Function):
+    """Flat (BH, S, D) flash attention with the recompute backward.
+
+    Saves (q, k, v, o) -- in ``resid_dtype`` when one is given -- and the
+    f32 row stats (m, l); the backward writes the gradients in the primal
+    dtypes of q, k, v straight from the kernels' f32 accumulators."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, sm_scale, resid_dtype):
+        o, m, l = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                      sm_scale=sm_scale)
+        saved = (q, k, v, o)
+        if resid_dtype is not None:
+            saved = tuple(x.to(resid_dtype) for x in saved)
+        ctx.save_for_backward(*saved, m, l)
+        ctx.opts = dict(causal=causal, window=window, sm_scale=sm_scale,
+                        grad_dtypes=(q.dtype, k.dtype, v.dtype))
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, m, l = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, m, l, do, **ctx.opts)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    sm_scale: float | None = None):
-    """q: (B, H, S, D); k, v: (B, Hkv, S, D) -> (B, H, S, D)."""
+                    sm_scale: float | None = None, resid_dtype=None):
+    """q: (B, H, S, D); k, v: (B, Hkv, S, D) -> (B, H, S, D).
+
+    Differentiable on both devices.  ``resid_dtype`` (e.g.
+    ``torch.bfloat16``) stores the saved (q, k, v, o) in that dtype
+    between forward and backward; (m, l) stay f32 and the gradients come
+    back in the dtypes of q, k, v (``Policy.flash_resid_dtype``)."""
     b, h, s, d = q.shape
     hkv = k.shape[1]
     if hkv == 0 or h % hkv:
         raise ValueError(
             f"flash_attention: n_heads={h} must be a non-zero multiple of "
             f"n_kv={hkv} (GQA) for q{tuple(q.shape)}, k{tuple(k.shape)}")
+    if resid_dtype is not None and all(x.dtype == resid_dtype
+                                       for x in (q, k, v)):
+        resid_dtype = None                 # residuals already follow inputs
     # reshape of a (B, S, H, D) transpose is a strided view when B == 1
-    o, _, _ = flash_attention_fwd(
+    o = _FlashFn.apply(
         q.reshape(b * h, s, d).contiguous(),
         k.reshape(b * hkv, s, d).contiguous(),
-        v.reshape(b * hkv, s, d).contiguous(), causal=causal, window=window,
-        sm_scale=sm_scale)
+        v.reshape(b * hkv, s, d).contiguous(), causal, window, sm_scale,
+        resid_dtype)
     return o.reshape(b, h, s, d)

@@ -1,8 +1,9 @@
 """GQA attention for prefill and cached decode (counterpart of
 ``repro.models.attention``, dense branch).
 
-Prefill always goes through the flash op (``kernels/flash``): the CUDA
-kernel on the card, its plain version on the CPU.  Decode writes the new
+Prefill and training always go through the flash op (``kernels/flash``):
+the CUDA kernels on the card, their plain versions on the CPU; it is
+differentiable, so ``loss.backward()`` runs the flash backward.  Decode writes the new
 token into the cache in place and reads the cache through
 ``kernels/kvq.decode_attention`` (quantized) or the plain masked softmax
 (unquantized).  The window/bias decode path, MLA, cross-attention and the
@@ -18,21 +19,24 @@ from repro_torch.kernels.kvq.ref import masked_decode_logits
 from repro_torch.models.layers import apply_rope
 
 
-def attn_block(p, x, cfg, *, positions, window: int = 0):
-    """x: (B, S, D_model); p holds wq/wk/wv/wo.  Returns (out, (k, v)) with
-    k, v (B, S, Hkv, hd) after RoPE."""
+def attn_block(p, x, cfg, *, positions, window: int = 0, resid_dtype=None):
+    """x: (B, S, D_model); p holds wq/wk/wv/wo, cast to ``x.dtype`` here.
+    Returns (out, (k, v)) with k, v (B, S, Hkv, hd) after RoPE.
+    ``resid_dtype`` is the storage dtype of the flash op's saved (q, k, v,
+    o) under autograd (``Policy.flash_resid_dtype``)."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
-    q = (x @ p.wq).reshape(b, s, h, hd)
-    k = (x @ p.wk).reshape(b, s, hkv, hd)
-    v = (x @ p.wv).reshape(b, s, hkv, hd)
+    dt = x.dtype
+    q = (x @ p.wq.to(dt)).reshape(b, s, h, hd)
+    k = (x @ p.wk.to(dt)).reshape(b, s, hkv, hd)
+    v = (x @ p.wv.to(dt)).reshape(b, s, hkv, hd)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
     out = flash_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                     v.transpose(1, 2), causal=True,
-                                    window=window)
+                                    window=window, resid_dtype=resid_dtype)
     out = out.transpose(1, 2).reshape(b, s, h * hd)
-    return out @ p.wo, (k, v)
+    return out @ p.wo.to(dt), (k, v)
 
 
 def _write_token(cache, new, at):

@@ -1,10 +1,13 @@
-"""Parameter bridge between the JAX param pytree and the port's modules.
+"""Bridge between the JAX package's layout and the port's modules.
 
-The JAX side hands over its tree as numpy arrays
-(``jax.tree.map(np.asarray, params)``); nothing here imports JAX.  The
-stacked ``(L, ...)`` block leaves are sliced into per-layer modules, the
-padded-vocab rows are kept, and weights keep their ``(d_in, d_out)``
-orientation, so every leaf is a plain copy.
+The JAX side hands over its trees as numpy arrays
+(``jax.tree.map(np.asarray, tree)``); nothing here imports JAX.  In the
+JAX layout the per-layer leaves are stacked along a leading layer axis
+under ``"blocks"``; the port holds one module per layer, whose parameters
+are named ``blocks.<i>.<path>``.  The padded-vocab rows are kept, and
+weights keep their ``(d_in, d_out)`` orientation, so every leaf is a
+plain copy.  The same layout carries the AdamW moments, so a training
+checkpoint of either package restores into the other.
 """
 from __future__ import annotations
 
@@ -15,9 +18,14 @@ from repro_torch.core.mixed_precision import Policy
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (Attention, Block, SwiGLU,
                                             Transformer)
+from repro_torch.optim.adamw import AdamWState
 
 _ATTN = ("wq", "wk", "wv", "wo")
 _FFN = ("w_gate", "w_up", "w_down")
+
+
+def _to_tensor(x, device):
+    return torch.from_numpy(np.array(x, copy=True)).to(device)
 
 
 def load_jax_params(cfg: ModelConfig, tree: dict, *, device="cuda",
@@ -25,7 +33,7 @@ def load_jax_params(cfg: ModelConfig, tree: dict, *, device="cuda",
     """JAX param tree of numpy arrays -> :class:`Transformer` on ``device``,
     cast once to ``policy.compute_dtype`` when a policy is given."""
     def t(x):
-        return torch.from_numpy(np.array(x, copy=True)).to(device)
+        return _to_tensor(x, device)
 
     blocks_tree = tree["blocks"]
     blocks = []
@@ -40,25 +48,74 @@ def load_jax_params(cfg: ModelConfig, tree: dict, *, device="cuda",
     return model if policy is None else model.cast_to_compute(policy)
 
 
+def to_jax_tree(named: dict) -> dict:
+    """{port parameter name: tensor or array} -> a JAX-layout tree of numpy
+    arrays, the ``blocks.<i>.*`` leaves stacked along a leading layer
+    axis."""
+    tree: dict = {}
+    layers: dict = {}
+    for name, x in named.items():
+        arr = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+            else np.asarray(x)
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            layers.setdefault(tuple(parts[2:]), {})[int(parts[1])] = arr
+        else:
+            tree[name] = arr
+    blocks: dict = {}
+    for path, per_layer in layers.items():
+        node = blocks
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.stack([per_layer[i]
+                                   for i in range(len(per_layer))])
+    if blocks:
+        tree["blocks"] = blocks
+    return tree
+
+
+def from_jax_tree(tree: dict) -> dict:
+    """The reverse of :func:`to_jax_tree`: {port parameter name: array}."""
+    out = {}
+
+    def walk(node, prefix):
+        for key, val in node.items():
+            if isinstance(val, dict):
+                walk(val, prefix + (key,))
+            else:
+                out[prefix + (key,)] = np.asarray(val)
+
+    walk(tree, ())
+    named = {}
+    for path, arr in out.items():
+        if path[0] == "blocks":
+            for i in range(arr.shape[0]):
+                named[".".join(("blocks", str(i)) + path[1:])] = arr[i]
+        else:
+            named[".".join(path)] = arr
+    return named
+
+
 def export_params(model: Transformer) -> dict:
     """The reverse of :func:`load_jax_params`: a JAX-layout tree of numpy
     arrays with the per-layer leaves stacked along a leading layer axis."""
-    def n(p):
-        return p.detach().cpu().numpy()
+    return to_jax_tree(dict(model.named_parameters()))
 
-    blocks = model.blocks
-    tree = {
-        "embed": n(model.embed),
-        "final_norm": n(model.final_norm),
-        "blocks": {
-            "ln1": np.stack([n(b.ln1) for b in blocks]),
-            "ln2": np.stack([n(b.ln2) for b in blocks]),
-            "attn": {name: np.stack([n(getattr(b.attn, name))
-                                     for b in blocks]) for name in _ATTN},
-            "ffn": {name: np.stack([n(getattr(b.ffn, name))
-                                    for b in blocks]) for name in _FFN},
-        },
-    }
-    if model.lm_head is not None:
-        tree["lm_head"] = n(model.lm_head)
-    return tree
+
+def export_opt_state(state: AdamWState) -> AdamWState:
+    """The port's AdamW state -> the JAX layout: moments as stacked trees of
+    numpy arrays, the step count as a 0-d int32 array."""
+    return AdamWState(mu=to_jax_tree(state.mu), nu=to_jax_tree(state.nu),
+                      count=np.asarray(state.count.cpu().numpy(),
+                                       dtype=np.int32))
+
+
+def load_opt_state(state, *, device="cuda") -> AdamWState:
+    """A JAX-layout AdamW state (``mu``, ``nu``, ``count``, from either
+    package) -> the port's, on ``device``."""
+    return AdamWState(
+        mu={n: _to_tensor(a, device)
+            for n, a in from_jax_tree(state.mu).items()},
+        nu={n: _to_tensor(a, device)
+            for n, a in from_jax_tree(state.nu).items()},
+        count=_to_tensor(np.asarray(state.count, dtype=np.int32), device))

@@ -1,18 +1,53 @@
 """Shared building blocks: RMSNorm, SwiGLU, rotary embeddings, initializers
-(counterpart of ``repro.models.layers``).  M-RoPE waits for qwen2-vl."""
+(counterpart of ``repro.models.layers``).  M-RoPE waits for qwen2-vl and
+``gelu_mlp`` for the architectures that use it."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
 
-def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
-    """RMSNorm with f32 internals: normalise in f32, cast to ``x.dtype``,
-    then scale by ``w`` in that dtype (the order of ``layers.py:21``)."""
+def _rms_norm_value(x, w, eps):
     dtype = x.dtype
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(dtype) * w.to(dtype)
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5, *,
+             bf16_grad: bool = False):
+    """RMSNorm with f32 internals: normalise in f32, cast to ``x.dtype``,
+    then scale by ``w`` in that dtype (the order of ``layers.py:21``).
+
+    ``bf16_grad`` differentiates through :class:`_RmsNormLowGrad`, whose
+    input cotangent leaves in ``x.dtype`` (bf16 under mixed precision)
+    instead of f32; forward values are identical."""
+    if bf16_grad:
+        return _RmsNormLowGrad.apply(x, w, eps)
+    return _rms_norm_value(x, w, eps)
+
+
+class _RmsNormLowGrad(torch.autograd.Function):
+    """The custom-VJP RMSNorm of the JAX package (``layers.py:28-57``):
+    the backward recomputes x-hat in f32 and returns dx in ``x.dtype``,
+    dw in ``w.dtype``."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return _rms_norm_value(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        xf, gf, wf = x.float(), g.float(), w.float()
+        inv = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + ctx.eps)
+        xhat = xf * inv
+        dw = (gf * xhat).sum(dim=tuple(range(x.ndim - 1)))
+        gw = gf * wf
+        dx = inv * (gw - xhat * (gw * xhat).mean(dim=-1, keepdim=True))
+        return dx.to(x.dtype), dw.to(w.dtype), None
 
 
 def swiglu(x, w_gate, w_up, w_down):

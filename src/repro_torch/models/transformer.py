@@ -2,15 +2,23 @@
 
 The JAX package keeps per-layer parameters stacked along a layer axis and
 scans over them; the port holds one ``Block`` module per layer in an
-``nn.ModuleList`` and loops in Python (serving runs no remat).  Weights
-keep the JAX ``x @ W`` orientation, ``(d_in, d_out)``, so
-``models/bridge.py`` copies leaves without transposing.  A model is cast
-to its policy's compute dtype once, when it is built or loaded
-(:meth:`Transformer.cast_to_compute`), not at every call.
+``nn.ModuleList`` and loops in Python, under ``core.checkpoint.remat_scan``
+when training.  Weights keep the JAX ``x @ W`` orientation,
+``(d_in, d_out)``, so ``models/bridge.py`` copies leaves without
+transposing.
+
+Two precision modes share one forward.  Serving casts a model to its
+policy's compute dtype once, when it is built or loaded
+(:meth:`Transformer.cast_to_compute`).  Training keeps f32 master weights
+with ``requires_grad`` on (``model.requires_grad_()``), and the forward
+casts each weight to ``policy.compute_dtype`` where it is used -- an
+autograd op, so the gradients reach the masters in f32.  For a model
+already in the compute dtype that cast is a no-op.
 
 Public entry points:
   init_params(cfg, seed, ...)          -> Transformer
   forward(model, cfg, batch, ...)      -> (logits (B, S, V), aux)
+  loss_fn(model, cfg, batch, ...)      -> (loss, aux)
   init_cache(cfg, batch, s_max, ...)   -> decode cache dict
   decode_step(model, cfg, cache, ...)  -> (logits (B, V), cache)
 """
@@ -19,6 +27,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.core.checkpoint import CheckpointConfig, remat_scan
 from repro_torch.core.mixed_precision import Policy
 from repro_torch.kernels.kvq import ops as kvq_ops
 from repro_torch.models import attention as attn
@@ -47,7 +56,8 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
-    # serving never differentiates; the training slice turns grads on
+    # serving never differentiates; training turns gradients on with
+    # ``model.requires_grad_()``
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -159,35 +169,85 @@ def _assemble_cache(entries: list, s: int) -> dict:
 
 
 def forward(model: Transformer, cfg: ModelConfig, batch: dict, *,
-            policy: Policy = Policy.full(), build_cache: bool = False,
-            cache_quantized: bool = True):
+            policy: Policy = Policy.full(),
+            remat: CheckpointConfig = CheckpointConfig(),
+            build_cache: bool = False, cache_quantized: bool = True):
     """batch: {tokens (B, S)[, positions (B, S)]}.
 
-    Returns (logits (B, S, V) in ``policy.output_dtype``, aux).  With
-    ``build_cache`` aux["cache"] is a decode cache positioned at S in the
-    ``init_cache`` layout."""
+    Returns (logits (B, S, V) in ``policy.output_dtype``, aux).  Weights
+    are cast to ``policy.compute_dtype`` where they are used.  ``remat``
+    applies sequential checkpointing to the block stack when autograd is
+    on.  With ``build_cache`` (serving prefill) aux["cache"] is a decode
+    cache positioned at S in the ``init_cache`` layout."""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = model.embed[tokens]                                 # (B, S, D)
+    dt = policy.compute_dtype
+    x = model.embed[tokens].to(dt)                          # (B, S, D)
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
     entries = []
-    for blk in model.blocks:
-        h = rms_norm(x, blk.ln1, cfg.norm_eps)
-        mix, (k, v) = attn.attn_block(blk.attn, h, cfg, positions=positions,
-                                      window=cfg.window)
+
+    def block(x, blk):
+        h = rms_norm(x, blk.ln1.to(dt), cfg.norm_eps,
+                     bf16_grad=cfg.norm_bf16_grad)
+        mix, (k, v) = attn.attn_block(
+            blk.attn, h, cfg, positions=positions, window=cfg.window,
+            resid_dtype=policy.flash_resid_dtype)
         if build_cache:
             entries.append(_kv_entry(k, v, quantized=cache_quantized))
         x = x + mix
-        h2 = rms_norm(x, blk.ln2, cfg.norm_eps)
-        x = x + swiglu(h2, blk.ffn.w_gate, blk.ffn.w_up, blk.ffn.w_down)
-    x = rms_norm(x, model.final_norm, cfg.norm_eps)
+        h2 = rms_norm(x, blk.ln2.to(dt), cfg.norm_eps,
+                      bf16_grad=cfg.norm_bf16_grad)
+        f = blk.ffn
+        return x + swiglu(h2, f.w_gate.to(dt), f.w_up.to(dt),
+                          f.w_down.to(dt))
+
+    # the cache entries are collected as a side effect: no recompute there
+    x = remat_scan(block, x, model.blocks,
+                   config=CheckpointConfig(enabled=False) if build_cache
+                   else remat)
+    x = rms_norm(x, model.final_norm.to(dt), cfg.norm_eps,
+                 bf16_grad=cfg.norm_bf16_grad)
     aux = {"moe_aux": 0.0}
     if build_cache:
         aux["cache"] = _assemble_cache(entries, s)
-    logits = _mask_padded_vocab((x @ model.head).to(policy.output_dtype), cfg)
+    logits = _mask_padded_vocab(
+        (x @ model.head.to(dt)).to(policy.output_dtype), cfg)
     return logits, aux
+
+
+def loss_fn(model: Transformer, cfg: ModelConfig, batch: dict, *,
+            policy: Policy = Policy.full(),
+            remat: CheckpointConfig = CheckpointConfig(),
+            ce_chunk: int = 0):
+    """Mean next-token cross entropy over ``batch["loss_mask"]`` (default
+    all ones) -> (loss, {"nll": loss, "moe_aux": 0.0}).
+
+    The CE of the JAX package (``transformer.py:450-465``): in f32, the
+    row max taken without gradient, the label logit picked by comparing a
+    vocab iota with the label instead of gathering.  The chunked CE
+    (``ce_chunk > 0``) is not ported yet."""
+    if ce_chunk > 0:
+        raise NotImplementedError(
+            "loss_fn: the chunked CE (ce_chunk > 0) is not ported yet; it "
+            "comes with a later slice of the port (ROADMAP.md lists it)")
+    labels = batch["labels"]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    logits, aux = forward(model, cfg, batch, policy=policy, remat=remat)
+    logits32 = logits.float()
+    shifted = logits32 - logits32.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(shifted).sum(dim=-1))
+    vocab_iota = torch.arange(logits.shape[-1], device=logits.device)
+    label_logit = torch.where(vocab_iota == labels[..., None].long(),
+                              shifted, torch.zeros((), device=logits.device)
+                              ).sum(dim=-1)
+    nll = lse - label_logit
+    loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return loss, {"nll": loss, **aux}
 
 
 # ---------------------------------------------------------------------------

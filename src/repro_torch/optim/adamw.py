@@ -1,0 +1,115 @@
+"""AdamW with decoupled weight decay, a warmup-cosine schedule and global
+gradient clipping (counterpart of ``repro.optim.adamw``).
+
+Plain functions on {parameter name: tensor} dicts, not ``torch.optim``:
+the bias correction, the place of eps, the clip and the schedule are the
+JAX package's (``adamw.py:36-96``), computed in f32.  ``update`` writes
+the parameters and moments IN PLACE (the JAX version returns new trees):
+at full width a second copy of the f32 parameters and both moments would
+cost three times the parameter bytes.  Nothing in it syncs with the host:
+a skipped step is a ``torch.where`` on the device.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+
+@dataclasses.dataclass
+class AdamWState:
+    mu: dict          # {name: f32 tensor}, first moments
+    nu: dict          # {name: f32 tensor}, second moments
+    count: torch.Tensor  # 0-d int32: steps applied
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    min_lr_frac: float = 0.1
+
+
+def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    """Learning rate at ``step`` (0-d tensor): linear warmup, then cosine
+    down to ``min_lr_frac`` of ``lr``."""
+    step = step.float()
+    warm = torch.clamp((step + 1) / max(1, cfg.warmup_steps), max=1.0)
+    prog = torch.clamp((step - cfg.warmup_steps)
+                       / max(1, cfg.total_steps - cfg.warmup_steps), 0.0, 1.0)
+    cos = cfg.min_lr_frac + (1 - cfg.min_lr_frac) * 0.5 * (
+        1 + torch.cos(math.pi * prog))
+    return cfg.lr * warm * cos
+
+
+def init(params: dict) -> AdamWState:
+    zeros = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+             for n, p in params.items()}
+    dev = next(iter(params.values())).device
+    return AdamWState(mu=zeros,
+                      nu={n: torch.zeros_like(z) for n, z in zeros.items()},
+                      count=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def jax_layout_decay_mask(params: dict) -> dict:
+    """{parameter name: takes weight decay}, by the rank the leaf has in the
+    JAX layout.  The JAX package decays every leaf of rank >= 2
+    (``adamw.py:77``); there the per-layer weights under ``blocks.`` are
+    stacked, so the (D,) norm weights become (L, D) and ARE decayed while
+    ``final_norm`` (D,) is not.  The port's per-layer tensors must follow
+    that rank, not their own."""
+    return {n: p.ndim + (1 if n.startswith("blocks.") else 0) >= 2
+            for n, p in params.items()}
+
+
+def global_norm(tensors) -> torch.Tensor:
+    return torch.sqrt(torch.stack([t.float().square().sum()
+                                   for t in tensors]).sum())
+
+
+@torch.no_grad()
+def update(cfg: AdamWConfig, grads: dict, state: AdamWState, params: dict,
+           *, decay: dict | None = None, skip: torch.Tensor | None = None):
+    """One step -> (params, state, {"grad_norm", "lr"}); ``params`` and the
+    moments are updated in place and returned.
+
+    ``decay`` ({name: bool}) says which parameters take weight decay;
+    default: those of rank >= 2, the JAX rule.  The port's transformer,
+    whose layout differs from the JAX package's, passes the JAX-layout
+    ranks (:func:`jax_layout_decay_mask`).  ``skip`` (0-d bool tensor, True =
+    skip) leaves parameters, moments and the step count as they were."""
+    gnorm = global_norm(grads.values())
+    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
+                        max=1.0) if cfg.grad_clip > 0 else 1.0
+    count = state.count + 1
+    lr = schedule(cfg, state.count)
+    b1c = 1 - torch.pow(torch.tensor(cfg.b1, device=count.device),
+                        count.float())
+    b2c = 1 - torch.pow(torch.tensor(cfg.b2, device=count.device),
+                        count.float())
+    for name, p in params.items():
+        g = grads[name].float() * scale
+        m, v = state.mu[name], state.nu[name]
+        m2 = cfg.b1 * m + (1 - cfg.b1) * g
+        v2 = cfg.b2 * v + (1 - cfg.b2) * g.square()
+        step_ = lr * (m2 / b1c) / (torch.sqrt(v2 / b2c) + cfg.eps)
+        wd = cfg.weight_decay if (p.ndim >= 2 if decay is None
+                                  else decay[name]) else 0.0
+        p2 = (p.float() * (1 - lr * wd) - step_).to(p.dtype)
+        if skip is not None:
+            p2 = torch.where(skip, p, p2)
+            m2 = torch.where(skip, m, m2)
+            v2 = torch.where(skip, v, v2)
+        p.copy_(p2)
+        m.copy_(m2)
+        v.copy_(v2)
+    state.count = count if skip is None else torch.where(skip, state.count,
+                                                         count)
+    return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -32,7 +32,7 @@ def dev():
 
 @pytest.mark.parametrize("s,window,d,g", [(1, 0, 128, 4), (63, 0, 64, 1),
                                           (65, 16, 128, 2), (200, 0, 64, 8),
-                                          (257, 100, 128, 4)])
+                                          (257, 100, 128, 4), (40, 0, 16, 2)])
 def test_flash_kernel_matches_plain(dev, s, window, d, g):
     gen = torch.Generator(device=dev).manual_seed(s)
     hkv = 2
@@ -47,6 +47,75 @@ def test_flash_kernel_matches_plain(dev, s, window, d, g):
     torch.testing.assert_close(l, l_r, rtol=1e-4, atol=0)
     assert cnt.tolist() == [flash_ops.expected_counts(s, window=window)] \
         * (hkv * g)
+
+
+def _close(got, want, rel, floor=1e-6):
+    """max |got - want| <= rel * max |want| + floor, compared in f32.  The
+    floor covers gradients that cancel to ~0 (S = 1: dQ is f32 noise)."""
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= rel * scale + floor, (err, rel * scale + floor)
+
+
+# (S, G, D, causal, window, kv_len, residual dtype, dO dtype): ragged S,
+# GQA, windows, kv_len < S, and the three dtype combinations of the
+# policies (f32; bf16; bf16 residuals under f32 compute)
+BWD_CASES = [
+    (1, 4, 128, True, 0, None, torch.float32, torch.float32),
+    (100, 4, 128, True, 0, None, torch.bfloat16, torch.bfloat16),
+    (130, 2, 64, True, 0, None, torch.float32, torch.float32),
+    (300, 1, 128, True, 100, None, torch.float32, torch.float32),
+    (200, 8, 64, False, 0, 137, torch.float32, torch.float32),
+    (257, 4, 128, True, 0, 200, torch.float32, torch.float32),
+    (192, 4, 128, True, 0, None, torch.bfloat16, torch.float32),
+    (70, 2, 16, True, 0, None, torch.float32, torch.float32),
+]
+
+
+@pytest.mark.parametrize("s,g,d,causal,window,kv_len,rdt,gdt", BWD_CASES)
+def test_flash_bwd_kernels_match_plain(dev, s, g, d, causal, window, kv_len,
+                                       rdt, gdt):
+    gen = torch.Generator(device=dev).manual_seed(s + g)
+    hkv = 2
+    q, k, v = (torch.randn((n, s, d), generator=gen, device=dev).to(rdt)
+               for n in (hkv * g, hkv, hkv))
+    o, m, l = flash_ops.flash_attention_fwd(q, k, v, causal=causal,
+                                            window=window, kv_len=kv_len)
+    do = torch.randn((hkv * g, s, d), generator=gen, device=dev).to(gdt)
+    grad_dt = (gdt,) * 3
+    kw = dict(causal=causal, window=window, kv_len=kv_len,
+              grad_dtypes=grad_dt)
+    dq, dk, dv, cq, ck = flash_ops.flash_attention_bwd(q, k, v, o, m, l, do,
+                                                       counts=True, **kw)
+    want = flash_ref.flash_bwd_ref(q, k, v, o, m, l, do, **kw)
+    # f32: summation order only; bf16 grads: one rounding of each output
+    rel = 1e-4 if gdt == torch.float32 else 2e-2
+    for got, ref_ in zip((dq, dk, dv), want):
+        assert got.dtype == gdt
+        _close(got, ref_, rel)
+    if kv_len is not None:              # keys past kv_len get exact zeros
+        assert not dk[:, kv_len:].any() and not dv[:, kv_len:].any()
+    twin_q, twin_k = flash_ops.expected_bwd_counts(
+        s, g, causal=causal, window=window, kv_len=kv_len)
+    assert cq.tolist() == [twin_q] * (hkv * g)
+    assert ck.tolist() == [twin_k] * hkv
+
+
+@pytest.mark.parametrize("resid", [None, torch.bfloat16])
+def test_flash_attention_grads_card_vs_cpu(dev, resid):
+    gen = torch.Generator().manual_seed(7)
+    b, h, hkv, s, d = 2, 4, 2, 150, 64
+    cpu = [torch.randn(shape, generator=gen, requires_grad=True)
+           for shape in ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d))]
+    card = [x.detach().to(dev).requires_grad_() for x in cpu]
+    w = torch.randn((b, h, s, d), generator=gen)
+    for xs, wt in ((cpu, w), (card, w.to(dev))):
+        out = flash_ops.flash_attention(*xs, window=0, resid_dtype=resid)
+        (out * wt).sum().backward()
+    rel = 1e-4 if resid is None else 2e-2
+    for a, b_ in zip(card, cpu):
+        assert a.grad.dtype == torch.float32
+        _close(a.grad.cpu(), b_.grad, rel)
 
 
 @pytest.mark.parametrize("splits", [1, 2, 3, 4])
@@ -73,7 +142,7 @@ def test_decode_kernel_matches_plain(dev, splits):
 
 
 def test_unsupported_shapes_raise(dev):
-    x = torch.zeros((2, 8, 16), device=dev)
+    x = torch.zeros((2, 8, 32), device=dev)
     with pytest.raises(ValueError, match="head_dim"):
         flash_ops.flash_attention_fwd(x, x, x)
     q = torch.zeros((1, 6, 64), device=dev)
