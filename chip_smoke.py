@@ -38,8 +38,23 @@ JSON object per line:
 8. ``train_cli``: ``python -m repro_torch.launch.train --smoke`` on the
    card for 4 steps with checkpoints, then again to 6 steps, which must
    resume from step 4;
-9. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
-   ``{"ok": true, "device": {...}}``.
+9. ``kernel`` lines for the E-D codec's decode and encode kernels against
+   their plain versions, for equality, at the CIFAR batch (8 containers of
+   32x32x3) and the memory shape (4 containers of 512x512x3);
+10. ``cifar_model``: full-width ResNet-18 from one set of weights through
+    ``loss_fn`` on one packed batch of 32, on the card (decode kernel) and
+    on the CPU (plain version): logits, loss and every gradient;
+11. ``cifar_train``: ``examples/cifar_optorch_torch.py``'s ``train()`` for
+    the paper's four pipelines (baseline, ED, ED+SC, ED+SC+MP), ResNet-18
+    at full width, 200 steps each, the launch counters zeroed before each
+    and read after it; accuracy parity, step time, images/s, peak memory,
+    and ``torch.profiler`` over 30 steps of ED+SC+MP;
+12. ``cifar_memory``: the paper's memory experiment at the repo's fig8
+    shape (ResNet-18, ``stem_stride=2``, 16 x 512x512x3): one forward and
+    backward for each of B, ED, SC, ED+SC, ED+SC+MP, peak device memory
+    above the parameters and gradients;
+13. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
+    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises after the lines are printed, and the script exits
 non-zero without the final ``ok`` line.
@@ -77,6 +92,14 @@ BWD_TPU = {"delta": "src/repro/kernels/flash/kernel.py:418",
            "dq": "src/repro/kernels/flash/kernel.py:434",
            "dkv": "src/repro/kernels/flash/kernel.py:478"}
 TRAIN_LAYERS, TRAIN_SEQ = 4, 4096   # full width, depth cut to 4 layers
+PACK_SRC = "src/repro_torch/kernels/csrc/pack.cu"
+PACK_TPU = {"decode": "src/repro/kernels/pack/kernel.py:44",
+            "encode": "src/repro/kernels/pack/kernel.py:63"}
+CIFAR_STEPS = 200
+# the reference for the baseline's accuracy: examples/cifar_optorch.py's
+# train("baseline", *make_cifar_like(n=2048, seed=0), 200), the JAX
+# package on the CPU: mean accuracy of its last 20 steps
+JAX_CPU_BASELINE_ACC = 1.0
 
 
 def emit(obj: dict) -> None:
@@ -663,6 +686,273 @@ class Smoke:
             "stderr": [r.stderr[-1500:] for r in runs if r.returncode]})
 
 
+    # -- the paper's CIFAR E-D path --------------------------------------
+    def check_pack(self, m: int, hw: int, scale: float = 1.0 / 255.0,
+                   shift: float = 0.0) -> list[dict]:
+        """The decode and encode kernels against their plain versions on
+        the card, for equality, at ``m`` containers of hw x hw x 3."""
+        torch = self.torch
+        from repro_torch.kernels.pack import ops, ref
+        shape = (m, hw, hw, 3)
+        gen = torch.Generator(device=self.dev).manual_seed(m * hw)
+        words = torch.randint(-2 ** 31, 2 ** 31, shape, generator=gen,
+                              device=self.dev, dtype=torch.int64).to(
+                                  torch.int32)
+        flat = words.view(-1)       # the top bit alone, every byte 255
+        flat[:2] = torch.tensor([-2 ** 31, -1], dtype=torch.int32)
+        packed = words.view(torch.uint32)
+        imgs = torch.randint(0, 256, (4 * m, hw, hw, 3), generator=gen,
+                             device=self.dev, dtype=torch.uint8)
+        n = packed.numel()
+        out = []
+        dec = ops.decode(packed, scale=scale, shift=shift)
+        dec_r = ref.decode_ref(packed, scale, shift)
+        enc = ops.encode(imgs).view(torch.int32)
+        enc_r = ref.encode_ref(imgs).view(torch.int32)
+        back = ops.decode(enc.view(torch.uint32), scale=1.0, shift=0.0)
+        self.sync()
+        checks = {
+            "pack_decode": {"equal": bool(torch.equal(dec, dec_r)),
+                            "max_abs_err": float((dec - dec_r).abs().max())},
+            "pack_encode": {"equal": bool(torch.equal(enc, enc_r)),
+                            "round_trip": bool(torch.equal(back,
+                                                           imgs.float())),
+                            "max_abs_err": float(
+                                (enc.view(torch.uint32).to(torch.int64)
+                                 - enc_r.view(torch.uint32).to(torch.int64))
+                                .abs().max())}}
+        work = {   # bytes: each input read once, each output written once
+            "pack_decode": (n * (4 + 16), 8 * n,
+                            lambda: ops.decode(packed, scale=scale,
+                                               shift=shift),
+                            lambda: ref.decode_ref(packed, scale, shift)),
+            "pack_encode": (n * (4 + 4), 0,
+                            lambda: ops.encode(imgs),
+                            lambda: ref.encode_ref(imgs))}
+        for name, (nbytes, flops, kern, plain) in work.items():
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+            c = checks[name]
+            out.append(self.record({
+                "phase": "kernel", "name": name,
+                "ok": all(v for k, v in c.items() if k != "max_abs_err"),
+                "shape": {"containers": m, "pixels": hw * hw * 3,
+                          "images": 4 * m, "uint32": n},
+                "scale": scale, "shift": shift, **c, "tol": 0.0,
+                "kernel_ms": self.time_ms(kern),
+                "plain_ms": self.time_ms(plain, n=20), "library_ms": None,
+                "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops > t_bytes else "bytes",
+                "bytes": nbytes, "flops": flops}))
+        return out
+
+    def check_cifar_model(self) -> dict:
+        """Full-width ResNet-18 through ``loss_fn`` on one packed batch of
+        32, on the card (decode kernel, cuDNN) and on the CPU (plain
+        versions), from one set of weights, f32 with TF32 off."""
+        torch = self.torch
+        from repro_torch.core import encoding
+        from repro_torch.data.synthetic import make_cifar_like
+        from repro_torch.models import cnn
+        cfg = cnn.resnet18()
+        imgs, labels = make_cifar_like(n=32, seed=self.args.seed)
+        packed = torch.from_numpy(encoding.pack_u8_to_u32(imgs))
+        lab = torch.from_numpy(labels)
+        cpu = cnn.init_params(cfg, self.args.seed, device="cpu")
+        runs = {}
+        for name, dev in (("cpu", torch.device("cpu")), ("card", self.dev)):
+            params = {n: p.to(dev).requires_grad_() for n, p in cpu.items()}
+            with torch.no_grad():
+                logits = cnn.forward(params, cfg, packed.to(dev),
+                                     decode=True)
+            loss, aux = cnn.loss_fn(params, cfg, packed.to(dev),
+                                    lab.to(dev), decode=True)
+            grads = torch.autograd.grad(loss, list(params.values()))
+            runs[name] = (logits.cpu(), float(loss.detach()),
+                          float(aux["acc"]),
+                          {n: g.cpu() for n, g in zip(params, grads)})
+        self.sync()
+        (lw, losw, accw, gw), (lg, losg, accg, gg) = runs["cpu"], \
+            runs["card"]
+
+        def rel(a, b):
+            return float((a - b).abs().max() / b.abs().max())
+        grad_errs = {n: rel(gg[n], gw[n]) for n in gw}
+        worst = max(grad_errs, key=grad_errs.get)
+        tol = 1e-3   # cuDNN's algorithms sum in another order than the CPU
+        errs = {"logits": rel(lg, lw),
+                "loss": abs(losg - losw) / abs(losw),
+                "grad_max": grad_errs[worst]}
+        return self.record({
+            "phase": "cifar_model", "ok": all(e <= tol for e in
+                                              errs.values()),
+            "arch": cfg.arch_id, "widths": list(cfg.widths),
+            "stage_sizes": list(cfg.stage_sizes), "batch": 32,
+            "packed_containers": 8, "loss": {"cpu": losw, "card": losg},
+            "acc": {"cpu": accw, "card": accg}, "rel_err": errs,
+            "worst_grad": worst, "tol_rel": tol,
+            "params": sum(p.numel() for p in cpu.values())})
+
+    def _example(self):
+        import importlib.util
+        spec = importlib.util.spec_from_file_location(
+            "cifar_optorch_torch", ROOT / "examples" / "cifar_optorch_torch.py")
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[spec.name] = mod
+        spec.loader.exec_module(mod)
+        return mod
+
+    def run_cifar_train(self) -> dict:
+        """The example's ``train()`` for the four pipelines at full width,
+        CIFAR_STEPS steps each, on the card; the decode and encode launch
+        counters are zeroed just before each run and read just after."""
+        torch = self.torch
+        from repro_torch.data.synthetic import make_cifar_like
+        from repro_torch.kernels.pack import ops as pack_ops
+        from repro_torch.models import cnn
+        ex = self._example()
+        imgs, labels = make_cifar_like(n=2048, seed=0)
+        pipes, launches = {}, {"pack_decode": 0, "pack_encode": 0}
+        for pipe in ex.PIPELINES:
+            gc.collect()
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_allocated(self.dev)
+            pack_ops.DECODE.launches = 0        # the main path's counts
+            pack_ops.ENCODE.launches = 0
+            r = ex.train(pipe, imgs, labels, CIFAR_STEPS,
+                         seed=self.args.seed, device=self.dev, log_every=0)
+            got = {"pack_decode": pack_ops.DECODE.launches,
+                   "pack_encode": pack_ops.ENCODE.launches}
+            for k in launches:
+                launches[k] += got[k]
+            step_ms = statistics.median(r.step_s[10:]) * 1e3
+            pipes[pipe] = {
+                "acc": r.acc, "median_step_ms": step_ms,
+                "images_per_s": ex.BATCH / (step_ms / 1e3),
+                "seconds": r.seconds,
+                "max_memory_allocated_bytes": r.peak_bytes,
+                "allocated_before_bytes": before,   # the L2 flush buffer
+                "launches": got,
+                "plan_boundaries": list(r.plan.boundaries) if r.plan
+                else None,
+                "losses_first_last": [r.losses[0], r.losses[-1]],
+                "losses_finite": all(math.isfinite(v) for v in r.losses)}
+        self.cifar_launches = launches
+        base = pipes["baseline"]["acc"]
+        checks = {
+            "parity": all(p["acc"] > base - 0.1 for p in pipes.values()),
+            "baseline_vs_jax_cpu": abs(base - JAX_CPU_BASELINE_ACC) <= 0.1,
+            "decode_launches": all(
+                p["launches"]["pack_decode"]
+                == (CIFAR_STEPS if "ED" in name else 0)
+                for name, p in pipes.items()),
+            "sc_plan": all((p["plan_boundaries"] is not None)
+                           == ("SC" in name) for name, p in pipes.items()),
+            "losses_finite": all(p["losses_finite"] for p in pipes.values()),
+        }
+        params = cnn.init_params(cnn.resnet18(), self.args.seed,
+                                 device=self.dev)
+        prof_steps = 30
+        r, wall, busy_s, rows = self._profile(lambda: ex.train(
+            "ED+SC+MP", imgs, labels, prof_steps, seed=self.args.seed,
+            device=self.dev, params=params, log_every=0))
+        return self.record({
+            "phase": "cifar_train", "ok": all(checks.values()),
+            "checks": checks, "arch": "resnet18", "steps": CIFAR_STEPS,
+            "batch": ex.BATCH, "dataset": "make_cifar_like(n=2048, seed=0)",
+            "jax_cpu_baseline_acc": JAX_CPU_BASELINE_ACC,
+            "pipelines": pipes, "kernel_launches": launches,
+            "profile": {"pipeline": "ED+SC+MP", "steps": prof_steps,
+                        "wall_s": wall, "device_busy_s": busy_s,
+                        "idle_share": 1 - busy_s / wall if wall > 0
+                        else None,
+                        "median_step_ms": statistics.median(r.step_s[5:])
+                        * 1e3,
+                        "top_kernels_ms": [[name[:80], round(us / 1e3, 3), c]
+                                           for us, name, c in rows[:25]]}})
+
+    def run_cifar_memory(self) -> dict:
+        """The paper's memory experiment at the fig8 shape: ResNet-18 with
+        stem_stride=2 on 16 x 512x512x3, one forward and backward per
+        pipeline, peak device memory above the parameters and gradients
+        (the input is made inside the measured region: E-D's u32 batch is
+        a quarter of the f32 one)."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch.core import encoding
+        from repro_torch.core.checkpoint import CheckpointConfig
+        from repro_torch.models import cnn
+        from repro_torch.plan import RematPlan
+        cfg = cnn.resnet18(stem_stride=2)
+        shape = (16, 512, 512, 3)
+        u8 = np.random.default_rng(self.args.seed).integers(
+            0, 256, shape, dtype=np.uint8)
+        labels = torch.from_numpy(np.arange(16) % 10).to(self.dev)
+        host = {False: torch.from_numpy(u8.astype(np.float32) / 255.0),
+                True: torch.from_numpy(encoding.pack_u8_to_u32(u8))}
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = cnn.init_params(cfg, self.args.seed, device=self.dev)
+        param_bytes = sum(p.numel() * p.element_size()
+                          for p in params.values())
+        n_fns = cnn.num_layer_fns(cfg)
+        pipes = {"B": (False, False, False), "ED": (True, False, False),
+                 "SC": (False, True, False), "ED+SC": (True, True, False),
+                 "ED+SC+MP": (True, True, True)}
+        out = {}
+        for name, (ed, sc, mp) in pipes.items():
+            remat = CheckpointConfig(plan=RematPlan.uniform(n_fns, 8)) \
+                if sc else None
+
+            def run():
+                x = host[ed].to(self.dev)
+                ps = {n: p.detach().requires_grad_()
+                      for n, p in params.items()}
+                use = {n: p.to(torch.bfloat16) for n, p in ps.items()} \
+                    if mp else ps
+                loss, _ = cnn.loss_fn(use, cfg, x, labels, remat=remat,
+                                      decode=ed)
+                # what the forward left for the backward: the saved
+                # activations (and the input), no cuDNN workspace
+                saved = torch.cuda.memory_allocated(self.dev)
+                grads = torch.autograd.grad(loss, list(ps.values()))
+                return (float(loss.detach()), x.numel() * x.element_size(),
+                        all(bool(torch.isfinite(g).all()) for g in grads),
+                        saved)
+            run()                                 # warm-up: cuDNN algos
+            gc.collect()
+            torch.cuda.empty_cache()
+            self.sync()
+            base = torch.cuda.memory_allocated(self.dev)
+            torch.cuda.reset_peak_memory_stats(self.dev)
+            t = time.time()
+            loss, in_bytes, finite, saved = run()
+            step_s = time.time() - t
+            peak = torch.cuda.max_memory_allocated(self.dev)
+            out[name] = {"peak_above_params_and_grads_bytes":
+                         peak - base - param_bytes,
+                         "saved_after_forward_bytes": saved - base,
+                         "input_bytes": in_bytes, "loss": loss,
+                         "grads_finite": finite, "step_s": step_s,
+                         "plan": list(remat.plan.boundaries) if remat
+                         else None}
+        base_loss = out["B"]["loss"]
+        checks = {
+            "grads_finite": all(v["grads_finite"] for v in out.values()),
+            "f32_losses_agree": all(
+                abs(out[k]["loss"] - base_loss) <= 1e-4 * abs(base_loss)
+                for k in ("ED", "SC", "ED+SC")),
+            "mp_loss_close": abs(out["ED+SC+MP"]["loss"] - base_loss)
+            <= 5e-2 * abs(base_loss),
+            "input_is_a_quarter": out["ED"]["input_bytes"] * 4
+            == out["B"]["input_bytes"],
+        }
+        return self.record({
+            "phase": "cifar_memory", "ok": all(checks.values()),
+            "checks": checks, "arch": cfg.arch_id, "stem_stride": 2,
+            "shape": list(shape), "param_bytes": param_bytes,
+            "pipelines": out})
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -716,6 +1006,13 @@ def main(argv=None) -> int:
     smoke.run_serve()
     smoke.run_train()
     smoke.run_train_cli()
+    pack = [smoke.check_pack(8, 32),                     # the CIFAR batch
+            smoke.check_pack(8, 32, scale=0.0173, shift=-0.4217),
+            smoke.check_pack(4, 512, scale=0.0173, shift=-0.4217),
+            smoke.check_pack(4, 512)]                    # the memory shape
+    smoke.check_cifar_model()
+    smoke.run_cifar_train()
+    smoke.run_cifar_memory()
     smoke.sync()
 
     def summary_row(name, rows, main, route_src, tpu):
@@ -742,12 +1039,25 @@ def main(argv=None) -> int:
                 "library_ms": None if part == "delta"
                 else main["library_ms"]}
 
+    def pack_row(part):
+        i = 0 if part == "decode" else 1
+        rows = [lines[i] for lines in pack]
+        main = pack[-1][i]                  # the memory shape, default
+        return {"name": f"pack_{part}", "route": "cuda", "source": PACK_SRC,
+                "replaces": PACK_TPU[part],
+                "launches": smoke.cifar_launches[f"pack_{part}"],
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                "library_ms": None}
+
     kernels = {"kernels": [
         summary_row("flash_fwd", flash, flash[-1], FLASH_SRC, FLASH_TPU),
         summary_row("flash_decode", decode, decode[-1], DECODE_SRC,
                     DECODE_TPU),
         bwd_row("delta", ("delta",)), bwd_row("dq", ("dq",)),
-        bwd_row("dkv", ("dk", "dv"))]}
+        bwd_row("dkv", ("dk", "dv")),
+        pack_row("decode"), pack_row("encode")]}
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -8,6 +8,12 @@ are named ``blocks.<i>.<path>``.  The padded-vocab rows are kept, and
 weights keep their ``(d_in, d_out)`` orientation, so every leaf is a
 plain copy.  The same layout carries the AdamW moments, so a training
 checkpoint of either package restores into the other.
+
+The CNN (``models/cnn.py``) has its own pair, :func:`load_cnn_params` and
+:func:`export_cnn_params`: the JAX CNN keeps ``blocks`` as a list of
+per-block dicts (not stacked), which become ``blocks.<i>.<name>``, and its
+convolution weights are HWIO where the port's are OIHW.  Its AdamW moments
+take the same mapping.
 """
 from __future__ import annotations
 
@@ -118,4 +124,74 @@ def load_opt_state(state, *, device="cuda") -> AdamWState:
             for n, a in from_jax_tree(state.mu).items()},
         nu={n: _to_tensor(a, device)
             for n, a in from_jax_tree(state.nu).items()},
+        count=_to_tensor(np.asarray(state.count, dtype=np.int32), device))
+
+
+# ---------------------------------------------------------------------------
+# The CNN: a list of per-block dicts, HWIO <-> OIHW convolution weights.
+# ---------------------------------------------------------------------------
+def _hwio_to_oihw(a: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(a, (3, 2, 0, 1))) \
+        if a.ndim == 4 else a
+
+
+def _oihw_to_hwio(a: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(a, (2, 3, 1, 0))) \
+        if a.ndim == 4 else a
+
+
+def cnn_named_arrays(tree: dict) -> dict:
+    """A JAX CNN tree (``stem``, ``blocks`` list, ``head``) of numpy arrays
+    -> {port parameter name: array in the port's orientation}."""
+    named = {}
+    for part in ("stem", "head"):
+        for key, a in tree[part].items():
+            named[f"{part}.{key}"] = _hwio_to_oihw(np.asarray(a))
+    for i, bp in enumerate(tree["blocks"]):
+        for key, a in bp.items():
+            named[f"blocks.{i}.{key}"] = _hwio_to_oihw(np.asarray(a))
+    return named
+
+
+def load_cnn_params(tree: dict, *, device="cuda") -> dict:
+    """JAX CNN param tree of numpy arrays -> the port's {name: tensor}."""
+    return {n: _to_tensor(a, device)
+            for n, a in cnn_named_arrays(tree).items()}
+
+
+def export_cnn_params(named: dict) -> dict:
+    """The reverse of :func:`load_cnn_params` (and of
+    :func:`cnn_named_arrays`): {port name: tensor or array} -> a JAX CNN
+    tree of numpy arrays."""
+    tree: dict = {"stem": {}, "head": {}}
+    blocks: dict = {}
+    for name, x in named.items():
+        arr = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+            else np.asarray(x)
+        arr = _oihw_to_hwio(arr)
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            blocks.setdefault(int(parts[1]), {})[parts[2]] = arr
+        else:
+            tree[parts[0]][parts[1]] = arr
+    tree["blocks"] = [blocks[i] for i in range(len(blocks))]
+    return tree
+
+
+def export_cnn_opt_state(state: AdamWState) -> AdamWState:
+    """The port's CNN AdamW state -> the JAX layout (numpy)."""
+    return AdamWState(mu=export_cnn_params(state.mu),
+                      nu=export_cnn_params(state.nu),
+                      count=np.asarray(state.count.cpu().numpy(),
+                                       dtype=np.int32))
+
+
+def load_cnn_opt_state(state, *, device="cuda") -> AdamWState:
+    """A JAX-layout CNN AdamW state (``mu``, ``nu``, ``count``) -> the
+    port's, on ``device``."""
+    return AdamWState(
+        mu={n: _to_tensor(a, device)
+            for n, a in cnn_named_arrays(state.mu).items()},
+        nu={n: _to_tensor(a, device)
+            for n, a in cnn_named_arrays(state.nu).items()},
         count=_to_tensor(np.asarray(state.count, dtype=np.int32), device))

@@ -64,7 +64,12 @@ def jax_layout_decay_mask(params: dict) -> dict:
     (``adamw.py:77``); there the per-layer weights under ``blocks.`` are
     stacked, so the (D,) norm weights become (L, D) and ARE decayed while
     ``final_norm`` (D,) is not.  The port's per-layer tensors must follow
-    that rank, not their own."""
+    that rank, not their own.
+
+    For the transformer only: the JAX CNN keeps ``blocks`` as a list of
+    unstacked per-block dicts (``repro/models/cnn.py``), so its GroupNorm
+    (C,) scales are rank 1 and NOT decayed.  The CNN path passes no mask,
+    and ``update`` applies each leaf's own rank."""
     return {n: p.ndim + (1 if n.startswith("blocks.") else 0) >= 2
             for n, p in params.items()}
 
@@ -81,9 +86,11 @@ def update(cfg: AdamWConfig, grads: dict, state: AdamWState, params: dict,
     moments are updated in place and returned.
 
     ``decay`` ({name: bool}) says which parameters take weight decay;
-    default: those of rank >= 2, the JAX rule.  The port's transformer,
-    whose layout differs from the JAX package's, passes the JAX-layout
-    ranks (:func:`jax_layout_decay_mask`).  ``skip`` (0-d bool tensor, True =
+    default: those of rank >= 2, the JAX rule, which is right wherever
+    the port's tensors have the JAX layout's ranks (the CNN).  The port's
+    transformer, whose per-layer tensors are unstacked where the JAX
+    package's are stacked, passes the JAX-layout ranks
+    (:func:`jax_layout_decay_mask`).  ``skip`` (0-d bool tensor, True =
     skip) leaves parameters, moments and the step count as they were."""
     gnorm = global_norm(grads.values())
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),

@@ -1,5 +1,7 @@
-"""Import hygiene of the port: ``repro_torch`` imports neither JAX nor any
-module of the JAX package ``repro``, at run time or in its sources."""
+"""Import hygiene of the port: ``repro_torch``, ``chip_smoke.py`` and the
+port's example ``examples/cifar_optorch_torch.py`` import neither JAX nor
+any module of the JAX package ``repro``, at run time or in their
+sources."""
 from __future__ import annotations
 
 import os
@@ -44,3 +46,24 @@ def test_sources_do_not_import_jax_or_repro(path):
 
 def test_chip_smoke_imports_no_jax():
     assert not FORBIDDEN.search((ROOT / "chip_smoke.py").read_text())
+
+
+EXAMPLE = ROOT / "examples" / "cifar_optorch_torch.py"
+
+
+def test_torch_example_imports_no_jax_or_repro():
+    assert not FORBIDDEN.search(EXAMPLE.read_text())
+    code = (
+        "import importlib.util, sys\n"
+        f"spec = importlib.util.spec_from_file_location('ex', {str(EXAMPLE)!r})\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "sys.modules['ex'] = mod\n"
+        "spec.loader.exec_module(mod)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print(','.join(bad))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == ""
