@@ -53,7 +53,25 @@ JSON object per line:
     shape (ResNet-18, ``stem_stride=2``, 16 x 512x512x3): one forward and
     backward for each of B, ED, SC, ED+SC, ED+SC+MP, peak device memory
     above the parameters and gradients;
-13. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
+13. ``kernel`` lines for the SSM slice: the flash forward at hymba's
+    prefill shape (B=8, 25 / 5 heads of 64, S=2048, bf16; window 1024 and
+    full causal), the SSD chunk kernel against its plain version at
+    mamba2's and hymba's serve shapes, at Q=64 and for a single chunk
+    (tolerance 1e-4 of max|y| and of max|state|), and the decode kernel's
+    dense-bias entry point (splits 1 and 4) and its GQA group 5 on the
+    lengths path at hymba's decode shape (tolerance 1e-5);
+14. ``ssm_model``: a 2-layer mamba2 (N=128, P=64) and a 2-layer hymba
+    (head_dim 64, group 5, window 64, global layer 0) at full width,
+    prefill 256 tokens and decode 80 steps past the window, on the card
+    (kernels) and on the CPU (plain versions), same weights: logits,
+    conv / SSM / int8 K/V caches, greedy tokens;
+15. ``serve_ssm``: ``launch/serve.py``'s lockstep at full width and depth
+    for mamba2-130m and hymba-1.5b (random bf16 weights, batch 8, prompt
+    2048, 32 new tokens, int8 cache) after a one-step warm-up run, the
+    launch counters zeroed just before each run and read just after, then
+    ``torch.profiler`` over its prefill and its first 4 decode steps run
+    again;
+16. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failed check raises after the lines are printed, and the script exits
@@ -96,6 +114,9 @@ PACK_SRC = "src/repro_torch/kernels/csrc/pack.cu"
 PACK_TPU = {"decode": "src/repro/kernels/pack/kernel.py:44",
             "encode": "src/repro/kernels/pack/kernel.py:63"}
 CIFAR_STEPS = 200
+SSD_SRC = "src/repro_torch/kernels/csrc/ssd.cu"
+SSD_TPU = "src/repro/kernels/ssd/kernel.py:42"
+SSM_PROMPT, SSM_GEN, SSM_BATCH = 2048, 32, 8   # the serve_ssm lockstep
 # the reference for the baseline's accuracy: examples/cifar_optorch.py's
 # train("baseline", *make_cifar_like(n=2048, seed=0), 200), the JAX
 # package on the CPU: mean accuracy of its last 20 steps
@@ -125,6 +146,7 @@ class Smoke:
         self.dev = torch.device("cuda", 0)
         self.failures: list[str] = []
         self.records: list[dict] = []
+        self.t0 = time.time()
         self._flush_buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
                                       device=self.dev)
 
@@ -133,6 +155,7 @@ class Smoke:
         self.torch.cuda.synchronize(self.dev)
 
     def record(self, obj: dict) -> dict:
+        obj["elapsed_s"] = time.time() - self.t0      # since the phases began
         self.records.append(obj)
         emit(obj)
         if not obj.get("ok", True):
@@ -161,10 +184,12 @@ class Smoke:
         return statistics.median(times)
 
     # -- phases ------------------------------------------------------------
-    def check_flash(self, s: int, dtype, window: int = 0) -> dict:
+    def check_flash(self, s: int, dtype, window: int = 0, *, b: int = 1,
+                    h: int = 32, hkv: int = 8, d: int = 128) -> dict:
+        """The flash forward against its plain version; by default at
+        llama3-8b's heads (32 / 8 of 128), one row."""
         torch = self.torch
         from repro_torch.kernels.flash import ops, ref
-        b, h, hkv, d = 1, 32, 8, 128
         gen = torch.Generator(device=self.dev).manual_seed(s + window)
         q = torch.randn((b * h, s, d), generator=gen, device=self.dev,
                         dtype=dtype)
@@ -953,6 +978,386 @@ class Smoke:
             "shape": list(shape), "param_bytes": param_bytes,
             "pipelines": out})
 
+    # -- the SSM serving slice -------------------------------------------
+    def check_ssd(self, g: int, t: int, q: int, n: int, p: int,
+                  heads: int) -> dict:
+        """The SSD chunk kernel against its plain version on the card, B
+        and C head-shared as the serving path passes them (the plain
+        version takes them broadcast over the heads)."""
+        torch = self.torch
+        from repro_torch.kernels.ssd import ops, ref
+        gen = torch.Generator(device=self.dev).manual_seed(g + t + q + n)
+        rnd = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
+                                         device=self.dev)
+        c, b = rnd(g // heads, t, q, n), rnd(g // heads, t, q, n)
+        x = rnd(g, t, q, p)
+        acum = torch.cumsum(-0.2 * torch.rand((g, t, q), generator=gen,
+                                              device=self.dev), dim=-1)
+        y, st = ops.ssd_chunk(c, b, x, acum)
+        cf, bf = (z.repeat_interleave(heads, 0) for z in (c, b))
+        y_r, st_r = ref.ssd_chunk_ref(cf, bf, x, acum)
+        self.sync()
+        errs = {"y": float((y - y_r).abs().max()),
+                "state": float((st - st_r).abs().max())}
+        # f32 on both sides (FMA in the kernel, cuBLAS without TF32 in the
+        # plain version): summation order only
+        tols = {"y": 1e-4 * float(y_r.abs().max()),
+                "state": 1e-4 * float(st_r.abs().max())}
+        ok = all(errs[k] <= tols[k] for k in errs)
+        ms = self.time_ms(lambda: ops.ssd_chunk(c, b, x, acum))
+        plain_ms = self.time_ms(lambda: ref.ssd_chunk_ref(cf, bf, x, acum),
+                                n=20)
+        # the entries that pass the causal mask: Q(Q+1)/2 per chunk, 2N
+        # flops each for C B^T and 2P for G x; the state 2QNP
+        flops = g * t * (q * (q + 1) // 2 * (2 * n + 2 * p) + 2 * q * n * p)
+        nbytes = 4 * (2 * (g // heads) * t * q * n + 2 * g * t * q * p
+                      + g * t * q + g * t * n * p)
+        t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        return self.record({
+            "phase": "kernel", "name": "ssd_chunk", "ok": ok,
+            "shape": {"G": g, "T": t, "Q": q, "N": n, "P": p,
+                      "heads_sharing_BC": heads},
+            "max_abs_err": max(errs.values()), "max_abs_err_by": errs,
+            "tol": tols, "tol_rel": 1e-4, "kernel_ms": ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes})
+
+    def check_decode_hymba(self, splits: int, *, bias: bool) -> dict:
+        """The decode kernel at hymba's decode shape (B=8, Hkv=5, G=5,
+        D=64, the serve run's cache of SSM_PROMPT + SSM_GEN slots, its last
+        position): a window layer's dense band bias, or a global layer's
+        lengths."""
+        torch = self.torch
+        from repro_torch.kernels import tiling
+        from repro_torch.kernels.kvq import ops, ref
+        from repro_torch.models import attention
+        b, hkv, g, d = SSM_BATCH, 5, 5, 64
+        s, window = SSM_PROMPT + SSM_GEN, 1024
+        pos = torch.tensor(s - 2, dtype=torch.int32, device=self.dev)
+        gen = torch.Generator(device=self.dev).manual_seed(splits + 50)
+        q = torch.randn((b, hkv * g, d), generator=gen, device=self.dev)
+        kq, ks = ref.quantize_kv(torch.randn((b, hkv, s, d), generator=gen,
+                                             device=self.dev))
+        vq, vs = ref.quantize_kv(torch.randn((b, hkv, s, d), generator=gen,
+                                             device=self.dev))
+        lengths, mask = attention.decode_mask(pos, b, s,
+                                              window if bias else 0)
+        kw = dict(lengths=lengths, bias=mask)
+        out, cnt = ops.decode_attention(q, kq, ks, vq, vs, splits=splits,
+                                        counts=True, **kw)
+        qg = q.reshape(b, hkv, g, d)
+        sm = d ** -0.5
+        if splits == 1:
+            plain = lambda: ref.decode_attention_ref(  # noqa: E731
+                qg, kq, ks, vq, vs, mask, sm, lengths=lengths)
+        else:
+            plain = lambda: ref.decode_attention_splitk_ref(  # noqa: E731
+                qg, kq, ks, vq, vs, sm, splits=splits, **kw)
+        out_r = plain().reshape(b, hkv * g, d)
+        self.sync()
+        err = float((out - out_r).abs().max())
+        lens = None if bias else lengths.tolist()
+        twin = tiling.decode_tile_step_counts(s, lens, splits=splits)
+        # with a bias every row visits every tile: the twin's one row
+        rows = twin["counts"] * b if bias else twin["counts"]
+        counts_ok = cnt.cpu().tolist() == [[row] * hkv for row in rows]
+        # f32 both; summation order only (the split merge for splits > 1).
+        # Each output averages ~1,000 random V rows (|out| ~0.03): a band
+        # one slot off moves it by 1e-4 or more
+        tol = 1e-5
+        ok = err <= tol and counts_ok and bool(torch.isfinite(out).all())
+        ms = self.time_ms(lambda: ops.decode_attention(
+            q, kq, ks, vq, vs, splits=splits, **kw))
+        plain_ms = self.time_ms(plain, n=20)
+        # a dense bias reads every slot (and the bias); lengths the live ones
+        live = b * s if bias else sum(lens)
+        nbytes = hkv * live * (2 * d + 8) + q.numel() * 4 * 2 \
+            + (b * s * 4 if bias else b * 4)
+        flops = 4 * hkv * g * d * live
+        t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        return self.record({
+            "phase": "kernel",
+            "name": "flash_decode_bias" if bias else "flash_decode",
+            "ok": ok, "shape": {"B": b, "Hkv": hkv, "G": g, "D": d, "S": s,
+                                "splits": twin["splits"], "pos": s - 2,
+                                "window": window if bias else 0},
+            "max_abs_err": err, "tol": tol, "counts_ok": counts_ok,
+            "tiles_visited": sum(map(sum, rows)) * hkv,
+            "tiles_dense": twin["ns"] * b * hkv,
+            "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes})
+
+    def check_ssm_model(self) -> dict:
+        """2-layer mamba2 and hymba at full width, prefill 256 tokens (two
+        chunks) and decode 80 steps (past hymba's reduced window of 64) on
+        the card and on the CPU, same weights, f32, the CPU's greedy tokens
+        fed to both.  Two comparisons of the decode:
+
+        * stepwise: every step starts the card from a copy of the CPU's
+          cache, so each step's error is that step's alone;
+        * free-running: the card keeps its own cache for all 80 steps.
+
+        A step whose greedy tokens differ counts as a fault unless the
+        CPU's top two logits are within twice that step's logit error of
+        each other (a tie)."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.core.mixed_precision import Policy
+        from repro_torch.models import bridge, transformer as tf
+        prompt, steps = 256, 80
+        pol = Policy.full()
+
+        def rel(a, b):
+            a, b = a.cpu().float(), b.float()
+            return float((a - b).abs().max() / b.abs().max())
+
+        def greedy_faults(lg, lw):
+            abs_err = float((lg - lw).abs().max())
+            want, got = lw.argmax(-1), lg.argmax(-1)
+            miss = [r for r in range(want.shape[0]) if want[r] != got[r]]
+            return len(miss), sum(float(lw[r, want[r]] - lw[r, got[r]])
+                                  > 2 * abs_err for r in miss)
+
+        def cache_errs(cg, cc):
+            errs, off = {}, {}
+            for name in cc:
+                if name == "pos":
+                    continue
+                a, b = cg[name].cpu(), cc[name]
+                if a.dtype == torch.int8:
+                    d = (a.int() - b.int()).abs()
+                    errs[name], off[name] = int(d.max()), float(
+                        d.gt(0).float().mean())
+                else:
+                    errs[name] = rel(a, b)
+            return errs, off
+
+        out = {}
+        for arch, extra in (("mamba2-130m", {}),
+                            ("hymba-1.5b", {"window": 64,
+                                            "global_layers": (0,)})):
+            cfg = dataclasses.replace(configs.get_config(arch), n_layers=2,
+                                      **extra)
+            cpu = tf.init_params(cfg, self.args.seed, device="cpu")
+            gpu = bridge.load_jax_params(cfg, bridge.export_params(cpu),
+                                         device=self.dev)
+            rng = np.random.default_rng(self.args.seed)
+            tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, prompt))
+                                      .astype(np.int32))
+            live = slice(0, cfg.vocab)
+            to_card = lambda c: {n: t.to(self.dev, copy=True)  # noqa: E731
+                                 for n, t in c.items()}
+            step_err, step_miss, step_faults = 0.0, 0, 0
+            free_err, free_miss, free_faults = 0.0, 0, 0
+            with torch.no_grad():
+                lw, aux_c = tf.forward(cpu, cfg, {"tokens": tokens},
+                                       policy=pol, build_cache=True)
+                lg, aux_g = tf.forward(gpu, cfg,
+                                       {"tokens": tokens.to(self.dev)},
+                                       policy=pol, build_cache=True)
+                prefill_err = rel(lg[..., live], lw[..., live])
+                prefill_cache, prefill_off = cache_errs(aux_g["cache"],
+                                                        aux_c["cache"])
+                cache_c = tf.grow_cache(aux_c["cache"], prompt + steps)
+                free = tf.grow_cache(aux_g["cache"], prompt + steps)
+                tok = lw[:, -1, live].argmax(-1).to(torch.int32)
+                for _ in range(steps):
+                    synced = to_card(cache_c)
+                    lw, cache_c = tf.decode_step(cpu, cfg, cache_c, tok,
+                                                 policy=pol)
+                    ls, _ = tf.decode_step(gpu, cfg, synced,
+                                           tok.to(self.dev), policy=pol)
+                    lf, free = tf.decode_step(gpu, cfg, free,
+                                              tok.to(self.dev), policy=pol)
+                    lw, ls, lf = lw[:, live], ls[:, live].cpu(), \
+                        lf[:, live].cpu()
+                    step_err = max(step_err, rel(ls, lw))
+                    free_err = max(free_err, rel(lf, lw))
+                    m, f = greedy_faults(ls, lw)
+                    step_miss, step_faults = step_miss + m, step_faults + f
+                    m, f = greedy_faults(lf, lw)
+                    free_miss, free_faults = free_miss + m, free_faults + f
+                    tok = lw.argmax(-1).to(torch.int32)
+            free_cache, free_off = cache_errs(free, cache_c)
+            # prefill: f32 both sides, TF32 off, summation order only.  A
+            # decode step also writes the new token's int8 K/V, which may
+            # round one step apart (as in the llama model phase).  Free
+            # running, the conv tail is stored in bf16 on both sides: where
+            # the f32 values straddle a rounding boundary the two caches
+            # differ by one bf16 ulp (2^-7 relative), and every later step
+            # reads it, so the drift is held at that scale.
+            tol = {"prefill_logits": 1e-4, "step_logits": 1e-3,
+                   "free_logits": 2 ** -7, "int8": 1, "int8_off_frac": 1e-3,
+                   "scales": 1e-3, "conv": 2 ** -7, "ssm": 2 ** -7}
+            leaf_tol = {"k": tol["int8"], "v": tol["int8"],
+                        "k_scale": tol["scales"], "v_scale": tol["scales"],
+                        "conv": tol["conv"], "ssm": tol["ssm"]}
+            ok = (prefill_err <= tol["prefill_logits"]
+                  and step_err <= tol["step_logits"]
+                  and free_err <= tol["free_logits"]
+                  and step_faults == 0 and free_faults == 0
+                  and all(e[n] <= leaf_tol[n] for e in (prefill_cache,
+                                                        free_cache)
+                          for n in e)
+                  and all(v <= tol["int8_off_frac"]
+                          for v in (*prefill_off.values(),
+                                    *free_off.values())))
+            out[arch] = {
+                "ok": ok, "n_layers": 2, "window": cfg.window,
+                "global_layers": list(cfg.global_layers),
+                "prefill_logits_rel_err": prefill_err,
+                "prefill_cache_err": prefill_cache,
+                "prefill_int8_off_frac": prefill_off,
+                "step_logits_rel_err": step_err,
+                "free_logits_rel_err": free_err,
+                "free_cache_err": free_cache, "free_int8_off_frac": free_off,
+                "greedy_mismatches": {"step": step_miss, "free": free_miss},
+                "greedy_faults": {"step": step_faults, "free": free_faults}}
+        return self.record({
+            "phase": "ssm_model", "ok": all(v["ok"] for v in out.values()),
+            "prompt": [2, prompt], "decode_steps": steps, "tol": tol,
+            "models": out})
+
+    def _profile_lockstep(self, args, cfg, model, steps: int) -> dict:
+        """``torch.profiler`` over lockstep's prefill, then over its first
+        ``steps`` decode steps, at the measured run's shapes: the same
+        prompts, the cache grown to prompt + gen slots (so the decode
+        kernel walks the same tiles), the same sampler.  A few steps keep
+        the trace small: its processing, not the run, is what costs."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch.core.mixed_precision import get_policy
+        from repro_torch.models import transformer
+        from repro_torch.serve import sampling
+        policy, quant = get_policy(args.policy), not args.no_quantize
+        sampler = sampling.make_sampler(temperature=args.temperature,
+                                        top_k=args.top_k)
+        gen = torch.Generator(device=self.dev).manual_seed(args.seed)
+        rng = np.random.default_rng(args.seed)
+        prompts = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int32)
+        ).to(self.dev)
+
+        def prefill():
+            logits, aux = transformer.forward(
+                model, cfg, {"tokens": prompts}, policy=policy,
+                build_cache=True, cache_quantized=quant)
+            cache = transformer.grow_cache(aux["cache"],
+                                           args.prompt_len + args.gen)
+            tok = sampler(logits[:, -1], gen)
+            tok.cpu()
+            return cache, tok
+
+        def decode(cache, tok):
+            for _ in range(steps):
+                logits, cache = transformer.decode_step(
+                    model, cfg, cache, tok, policy=policy, quantized=quant,
+                    kvq_splits=args.kv_splits)
+                tok = sampler(logits, gen)
+                tok.cpu()
+
+        def part(wall, busy_s, rows):
+            return {"wall_s": wall, "device_busy_s": busy_s,
+                    "idle_share": 1 - busy_s / wall if wall > 0 else None,
+                    "top_kernels_ms": [[name[:80], round(us / 1e3, 3), c]
+                                       for us, name, c in rows[:12]]}
+
+        (cache, tok), *pre = self._profile(prefill)
+        _, *dec = self._profile(lambda: decode(cache, tok))
+        out = {"prefill": part(*pre), "decode": part(*dec)}
+        out["decode"]["steps"] = steps
+        return out
+
+    def run_serve_ssm(self) -> dict:
+        """``launch/serve.py``'s lockstep at full width and depth for
+        mamba2-130m and hymba-1.5b, as ``python -m repro_torch.launch.serve
+        --arch ... --batch 8 --prompt-len 2048 --gen 32`` runs it: a
+        warm-up run of one decode step, then the measured run with every
+        launch counter zeroed just before it and read just after, then a
+        profile of its prefill and first decode steps."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.kernels.flash import ops as flash_ops
+        from repro_torch.kernels.kvq import ops as kvq_ops
+        from repro_torch.kernels.ssd import ops as ssd_ops
+        from repro_torch.launch import serve
+        from repro_torch.models import transformer
+        kernels = {"ssd_chunk": ssd_ops.KERNEL,
+                   "flash_fwd": flash_ops.KERNEL,
+                   "flash_decode": kvq_ops.KERNEL,
+                   "flash_decode_bias": kvq_ops.BIAS_KERNEL}
+        runs, total = {}, {k: 0 for k in kernels}
+        for arch in ("mamba2-130m", "hymba-1.5b"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            argv = ["--arch", arch, "--batch", str(SSM_BATCH),
+                    "--prompt-len", str(SSM_PROMPT), "--gen", str(SSM_GEN),
+                    "--policy", "bf16", "--seed", str(self.args.seed)]
+            args = serve.build_parser().parse_args(argv)
+            cfg = configs.get_config(arch)
+            t0 = time.time()
+            model = serve.build_model(args, cfg, self.dev)
+            self.sync()
+            init_s = time.time() - t0
+            t0 = time.time()
+            serve.lockstep(argparse.Namespace(**{**vars(args), "gen": 2}),
+                           cfg, model, self.dev)
+            warmup_s = time.time() - t0
+            torch.cuda.reset_peak_memory_stats(self.dev)
+            for k in kernels.values():                  # the main path's
+                k.launches = 0                          # counts
+            r = serve.lockstep(args, cfg, model, self.dev)
+            launches = {n: k.launches for n, k in kernels.items()}
+            peak = torch.cuda.max_memory_allocated(self.dev)
+            for n in total:
+                total[n] += launches[n]
+            windows = transformer.layer_windows(cfg)
+            n_attn = cfg.n_layers if cfg.mixer != "ssm" else 0
+            n_band = sum(w > 0 for w in windows) if n_attn else 0
+            steps = SSM_GEN - 1
+            want = {"ssd_chunk": cfg.n_layers, "flash_fwd": n_attn,
+                    "flash_decode": (n_attn - n_band) * steps,
+                    "flash_decode_bias": n_band * steps}
+            toks = r["tokens"]
+            checks = {
+                "launches": launches == want,
+                "tokens_shape": toks.shape == (SSM_BATCH, SSM_GEN),
+                "tokens_in_vocab": bool(((toks >= 0)
+                                         & (toks < cfg.vocab)).all()),
+                "fits": peak < 80e9}
+            prof = self._profile_lockstep(args, cfg, model, steps=4)
+            # the whole run's idle share: the profiled device time of the
+            # prefill and of a decode step, over the measured run's wall
+            busy = prof["prefill"]["device_busy_s"] + prof["decode"][
+                "device_busy_s"] / prof["decode"]["steps"] * steps
+            wall = r["prefill_s"] + r["decode_s"]
+            runs[arch] = {
+                "ok": all(checks.values()), "checks": checks,
+                "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                "params": sum(p.numel() for p in model.parameters()),
+                "prefill_ms": r["prefill_s"] * 1e3,
+                "decode_ms_per_token": r["decode_s"] / steps * 1e3,
+                "decode_tokens_per_s": SSM_BATCH * steps / r["decode_s"],
+                "max_memory_allocated_bytes": peak, "init_s": init_s,
+                "warmup_s": warmup_s,
+                "kernel_launches": launches, "expected_launches": want,
+                "sample": toks[0][:8].tolist(),
+                "idle_share_run": 1 - busy / wall, "profile": prof}
+            del model
+        self.ssm_launches = total
+        return self.record({
+            "phase": "serve_ssm", "ok": all(v["ok"] for v in runs.values()),
+            "batch": SSM_BATCH, "prompt": SSM_PROMPT, "gen": SSM_GEN,
+            "policy": "bf16", "kv": "int8", "kv_splits": 1, "runs": runs})
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1013,6 +1418,17 @@ def main(argv=None) -> int:
     smoke.check_cifar_model()
     smoke.run_cifar_train()
     smoke.run_cifar_memory()
+    # hymba's prefill attention (25 / 5 heads of 64): window and global layers
+    flash_ssm = [smoke.check_flash(SSM_PROMPT, bf16, window=w, b=SSM_BATCH,
+                                   h=25, hkv=5, d=64) for w in (1024, 0)]
+    ssd = [smoke.check_ssd(192, 16, 128, 128, 64, 24),    # mamba2 serve
+           smoke.check_ssd(200, 16, 128, 16, 64, 25),     # hymba serve
+           smoke.check_ssd(192, 1, 64, 128, 64, 24),      # a 64-token prompt
+           smoke.check_ssd(192, 1, 128, 128, 64, 24)]     # a single chunk
+    dbias = [smoke.check_decode_hymba(sp, bias=True) for sp in (1, 4)]
+    decode.append(smoke.check_decode_hymba(1, bias=False))  # G = 5
+    smoke.check_ssm_model()
+    smoke.run_serve_ssm()
     smoke.sync()
 
     def summary_row(name, rows, main, route_src, tpu):
@@ -1051,13 +1467,25 @@ def main(argv=None) -> int:
                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
                 "library_ms": None}
 
+    def ssm_row(name, rows, route_src, tpu):
+        main = rows[0]                      # the serve run's shape
+        return {"name": name, "route": "cuda", "source": route_src,
+                "replaces": tpu, "launches": smoke.ssm_launches[name],
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                "library_ms": None}
+
     kernels = {"kernels": [
-        summary_row("flash_fwd", flash, flash[-1], FLASH_SRC, FLASH_TPU),
-        summary_row("flash_decode", decode, decode[-1], DECODE_SRC,
+        summary_row("flash_fwd", flash + flash_ssm, flash[-1], FLASH_SRC,
+                    FLASH_TPU),
+        summary_row("flash_decode", decode, decode[1], DECODE_SRC,
                     DECODE_TPU),
         bwd_row("delta", ("delta",)), bwd_row("dq", ("dq",)),
         bwd_row("dkv", ("dk", "dv")),
-        pack_row("decode"), pack_row("encode")]}
+        pack_row("decode"), pack_row("encode"),
+        ssm_row("ssd_chunk", ssd, SSD_SRC, SSD_TPU),
+        ssm_row("flash_decode_bias", dbias, DECODE_SRC, DECODE_TPU)]}
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -9,9 +9,9 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, SSMConfig
 
-ARCHS = ["llama3_8b"]
+ARCHS = ["llama3_8b", "mamba2_130m", "hymba_1_5b"]
 
 #: architectures of the reference not yet ported -> the slice that brings them
 PENDING = {
@@ -21,9 +21,7 @@ PENDING = {
     "minicpm3-4b": "slice F (MLA)",
     "glm4-9b": "slice F (other archs)",
     "whisper-base": "slice F (encoder)",
-    "hymba-1.5b": "slice F (hybrid, two-tier cache)",
     "qwen2-vl-2b": "slice F (M-RoPE)",
-    "mamba2-130m": "slice F (SSM)",
 }
 
 
@@ -51,8 +49,11 @@ def smoke_config(arch_id: str) -> ModelConfig:
     """Reduced smoke variant: same family and code paths, laptop-sized
     (the same reduction as ``repro.configs.smoke_config``)."""
     cfg = get_config(arch_id)
-    return dataclasses.replace(
-        cfg, n_layers=2, d_model=64, n_heads=4, n_kv=min(cfg.n_kv, 2) or 0,
+    kw: dict = dict(
+        n_layers=2, d_model=64, n_heads=4, n_kv=min(cfg.n_kv, 2) or 0,
         d_ff=128 if cfg.d_ff else 0, vocab=256, head_dim=16,
         global_layers=(0,) if cfg.global_layers else (),
         window=16 if cfg.window else 0)
+    if cfg.ssm is not None:
+        kw["ssm"] = SSMConfig(d_state=16, d_inner=64, head_p=16, chunk=32)
+    return dataclasses.replace(cfg, **kw)

@@ -1,20 +1,27 @@
 // Split-K GQA decode attention over an int8 KV cache for Hopper (sm_90a).
 //
 // Replaces the TPU kernel src/repro/kernels/kvq/kernel.py
-// :: flash_decode_pallas (body _flash_decode_kernel), lengths path.  One
+// :: flash_decode_pallas (body _flash_decode_kernel), both of its masks.  One
 // new token per row: q (B, Hkv, G, D) f32 attends over the int8 cache
 // k, v (B, Hkv, S, D) with f32 per-token scales (B, Hkv, S), dequantized
-// after the load, masked to the first lengths[b] positions.  The KV axis
+// after the load, and either masked to the first lengths[b] positions
+// (entry flash_decode) or offset by a dense (B, S) f32 bias added to every
+// logit (entry flash_decode_bias: a window band that lengths cannot
+// express).  With a bias every tile is visited, as on the TPU; a tile whose
+// entries are all -1e30 (finite) runs with m = -1e30 and drops out with
+// weight exp(-1e30 - m) = 0 at the first live tile or in the split merge,
+// never as NaN.  The KV axis
 // is cut into tiles of bs tokens and the tiles into `nsp` splits of `spt`
 // tiles each (tiling.resolve_decode_grid).  With one split the kernel
 // normalises and writes (B, Hkv, G, D); otherwise it writes unnormalised
 // partials acc (B, Hkv, nsp, G, D), m, l (B, Hkv, nsp, G) that
-// kvq/ops.py::combine_splits merges.  A split with no live tile writes
-// (0, -1e30, 0).
+// kvq/ops.py::combine_splits merges.  On the lengths path a split with no
+// live tile writes (0, -1e30, 0).
 //
 // What bounds it on the H100: bytes.  It reads about
 // B * Hkv * sum(len) * (2 D + 8) bytes of cache (1 byte per element and a
-// 4-byte scale per token, for K and V) and does only 4 G D FLOPs per
+// 4-byte scale per token, for K and V; len = S with a bias, which adds 4
+// bytes a position per KV head) and does only 4 G D FLOPs per
 // cached token, far below the 295 FLOP/byte ridge, so 3.35 TB/s of HBM is
 // the limit; at serving sizes the launch itself is comparable.
 //
@@ -52,7 +59,8 @@ flash_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ kq,
                     const float* __restrict__ ks,
                     const int8_t* __restrict__ vq,
                     const float* __restrict__ vs,
-                    const int* __restrict__ lengths, float* __restrict__ out,
+                    const int* __restrict__ lengths,
+                    const float* __restrict__ bias, float* __restrict__ out,
                     float* __restrict__ m_p, float* __restrict__ l_p,
                     int* __restrict__ counts, int Hkv, int S, int bs, int ns,
                     int spt, int nsp, float sm_scale) {
@@ -69,7 +77,8 @@ flash_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ kq,
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t bh = (size_t)b * Hkv + h;
-  const int len = lengths[b];
+  const int len = bias != nullptr ? S : lengths[b];
+  const float* brow = bias != nullptr ? bias + (size_t)b * S : nullptr;
   const int8_t* kp = kq + bh * S * D;
   const int8_t* vp = vq + bh * S * D;
   const float* ksp = ks + bh * S;
@@ -128,6 +137,11 @@ flash_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ kq,
         const float sc = ksp[start + j];
 #pragma unroll
         for (int g = 0; g < G; ++g) ps[g * bs + j] = part[g] * sc * sm_scale;
+        if (brow != nullptr) {
+          const float bj = brow[start + j];
+#pragma unroll
+          for (int g = 0; g < G; ++g) ps[g * bs + j] += bj;
+        }
       }
     }
     __syncthreads();
@@ -205,7 +219,8 @@ flash_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ kq,
 template <int G, int D>
 cudaError_t launch(const float* q, const int8_t* kq, const float* ks,
                    const int8_t* vq, const float* vs, const int* lengths,
-                   float* out, float* m_p, float* l_p, int* counts, int B,
+                   const float* bias, float* out, float* m_p, float* l_p,
+                   int* counts, int B,
                    int Hkv, int S, int bs, int ns, int spt, int nsp,
                    float sm_scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<G, D>(bs);
@@ -217,54 +232,84 @@ cudaError_t launch(const float* q, const int8_t* kq, const float* ks,
   }
   const dim3 grid(nsp, Hkv, B);
   flash_decode_kernel<G, D><<<grid, NT, smem, stream>>>(
-      q, kq, ks, vq, vs, lengths, out, m_p, l_p, counts, Hkv, S, bs, ns, spt,
-      nsp, sm_scale);
+      q, kq, ks, vq, vs, lengths, bias, out, m_p, l_p, counts, Hkv, S, bs, ns,
+      spt, nsp, sm_scale);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t dispatch_g(int G, const float* q, const int8_t* kq,
                        const float* ks, const int8_t* vq, const float* vs,
-                       const int* lengths, float* out, float* m_p, float* l_p,
-                       int* counts, int B, int Hkv, int S, int bs, int ns,
+                       const int* lengths, const float* bias, float* out,
+                       float* m_p, float* l_p, int* counts, int B, int Hkv,
+                       int S, int bs, int ns,
                        int spt, int nsp, float sm_scale, cudaStream_t st) {
   switch (G) {
-    case 1: return launch<1, D>(q, kq, ks, vq, vs, lengths, out, m_p, l_p, counts, B, Hkv, S, bs, ns, spt, nsp, sm_scale, st);
-    case 2: return launch<2, D>(q, kq, ks, vq, vs, lengths, out, m_p, l_p, counts, B, Hkv, S, bs, ns, spt, nsp, sm_scale, st);
-    case 4: return launch<4, D>(q, kq, ks, vq, vs, lengths, out, m_p, l_p, counts, B, Hkv, S, bs, ns, spt, nsp, sm_scale, st);
-    case 8: return launch<8, D>(q, kq, ks, vq, vs, lengths, out, m_p, l_p, counts, B, Hkv, S, bs, ns, spt, nsp, sm_scale, st);
+    case 1: return launch<1, D>(q, kq, ks, vq, vs, lengths, bias, out, m_p, l_p, counts, B, Hkv, S, bs, ns, spt, nsp, sm_scale, st);
+    case 2: return launch<2, D>(q, kq, ks, vq, vs, lengths, bias, out, m_p, l_p, counts, B, Hkv, S, bs, ns, spt, nsp, sm_scale, st);
+    case 4: return launch<4, D>(q, kq, ks, vq, vs, lengths, bias, out, m_p, l_p, counts, B, Hkv, S, bs, ns, spt, nsp, sm_scale, st);
+    case 5: return launch<5, D>(q, kq, ks, vq, vs, lengths, bias, out, m_p, l_p, counts, B, Hkv, S, bs, ns, spt, nsp, sm_scale, st);
+    case 8: return launch<8, D>(q, kq, ks, vq, vs, lengths, bias, out, m_p, l_p, counts, B, Hkv, S, bs, ns, spt, nsp, sm_scale, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
-}  // namespace
-
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
-// shape it does not take: G not in {1, 2, 4, 8}, D not in {64, 128}).
-extern "C" int flash_decode(const void* q, const void* kq, const void* ks,
-                            const void* vq, const void* vs,
-                            const void* lengths, void* out, void* m_p,
-                            void* l_p, void* counts, int B, int Hkv, int G,
-                            int S, int D, int bs, int ns, int spt, int nsp,
-                            float sm_scale, void* stream) {
+cudaError_t dispatch(const void* q, const void* kq, const void* ks,
+                     const void* vq, const void* vs, const void* lengths,
+                     const void* bias, void* out, void* m_p, void* l_p,
+                     void* counts, int B, int Hkv, int G, int S, int D,
+                     int bs, int ns, int spt, int nsp, float sm_scale,
+                     void* stream) {
   if (B < 1 || Hkv < 1 || bs < 1 || bs > 512 || ns * bs != S || nsp < 1 ||
       spt < 1)
-    return (int)cudaErrorInvalidValue;
+    return cudaErrorInvalidValue;
   const float* qf = static_cast<const float*>(q);
   const int8_t* kb = static_cast<const int8_t*>(kq);
   const int8_t* vb = static_cast<const int8_t*>(vq);
   const float* ksf = static_cast<const float*>(ks);
   const float* vsf = static_cast<const float*>(vs);
   const int* len = static_cast<const int*>(lengths);
+  const float* bi = static_cast<const float*>(bias);
   float* o = static_cast<float*>(out);
   float* mp = static_cast<float*>(m_p);
   float* lp = static_cast<float*>(l_p);
   int* cnt = static_cast<int*>(counts);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
   if (D == 128)
-    err = dispatch_g<128>(G, qf, kb, ksf, vb, vsf, len, o, mp, lp, cnt, B, Hkv, S, bs, ns, spt, nsp, sm_scale, st);
-  else if (D == 64)
-    err = dispatch_g<64>(G, qf, kb, ksf, vb, vsf, len, o, mp, lp, cnt, B, Hkv, S, bs, ns, spt, nsp, sm_scale, st);
-  return (int)err;
+    return dispatch_g<128>(G, qf, kb, ksf, vb, vsf, len, bi, o, mp, lp, cnt, B, Hkv, S, bs, ns, spt, nsp, sm_scale, st);
+  if (D == 64)
+    return dispatch_g<64>(G, qf, kb, ksf, vb, vsf, len, bi, o, mp, lp, cnt, B, Hkv, S, bs, ns, spt, nsp, sm_scale, st);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Both return cudaGetLastError() after the launch (cudaErrorInvalidValue for
+// a shape they do not take: G not in {1, 2, 4, 5, 8}, D not in {64, 128}).
+// The lengths path: lengths (B,) int32.
+extern "C" int flash_decode(const void* q, const void* kq, const void* ks,
+                            const void* vq, const void* vs,
+                            const void* lengths, void* out, void* m_p,
+                            void* l_p, void* counts, int B, int Hkv, int G,
+                            int S, int D, int bs, int ns, int spt, int nsp,
+                            float sm_scale, void* stream) {
+  if (lengths == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)dispatch(q, kq, ks, vq, vs, lengths, nullptr, out, m_p, l_p,
+                       counts, B, Hkv, G, S, D, bs, ns, spt, nsp, sm_scale,
+                       stream);
+}
+
+// The dense-bias path: bias (B, S) f32 added to every logit, every tile
+// visited.
+extern "C" int flash_decode_bias(const void* q, const void* kq,
+                                 const void* ks, const void* vq,
+                                 const void* vs, const void* bias, void* out,
+                                 void* m_p, void* l_p, void* counts, int B,
+                                 int Hkv, int G, int S, int D, int bs, int ns,
+                                 int spt, int nsp, float sm_scale,
+                                 void* stream) {
+  if (bias == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)dispatch(q, kq, ks, vq, vs, nullptr, bias, out, m_p, l_p,
+                       counts, B, Hkv, G, S, D, bs, ns, spt, nsp, sm_scale,
+                       stream);
 }

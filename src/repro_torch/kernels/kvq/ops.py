@@ -6,7 +6,9 @@ pre-quantized -- and dispatches on the device: CPU tensors go to the
 plain ``ref.decode_attention_ref``; CUDA tensors go to the hand-written
 split-K kernel ``kernels/csrc/flash_decode.cu`` or raise.  ``lengths``
 masks by position on both, and on the card it also keeps every KV tile
-past a row's length from being loaded.
+past a row's length from being loaded.  A dense (B, S) ``bias`` (a window
+band over a non-rolling cache) goes to the kernel's own bias entry point,
+``BIAS_KERNEL``, which visits every tile; its launches are counted apart.
 """
 from __future__ import annotations
 
@@ -18,14 +20,17 @@ from repro_torch.kernels.kvq.ref import (combine_splits,  # noqa: F401
                                          quantize_kv)
 
 SUPPORTED_HEAD_DIMS = (64, 128)
-SUPPORTED_GROUPS = (1, 2, 4, 8)
+SUPPORTED_GROUPS = (1, 2, 4, 5, 8)
 MAX_BLOCK_S = 512
 
-KERNEL = build.Kernel("flash_decode", "flash_decode", [
+_ARGTYPES = [
     build.PTR, build.PTR, build.PTR, build.PTR, build.PTR, build.PTR,
     build.PTR, build.PTR, build.PTR, build.PTR, build.INT, build.INT,
     build.INT, build.INT, build.INT, build.INT, build.INT, build.INT,
-    build.INT, build.FLOAT, build.PTR])
+    build.INT, build.FLOAT, build.PTR]
+#: the lengths path and the dense-bias path: one source, two entry points
+KERNEL = build.Kernel("flash_decode", "flash_decode", _ARGTYPES)
+BIAS_KERNEL = build.Kernel("flash_decode", "flash_decode_bias", _ARGTYPES)
 
 
 def resolve_splits(s: int, splits: int,
@@ -34,18 +39,20 @@ def resolve_splits(s: int, splits: int,
     return tiling.resolve_decode_grid(s, block_s=block_s, splits=splits)[2]
 
 
-def _check_cuda(qg, k_q, k_s, v_q, v_s, lengths, block_s):
-    tensors = (qg, k_q, k_s, v_q, v_s, lengths)
+def _check_cuda(qg, k_q, k_s, v_q, v_s, mask, block_s):
+    """``mask`` is the (B,) int32 lengths or the (B, S) f32 bias."""
+    tensors = (qg, k_q, k_s, v_q, v_s, mask)
     if not all(t.is_cuda and t.device == qg.device for t in tensors):
-        raise ValueError("decode_attention: q, cache and lengths must all be "
+        raise ValueError("decode_attention: q, cache and mask must all be "
                          "on one CUDA device")
     if k_q.dtype != torch.int8 or v_q.dtype != torch.int8:
         raise TypeError(f"decode_attention: the CUDA kernel takes an int8 "
                         f"cache, got {k_q.dtype}, {v_q.dtype}")
     if k_s.dtype != torch.float32 or v_s.dtype != torch.float32:
         raise TypeError("decode_attention: cache scales must be float32")
-    if lengths.dtype != torch.int32:
-        raise TypeError("decode_attention: lengths must be int32")
+    if mask.dtype != (torch.int32 if mask.ndim == 1 else torch.float32):
+        raise TypeError("decode_attention: lengths must be int32, bias "
+                        "float32")
     b, hkv, g, d = qg.shape
     s = k_q.shape[2]
     if d not in SUPPORTED_HEAD_DIMS or g not in SUPPORTED_GROUPS:
@@ -53,8 +60,9 @@ def _check_cuda(qg, k_q, k_s, v_q, v_s, lengths, block_s):
                          f"in {SUPPORTED_HEAD_DIMS} and GQA group in "
                          f"{SUPPORTED_GROUPS}, got {d}, {g}")
     if (k_s.shape != (b, hkv, s) or v_q.shape != k_q.shape
-            or v_s.shape != k_s.shape or lengths.shape != (b,)):
-        raise ValueError("decode_attention: cache / scales / lengths shapes "
+            or v_s.shape != k_s.shape
+            or mask.shape not in ((b,), (b, s))):
+        raise ValueError("decode_attention: cache / scales / mask shapes "
                          "do not match")
     if block_s > MAX_BLOCK_S:
         raise ValueError(f"decode_attention: block_s {block_s} > "
@@ -71,12 +79,12 @@ def decode_attention(q, k_q, k_s, v_q, v_s, *, lengths=None, bias=None,
                      block_s: int | None = None, counts: bool = False):
     """q: (B, H, D); cache (B, Hkv, S, D) int8 with (B, Hkv, S) f32 scales.
 
-    ``lengths`` (B,) int32: valid cache lengths.  ``bias`` (B, S) f32 is
-    the dense mask of the plain version only (the kernel's bias operand
-    comes with windowed models).  ``splits`` fans the KV axis over the
-    kernel's split-K grid.  Returns (B, H, D) f32, plus with ``counts``
-    (CUDA only) the (B, Hkv, splits) tiles each split executed -- the
-    measured twin of ``tiling.decode_tile_step_counts``."""
+    ``lengths`` (B,) int32: valid cache lengths.  ``bias`` (B, S) f32: a
+    dense additive mask (exclusive with ``lengths``; every tile is visited).
+    ``splits`` fans the KV axis over the kernel's split-K grid.  Returns
+    (B, H, D) f32, plus with ``counts`` (CUDA only) the (B, Hkv, splits)
+    tiles each split executed -- the measured twin of
+    ``tiling.decode_tile_step_counts`` (with ``lengths=None`` for a bias)."""
     if lengths is not None and bias is not None:
         raise ValueError("decode_attention: lengths and bias are exclusive")
     b, h, d = q.shape
@@ -94,14 +102,13 @@ def decode_attention(q, k_q, k_s, v_q, v_s, *, lengths=None, bias=None,
         out = ref.decode_attention_ref(qg, k_q, k_s, v_q, v_s, bias, sm,
                                        lengths=lengths)
         return out.reshape(b, h, d)
-    if bias is not None:
-        raise NotImplementedError("decode_attention: the CUDA kernel has no "
-                                  "dense bias operand yet (windowed models)")
-    if lengths is None:
+    if bias is None and lengths is None:
         lengths = torch.full((b,), s, dtype=torch.int32, device=q.device)
+    mask = lengths if bias is None else bias
+    kernel = KERNEL if bias is None else BIAS_KERNEL
     block_s = tiling.DEFAULT_DECODE_BS if block_s is None else block_s
     qg = qg.contiguous()
-    _check_cuda(qg, k_q, k_s, v_q, v_s, lengths, block_s)
+    _check_cuda(qg, k_q, k_s, v_q, v_s, mask, block_s)
     bs, ns, n_sp, spt = tiling.resolve_decode_grid(s, block_s=block_s,
                                                    splits=splits)
     dev = q.device
@@ -116,8 +123,8 @@ def decode_attention(q, k_q, k_s, v_q, v_s, *, lengths=None, bias=None,
     cnt = (torch.empty((b, hkv, n_sp), dtype=torch.int32, device=dev)
            if counts else None)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    KERNEL(qg.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
-           v_s.data_ptr(), lengths.data_ptr(), out.data_ptr(), ptr(m_p),
+    kernel(qg.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
+           v_s.data_ptr(), mask.data_ptr(), out.data_ptr(), ptr(m_p),
            ptr(l_p), ptr(cnt), b, hkv, g, s, d, bs, ns, spt, n_sp, sm,
            torch.cuda.current_stream(dev).cuda_stream)
     if n_sp > 1:

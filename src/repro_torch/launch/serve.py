@@ -9,8 +9,14 @@ admission, mid-flight joins and retirements:
         --smoke --engine --device cpu
 
 The default (lockstep) mode prefills one fixed batch once and decodes
-``--gen`` steps in unison.  Both modes share the seeded sampler
-(``--temperature`` / ``--top-k``; greedy is the default).
+``--gen`` steps in unison; it serves every ported arch, the SSM family
+(mamba2-130m, hymba-1.5b) included, which the engine refuses:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
+        --smoke --device cpu
+
+Both modes share the seeded sampler (``--temperature`` / ``--top-k``;
+greedy is the default).
 
 Runs on the CUDA card by default, where prefill and decode go through the
 hand-written kernels; without a card it exits with an error unless
@@ -48,6 +54,12 @@ def resolve_device(name: str) -> torch.device:
 
 
 def _kv_banner(cfg, args, s_total: int) -> None:
+    """Name what decode will run: the int8 split-K kernel only serves a GQA
+    cache (an SSM's state takes its own decode path)."""
+    if cfg.mixer not in ("attn", "hybrid"):
+        print(f"kv decode: n/a (no kvq-layout attention cache), "
+              f"cache {s_total} slots")
+        return
     if args.no_quantize:
         print(f"kv decode: plain masked softmax (cache not quantized), "
               f"cache {s_total} slots")
@@ -77,7 +89,9 @@ def _make_trace(args, cfg, engine):
 def run_engine(args, cfg, model) -> int:
     from repro_torch.serve import ServeEngine, supports
     if not supports(cfg):
-        print(f"engine: {cfg.arch_id} is not engine-eligible")
+        print(f"engine: {cfg.arch_id} is not engine-eligible (needs a "
+              f"uniform-window GQA attention cache; SSM and hybrid archs "
+              f"serve through the lockstep driver)")
         return 2
     _kv_banner(cfg, args, args.max_len)
     engine = ServeEngine(
@@ -135,7 +149,11 @@ def run_engine(args, cfg, model) -> int:
 
 
 @torch.no_grad()
-def run_lockstep(args, cfg, model, device) -> int:
+def lockstep(args, cfg, model, device) -> dict:
+    """Prefill one seeded (batch, prompt_len) batch, then decode ``gen - 1``
+    steps in unison.  Returns the host-clock times (each ends in a copy of
+    the sampled tokens to the host, so the device work is done) and the
+    (batch, gen) generated tokens."""
     quant = not args.no_quantize
     policy = get_policy(args.policy)
     rng = np.random.default_rng(args.seed)
@@ -143,7 +161,6 @@ def run_lockstep(args, cfg, model, device) -> int:
         0, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int32)
     ).to(device)
     s_total = args.prompt_len + args.gen
-    _kv_banner(cfg, args, s_total)
     sampler = sampling.make_sampler(temperature=args.temperature,
                                     top_k=args.top_k)
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -154,6 +171,7 @@ def run_lockstep(args, cfg, model, device) -> int:
                                       cache_quantized=quant)
     cache = transformer.grow_cache(aux["cache"], s_total)
     tok = sampler(logits[:, -1], gen)
+    del logits, aux
     out_tokens = [tok.cpu().numpy()]
     t_prefill = time.time() - t0
 
@@ -165,9 +183,16 @@ def run_lockstep(args, cfg, model, device) -> int:
         tok = sampler(logits, gen)
         out_tokens.append(tok.cpu().numpy())
     t_decode = time.time() - t0
+    return {"prefill_s": t_prefill, "decode_s": t_decode,
+            "tokens": np.stack(out_tokens, 1)}
 
-    gen_toks = np.stack(out_tokens, 1)
-    print(f"prefill {args.batch}x{args.prompt_len}: {t_prefill*1e3:.0f} ms")
+
+def run_lockstep(args, cfg, model, device) -> int:
+    _kv_banner(cfg, args, args.prompt_len + args.gen)
+    r = lockstep(args, cfg, model, device)
+    t_decode, gen_toks = r["decode_s"], r["tokens"]
+    print(f"prefill {args.batch}x{args.prompt_len}: "
+          f"{r['prefill_s']*1e3:.0f} ms")
     print(f"decode {args.gen} tok: {t_decode*1e3:.0f} ms "
           f"({t_decode/max(1, args.gen-1)*1e3:.1f} ms/tok, "
           f"{args.batch*(args.gen-1)/max(t_decode, 1e-9):.1f} tok/s)")
@@ -190,7 +215,7 @@ def run(args) -> int:
     return run_lockstep(args, cfg, model, device)
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3-8b")
     ap.add_argument("--smoke", action="store_true")
@@ -235,7 +260,11 @@ def main(argv=None) -> int:
     ap.add_argument("--max-retries", type=int, default=2,
                     help="engine: replay budget per request after a "
                          "detected decode fault")
-    return run(ap.parse_args(argv))
+    return ap
+
+
+def main(argv=None) -> int:
+    return run(build_parser().parse_args(argv))
 
 
 if __name__ == "__main__":

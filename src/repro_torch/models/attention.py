@@ -3,11 +3,14 @@
 
 Prefill and training always go through the flash op (``kernels/flash``):
 the CUDA kernels on the card, their plain versions on the CPU; it is
-differentiable, so ``loss.backward()`` runs the flash backward.  Decode writes the new
-token into the cache in place and reads the cache through
-``kernels/kvq.decode_attention`` (quantized) or the plain masked softmax
-(unquantized).  The window/bias decode path, MLA, cross-attention and the
-sequence-sharded cache come with later slices.
+differentiable, so ``loss.backward()`` runs the flash backward.  Each layer
+gets its window as a Python int, so windowed and global layers both reach
+the flash kernel.  Decode writes the new token into the cache in place and
+reads the cache through ``kernels/kvq.decode_attention`` (quantized) or
+the plain masked softmax (unquantized), masked by length for a full-causal
+layer and by a dense (B, S) bias for a window band.  MLA, cross-attention,
+the rolling two-tier cache and the sequence-sharded cache come with later
+slices.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 from repro_torch.kernels.flash import ops as flash_ops
 from repro_torch.kernels.kvq import ops as kvq_ops
 from repro_torch.kernels.kvq.ref import masked_decode_logits
+from repro_torch.kernels.tiling import NEG_INF
 from repro_torch.models.layers import apply_rope
 
 
@@ -58,16 +62,36 @@ def _write_token(cache, new, at):
     return cache
 
 
+def decode_mask(pos, b: int, s_max: int, window: int):
+    """The decode mask of one layer over a non-rolling cache of ``s_max``
+    slots: (lengths (B,) int32, None) for a full-causal layer (window <= 0),
+    or (None, bias (B, S) f32) for a window band, which lengths cannot
+    express: 0 where ``pos - window < slot <= pos``, -1e30 elsewhere (the
+    JAX package's ``attention.py:334-352``)."""
+    if window <= 0:
+        return (pos + 1).to(torch.int32).expand(b).contiguous(), None
+    kv_pos = torch.arange(s_max, device=pos.device)
+    pos_col = pos[:, None] if pos.ndim == 1 else pos     # broadcasts vs (., S)
+    valid = (kv_pos[None, :] <= pos_col) & (kv_pos[None, :] > pos_col - window)
+    bias = torch.where(valid, 0.0, NEG_INF).to(torch.float32)
+    return None, bias.expand(b, s_max).contiguous()
+
+
 def attn_decode(p, x_t, cfg, cache_k, cache_s_k, cache_v, cache_s_v, pos,
-                *, quantized: bool = True, splits: int = 1):
+                *, window: int = 0, mask=None, quantized: bool = True,
+                splits: int = 1):
     """One-token GQA decode against a per-layer cache.
 
     x_t: (B, D_model); cache_k/v (B, Hkv, S, hd) int8 (or the compute dtype
     when not quantized, scales unused); pos: 0-d int32 position, or (B,)
     int32 per-row positions (slot-pooled serving: each row rotates, writes
-    and masks at its own position).  Masking is by length, ``pos + 1``.
-    The cache leaves are updated in place and returned.
-    Returns (attn_out (B, D_model), (k, k_scale, v, v_scale))."""
+    and masks at its own position).  ``window`` <= 0 masks by length,
+    ``pos + 1``; a window > 0 masks by the dense bias of
+    :func:`decode_mask`.  ``mask`` is that (lengths, bias) pair when the
+    caller already built it for this window and position (a decode step
+    builds one for all the layers that share a window).  The cache leaves
+    are updated in place and returned.  Returns (attn_out (B, D_model),
+    (k, k_scale, v, v_scale))."""
     b, _ = x_t.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     per_row = pos.ndim == 1
@@ -78,7 +102,8 @@ def attn_decode(p, x_t, cfg, cache_k, cache_s_k, cache_v, cache_s_v, pos,
     q = apply_rope(q, pos_arr, cfg.rope_theta, cfg.rope_fraction)[:, 0]
     k_new = apply_rope(k_t, pos_arr, cfg.rope_theta, cfg.rope_fraction)[:, 0]
     v_new = v_t[:, 0]
-    lengths = (pos + 1).to(torch.int32).expand(b).contiguous()
+    lengths, bias = mask if mask is not None else decode_mask(
+        pos, b, cache_k.shape[2], window)
 
     if quantized:
         kq_new, ks_new = kvq_ops.quantize_kv(k_new)
@@ -88,13 +113,13 @@ def attn_decode(p, x_t, cfg, cache_k, cache_s_k, cache_v, cache_s_v, pos,
         _write_token(cache_s_k, ks_new, pos)
         _write_token(cache_s_v, vs_new, pos)
         out = kvq_ops.decode_attention(q, cache_k, cache_s_k, cache_v,
-                                       cache_s_v, lengths=lengths,
+                                       cache_s_v, lengths=lengths, bias=bias,
                                        splits=splits)
     else:
         _write_token(cache_k, k_new, pos)
         _write_token(cache_v, v_new, pos)
         qg = q.reshape(b, hkv, h // hkv, hd).float()
-        logits = masked_decode_logits(qg, cache_k.float(), hd ** -0.5, None,
+        logits = masked_decode_logits(qg, cache_k.float(), hd ** -0.5, bias,
                                       lengths)
         pr = torch.softmax(logits, dim=-1)
         out = torch.einsum("bhgs,bhsd->bhgd", pr,

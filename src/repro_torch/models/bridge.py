@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.core.mixed_precision import Policy
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import (Attention, Block, SwiGLU,
+from repro_torch.models.transformer import (SSM, Attention, Block, SwiGLU,
                                             Transformer)
 from repro_torch.optim.adamw import AdamWState
 
@@ -41,14 +41,22 @@ def load_jax_params(cfg: ModelConfig, tree: dict, *, device="cuda",
     def t(x):
         return _to_tensor(x, device)
 
-    blocks_tree = tree["blocks"]
+    bt = tree["blocks"]
     blocks = []
     for i in range(cfg.n_layers):
-        a, f = blocks_tree["attn"], blocks_tree["ffn"]
-        blocks.append(Block(
-            t(blocks_tree["ln1"][i]), t(blocks_tree["ln2"][i]),
-            Attention(*(t(a[name][i]) for name in _ATTN)),
-            SwiGLU(*(t(f[name][i]) for name in _FFN))))
+        # each sub-tree is present only where the family has it: pure-SSM
+        # layers have no attn or ffn, only the hybrid has the mix norms
+        kw = {}
+        if "attn" in bt:
+            kw["attn_mod"] = Attention(*(t(bt["attn"][n][i]) for n in _ATTN))
+        if "ssm" in bt:
+            kw["ssm"] = SSM(*(t(bt["ssm"][n][i]) for n in SSM.NAMES))
+        if "ffn" in bt:
+            kw["ffn"] = SwiGLU(*(t(bt["ffn"][n][i]) for n in _FFN))
+        for n in ("mix_norm_attn", "mix_norm_ssm"):
+            if n in bt:
+                kw[n] = t(bt[n][i])
+        blocks.append(Block(t(bt["ln1"][i]), t(bt["ln2"][i]), **kw))
     model = Transformer(cfg, t(tree["embed"]), blocks, t(tree["final_norm"]),
                         None if cfg.tie_embeddings else t(tree["lm_head"]))
     return model if policy is None else model.cast_to_compute(policy)

@@ -2,7 +2,7 @@
 
 The port dispatches attention on the tensor's device, not on a backend
 name, so ``ModelConfig`` has no ``attn_backend`` field.  The MoE / MLA /
-SSM / encoder sub-configs are kept as plain fields so later slices fit;
+encoder sub-configs are kept as plain fields so later slices fit;
 ``models.transformer`` rejects them at build time for now.
 """
 from __future__ import annotations

@@ -1,6 +1,6 @@
-"""Shared building blocks: RMSNorm, SwiGLU, rotary embeddings, initializers
-(counterpart of ``repro.models.layers``).  M-RoPE waits for qwen2-vl and
-``gelu_mlp`` for the architectures that use it."""
+"""Shared building blocks: RMSNorm, mamba2's gated RMSNorm, SwiGLU, rotary
+embeddings, initializers (counterpart of ``repro.models.layers``).  M-RoPE
+waits for qwen2-vl and ``gelu_mlp`` for the architectures that use it."""
 from __future__ import annotations
 
 import torch
@@ -48,6 +48,12 @@ class _RmsNormLowGrad(torch.autograd.Function):
         gw = gf * wf
         dx = inv * (gw - xhat * (gw * xhat).mean(dim=-1, keepdim=True))
         return dx.to(x.dtype), dw.to(w.dtype), None
+
+
+def gated_rms_norm(x, z, w, eps: float = 1e-5):
+    """Mamba2 output norm: RMSNorm(x * silu(z)), silu taken in f32 and cast
+    to ``x.dtype`` before the product."""
+    return rms_norm(x * F.silu(z.float()).to(x.dtype), w, eps)
 
 
 def swiglu(x, w_gate, w_up, w_down):

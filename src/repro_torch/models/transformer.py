@@ -1,4 +1,7 @@
-"""The dense GQA decoder (counterpart of ``repro.models.transformer``).
+"""The decoder stack (counterpart of ``repro.models.transformer``): dense
+GQA (llama3), pure SSM (mamba2: SSD blocks, no MLP) and hybrid (hymba:
+attention and SSM heads in parallel, each output normed, the two averaged,
+then a SwiGLU), with per-layer sliding windows and global layers.
 
 The JAX package keeps per-layer parameters stacked along a layer axis and
 scans over them; the port holds one ``Block`` module per layer in an
@@ -31,28 +34,36 @@ from repro_torch.core.checkpoint import CheckpointConfig, remat_scan
 from repro_torch.core.mixed_precision import Policy
 from repro_torch.kernels.kvq import ops as kvq_ops
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, embed_init, rms_norm, swiglu
 
-#: cache leaves with a sequence axis, and which axis it is
+#: cache leaves with a sequence axis, and which axis it is (the SSM's
+#: ``conv`` and ``ssm`` state have none)
 CACHE_SEQ_AXES = {"k": 3, "v": 3, "k_scale": 3, "v_scale": 3}
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what this slice of the port does not build yet."""
+    """Raise for what the port does not build yet."""
     unsupported = [name for name, present in (
         ("MoE", cfg.moe is not None), ("MLA", cfg.mla is not None),
-        ("SSM", cfg.ssm is not None or cfg.mixer != "attn"),
         ("encoder", cfg.encoder is not None),
         ("M-RoPE", cfg.mrope_sections is not None),
-        ("sliding window", cfg.window > 0 or bool(cfg.global_layers)),
         ("gelu MLP", cfg.mlp_kind != "swiglu"),
         ("vision patches", cfg.family == "vlm")) if present]
     if unsupported:
         raise NotImplementedError(
             f"{cfg.arch_id}: {', '.join(unsupported)} not ported yet (the "
-            f"port builds the dense GQA decoder; other families come with "
-            f"slice F)")
+            f"port builds dense GQA, SSM and hybrid decoders; the other "
+            f"families come with slice F)")
+
+
+def layer_windows(cfg: ModelConfig) -> list[int]:
+    """Per-layer window as Python ints: 0 = full causal (every layer of an
+    unwindowed model, and ``cfg.global_layers``), else the sliding
+    window."""
+    glob = set(cfg.global_layers)
+    return [0 if i in glob else cfg.window for i in range(cfg.n_layers)]
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
@@ -74,12 +85,36 @@ class SwiGLU(nn.Module):
                                                   (w_gate, w_up, w_down))
 
 
+class SSM(nn.Module):
+    """Mamba2 mixer weights (``models/ssm.py``)."""
+
+    NAMES = ("in_proj", "conv_w", "dt_bias", "a_log", "d_skip", "norm_w",
+             "out_proj")
+
+    def __init__(self, *weights):
+        super().__init__()
+        for name, w in zip(self.NAMES, weights, strict=True):
+            setattr(self, name, _frozen(w))
+
+
 class Block(nn.Module):
-    def __init__(self, ln1, ln2, attn_mod: Attention, ffn: SwiGLU):
+    """One layer: ``attn`` and/or ``ssm`` mixers (both: the hybrid, whose
+    outputs are normed by ``mix_norm_attn`` / ``mix_norm_ssm`` and
+    averaged), then ``ffn`` when the model has one.  Every layer keeps
+    ``ln2``, as the JAX tree does, even without an MLP."""
+
+    def __init__(self, ln1, ln2, attn_mod: Attention | None = None,
+                 ffn: SwiGLU | None = None, *, ssm: SSM | None = None,
+                 mix_norm_attn=None, mix_norm_ssm=None):
         super().__init__()
         self.ln1, self.ln2 = _frozen(ln1), _frozen(ln2)
         self.attn = attn_mod
+        self.ssm = ssm
         self.ffn = ffn
+        self.mix_norm_attn = None if mix_norm_attn is None \
+            else _frozen(mix_norm_attn)
+        self.mix_norm_ssm = None if mix_norm_ssm is None \
+            else _frozen(mix_norm_ssm)
 
 
 class Transformer(nn.Module):
@@ -115,17 +150,33 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
     d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
     kw = dict(dtype=dtype, device=device)
     ones = lambda n: torch.ones(n, **kw)  # noqa: E731
+    zeros = lambda n: torch.zeros(n, **kw)  # noqa: E731
     blocks = []
     for _ in range(cfg.n_layers):
-        blocks.append(Block(
-            ones(d), ones(d),
-            Attention(dense_init(gen, (d, h * hd), **kw),
-                      dense_init(gen, (d, hkv * hd), **kw),
-                      dense_init(gen, (d, hkv * hd), **kw),
-                      dense_init(gen, (h * hd, d), **kw)),
-            SwiGLU(dense_init(gen, (d, cfg.d_ff), **kw),
-                   dense_init(gen, (d, cfg.d_ff), **kw),
-                   dense_init(gen, (cfg.d_ff, d), **kw))))
+        mix = {}
+        if cfg.mixer in ("attn", "hybrid"):
+            mix["attn_mod"] = Attention(
+                dense_init(gen, (d, h * hd), **kw),
+                dense_init(gen, (d, hkv * hd), **kw),
+                dense_init(gen, (d, hkv * hd), **kw),
+                dense_init(gen, (h * hd, d), **kw))
+        if cfg.mixer in ("ssm", "hybrid"):
+            s = cfg.ssm
+            mix["ssm"] = SSM(
+                dense_init(gen, (d, 2 * s.d_inner + 2 * s.d_state + s.heads),
+                           **kw),
+                dense_init(gen, (s.conv_kernel, s.d_inner + 2 * s.d_state),
+                           **kw),
+                zeros(s.heads), zeros(s.heads),       # dt_bias; A = -exp(0)
+                ones(s.heads), ones(s.d_inner),
+                dense_init(gen, (s.d_inner, d), **kw))
+        if cfg.mixer == "hybrid":
+            mix.update(mix_norm_attn=ones(d), mix_norm_ssm=ones(d))
+        if cfg.d_ff:
+            mix["ffn"] = SwiGLU(dense_init(gen, (d, cfg.d_ff), **kw),
+                                dense_init(gen, (d, cfg.d_ff), **kw),
+                                dense_init(gen, (cfg.d_ff, d), **kw))
+        blocks.append(Block(ones(d), ones(d), **mix))
     embed = embed_init(gen, (cfg.padded_vocab, d), **kw)
     lm_head = None if cfg.tie_embeddings else \
         dense_init(gen, (d, cfg.padded_vocab), **kw)
@@ -159,13 +210,31 @@ def _kv_entry(k, v, *, quantized: bool = True) -> dict:
     return {"k": kq, "k_scale": ks, "v": vq, "v_scale": vs}
 
 
-def _assemble_cache(entries: list, s: int) -> dict:
-    """Per-layer prefill entries -> the ``init_cache`` layout, pos = S."""
+def _assemble_cache(entries: list, s: int, device) -> dict:
+    """Per-layer prefill entries -> the ``init_cache`` layout, pos = S.  The
+    SSM state is kept in f32 and the conv tail in bf16 under every policy,
+    as the JAX package stores them (``transformer.py:407-409``)."""
     cache = {name: torch.stack([e[name] for e in entries])
-             for name in CACHE_SEQ_AXES}
-    cache["pos"] = torch.tensor(s, dtype=torch.int32,
-                                device=entries[0]["k"].device)
+             for name in entries[0]}
+    if "ssm" in cache:
+        cache["ssm"] = cache["ssm"].float()
+        cache["conv"] = cache["conv"].to(torch.bfloat16)
+    cache["pos"] = torch.tensor(s, dtype=torch.int32, device=device)
     return cache
+
+
+def _mix(blk, cfg, a_out, s_out):
+    """Combine the mixers' outputs: one of them as it is, or the hybrid's
+    ``0.5 * (rms_norm(a) + rms_norm(s))``."""
+    if s_out is None:
+        return a_out
+    if a_out is None:
+        return s_out
+    dt = a_out.dtype
+    return 0.5 * (rms_norm(a_out, blk.mix_norm_attn.to(dt), cfg.norm_eps,
+                           bf16_grad=cfg.norm_bf16_grad)
+                  + rms_norm(s_out, blk.mix_norm_ssm.to(dt), cfg.norm_eps,
+                             bf16_grad=cfg.norm_bf16_grad))
 
 
 def forward(model: Transformer, cfg: ModelConfig, batch: dict, *,
@@ -188,30 +257,44 @@ def forward(model: Transformer, cfg: ModelConfig, batch: dict, *,
         positions = torch.arange(s, device=tokens.device).expand(b, s)
     entries = []
 
-    def block(x, blk):
+    def block(x, layer):
+        blk, window = layer
         h = rms_norm(x, blk.ln1.to(dt), cfg.norm_eps,
                      bf16_grad=cfg.norm_bf16_grad)
-        mix, (k, v) = attn.attn_block(
-            blk.attn, h, cfg, positions=positions, window=cfg.window,
-            resid_dtype=policy.flash_resid_dtype)
+        entry, a_out, s_out = {}, None, None
+        if blk.attn is not None:
+            a_out, (k, v) = attn.attn_block(
+                blk.attn, h, cfg, positions=positions, window=window,
+                resid_dtype=policy.flash_resid_dtype)
+            if build_cache:
+                entry.update(_kv_entry(k, v, quantized=cache_quantized))
+        if blk.ssm is not None:
+            s_out, state = ssm_mod.ssm_block(blk.ssm, h, cfg,
+                                             return_state=build_cache)
+            if build_cache:
+                entry.update(state)
         if build_cache:
-            entries.append(_kv_entry(k, v, quantized=cache_quantized))
-        x = x + mix
+            entries.append(entry)
+        x = x + _mix(blk, cfg, a_out, s_out)
+        if blk.ffn is None:                  # pure-SSM blocks have no MLP
+            return x
         h2 = rms_norm(x, blk.ln2.to(dt), cfg.norm_eps,
                       bf16_grad=cfg.norm_bf16_grad)
         f = blk.ffn
         return x + swiglu(h2, f.w_gate.to(dt), f.w_up.to(dt),
                           f.w_down.to(dt))
 
-    # the cache entries are collected as a side effect: no recompute there
-    x = remat_scan(block, x, model.blocks,
+    # each layer gets its own window as a Python int, so every layer of a
+    # windowed hybrid reaches the flash kernel; the cache entries are
+    # collected as a side effect: no recompute there
+    x = remat_scan(block, x, list(zip(model.blocks, layer_windows(cfg))),
                    config=CheckpointConfig(enabled=False) if build_cache
                    else remat)
     x = rms_norm(x, model.final_norm.to(dt), cfg.norm_eps,
                  bf16_grad=cfg.norm_bf16_grad)
     aux = {"moe_aux": 0.0}
     if build_cache:
-        aux["cache"] = _assemble_cache(entries, s)
+        aux["cache"] = _assemble_cache(entries, s, tokens.device)
     logits = _mask_padded_vocab(
         (x @ model.head.to(dt)).to(policy.output_dtype), cfg)
     return logits, aux
@@ -256,16 +339,27 @@ def loss_fn(model: Transformer, cfg: ModelConfig, batch: dict, *,
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, *,
                quantized: bool = True, dtype=torch.bfloat16,
                device="cuda") -> dict:
-    """(L, B, Hkv, S, hd) int8 K/V (``dtype`` when not quantized) plus
-    (L, B, Hkv, S) f32 scales and a 0-d ``pos``."""
+    """A 0-d ``pos``; for attention, (L, B, Hkv, S, hd) int8 K/V
+    (``dtype`` when not quantized) plus (L, B, Hkv, S) f32 scales; for the
+    SSM, the conv tail (L, B, K-1, conv_dim) in ``dtype`` and the state
+    (L, B, H, N, P) in f32."""
     check_supported(cfg)
-    shape = (cfg.n_layers, batch, cfg.n_kv, s_max, cfg.head_dim)
-    kv_dtype = torch.int8 if quantized else dtype
+    L = cfg.n_layers
     z = lambda shp, dt: torch.zeros(shp, dtype=dt, device=device)  # noqa
-    return {"pos": z((), torch.int32),
-            "k": z(shape, kv_dtype), "v": z(shape, kv_dtype),
-            "k_scale": z(shape[:-1], torch.float32),
-            "v_scale": z(shape[:-1], torch.float32)}
+    cache = {"pos": z((), torch.int32)}
+    if cfg.mixer in ("attn", "hybrid"):
+        shape = (L, batch, cfg.n_kv, s_max, cfg.head_dim)
+        kv_dtype = torch.int8 if quantized else dtype
+        cache.update(k=z(shape, kv_dtype), v=z(shape, kv_dtype),
+                     k_scale=z(shape[:-1], torch.float32),
+                     v_scale=z(shape[:-1], torch.float32))
+    if cfg.mixer in ("ssm", "hybrid"):
+        s = cfg.ssm
+        cache["conv"] = z((L, batch, s.conv_kernel - 1,
+                           s.d_inner + 2 * s.d_state), dtype)
+        cache["ssm"] = z((L, batch, s.heads, s.d_state, s.head_p),
+                         torch.float32)
+    return cache
 
 
 def grow_cache(cache: dict, s_max: int) -> dict:
@@ -293,26 +387,48 @@ def decode_step(model: Transformer, cfg: ModelConfig, cache: dict, tokens_t,
                 kvq_splits: int = 1, active=None):
     """tokens_t: (B,) int current token.  Returns (logits (B, V), cache).
 
-    The cache's K/V leaves are updated in place; the returned dict holds
-    the same buffers and the advanced ``pos``.  With a per-row (B,) ``pos``
-    (slot-pooled serving) every row decodes at its own position, and
-    ``active`` ((B,) bool) gates the position increment so free slots stay
-    frozen; their lengths stay >= 1 and their logits are never read."""
+    The cache's leaves (K/V, conv tail, SSM state) are updated in place;
+    the returned dict holds the same buffers and the advanced ``pos``.
+    Each attention layer masks by length (full causal) or by a window
+    band's bias (:func:`attn.decode_mask`), built once a step for each
+    distinct window and shared by its layers.  With a per-row (B,) ``pos``
+    (slot-pooled serving, GQA caches only) every row decodes at its own
+    position, and ``active`` ((B,) bool) gates the position increment so
+    free slots stay frozen; their lengths stay >= 1 and their logits are
+    never read."""
     pos = cache["pos"]
     per_slot = pos.ndim == 1
+    if per_slot and cfg.mixer != "attn":
+        raise NotImplementedError(
+            "per-slot decode (vector cache['pos']) is only supported for "
+            "GQA attention caches (the kvq layout); SSM/hybrid archs serve "
+            "through the scalar-pos path")
     if active is not None and not per_slot:
         raise ValueError("decode_step: active mask requires a per-slot "
                          "(vector) cache['pos']")
     x = model.embed[tokens_t]                               # (B, D)
-    for i, blk in enumerate(model.blocks):
+    masks = {}                                              # window -> mask
+    for i, (blk, window) in enumerate(zip(model.blocks, layer_windows(cfg))):
         h = rms_norm(x[:, None], blk.ln1, cfg.norm_eps)[:, 0]
-        mix, _ = attn.attn_decode(
-            blk.attn, h, cfg, cache["k"][i], cache["k_scale"][i],
-            cache["v"][i], cache["v_scale"][i], pos, quantized=quantized,
-            splits=kvq_splits)
-        x = x + mix
-        h2 = rms_norm(x[:, None], blk.ln2, cfg.norm_eps)
-        x = x + swiglu(h2, blk.ffn.w_gate, blk.ffn.w_up, blk.ffn.w_down)[:, 0]
+        a_out = s_out = None
+        if blk.attn is not None:
+            if window not in masks:
+                masks[window] = attn.decode_mask(
+                    pos, x.shape[0], cache["k"][i].shape[2], window)
+            a_out, _ = attn.attn_decode(
+                blk.attn, h, cfg, cache["k"][i], cache["k_scale"][i],
+                cache["v"][i], cache["v_scale"][i], pos, window=window,
+                mask=masks[window], quantized=quantized, splits=kvq_splits)
+        if blk.ssm is not None:
+            s_out, conv, state = ssm_mod.ssm_decode_step(
+                blk.ssm, h, cfg, cache["conv"][i], cache["ssm"][i])
+            cache["conv"][i] = conv
+            cache["ssm"][i] = state
+        x = x + _mix(blk, cfg, a_out, s_out)
+        if blk.ffn is not None:
+            h2 = rms_norm(x[:, None], blk.ln2, cfg.norm_eps)
+            x = x + swiglu(h2, blk.ffn.w_gate, blk.ffn.w_up,
+                           blk.ffn.w_down)[:, 0]
     x = rms_norm(x[:, None], model.final_norm, cfg.norm_eps)[:, 0]
     logits = _mask_padded_vocab((x @ model.head).to(policy.output_dtype), cfg)
     new_cache = dict(cache)

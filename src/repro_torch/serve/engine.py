@@ -13,7 +13,8 @@ round:
 * decode: one step over the whole pool at ``(max_slots, max_len)``;
   occupancy lives in the per-slot ``pos`` lengths and the active mask, and
   on the card every layer runs the split-K int8 decode kernel, whose
-  length-aware loop never loads the padded tail of a slot.
+  length-aware loop never loads the padded tail of a slot (a sliding
+  window's band goes to the kernel's dense-bias entry point instead).
 
 Fault tolerance, as in the JAX engine: a health sentinel rides in the
 sampled token (a tripped slot yields -1: non-finite logits, a token
@@ -23,7 +24,7 @@ plus its healthy tokens with a bounded retry budget.  Deadlines, a
 bounded queue, ``cancel`` and ``drain`` work as there.
 
 Instead of ``compile_counts`` (PyTorch runs eagerly and compiles nothing)
-the engine reports the two kernels' launch counters
+the engine reports the kernels' launch counters
 (:func:`kernel_launches`) and its own prefill / decode-round counts, so a
 run shows that its main path went through the kernels.  The mesh, the
 request-keyed sampler, the tracer and the memory budget come with later
@@ -66,15 +67,18 @@ def default_buckets(max_len: int, lo: int = 16) -> tuple[int, ...]:
 
 def supports(cfg: ModelConfig) -> bool:
     """Engine eligibility: the slot-pooled per-row decode path needs the
-    GQA int8 cache layout and a uniform full-causal schedule."""
+    GQA int8 cache layout and a uniform window schedule (no per-layer
+    overrides)."""
     return (cfg.mixer == "attn" and cfg.mla is None and cfg.encoder is None
-            and not cfg.global_layers and cfg.window == 0)
+            and not cfg.global_layers)
 
 
 def kernel_launches() -> dict:
-    """Launch counters of the serving path's two CUDA kernels."""
+    """Launch counters of the serving path's CUDA kernels (the decode
+    kernel's lengths and dense-bias entry points apart)."""
     return {"flash_fwd": flash_ops.KERNEL.launches,
-            "flash_decode": kvq_ops.KERNEL.launches}
+            "flash_decode": kvq_ops.KERNEL.launches,
+            "flash_decode_bias": kvq_ops.BIAS_KERNEL.launches}
 
 
 class ServeEngine:
@@ -92,7 +96,7 @@ class ServeEngine:
             raise NotImplementedError(
                 "ServeEngine needs a GQA attention arch with a full-causal "
                 "uniform schedule (no MLA latents, SSM state, encoder "
-                "cross-attention, windows or per-layer overrides)")
+                "cross-attention or per-layer window overrides)")
         if max_retries < 0:
             raise ValueError("ServeEngine: max_retries must be >= 0")
         self.cfg = cfg

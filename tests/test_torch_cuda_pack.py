@@ -40,7 +40,8 @@ def _words(shape, dev, seed):
     w = torch.randint(-2 ** 31, 2 ** 31, shape, generator=gen, device=dev,
                       dtype=torch.int64).to(torch.int32)
     flat = w.view(-1)
-    flat[:2] = torch.tensor([-1, -2 ** 31], dtype=torch.int32)
+    edge = torch.tensor([-1, -2 ** 31], dtype=torch.int32)
+    flat[:2] = edge[:flat.numel()]             # a one-container batch too
     return w.view(torch.uint32)
 
 

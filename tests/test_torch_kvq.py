@@ -127,3 +127,56 @@ def test_counts_need_the_kernel():
     with pytest.raises(ValueError, match="counts"):
         ops.decode_attention(t(q.reshape(3, 4, 16)), t(kq), t(ks), t(vq),
                              t(vs), counts=True)
+
+
+def _band_bias(b, s, pos, window):
+    """(B, S) f32: 0 inside the window band ending at each row's pos,
+    -1e30 elsewhere (what a windowed layer's decode builds)."""
+    kv = np.arange(s)[None, :]
+    p = np.asarray(pos)[:, None]
+    ok = (kv <= p) & (kv > p - window)
+    return np.where(ok, 0.0, -1e30).astype(np.float32)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4])
+def test_bias_decode_matches_jax(splits):
+    # bands that leave whole splits with only -1e30 entries
+    q, kq, ks, vq, vs, _, _ = _cache(s=96, seed=10 + splits)
+    b, hkv, g, d = q.shape
+    bias = _band_bias(b, 96, [95, 40, 20], window=16)
+    j, t = jnp.asarray, torch.from_numpy
+    want = jref.decode_attention_ref(j(q), j(kq), j(ks), j(vq), j(vs),
+                                     j(bias), d ** -0.5)
+    got = ops.decode_attention(t(q.reshape(b, hkv * g, d)), t(kq), t(ks),
+                               t(vq), t(vs), bias=t(bias))
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(want).reshape(b, hkv * g, d),
+                               atol=TOL, rtol=0)
+    want_sk = jref.decode_attention_splitk_ref(
+        j(q), j(kq), j(ks), j(vq), j(vs), d ** -0.5, bias=j(bias),
+        block_s=16, splits=splits)
+    got_sk = ref.decode_attention_splitk_ref(
+        t(q), t(kq), t(ks), t(vq), t(vs), d ** -0.5, bias=t(bias),
+        block_s=16, splits=splits)
+    assert np.isfinite(got_sk.numpy()).all()
+    np.testing.assert_allclose(got_sk.numpy(), np.asarray(want_sk),
+                               atol=TOL, rtol=0)
+    np.testing.assert_allclose(got_sk.numpy(), np.asarray(want), atol=TOL,
+                               rtol=0)
+
+
+def test_causal_bias_equals_lengths():
+    # a global layer: the JAX package's traced-window decode masks it with
+    # a causal bias, the port with lengths = pos + 1; the same numbers
+    q, kq, ks, vq, vs, _, _ = _cache(seed=12)
+    b, hkv, g, d = q.shape
+    pos = np.asarray([63, 7, 30], np.int32)
+    bias = _band_bias(b, 64, pos, window=10 ** 6)
+    t = torch.from_numpy
+    args = (t(q.reshape(b, hkv * g, d)), t(kq), t(ks), t(vq), t(vs))
+    by_bias = ops.decode_attention(*args, bias=t(bias))
+    by_len = ops.decode_attention(*args, lengths=t(pos + 1))
+    np.testing.assert_allclose(by_bias.numpy(), by_len.numpy(), atol=1e-6,
+                               rtol=0)
+    with pytest.raises(ValueError, match="exclusive"):
+        ops.decode_attention(*args, bias=t(bias), lengths=t(pos + 1))

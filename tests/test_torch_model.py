@@ -141,12 +141,13 @@ def test_bf16_policy_logits(pair):
 
 
 def test_unported_families_raise():
-    jcfg = jconfigs.smoke_config("mamba2-130m")
-    assert jcfg.ssm is not None
+    jcfg = jconfigs.smoke_config("deepseek-moe-16b")
+    assert jcfg.moe is not None
     with pytest.raises(NotImplementedError, match="slice F"):
-        configs.get_config("mamba2-130m")
-    cfg = dataclasses.replace(configs.smoke_config("llama3-8b"), window=16)
-    with pytest.raises(NotImplementedError, match="window"):
+        configs.get_config("deepseek-moe-16b")
+    cfg = dataclasses.replace(configs.smoke_config("llama3-8b"),
+                              mlp_kind="gelu")
+    with pytest.raises(NotImplementedError, match="gelu"):
         tf.init_params(cfg, device="cpu")
 
 

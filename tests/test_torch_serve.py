@@ -1,9 +1,11 @@
 """The port's serving engine against the JAX package's: the same smoke
 weights (bridged), the same seeded trace, greedy under the f32 policy ->
-identical tokens for every request; the slot-pool invariants; and the
-CLI's device handling."""
+identical tokens for every request, with full-causal and with windowed
+(dense-bias decode) attention; the slot-pool invariants; and the CLI's
+device handling, engine and lockstep, the SSM family included."""
 from __future__ import annotations
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -46,6 +48,27 @@ def runs():
     return jeng, jsum, eng, summ, trace
 
 
+def test_windowed_engine_matches_jax_engine():
+    # a uniform sliding window is engine-eligible on both sides: prefill
+    # through the windowed flash op, decode through the dense band bias
+    jcfg = dataclasses.replace(jconfigs.smoke_config("llama3-8b"), window=16)
+    cfg = dataclasses.replace(configs.smoke_config("llama3-8b"), window=16)
+    params = jtf.init_params(jcfg, jax.random.PRNGKey(1))
+    model = bridge.load_jax_params(cfg, jax.tree.map(np.asarray, params),
+                                   device="cpu")
+    kw = dict(max_slots=3, max_len=64, policy_name="full")
+    jeng = JServeEngine(params, jcfg, kv_backend="ref", **kw)
+    jsum = jeng.run(jsynthetic_trace(5, seed=2, **TRACE_KW))
+    eng = ServeEngine(model, cfg, **kw)
+    summ = eng.run(synthetic_trace(5, seed=2, **TRACE_KW))
+    assert summ["n_done"] == jsum["n_done"] == 5
+    assert max(len(r.prompt) + len(r.tokens) for r in eng._requests_done) \
+        > 16                                   # decode went past the window
+    want = {r.rid: r.tokens for r in jeng._requests_done}
+    got = {r.rid: r.tokens for r in eng._requests_done}
+    assert got == want
+
+
 def test_trace_is_shared():
     a = synthetic_trace(5, seed=3, **TRACE_KW)
     b = jsynthetic_trace(5, seed=3, **TRACE_KW)
@@ -73,7 +96,8 @@ def test_no_slot_leak(runs):
     diag = summ["diagnostics"]
     assert diag["prefills"] == len(trace)
     # on the CPU the plain versions run: no kernel was launched
-    assert diag["kernel_launches"] == {"flash_fwd": 0, "flash_decode": 0}
+    assert diag["kernel_launches"] == {"flash_fwd": 0, "flash_decode": 0,
+                                       "flash_decode_bias": 0}
 
 
 def test_scatter_request_in_place():
@@ -133,3 +157,19 @@ def test_cli_refuses_without_a_card():
     out = _cli("--smoke", "--engine", env_extra={"CUDA_VISIBLE_DEVICES": ""})
     assert out.returncode != 0
     assert "--device cpu" in out.stderr
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "hymba-1.5b"])
+def test_cli_lockstep_ssm_on_cpu(arch):
+    out = _cli("--device", "cpu", "--smoke", "--arch", arch, "--gen", "24")
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "ms/tok" in out.stdout and "tok/s" in out.stdout
+    assert "prefill 4x64" in out.stdout
+    if arch == "mamba2-130m":
+        assert "n/a (no kvq-layout attention cache)" in out.stdout
+    refused = _cli("--device", "cpu", "--smoke", "--arch", arch, "--engine")
+    assert refused.returncode == 2
+    assert "not engine-eligible" in refused.stdout
+    no_card = _cli("--smoke", "--arch", arch,
+                   env_extra={"CUDA_VISIBLE_DEVICES": ""})
+    assert no_card.returncode != 0 and "--device cpu" in no_card.stderr
