@@ -9,8 +9,9 @@ JSON object per line:
 
 1. ``device``: the card, and ``nvidia-smi``'s name and power limit;
 2. ``build``: the hand-written kernels of ``src/repro_torch/kernels/csrc``
-   compiled with one ``nvcc`` each, all started together, and the seconds
-   it took;
+   compiled with one ``nvcc`` each, all started together, the seconds it
+   took, and ptxas's registers and spills (the tensor-core backward,
+   ``flash_bwd_sm90.cu``, must spill nothing);
 3. ``kernel`` lines: each kernel against its plain PyTorch version on the
    card at the serving and training paths' shapes, with its tolerance, its
    visit counters against the ``tiling`` twins, and its time (CUDA events
@@ -18,8 +19,12 @@ JSON object per line:
    warm-up, L2 flushed before each), the plain version's time, the bound
    (the larger of bytes over 3.35 TB/s and operations over the peak rate
    of their type) and, where one PyTorch call computes the same function,
-   its time (``F.scaled_dot_product_attention``, forward or backward) as a
-   yardstick the port never calls;
+   its time (``F.scaled_dot_product_attention``, forward or backward, a
+   boolean band ``attn_mask`` for a window or ``kv_len``) as a yardstick
+   the port never calls.  The flash backward's lines name the dQ / dKV
+   design that ``ops.bwd_route`` chose (``sm90``: the tensor-core kernels
+   for all-bf16 at head_dim 64 / 128; ``fma``: the f32 kernels) and check
+   that the call launched that design's kernels and not the other's;
 4. ``model``: a 2-layer model at head_dim 128 run through prefill and
    decode, and through ``loss_fn`` and its backward, on the card (kernels)
    and on the CPU (plain versions) from the same weights: logits, int8
@@ -34,7 +39,8 @@ JSON object per line:
    weights from ``--seed``), policy bf16, remat on every block, AdamW,
    batch 1 x 4096 tokens, through ``build_train_step``: 2 warm-up steps,
    then 5 timed steps with the launch counters zeroed before and read
-   after, then ``torch.profiler`` over one more step;
+   after (the backward's dQ / dKV on the tensor-core kernels only), then
+   ``torch.profiler`` over one more step;
 8. ``train_cli``: ``python -m repro_torch.launch.train --smoke`` on the
    card for 4 steps with checkpoints, then again to 6 steps, which must
    resume from step 4;
@@ -86,6 +92,7 @@ import json
 import math
 import os
 import pathlib
+import re
 import shutil
 import statistics
 import subprocess
@@ -104,6 +111,7 @@ SLEEP_CYCLES = 2_000_000         # ~1 ms of device spin before each timing
 FLASH_SRC = "src/repro_torch/kernels/csrc/flash_fwd.cu"
 DECODE_SRC = "src/repro_torch/kernels/csrc/flash_decode.cu"
 BWD_SRC = "src/repro_torch/kernels/csrc/flash_bwd.cu"
+BWD_SM90_SRC = "src/repro_torch/kernels/csrc/flash_bwd_sm90.cu"
 FLASH_TPU = "src/repro/kernels/flash/kernel.py:175"
 DECODE_TPU = "src/repro/kernels/kvq/kernel.py:163"
 BWD_TPU = {"delta": "src/repro/kernels/flash/kernel.py:418",
@@ -217,10 +225,9 @@ class Smoke:
             q, k, v, causal=True, window=window))
         plain_ms = self.time_ms(lambda: ref.flash_fwd_ref(
             q, k, v, causal=True, window=window), n=20)
-        library_ms = None
-        if window == 0:
-            q4, k4, v4 = (x.reshape(b, -1, s, d) for x in (q, k, v))
-            library_ms = self.time_ms(lambda: self._sdpa(q4, k4, v4))
+        q4, k4, v4 = (x.reshape(b, -1, s, d) for x in (q, k, v))
+        library_ms = self.time_ms(lambda: self._sdpa(q4, k4, v4,
+                                                     window=window))
         flops = 4 * b * h * d * live_pairs(s, window=window)
         es = q.element_size()
         nbytes = (2 * b * h * s * d + 2 * b * hkv * s * d) * es \
@@ -239,21 +246,43 @@ class Smoke:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": flops, "bytes": nbytes})
 
-    def _sdpa(self, q, k, v):
+    def _sdpa(self, q, k, v, *, causal: bool = True, window: int = 0,
+              kv_len=None):
+        """``F.scaled_dot_product_attention`` on the same function: causal
+        through ``is_causal``, a window or ``kv_len`` through a boolean
+        ``attn_mask`` of the live (query, key) entries (``flash/ref.py``'s
+        mask).  A yardstick only: the port never calls it."""
         import torch.nn.functional as F
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+        s = q.shape[-2]
+        if window == 0 and kv_len is None:
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                  enable_gqa=True)
+        pos = self.torch.arange(s, device=q.device)
+        ok = (pos[None, :] < (s if kv_len is None else kv_len)).expand(s, s)
+        if causal:
+            ok = ok & (pos[:, None] >= pos[None, :])
+            if window > 0:
+                ok = ok & (pos[:, None] - pos[None, :] < window)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=ok,
                                               enable_gqa=True)
 
     def check_flash_bwd(self, s: int, rdt, gdt, *, causal: bool = True,
-                        window: int = 0, kv_len=None) -> dict:
+                        window: int = 0, kv_len=None, b: int = 1,
+                        h: int = 32, hkv: int = 8, d: int = 128) -> dict:
         """The three backward kernels (delta, dQ, dKV) against their plain
         versions on the same residuals, from the forward kernel; ``rdt``
         is the dtype of the saved q, k, v, o, ``gdt`` that of dO and of
-        the gradients."""
+        the gradients.  dQ and dKV are the kernels ``ops.bwd_route``
+        names (``sm90``: flash_bwd_sm90.cu, ``fma``: flash_bwd.cu): the
+        checked call must launch those and not the other design's.  By
+        default at llama3-8b's heads (32 / 8 of 128), one row."""
         torch = self.torch
         from repro_torch.kernels.flash import ops, ref
-        b, h, hkv, d = 1, 32, 8, 128
         g = h // hkv
+        route = ops.bwd_route(rdt, gdt, gdt, d)
+        designs = {"fma": (ops.BWD_DQ, ops.BWD_DKV),
+                   "sm90": (ops.BWD_DQ_SM90, ops.BWD_DKV_SM90)}
+        before = {r: [k.launches for k in ks] for r, ks in designs.items()}
         gen = torch.Generator(device=self.dev).manual_seed(s + window + 7)
         q, k, v = (torch.randn((b * n, s, d), generator=gen, device=self.dev)
                    .to(rdt) for n in (h, hkv, hkv))
@@ -264,6 +293,8 @@ class Smoke:
         kvl = s if kv_len is None else kv_len
         dq, dk, dv, cq, ck = ops.flash_attention_bwd(
             q, k, v, o, m, l, do, grad_dtypes=(gdt,) * 3, counts=True, **kw)
+        route_ok = all([k.launches - n for k, n in zip(ks, before[r])]
+                       == [int(r == route)] * 2 for r, ks in designs.items())
         delta = ops._bwd_delta(o, do)
         pkw = dict(causal=causal, window=window, sm_scale=scale, kv_len=kvl)
         delta_r = ref.bwd_delta_ref(o, do)
@@ -282,7 +313,11 @@ class Smoke:
         twin_q, twin_k = ops.expected_bwd_counts(s, g, **kw)
         counts_ok = (cq.cpu().tolist() == [twin_q] * (b * h)
                      and ck.cpu().tolist() == [twin_k] * (b * hkv))
-        ok = counts_ok and all(errs[n] <= tols[n] for n in errs)
+        # keys at or past kv_len: exact zeros
+        zeros_ok = kv_len is None or not (dk[:, kv_len:].any()
+                                          or dv[:, kv_len:].any())
+        ok = counts_ok and route_ok and zeros_ok \
+            and all(errs[n] <= tols[n] for n in errs)
 
         args = (q, k, v, do, m, l, delta)
         ckw = dict(dtype=gdt, counts=False, **pkw)
@@ -301,8 +336,8 @@ class Smoke:
             "total": self.time_ms(lambda: ref.flash_bwd_ref(
                 q, k, v, o, m, l, do, grad_dtypes=(gdt,) * 3, **kw), n=20)}
         library_ms = None
-        if causal and window == 0 and kv_len is None and rdt == gdt:
-            library_ms = self._sdpa_bwd_ms(q, k, v, do, b, s, d)
+        if rdt == gdt:             # SDPA takes one dtype
+            library_ms = self._sdpa_bwd_ms(q, k, v, do, b, s, d, **kw)
 
         # bound: each input read once, each output written once; five
         # products over the live (q, k) entries for the whole backward
@@ -335,18 +370,20 @@ class Smoke:
                       "causal": causal, "window": window, "kv_len": kv_len,
                       "residual_dtype": dname(rdt),
                       "grad_dtype": dname(gdt)},
+            "route": route, "route_ok": route_ok,
             "max_abs_err": errs, "tol": tols, "tol_rel": rel,
-            "counts_ok": counts_ok, "live_entries": pairs,
+            "counts_ok": counts_ok, "zeros_past_kv_len": zeros_ok,
+            "live_entries": pairs,
             "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by})
 
-    def _sdpa_bwd_ms(self, q, k, v, do, b, s, d) -> float:
+    def _sdpa_bwd_ms(self, q, k, v, do, b, s, d, **mask) -> float:
         """The backward alone of ``scaled_dot_product_attention`` on the
         same inputs (a retained graph, ``torch.autograd.grad``)."""
         torch = self.torch
         q4, k4, v4 = (x.detach().reshape(b, -1, s, d).requires_grad_()
                       for x in (q, k, v))
-        out = self._sdpa(q4, k4, v4)
+        out = self._sdpa(q4, k4, v4, **mask)
         do4 = do.reshape(b, -1, s, d)
         return self.time_ms(lambda: torch.autograd.grad(
             out, (q4, k4, v4), do4, retain_graph=True))
@@ -610,7 +647,9 @@ class Smoke:
         kernels = {"flash_fwd": flash_ops.KERNEL,
                    "flash_bwd_delta": flash_ops.BWD_DELTA,
                    "flash_bwd_dq": flash_ops.BWD_DQ,
-                   "flash_bwd_dkv": flash_ops.BWD_DKV}
+                   "flash_bwd_dkv": flash_ops.BWD_DKV,
+                   "flash_bwd_dq_sm90": flash_ops.BWD_DQ_SM90,
+                   "flash_bwd_dkv_sm90": flash_ops.BWD_DKV_SM90}
         gc.collect()                     # the serve model is gone: free it
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(self.dev)
@@ -659,9 +698,11 @@ class Smoke:
             "grads_finite": all(r["grads_finite"] for r in records),
             # remat: every layer's forward runs twice (forward, recompute)
             "flash_fwd_launches": launches["flash_fwd"] == 2 * L * n,
+            # policy bf16: dQ / dKV on the tensor-core kernels only
             "bwd_launches": all(launches[k] == L * n for k in
-                                ("flash_bwd_delta", "flash_bwd_dq",
-                                 "flash_bwd_dkv")),
+                                ("flash_bwd_delta", "flash_bwd_dq_sm90",
+                                 "flash_bwd_dkv_sm90"))
+            and launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == 0,
             "fits": peak < 80e9,
         }
         return self.record({
@@ -1389,24 +1430,41 @@ def main(argv=None) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
     t0 = time.time()
     logs = build.build_all()
+    ptxas = {k: [ln.strip() for ln in v.splitlines()
+                 if "registers" in ln or "spill" in ln]
+             for k, v in logs.items()}
+    # the tensor-core kernels keep their accumulators in registers (a
+    # reused library reports the log of its build; None: no log, a failure)
+    spill_free = all(int(n) == 0 for ln in ptxas["flash_bwd_sm90"]
+                     for n in re.findall(r"(\d+) bytes spill", ln)) \
+        if ptxas["flash_bwd_sm90"] else None
     emit({"phase": "build", "kernels": sorted(logs),
           "source_dir": "src/repro_torch/kernels/csrc",
-          "seconds": time.time() - t0,
-          "ptxas": {k: [ln.strip() for ln in v.splitlines()
-                        if "registers" in ln or "spill" in ln]
-                    for k, v in logs.items()}})
+          "seconds": time.time() - t0, "sm90_spill_free": spill_free,
+          "ptxas": ptxas})
 
     smoke = Smoke(args)
+    if spill_free is not True:
+        smoke.failures.append("build: flash_bwd_sm90.cu spills registers"
+                              if spill_free is False else
+                              "build: no ptxas log for flash_bwd_sm90.cu")
     flash = [smoke.check_flash(s, torch.bfloat16) for s in (16, 100, 1024)]
     smoke.check_flash(100, torch.float32)
     smoke.check_flash(300, torch.float32, window=100)
     decode = [smoke.check_decode(sp) for sp in (1, 4)]
     bf16, f32 = torch.bfloat16, torch.float32
+    hymba_heads = dict(b=SSM_BATCH, h=25, hkv=5, d=64)
     bwd = [smoke.check_flash_bwd(TRAIN_SEQ, bf16, bf16),   # the train shape
            smoke.check_flash_bwd(100, bf16, bf16),
            smoke.check_flash_bwd(300, f32, f32, window=100),
            smoke.check_flash_bwd(300, f32, f32, causal=False, kv_len=200),
-           smoke.check_flash_bwd(1024, bf16, f32)]        # bf16 residuals
+           smoke.check_flash_bwd(1024, bf16, f32),        # bf16 residuals
+           smoke.check_flash_bwd(TRAIN_SEQ, bf16, f32),   # FMA, train shape
+           # head_dim 64 at hymba's heads and prompt, global and window
+           smoke.check_flash_bwd(SSM_PROMPT, bf16, bf16, **hymba_heads),
+           smoke.check_flash_bwd(SSM_PROMPT, bf16, bf16, window=1024,
+                                 **hymba_heads),
+           smoke.check_flash_bwd(1000, bf16, bf16, kv_len=777)]  # ragged
     smoke.check_model()
     smoke.run_serve()
     smoke.run_train()
@@ -1440,20 +1498,27 @@ def main(argv=None) -> int:
                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
                 "library_ms": main["library_ms"]}
 
-    def bwd_row(part, grads):
-        main = bwd[0]
-        return {"name": f"flash_bwd_{part}", "route": "cuda",
-                "source": BWD_SRC, "replaces": BWD_TPU[part],
-                "launches": smoke.train_launches[f"flash_bwd_{part}"],
-                "max_abs_err": max(r["max_abs_err"][g] for r in bwd
+    def bwd_row(part, grads, design="fma"):
+        """delta (every line) and the dQ / dKV of one design (the lines
+        routed to it); times from the train shape's line of that design:
+        bf16 for sm90, bf16 residuals under f32 compute for fma."""
+        rows = [r for r in bwd if part == "delta" or r["route"] == design]
+        main = next(r for r in rows if r["shape"]["S"] == TRAIN_SEQ)
+        name = f"flash_bwd_{part}" + ("_sm90" if design == "sm90" else "")
+        return {"name": name, "route": "cuda",
+                "source": BWD_SM90_SRC if design == "sm90" else BWD_SRC,
+                "replaces": BWD_TPU[part],
+                "launches": smoke.train_launches[name],
+                "max_abs_err": max(r["max_abs_err"][g] for r in rows
                                    for g in grads),
                 "ms": main["kernel_ms"][part],
                 "plain_ms": main["plain_ms"][part],
                 "bound_ms": main["bound_ms"][part],
                 "bound_by": main["bound_by"][part],
-                # the whole backward (dq, dk, dv) in one library call
+                # the whole backward (dq, dk, dv) in one library call, at
+                # the train shape in bf16 (SDPA takes one dtype)
                 "library_ms": None if part == "delta"
-                else main["library_ms"]}
+                else bwd[0]["library_ms"]}
 
     def pack_row(part):
         i = 0 if part == "decode" else 1
@@ -1483,6 +1548,7 @@ def main(argv=None) -> int:
                     DECODE_TPU),
         bwd_row("delta", ("delta",)), bwd_row("dq", ("dq",)),
         bwd_row("dkv", ("dk", "dv")),
+        bwd_row("dq", ("dq",), "sm90"), bwd_row("dkv", ("dk", "dv"), "sm90"),
         pack_row("decode"), pack_row("encode"),
         ssm_row("ssd_chunk", ssd, SSD_SRC, SSD_TPU),
         ssm_row("flash_decode_bias", dbias, DECODE_SRC, DECODE_TPU)]}

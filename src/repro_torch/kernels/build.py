@@ -3,9 +3,11 @@
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface and loaded with ``ctypes`` -- no PyTorch
 headers, so a build takes seconds.  Libraries land in ``build/kernels/``
-at the repository root, named by a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is reused.  A failed build
-raises; nothing catches it.
+at the repository root, named by a hash of the source, the headers of
+``csrc/`` and the flags, so an edited source or header is rebuilt and an
+unchanged one is reused.  ptxas's report (registers, spills) is kept
+beside each library, so a reused library still reports it.  A failed
+build raises; nothing catches it.
 
 Every C entry point takes its pointers and the CUDA stream as ``void*``
 and returns ``cudaGetLastError()`` after the launch; :class:`Kernel`
@@ -38,9 +40,18 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """The library of ``{name}.cu``, named by a hash of the source, every
+    header of ``csrc/`` (a source may include any of them) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def log_path(name: str) -> pathlib.Path:
+    """ptxas's report for the library of ``{name}.cu``, kept beside it."""
+    return library_path(name).with_suffix(".log")
 
 
 def _start(name: str):
@@ -58,20 +69,22 @@ def _start(name: str):
 
 def _finish(name: str, started) -> str:
     if started is None:
-        return ""
+        saved = log_path(name)
+        return saved.read_text() if saved.exists() else ""
     proc, tmp, out = started
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
+    log_path(name).write_text(log)
     os.replace(tmp, out)
     return log
 
 
 def build_all(names=None) -> dict[str, str]:
     """Compile every named source (default: all of ``csrc/``) with one
-    ``nvcc`` each, all started together.  Returns ``{name: ptxas log}``
-    ("" where the library was already built)."""
+    ``nvcc`` each, all started together.  Returns ``{name: ptxas log}``,
+    for a library already built the log kept beside it ("" if none was)."""
     names = sorted(p.stem for p in CSRC.glob("*.cu")) if names is None \
         else list(names)
     started = {n: _start(n) for n in names}

@@ -2,10 +2,15 @@
 
 The op dispatches on the device of its tensors: CPU tensors go to the
 plain versions in ``ref.py``; CUDA tensors go to the hand-written kernels
-``kernels/csrc/flash_fwd.cu`` (forward) and ``kernels/csrc/flash_bwd.cu``
-(backward: delta, dQ, dKV) or raise.  Nothing falls back from one to the
-other.  The TPU path's 128-lane padding and its shape fallback do not
-carry over: the kernels mask the ragged tail themselves.
+``kernels/csrc/flash_fwd.cu`` (forward) and the backward's delta, dQ and
+dKV kernels, or raise.  The backward's dQ and dKV have two hand-written
+designs, chosen by dtype and head_dim (:func:`bwd_route`): the bf16
+policy's all-bf16 combination at head_dim 64 / 128 goes to the tensor-core
+kernels of ``kernels/csrc/flash_bwd_sm90.cu`` (wgmma on TMA-fed rings),
+every other supported combination to the FMA kernels of
+``kernels/csrc/flash_bwd.cu``, which also runs delta.  Nothing falls back
+from one to another.  The TPU path's 128-lane padding and its shape
+fallback do not carry over: the kernels mask the ragged tail themselves.
 
 ``flash_attention`` is differentiable: a ``torch.autograd.Function``
 saves (q, k, v, o, m, l) -- O(S*D) per head, never the S x S
@@ -35,12 +40,38 @@ BWD_DQ = build.Kernel("flash_bwd", "flash_bwd_dq",
                       _BWD_ARGS[:7] + [build.PTR, build.PTR] + _BWD_ARGS[7:])
 BWD_DKV = build.Kernel("flash_bwd", "flash_bwd_dkv",
                        _BWD_ARGS[:7] + [build.PTR] * 3 + _BWD_ARGS[7:])
+BWD_DQ_SM90 = build.Kernel("flash_bwd_sm90", "flash_bwd_dq_sm90",
+                           BWD_DQ.argtypes)
+BWD_DKV_SM90 = build.Kernel("flash_bwd_sm90", "flash_bwd_dkv_sm90",
+                            BWD_DKV.argtypes)
 #: (residual q/k/v/o, cotangent dO, gradients) dtypes the backward kernels
 #: take: the f32 policy, the bf16 policy, and bf16-saved residuals under
 #: f32 compute (``Policy.resid_bf16``)
 BWD_DTYPES = ((torch.float32, torch.float32, torch.float32),
               (torch.bfloat16, torch.bfloat16, torch.bfloat16),
               (torch.bfloat16, torch.float32, torch.float32))
+SM90_DTYPES = (torch.bfloat16, torch.bfloat16, torch.bfloat16)
+SM90_HEAD_DIMS = (64, 128)
+
+
+def bwd_route(q_dtype, do_dtype, grad_dtype, d: int) -> str:
+    """Which hand-written dQ / dKV kernels take a CUDA backward with these
+    (residual, dO, gradient) dtypes at head_dim ``d``: ``"sm90"`` (the
+    tensor-core kernels, bf16 operands for P, dS and dO) for the all-bf16
+    combination at head_dim 64 or 128; ``"fma"`` (f32 arithmetic) for the
+    other supported ones -- f32 and bf16-residual gradients are held to
+    1e-4 of the f32 plain version, which bf16 products cannot meet -- and
+    for head_dim 16, the only head_dim at which ``flash_bwd.cu`` takes the
+    all-bf16 combination.  Raises for anything neither takes."""
+    combo = (q_dtype, do_dtype, grad_dtype)
+    if combo not in BWD_DTYPES:
+        raise TypeError(f"flash_attention_bwd: the CUDA kernels take "
+                        f"(residual, dO, gradient) dtypes in {BWD_DTYPES}, "
+                        f"got {combo}")
+    if d not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: head_dim {d} not in "
+                         f"{SUPPORTED_HEAD_DIMS} for the CUDA kernels")
+    return "sm90" if combo == SM90_DTYPES and d in SM90_HEAD_DIMS else "fma"
 
 
 def expected_counts(s: int, *, causal: bool = True, window: int = 0,
@@ -143,12 +174,13 @@ def _check_bwd_cuda(q, k, v, o, m, l, do, grad_dtypes):
                         f"{o.dtype}, dO {do.dtype}, grads {grad_dtypes}")
     if m.dtype != torch.float32 or l.dtype != torch.float32:
         raise TypeError("flash_attention_bwd: m and l must be float32")
-    if q.shape[-1] not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"flash_attention_bwd: head_dim {q.shape[-1]} not "
-                         f"in {SUPPORTED_HEAD_DIMS} for the CUDA kernels")
+    route = bwd_route(*combo, q.shape[-1])
     if not all(t.is_contiguous() for t in (q, k, v, o, m, l)):
         raise ValueError("flash_attention_bwd: q, k, v, o, m, l must be "
                          "contiguous")
+    if route == "sm90" and any(t.data_ptr() % 16 for t in (q, k, v, do)):
+        raise ValueError("flash_attention_bwd: the tensor-core kernels load "
+                         "q, k, v, dO by TMA and need them 16-byte aligned")
 
 
 def flash_attention_bwd(q, k, v, o, m, l, do, *, causal: bool = True,
@@ -201,6 +233,7 @@ def flash_attention_bwd(q, k, v, o, m, l, do, *, causal: bool = True,
 
 # The three launches of the CUDA backward, on inputs that
 # flash_attention_bwd has checked; separate so that each can be timed.
+# dQ and dKV go to the kernels bwd_route names.
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -211,6 +244,10 @@ def _bwd_delta(o, do):
     BWD_DELTA(o.data_ptr(), do.data_ptr(), delta.data_ptr(), bh, s, d,
               _DTYPES[o.dtype], _DTYPES[do.dtype], _stream(o))
     return delta
+
+
+def _route(q, do, dtype):
+    return bwd_route(q.dtype, do.dtype, dtype, q.shape[-1])
 
 
 def _bwd_args(q, k, do, dtype, causal, window, sm_scale, kv_len):
@@ -226,10 +263,11 @@ def _bwd_dq(q, k, v, do, m, l, delta, *, dtype, causal, window, sm_scale,
     dq = torch.empty(q.shape, dtype=dtype, device=q.device)
     cnt = torch.empty((bh, -(-s // BQ)), dtype=torch.int32,
                       device=q.device) if counts else None
-    BWD_DQ(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-           m.data_ptr(), l.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-           None if cnt is None else cnt.data_ptr(),
-           *_bwd_args(q, k, do, dtype, causal, window, sm_scale, kv_len))
+    kern = BWD_DQ_SM90 if _route(q, do, dtype) == "sm90" else BWD_DQ
+    kern(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+         m.data_ptr(), l.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+         None if cnt is None else cnt.data_ptr(),
+         *_bwd_args(q, k, do, dtype, causal, window, sm_scale, kv_len))
     return dq, cnt
 
 
@@ -240,10 +278,11 @@ def _bwd_dkv(q, k, v, do, m, l, delta, *, dtype, causal, window, sm_scale,
     dv = torch.empty(v.shape, dtype=dtype, device=k.device)
     cnt = torch.empty((bhkv, -(-s // BK)), dtype=torch.int32,
                       device=k.device) if counts else None
-    BWD_DKV(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            m.data_ptr(), l.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), None if cnt is None else cnt.data_ptr(),
-            *_bwd_args(q, k, do, dtype, causal, window, sm_scale, kv_len))
+    kern = BWD_DKV_SM90 if _route(q, do, dtype) == "sm90" else BWD_DKV
+    kern(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+         m.data_ptr(), l.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+         dv.data_ptr(), None if cnt is None else cnt.data_ptr(),
+         *_bwd_args(q, k, do, dtype, causal, window, sm_scale, kv_len))
     return dk, dv, cnt
 
 

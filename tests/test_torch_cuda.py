@@ -57,9 +57,11 @@ def _close(got, want, rel, floor=1e-6):
     assert err <= rel * scale + floor, (err, rel * scale + floor)
 
 
+BF = torch.bfloat16
 # (S, G, D, causal, window, kv_len, residual dtype, dO dtype): ragged S,
 # GQA, windows, kv_len < S, and the three dtype combinations of the
-# policies (f32; bf16; bf16 residuals under f32 compute)
+# policies (f32; bf16; bf16 residuals under f32 compute).  The all-bf16
+# rows at D 64 / 128 go to flash_bwd_sm90.cu, the others to flash_bwd.cu.
 BWD_CASES = [
     (1, 4, 128, True, 0, None, torch.float32, torch.float32),
     (100, 4, 128, True, 0, None, torch.bfloat16, torch.bfloat16),
@@ -69,7 +71,34 @@ BWD_CASES = [
     (257, 4, 128, True, 0, 200, torch.float32, torch.float32),
     (192, 4, 128, True, 0, None, torch.bfloat16, torch.float32),
     (70, 2, 16, True, 0, None, torch.float32, torch.float32),
+    (1, 4, 128, True, 0, None, BF, BF),
+    (1, 8, 64, True, 0, None, BF, BF),
+    (100, 1, 64, True, 0, None, BF, BF),
+    (257, 4, 128, True, 100, None, BF, BF),
+    (257, 8, 64, True, 0, 200, BF, BF),
+    (257, 1, 128, False, 0, None, BF, BF),
+    (1024, 4, 128, True, 0, None, BF, BF),
+    (1024, 8, 64, True, 100, None, BF, BF),
+    (1024, 1, 128, False, 0, 700, BF, BF),
+    (1024, 4, 64, True, 0, 1000, BF, BF),
+    (70, 2, 16, True, 0, None, BF, BF),
 ]
+# launch counters of the two dQ / dKV designs
+BWD_KERNELS = {"fma": (flash_ops.BWD_DQ, flash_ops.BWD_DKV),
+               "sm90": (flash_ops.BWD_DQ_SM90, flash_ops.BWD_DKV_SM90)}
+
+
+def _launches():
+    return {r: [k.launches for k in ks] for r, ks in BWD_KERNELS.items()}
+
+
+def _assert_route(before, route):
+    """One dQ and one dKV launch of ``route``'s kernels, none of the
+    other's."""
+    after = _launches()
+    for r in BWD_KERNELS:
+        want = 1 if r == route else 0
+        assert [a - b for a, b in zip(after[r], before[r])] == [want] * 2, r
 
 
 @pytest.mark.parametrize("s,g,d,causal,window,kv_len,rdt,gdt", BWD_CASES)
@@ -85,8 +114,10 @@ def test_flash_bwd_kernels_match_plain(dev, s, g, d, causal, window, kv_len,
     grad_dt = (gdt,) * 3
     kw = dict(causal=causal, window=window, kv_len=kv_len,
               grad_dtypes=grad_dt)
+    before = _launches()
     dq, dk, dv, cq, ck = flash_ops.flash_attention_bwd(q, k, v, o, m, l, do,
                                                        counts=True, **kw)
+    _assert_route(before, flash_ops.bwd_route(rdt, gdt, gdt, d))
     want = flash_ref.flash_bwd_ref(q, k, v, o, m, l, do, **kw)
     # f32: summation order only; bf16 grads: one rounding of each output
     rel = 1e-4 if gdt == torch.float32 else 2e-2
@@ -116,6 +147,26 @@ def test_flash_attention_grads_card_vs_cpu(dev, resid):
     for a, b_ in zip(card, cpu):
         assert a.grad.dtype == torch.float32
         _close(a.grad.cpu(), b_.grad, rel)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_bf16_grads_card_vs_cpu(dev, d):
+    """bf16 inputs: the card's backward is the tensor-core kernels, the
+    CPU's the plain version; both write bf16 gradients from f32 sums."""
+    gen = torch.Generator().manual_seed(d)
+    b, h, hkv, s = 2, 4, 2, 150
+    cpu = [torch.randn(shape, generator=gen).to(BF).requires_grad_()
+           for shape in ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d))]
+    card = [x.detach().to(dev).requires_grad_() for x in cpu]
+    w = torch.randn((b, h, s, d), generator=gen).to(BF)
+    before = _launches()
+    for xs, wt in ((cpu, w), (card, w.to(dev))):
+        out = flash_ops.flash_attention(*xs, window=0)
+        (out.float() * wt.float()).sum().backward()
+    _assert_route(before, "sm90")
+    for a, b_ in zip(card, cpu):
+        assert a.grad.dtype == BF
+        _close(a.grad.cpu(), b_.grad, 2e-2)
 
 
 @pytest.mark.parametrize("splits", [1, 2, 3, 4])
