@@ -10,8 +10,9 @@ JSON object per line:
 1. ``device``: the card, and ``nvidia-smi``'s name and power limit;
 2. ``build``: the hand-written kernels of ``src/repro_torch/kernels/csrc``
    compiled with one ``nvcc`` each, all started together, the seconds it
-   took, and ptxas's registers and spills (the tensor-core backward,
-   ``flash_bwd_sm90.cu``, must spill nothing);
+   took, and ptxas's registers, spills and wgmma warnings (the
+   tensor-core kernels, ``flash_fwd_sm90.cu`` and ``flash_bwd_sm90.cu``,
+   must spill nothing, and ptxas must not serialize their wgmma);
 3. ``kernel`` lines: each kernel against its plain PyTorch version on the
    card at the serving and training paths' shapes, with its tolerance, its
    visit counters against the ``tiling`` twins, and its time (CUDA events
@@ -21,10 +22,11 @@ JSON object per line:
    of their type) and, where one PyTorch call computes the same function,
    its time (``F.scaled_dot_product_attention``, forward or backward, a
    boolean band ``attn_mask`` for a window or ``kv_len``) as a yardstick
-   the port never calls.  The flash backward's lines name the dQ / dKV
-   design that ``ops.bwd_route`` chose (``sm90``: the tensor-core kernels
-   for all-bf16 at head_dim 64 / 128; ``fma``: the f32 kernels) and check
-   that the call launched that design's kernels and not the other's;
+   the port never calls.  The flash forward's lines name the design that
+   ``ops.fwd_route`` chose and the backward's the dQ / dKV design that
+   ``ops.bwd_route`` chose (``sm90``: the tensor-core kernels, for bf16 at
+   head_dim 64 / 128; ``fma``: the f32 kernels), and check that the call
+   launched that design's kernels and not the other's;
 4. ``model``: a 2-layer model at head_dim 128 run through prefill and
    decode, and through ``loss_fn`` and its backward, on the card (kernels)
    and on the CPU (plain versions) from the same weights: logits, int8
@@ -39,8 +41,8 @@ JSON object per line:
    weights from ``--seed``), policy bf16, remat on every block, AdamW,
    batch 1 x 4096 tokens, through ``build_train_step``: 2 warm-up steps,
    then 5 timed steps with the launch counters zeroed before and read
-   after (the backward's dQ / dKV on the tensor-core kernels only), then
-   ``torch.profiler`` over one more step;
+   after (the forward and the backward's dQ / dKV on the tensor-core
+   kernels only), then ``torch.profiler`` over one more step;
 8. ``train_cli``: ``python -m repro_torch.launch.train --smoke`` on the
    card for 4 steps with checkpoints, then again to 6 steps, which must
    resume from step 4;
@@ -109,6 +111,7 @@ L2_FLUSH_BYTES = 256 * 2**20     # > the 50 MB L2
 SLEEP_CYCLES = 2_000_000         # ~1 ms of device spin before each timing
 
 FLASH_SRC = "src/repro_torch/kernels/csrc/flash_fwd.cu"
+FLASH_SM90_SRC = "src/repro_torch/kernels/csrc/flash_fwd_sm90.cu"
 DECODE_SRC = "src/repro_torch/kernels/csrc/flash_decode.cu"
 BWD_SRC = "src/repro_torch/kernels/csrc/flash_bwd.cu"
 BWD_SM90_SRC = "src/repro_torch/kernels/csrc/flash_bwd_sm90.cu"
@@ -195,9 +198,15 @@ class Smoke:
     def check_flash(self, s: int, dtype, window: int = 0, *, b: int = 1,
                     h: int = 32, hkv: int = 8, d: int = 128) -> dict:
         """The flash forward against its plain version; by default at
-        llama3-8b's heads (32 / 8 of 128), one row."""
+        llama3-8b's heads (32 / 8 of 128), one row.  The kernel is the one
+        ``ops.fwd_route`` names (``sm90``: flash_fwd_sm90.cu, ``fma``:
+        flash_fwd.cu): the checked call must launch it and not the other
+        design."""
         torch = self.torch
         from repro_torch.kernels.flash import ops, ref
+        route = ops.fwd_route(dtype, d)
+        designs = {"fma": ops.KERNEL, "sm90": ops.FWD_SM90}
+        before = {r: k.launches for r, k in designs.items()}
         gen = torch.Generator(device=self.dev).manual_seed(s + window)
         q = torch.randn((b * h, s, d), generator=gen, device=self.dev,
                         dtype=dtype)
@@ -207,6 +216,8 @@ class Smoke:
                         dtype=dtype)
         o, m, l, cnt = ops.flash_attention_fwd(q, k, v, causal=True,
                                                window=window, counts=True)
+        route_ok = all(k.launches - before[r] == int(r == route)
+                       for r, k in designs.items())
         o_r, m_r, l_r = ref.flash_fwd_ref(q, k, v, causal=True,
                                           window=window)
         self.sync()
@@ -215,11 +226,14 @@ class Smoke:
         err_l = float(((l - l_r).abs() / l_r).max())
         want = ops.expected_counts(s, window=window)
         counts_ok = cnt.cpu().tolist() == [want] * (b * h)
-        # bf16: kernel and plain both compute in f32 from the same bf16
-        # inputs and each rounds o once to bf16; |o| < 4, so one bf16 ulp
-        # (2^-8 relative) bounds the gap.  f32: summation order only.
+        # bf16: kernel and plain both sum in f32 from the same bf16 inputs
+        # and each rounds o once to bf16; |o| < 4, so one bf16 ulp (2^-8
+        # relative) bounds the gap; the sm90 kernel also rounds P to bf16
+        # before P V (<= 2.2e-3 before o's rounding in the CPU emulation,
+        # tests/test_torch_flash_fwd_sm90.py).  f32: summation order only.
         tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
-        ok = err <= tol and err_m <= 1e-3 and err_l <= 1e-3 and counts_ok
+        ok = (err <= tol and err_m <= 1e-3 and err_l <= 1e-3 and counts_ok
+              and route_ok)
 
         ms = self.time_ms(lambda: ops.flash_attention_fwd(
             q, k, v, causal=True, window=window))
@@ -239,6 +253,7 @@ class Smoke:
             "phase": "kernel", "name": "flash_fwd", "ok": ok,
             "shape": {"B": b, "H": h, "Hkv": hkv, "D": d, "S": s,
                       "window": window, "dtype": dname},
+            "route": route, "route_ok": route_ok,
             "max_abs_err": err, "tol": tol, "max_abs_err_m": err_m,
             "max_rel_err_l": err_l, "counts_ok": counts_ok,
             "counts_per_head": want, "kernel_ms": ms, "plain_ms": plain_ms,
@@ -545,8 +560,9 @@ class Smoke:
         trace = synthetic_trace(16, seed=0, vocab=cfg.vocab, mean_prompt=256,
                                 max_prompt=1024, mean_gen=32, max_gen=64)
         torch.cuda.reset_peak_memory_stats(self.dev)
-        flash_ops.KERNEL.launches = 0          # the main path's counts
-        kvq_ops.KERNEL.launches = 0
+        for kern in (flash_ops.KERNEL, flash_ops.FWD_SM90,  # the main
+                     kvq_ops.KERNEL):                      # path's counts
+            kern.launches = 0
         t0 = time.time()
         summary = engine.run(trace)
         self.sync()
@@ -559,8 +575,10 @@ class Smoke:
             "n_done": summary["n_done"] == len(trace),
             "no_faults": summary["n_faults"] == 0,
             "tokens_in_vocab": all(0 <= t < cfg.vocab for t in tokens),
-            "flash_launches": launches["flash_fwd"] == L * diag["prefills"]
-            and launches["flash_fwd"] > 0,
+            # policy bf16 at head_dim 128: the tensor-core forward only
+            "flash_launches": launches["flash_fwd_sm90"]
+            == L * diag["prefills"] and launches["flash_fwd_sm90"] > 0
+            and launches["flash_fwd"] == 0,
             "decode_launches": launches["flash_decode"]
             == L * diag["decode_rounds"] and launches["flash_decode"] > 0,
             "no_slot_leak": engine.pool.occupancy == 0
@@ -645,6 +663,7 @@ class Smoke:
                                                   build_train_step,
                                                   init_loss_scale)
         kernels = {"flash_fwd": flash_ops.KERNEL,
+                   "flash_fwd_sm90": flash_ops.FWD_SM90,
                    "flash_bwd_delta": flash_ops.BWD_DELTA,
                    "flash_bwd_dq": flash_ops.BWD_DQ,
                    "flash_bwd_dkv": flash_ops.BWD_DKV,
@@ -696,8 +715,10 @@ class Smoke:
             "grad_norms_finite": all(math.isfinite(r["grad_norm"])
                                      for r in records),
             "grads_finite": all(r["grads_finite"] for r in records),
-            # remat: every layer's forward runs twice (forward, recompute)
-            "flash_fwd_launches": launches["flash_fwd"] == 2 * L * n,
+            # remat: every layer's forward runs twice (forward, recompute),
+            # policy bf16: on the tensor-core forward only
+            "flash_fwd_launches": launches["flash_fwd_sm90"] == 2 * L * n
+            and launches["flash_fwd"] == 0,
             # policy bf16: dQ / dKV on the tensor-core kernels only
             "bwd_launches": all(launches[k] == L * n for k in
                                 ("flash_bwd_delta", "flash_bwd_dq_sm90",
@@ -1332,6 +1353,7 @@ class Smoke:
         from repro_torch.models import transformer
         kernels = {"ssd_chunk": ssd_ops.KERNEL,
                    "flash_fwd": flash_ops.KERNEL,
+                   "flash_fwd_sm90": flash_ops.FWD_SM90,
                    "flash_decode": kvq_ops.KERNEL,
                    "flash_decode_bias": kvq_ops.BIAS_KERNEL}
         runs, total = {}, {k: 0 for k in kernels}
@@ -1363,7 +1385,8 @@ class Smoke:
             n_attn = cfg.n_layers if cfg.mixer != "ssm" else 0
             n_band = sum(w > 0 for w in windows) if n_attn else 0
             steps = SSM_GEN - 1
-            want = {"ssd_chunk": cfg.n_layers, "flash_fwd": n_attn,
+            want = {"ssd_chunk": cfg.n_layers, "flash_fwd": 0,
+                    "flash_fwd_sm90": n_attn,
                     "flash_decode": (n_attn - n_band) * steps,
                     "flash_decode_bias": n_band * steps}
             toks = r["tokens"]
@@ -1431,28 +1454,38 @@ def main(argv=None) -> int:
     t0 = time.time()
     logs = build.build_all()
     ptxas = {k: [ln.strip() for ln in v.splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "registers" in ln or "spill" in ln or "C7514" in ln]
              for k, v in logs.items()}
     # the tensor-core kernels keep their accumulators in registers (a
-    # reused library reports the log of its build; None: no log, a failure)
-    spill_free = all(int(n) == 0 for ln in ptxas["flash_bwd_sm90"]
-                     for n in re.findall(r"(\d+) bytes spill", ln)) \
-        if ptxas["flash_bwd_sm90"] else None
+    # reused library reports the log of its build; None: no log, a
+    # failure), and ptxas did not serialize their wgmma (warning C7514)
+    sm90 = ("flash_fwd_sm90", "flash_bwd_sm90")
+    spill_free = {
+        lib: all(int(n) == 0 for ln in ptxas[lib]
+                 for n in re.findall(r"(\d+) bytes spill", ln))
+        if ptxas[lib] else None for lib in sm90}
+    serialized = {lib: any("C7514" in ln for ln in ptxas[lib]) for lib in sm90}
     emit({"phase": "build", "kernels": sorted(logs),
           "source_dir": "src/repro_torch/kernels/csrc",
           "seconds": time.time() - t0, "sm90_spill_free": spill_free,
-          "ptxas": ptxas})
+          "sm90_wgmma_serialized": serialized, "ptxas": ptxas})
 
     smoke = Smoke(args)
-    if spill_free is not True:
-        smoke.failures.append("build: flash_bwd_sm90.cu spills registers"
-                              if spill_free is False else
-                              "build: no ptxas log for flash_bwd_sm90.cu")
-    flash = [smoke.check_flash(s, torch.bfloat16) for s in (16, 100, 1024)]
-    smoke.check_flash(100, torch.float32)
-    smoke.check_flash(300, torch.float32, window=100)
-    decode = [smoke.check_decode(sp) for sp in (1, 4)]
+    for lib in sm90:
+        if spill_free[lib] is not True:
+            smoke.failures.append(f"build: {lib}.cu spills registers"
+                                  if spill_free[lib] is False else
+                                  f"build: no ptxas log for {lib}.cu")
+        if serialized[lib]:
+            smoke.failures.append(f"build: ptxas serialized {lib}.cu's wgmma")
     bf16, f32 = torch.bfloat16, torch.float32
+    # the tensor-core forward (bf16), last at the train shape; the FMA
+    # forward (f32), last at S=1024
+    flash = [smoke.check_flash(s, bf16) for s in (16, 100, 1024, TRAIN_SEQ)]
+    flash_fma = [smoke.check_flash(100, f32),
+                 smoke.check_flash(300, f32, window=100),
+                 smoke.check_flash(1024, f32)]
+    decode = [smoke.check_decode(sp) for sp in (1, 4)]
     hymba_heads = dict(b=SSM_BATCH, h=25, hkv=5, d=64)
     bwd = [smoke.check_flash_bwd(TRAIN_SEQ, bf16, bf16),   # the train shape
            smoke.check_flash_bwd(100, bf16, bf16),
@@ -1489,10 +1522,10 @@ def main(argv=None) -> int:
     smoke.run_serve_ssm()
     smoke.sync()
 
-    def summary_row(name, rows, main, route_src, tpu):
+    def summary_row(name, rows, main, route_src, tpu, launches=None):
         return {"name": name, "route": "cuda", "source": route_src,
                 "replaces": tpu,
-                "launches": smoke.serve_launches[name],
+                "launches": (launches or smoke.serve_launches)[name],
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -1542,7 +1575,11 @@ def main(argv=None) -> int:
                 "library_ms": None}
 
     kernels = {"kernels": [
-        summary_row("flash_fwd", flash + flash_ssm, flash[-1], FLASH_SRC,
+        # launches in the 5 timed train steps, time at the train shape
+        summary_row("flash_fwd_sm90", flash + flash_ssm, flash[-1],
+                    FLASH_SM90_SRC, FLASH_TPU, smoke.train_launches),
+        # no main path of this run takes the f32 forward: 0 launches
+        summary_row("flash_fwd", flash_fma, flash_fma[-1], FLASH_SRC,
                     FLASH_TPU),
         summary_row("flash_decode", decode, decode[1], DECODE_SRC,
                     DECODE_TPU),

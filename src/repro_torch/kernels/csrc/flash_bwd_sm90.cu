@@ -58,56 +58,9 @@
 // aligned (TMA).
 #include <initializer_list>
 
-#include "sm90.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
-using namespace sm90;
-
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int NT = 128;     // one warpgroup
-constexpr int STAGES = 2;   // ring depth
-constexpr float LOG2E = 1.4426950408889634f;
-
-// The causal / window / kv_len predicate of _position_mask, plus the
-// ragged-S row guard.
-__device__ __forceinline__ bool live(int row, int col, int S, int causal,
-                                     int window, int kv_len) {
-  bool ok = row < S && col < kv_len;
-  if (causal) {
-    ok = ok && row >= col;
-    if (window > 0) ok = ok && (row - col) < window;
-  }
-  return ok;
-}
-
-// True when every entry of q tile qi x KV tile kt is live.
-__device__ __forceinline__ bool tile_full(int qi, int kt, int S, int causal,
-                                          int window, int kv_len) {
-  bool ok = (qi + 1) * BQ <= S && (kt + 1) * BK <= kv_len;
-  if (causal) {
-    ok = ok && (kt + 1) * BK - 1 <= qi * BQ;
-    if (window > 0) ok = ok && (qi + 1) * BQ - 1 - kt * BK < window;
-  }
-  return ok;
-}
-
-// tiling.kv_tile_bounds(qi, bq=64, bk=64, causal, window, kv_len)
-__device__ __forceinline__ void kv_bounds(int qi, int causal, int window,
-                                          int kv_len, int* lo, int* hi) {
-  const int hi_valid = (kv_len + BK - 1) / BK - 1;
-  *lo = 0;
-  *hi = hi_valid;
-  if (causal) {
-    *hi = min(hi_valid, ((qi + 1) * BQ - 1) / BK);
-    if (window > 0) {
-      *lo = max(0, (qi * BQ - (window - 1)) / BK);
-      *hi = max(*hi, *lo);
-    }
-  }
-}
 
 // tiling.q_tile_bounds(ki, bq=64, bk=64, causal, window, n_q, kv_len)
 __device__ __forceinline__ void q_bounds(int ki, int n_q, int causal,
@@ -125,20 +78,7 @@ __device__ __forceinline__ void q_bounds(int ki, int n_q, int causal,
   }
 }
 
-__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
-  const uint32_t a = smem_addr(p);
-  return p + (((a + 1023) & ~1023u) - a);
-}
-
-__device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// Shared memory of one 64 x D bf16 tile, and of each kernel.
-template <int D>
-__host__ __device__ constexpr int tile_bytes() {
-  return D / 64 * PANEL_BYTES;
-}
+// Shared memory of each kernel.
 template <int D>
 __host__ __device__ constexpr int dq_smem_bytes() {  // Q, dO; (K, V) ring
   return 1024 + 2 * tile_bytes<D>() + STAGES * 2 * tile_bytes<D>();
@@ -175,19 +115,6 @@ __host__ __device__ constexpr int dkv_blocks_per_sm() {
 // ---------------------------------------------------------------------------
 // dQ: one block per (q tile, bh).
 // ---------------------------------------------------------------------------
-template <int D>
-__device__ __forceinline__ void dq_load_kv(uint8_t* ring, uint64_t* full,
-                                           const CUtensorMap* mk,
-                                           const CUtensorMap* mv, int j,
-                                           int kt, int bhkv) {
-  constexpr int TILE = tile_bytes<D>();
-  const int st = j % STAGES;
-  uint8_t* dst = ring + st * 2 * TILE;
-  mbar_expect_tx(&full[st], 2 * TILE);
-  tma_load_tile<D>(dst, mk, &full[st], kt * BK, bhkv);
-  tma_load_tile<D>(dst + TILE, mv, &full[st], kt * BK, bhkv);
-}
-
 template <int D>
 __global__ void __launch_bounds__(NT, dq_blocks_per_sm<D>())
 dq_kernel(const __grid_constant__ CUtensorMap mq,
@@ -229,7 +156,7 @@ dq_kernel(const __grid_constant__ CUtensorMap mq,
     tma_load_tile<D>(Qs, &mq, &bar_q, qi * BQ, bh);
     tma_load_tile<D>(dOs, &mdo, &bar_q, qi * BQ, bh);
     for (int j = 0; j < STAGES && j < n_t; ++j)
-      dq_load_kv<D>(ring, full, &mk, &mv, j, lo + j, bhkv);
+      ring_load<D>(ring, full, &mk, &mv, j, (lo + j) * BK, bhkv);
   }
 
   float lse2[2], dlt[2];  // of rows r0, r0 + 8
@@ -300,7 +227,8 @@ dq_kernel(const __grid_constant__ CUtensorMap mq,
 
     __syncthreads();  // every warp is done with this stage
     if (tid == 0 && j + STAGES < n_t)
-      dq_load_kv<D>(ring, full, &mk, &mv, j + STAGES, lo + j + STAGES, bhkv);
+      ring_load<D>(ring, full, &mk, &mv, j + STAGES,
+                   (lo + j + STAGES) * BK, bhkv);
   }
 
 #pragma unroll
@@ -316,20 +244,6 @@ dq_kernel(const __grid_constant__ CUtensorMap mq,
 // ---------------------------------------------------------------------------
 // dK, dV: one block per (KV tile, bhkv).
 // ---------------------------------------------------------------------------
-template <int D>
-__device__ __forceinline__ void dkv_load_q(uint8_t* ring, uint64_t* full,
-                                           const CUtensorMap* mq,
-                                           const CUtensorMap* mdo, int j,
-                                           int qt, int bh) {
-  constexpr int TILE = tile_bytes<D>();
-  const int st = j % STAGES;
-  uint8_t* dst = ring + st * 2 * TILE;
-  mbar_expect_tx(&full[st], 2 * TILE);
-  tma_load_tile<D>(dst, mq, &full[st], qt * BQ, bh);
-  tma_load_tile<D>(dst + TILE, mdo, &full[st], qt * BQ, bh);
-}
-
-
 template <int D>
 __global__ void __launch_bounds__(NT, dkv_blocks_per_sm<D>())
 dkv_kernel(const __grid_constant__ CUtensorMap mq,
@@ -376,8 +290,8 @@ dkv_kernel(const __grid_constant__ CUtensorMap mq,
     tma_load_tile<D>(Ks, &mk, &bar_kv, kt * BK, bhkv);
     tma_load_tile<D>(Vs, &mv, &bar_kv, kt * BK, bhkv);
     for (int j = 0; j < STAGES && j < n_t; ++j)
-      dkv_load_q<D>(ring, full, &mq, &mdo, j, lo + j % n_qt,
-                    bhkv * group + j / n_qt);
+      ring_load<D>(ring, full, &mq, &mdo, j, (lo + j % n_qt) * BQ,
+                   bhkv * group + j / n_qt);
   }
   // threads 0..63 fetch the row statistics one step ahead in registers
   float next_lse2 = 0.f, next_dlt = 0.f;
@@ -481,8 +395,8 @@ dkv_kernel(const __grid_constant__ CUtensorMap mq,
     __syncthreads();  // every warp is done with this stage and lse_s
     const int jn = j + STAGES;
     if (tid == 0 && jn < n_t)
-      dkv_load_q<D>(ring, full, &mq, &mdo, jn, lo + jn % n_qt,
-                    bhkv * group + jn / n_qt);
+      ring_load<D>(ring, full, &mq, &mdo, jn, (lo + jn % n_qt) * BQ,
+                   bhkv * group + jn / n_qt);
   }
 
 #pragma unroll
@@ -502,10 +416,6 @@ dkv_kernel(const __grid_constant__ CUtensorMap mq,
 // Launchers: tensor maps built on the host for every call (they hold the
 // base pointers), passed by value as __grid_constant__ parameters.
 // ---------------------------------------------------------------------------
-bool aligned(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
 template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* m, const float* l,

@@ -1,4 +1,9 @@
-// Causal / windowed GQA flash-attention forward for Hopper (sm_90a).
+// Causal / windowed GQA flash-attention forward for Hopper (sm_90a), the
+// FMA design: f32 q, k, v at head_dim 16, 64 and 128, and bf16 at head_dim
+// 16 (the smoke configurations).  bf16 at head_dim 64 / 128, the bf16
+// policy's prefill and training forward, is flash_fwd_sm90.cu's (tensor
+// cores); kernels/flash/ops.py routes between the two (ops.fwd_route), and
+// this kernel refuses that combination.
 //
 // Replaces the TPU kernel src/repro/kernels/flash/kernel.py
 // :: flash_attention_fwd_pallas (body _flash_kernel).  Same function, not
@@ -8,25 +13,23 @@
 // f32 row statistics m (running max) and l (running denominator) written
 // beside the output for the backward kernels of the training slice.
 //
-// What bounds it on the H100: tensor-core FLOPs, about
-// 4 * B * H * D * S(S+1)/2 for causal attention (two matmuls, two FLOPs a
-// multiply-add) at 989 TFLOP/s bf16; the bytes (q, k, v read once, o
-// written once) are far below the 295 FLOP/byte ridge at prefill lengths.
+// What bounds it on the H100: FLOPs, about 4 * B * H * D * S(S+1)/2 for
+// causal attention (two matmuls, two FLOPs a multiply-add); in f32 the
+// CUDA cores' 67 TFLOP/s, since the f32 tolerance (1e-4 of the plain
+// version) rules out bf16 tensor-core products.
 //
-// What this first design does about it: it is deliberately simple and
-// right first.  One block of 256 threads per (b*h, q tile of 64 rows);
-// an in-block loop walks only the KV tiles in [lo, hi] of
+// What the design does about it: it is deliberately simple and right
+// first.  One block of 256 threads per (b*h, q tile of 64 rows); an
+// in-block loop walks only the KV tiles in [lo, hi] of
 // tiling.kv_tile_bounds (bq = bk = 64), so fully masked tiles are never
 // loaded -- the TPU's wedge grid becomes a loop bound.  Q, K^T, V and the
 // probability tile are staged in shared memory as f32 and multiplied with
 // plain FMAs (each thread owns a 4 x 4 score tile and a 4 x D/16 output
-// tile), so it runs at CUDA-core, not tensor-core, rates.  K and V share
-// one shared-memory buffer (K^T for the scores, then V for the product),
-// which keeps a block under 83 KB so two blocks fit on an SM.  The late
-// (most expensive) q tiles are scheduled first.  wgmma / TMA are later
-// work.  The ragged tail (S not a multiple of 64) is masked in the
-// kernel: rows past S are never written, keys past kv_len are masked and
-// loaded as zeros.
+// tile).  K and V share one shared-memory buffer (K^T for the scores, then
+// V for the product), which keeps a block under 83 KB so two blocks fit on
+// an SM.  The late (most expensive) q tiles are scheduled first.  The
+// ragged tail (S not a multiple of 64) is masked in the kernel: rows past
+// S are never written, keys past kv_len are masked and loaded as zeros.
 //
 // Inputs are row-major (B*H, S, D) for q and (B*Hkv, S, D) for k, v, in
 // bf16 or f32; o has the input dtype; m, l are (B*H, S) f32; counts, if
@@ -232,7 +235,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for a shape or dtype it does not take).
+// launch (cudaErrorInvalidValue for a shape or dtype it does not take,
+// bf16 at head_dim 64 / 128 among them: flash_fwd_sm90.cu's).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* o, void* m, void* l, void* counts, int bh,
                          int bhkv, int S, int D, int dtype, int causal,
@@ -246,13 +250,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   int* cnt = static_cast<int*>(counts);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 1 && D == 128)
-    err = launch<__nv_bfloat16, 128>(q, k, v, o, mf, lf, cnt, bh, S, group,
-                                      causal, window, kv_len, sm_scale, st);
-  else if (dtype == 1 && D == 64)
-    err = launch<__nv_bfloat16, 64>(q, k, v, o, mf, lf, cnt, bh, S, group,
-                                     causal, window, kv_len, sm_scale, st);
-  else if (dtype == 0 && D == 128)
+  if (dtype == 0 && D == 128)
     err = launch<float, 128>(q, k, v, o, mf, lf, cnt, bh, S, group, causal,
                              window, kv_len, sm_scale, st);
   else if (dtype == 0 && D == 64)

@@ -1,16 +1,16 @@
 """Public flash-attention op (counterpart of ``repro.kernels.flash.ops``).
 
 The op dispatches on the device of its tensors: CPU tensors go to the
-plain versions in ``ref.py``; CUDA tensors go to the hand-written kernels
-``kernels/csrc/flash_fwd.cu`` (forward) and the backward's delta, dQ and
-dKV kernels, or raise.  The backward's dQ and dKV have two hand-written
-designs, chosen by dtype and head_dim (:func:`bwd_route`): the bf16
-policy's all-bf16 combination at head_dim 64 / 128 goes to the tensor-core
-kernels of ``kernels/csrc/flash_bwd_sm90.cu`` (wgmma on TMA-fed rings),
-every other supported combination to the FMA kernels of
-``kernels/csrc/flash_bwd.cu``, which also runs delta.  Nothing falls back
-from one to another.  The TPU path's 128-lane padding and its shape
-fallback do not carry over: the kernels mask the ragged tail themselves.
+plain versions in ``ref.py``; CUDA tensors go to hand-written kernels, or
+raise.  The forward and the backward's dQ and dKV each have two designs,
+chosen by dtype and head_dim (:func:`fwd_route`, :func:`bwd_route`): the
+bf16 policy at head_dim 64 / 128 goes to the tensor-core kernels of
+``kernels/csrc/flash_fwd_sm90.cu`` and ``flash_bwd_sm90.cu`` (wgmma on
+TMA-fed rings), every other supported combination to the FMA kernels of
+``kernels/csrc/flash_fwd.cu`` and ``flash_bwd.cu``, which also runs the
+backward's delta.  Nothing falls back from one to another.  The TPU
+path's 128-lane padding and its shape fallback do not carry over: the
+kernels mask the ragged tail themselves.
 
 ``flash_attention`` is differentiable: a ``torch.autograd.Function``
 saves (q, k, v, o, m, l) -- O(S*D) per head, never the S x S
@@ -32,6 +32,7 @@ KERNEL = build.Kernel("flash_fwd", "flash_fwd", [
     build.PTR, build.PTR, build.PTR, build.PTR, build.PTR, build.PTR,
     build.PTR, build.INT, build.INT, build.INT, build.INT, build.INT,
     build.INT, build.INT, build.INT, build.FLOAT, build.PTR])
+FWD_SM90 = build.Kernel("flash_fwd_sm90", "flash_fwd_sm90", KERNEL.argtypes)
 BWD_DELTA = build.Kernel("flash_bwd", "flash_bwd_delta", [
     build.PTR, build.PTR, build.PTR, build.INT, build.INT, build.INT,
     build.INT, build.INT, build.PTR])
@@ -52,6 +53,24 @@ BWD_DTYPES = ((torch.float32, torch.float32, torch.float32),
               (torch.bfloat16, torch.float32, torch.float32))
 SM90_DTYPES = (torch.bfloat16, torch.bfloat16, torch.bfloat16)
 SM90_HEAD_DIMS = (64, 128)
+
+
+def fwd_route(dtype, d: int) -> str:
+    """Which hand-written kernel takes a CUDA forward of ``dtype`` q, k, v
+    at head_dim ``d``: ``"sm90"`` (``flash_fwd_sm90.cu``, tensor cores, P
+    rounded to bf16 before P V) for bf16 at head_dim 64 or 128; ``"fma"``
+    (``flash_fwd.cu``, f32 arithmetic) for f32 at every supported head_dim
+    -- held to 1e-4 of the f32 plain version, which bf16 products cannot
+    meet -- and for bf16 at head_dim 16, the only head_dim at which
+    ``flash_fwd.cu`` takes bf16.  Raises for anything neither takes."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"flash_attention_fwd: the CUDA kernels take f32 or "
+                        f"bf16 q, k, v, got {dtype}")
+    if d not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"flash_attention_fwd: head_dim {d} not in "
+                         f"{SUPPORTED_HEAD_DIMS} for the CUDA kernels")
+    return "sm90" if dtype == torch.bfloat16 and d in SM90_HEAD_DIMS \
+        else "fma"
 
 
 def bwd_route(q_dtype, do_dtype, grad_dtype, d: int) -> str:
@@ -99,20 +118,21 @@ def expected_bwd_counts(s: int, group: int, *, causal: bool = True,
             [group * c for c in tiling.q_visits(n, **kw)])
 
 
-def _check_cuda(q, k, v):
+def _check_cuda(q, k, v) -> str:
+    """Check a CUDA forward's inputs; return :func:`fwd_route`'s route."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash_attention_fwd: q, k, v must all be on the "
                          "same device")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention_fwd: the CUDA kernel takes f32 or "
-                        f"bf16 q, k, v of one dtype, got {q.dtype}, "
-                        f"{k.dtype}, {v.dtype}")
-    d = q.shape[-1]
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"flash_attention_fwd: head_dim {d} not in "
-                         f"{SUPPORTED_HEAD_DIMS} for the CUDA kernel")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention_fwd: the CUDA kernels take q, k, v "
+                        f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    route = fwd_route(q.dtype, q.shape[-1])
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention_fwd: q, k, v must be contiguous")
+    if route == "sm90" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention_fwd: the tensor-core kernel loads "
+                         "q, k, v by TMA and needs them 16-byte aligned")
+    return route
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
@@ -143,17 +163,16 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
                              "kernel; the plain version runs no tiles")
         return ref.flash_fwd_ref(q, k, v, causal=causal, window=window,
                                  sm_scale=scale, kv_len=kv_len)
-    _check_cuda(q, k, v)
+    kern = FWD_SM90 if _check_cuda(q, k, v) == "sm90" else KERNEL
     o = torch.empty_like(q)
     m = torch.empty((bh, s), dtype=torch.float32, device=q.device)
     l = torch.empty((bh, s), dtype=torch.float32, device=q.device)
     cnt = (torch.empty((bh, -(-s // BQ)), dtype=torch.int32, device=q.device)
            if counts else None)
-    KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-           m.data_ptr(), l.data_ptr(),
-           None if cnt is None else cnt.data_ptr(), bh, bhkv, s, d,
-           _DTYPES[q.dtype], int(bool(causal)), int(window), kv_len, scale,
-           torch.cuda.current_stream(q.device).cuda_stream)
+    kern(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+         m.data_ptr(), l.data_ptr(), None if cnt is None else cnt.data_ptr(),
+         bh, bhkv, s, d, _DTYPES[q.dtype], int(bool(causal)), int(window),
+         kv_len, scale, _stream(q))
     return (o, m, l, cnt) if counts else (o, m, l)
 
 

@@ -74,9 +74,11 @@ def supports(cfg: ModelConfig) -> bool:
 
 
 def kernel_launches() -> dict:
-    """Launch counters of the serving path's CUDA kernels (the decode
-    kernel's lengths and dense-bias entry points apart)."""
+    """Launch counters of the serving path's CUDA kernels (the forward's
+    FMA and tensor-core designs apart, and the decode kernel's lengths and
+    dense-bias entry points)."""
     return {"flash_fwd": flash_ops.KERNEL.launches,
+            "flash_fwd_sm90": flash_ops.FWD_SM90.launches,
             "flash_decode": kvq_ops.KERNEL.launches,
             "flash_decode_bias": kvq_ops.BIAS_KERNEL.launches}
 

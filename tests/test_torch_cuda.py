@@ -30,23 +30,66 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("s,window,d,g", [(1, 0, 128, 4), (63, 0, 64, 1),
-                                          (65, 16, 128, 2), (200, 0, 64, 8),
-                                          (257, 100, 128, 4), (40, 0, 16, 2)])
-def test_flash_kernel_matches_plain(dev, s, window, d, g):
+F32, BF = torch.float32, torch.bfloat16
+# (S, G, D, causal, window, kv_len, dtype): ragged S, GQA, windows,
+# kv_len < S, non-causal.  The bf16 rows at D 64 / 128 go to
+# flash_fwd_sm90.cu, the others to flash_fwd.cu.
+FWD_CASES = [
+    (1, 4, 128, True, 0, None, F32), (63, 1, 64, True, 0, None, F32),
+    (65, 2, 128, True, 16, None, F32), (200, 8, 64, True, 0, None, F32),
+    (257, 4, 128, True, 100, None, F32), (40, 2, 16, True, 0, None, F32),
+    (1, 4, 128, True, 0, None, BF), (1, 8, 64, True, 0, None, BF),
+    (63, 1, 64, True, 0, None, BF), (65, 8, 128, True, 16, None, BF),
+    (100, 4, 64, False, 0, 70, BF), (100, 1, 128, True, 0, None, BF),
+    (257, 1, 128, True, 100, None, BF), (257, 8, 64, True, 0, 200, BF),
+    (257, 4, 128, False, 0, None, BF), (1024, 4, 128, True, 0, None, BF),
+    (1024, 8, 64, True, 1000, None, BF), (1024, 1, 128, False, 0, 700, BF),
+    (40, 2, 16, True, 0, None, BF),
+]
+# launch counters of the two forward designs
+FWD_KERNELS = {"fma": flash_ops.KERNEL, "sm90": flash_ops.FWD_SM90}
+
+
+@pytest.mark.parametrize("s,g,d,causal,window,kv_len,dtype", FWD_CASES)
+def test_flash_kernel_matches_plain(dev, s, g, d, causal, window, kv_len,
+                                    dtype):
     gen = torch.Generator(device=dev).manual_seed(s)
     hkv = 2
-    q = torch.randn((hkv * g, s, d), generator=gen, device=dev)
-    k = torch.randn((hkv, s, d), generator=gen, device=dev)
-    v = torch.randn((hkv, s, d), generator=gen, device=dev)
-    o, m, l, cnt = flash_ops.flash_attention_fwd(q, k, v, window=window,
-                                                 counts=True)
-    o_r, m_r, l_r = flash_ref.flash_fwd_ref(q, k, v, window=window)
-    torch.testing.assert_close(o, o_r, atol=1e-4, rtol=0)
-    torch.testing.assert_close(m, m_r, atol=1e-4, rtol=0)
-    torch.testing.assert_close(l, l_r, rtol=1e-4, atol=0)
-    assert cnt.tolist() == [flash_ops.expected_counts(s, window=window)] \
-        * (hkv * g)
+    q, k, v = (torch.randn((n, s, d), generator=gen, device=dev).to(dtype)
+               for n in (hkv * g, hkv, hkv))
+    kw = dict(causal=causal, window=window, kv_len=kv_len)
+    before = {r: kern.launches for r, kern in FWD_KERNELS.items()}
+    o, m, l, cnt = flash_ops.flash_attention_fwd(q, k, v, counts=True, **kw)
+    route = flash_ops.fwd_route(dtype, d)
+    assert {r: kern.launches - before[r] for r, kern in FWD_KERNELS.items()} \
+        == {r: int(r == route) for r in FWD_KERNELS}
+    o_r, m_r, l_r = flash_ref.flash_fwd_ref(q, k, v, **kw)
+    # f32: summation order only.  bf16: kernel and plain each round o once
+    # to bf16 (|o| < 4: one ulp <= 0.0156), and the sm90 kernel rounds P
+    # to bf16 before P V
+    tol, stat_tol = (1e-4, 1e-4) if dtype == F32 else (2e-2, 1e-3)
+    assert o.dtype == dtype
+    torch.testing.assert_close(o.float(), o_r.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(m, m_r, atol=stat_tol, rtol=0)
+    torch.testing.assert_close(l, l_r, rtol=stat_tol, atol=0)
+    assert cnt.tolist() == [flash_ops.expected_counts(s, **kw)] * (hkv * g)
+
+
+@pytest.mark.parametrize("dtype,d", [(F32, 64), (BF, 64), (BF, 128)])
+def test_flash_rows_with_no_live_key_write_zeros(dev, dtype, d):
+    """kv_len = 0, non-causal: each design runs no KV tile and writes
+    o = 0, m = -1e30, l = 0 (the plain version's softmax over an all-masked
+    row is uniform instead, so it is no reference here)."""
+    gen = torch.Generator(device=dev).manual_seed(d)
+    q, k, v = (torch.randn((n, 70, d), generator=gen, device=dev).to(dtype)
+               for n in (4, 2, 2))
+    kern = FWD_KERNELS[flash_ops.fwd_route(dtype, d)]
+    before = kern.launches
+    o, m, l, cnt = flash_ops.flash_attention_fwd(q, k, v, causal=False,
+                                                 kv_len=0, counts=True)
+    assert kern.launches == before + 1
+    assert not o.any() and not l.any() and bool((m == -1e30).all())
+    assert not cnt.any()
 
 
 def _close(got, want, rel, floor=1e-6):
@@ -57,7 +100,6 @@ def _close(got, want, rel, floor=1e-6):
     assert err <= rel * scale + floor, (err, rel * scale + floor)
 
 
-BF = torch.bfloat16
 # (S, G, D, causal, window, kv_len, residual dtype, dO dtype): ragged S,
 # GQA, windows, kv_len < S, and the three dtype combinations of the
 # policies (f32; bf16; bf16 residuals under f32 compute).  The all-bf16
@@ -196,6 +238,11 @@ def test_unsupported_shapes_raise(dev):
     x = torch.zeros((2, 8, 32), device=dev)
     with pytest.raises(ValueError, match="head_dim"):
         flash_ops.flash_attention_fwd(x, x, x)
+    # the tensor-core forward loads q, k, v by TMA: 16-byte aligned only
+    base = torch.zeros(2 * 64 * 64 + 1, dtype=BF, device=dev)
+    off = base[1:].view(2, 64, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_ops.flash_attention_fwd(off, off, off)
     q = torch.zeros((1, 6, 64), device=dev)
     cache = torch.zeros((1, 2, 64, 64), dtype=torch.int8, device=dev)
     scales = torch.ones((1, 2, 64), device=dev)

@@ -96,7 +96,8 @@ def test_no_slot_leak(runs):
     diag = summ["diagnostics"]
     assert diag["prefills"] == len(trace)
     # on the CPU the plain versions run: no kernel was launched
-    assert diag["kernel_launches"] == {"flash_fwd": 0, "flash_decode": 0,
+    assert diag["kernel_launches"] == {"flash_fwd": 0, "flash_fwd_sm90": 0,
+                                       "flash_decode": 0,
                                        "flash_decode_bias": 0}
 
 
