@@ -12,7 +12,8 @@ JSON object per line:
    compiled with one ``nvcc`` each, all started together, the seconds it
    took, and ptxas's registers, spills and wgmma warnings (the
    tensor-core kernels, ``flash_fwd_sm90.cu`` and ``flash_bwd_sm90.cu``,
-   must spill nothing, and ptxas must not serialize their wgmma);
+   and the decode kernel ``flash_decode.cu`` must spill nothing, and
+   ptxas must not serialize the tensor-core kernels' wgmma);
 3. ``kernel`` lines: each kernel against its plain PyTorch version on the
    card at the serving and training paths' shapes, with its tolerance, its
    visit counters against the ``tiling`` twins, and its time (CUDA events
@@ -26,7 +27,10 @@ JSON object per line:
    ``ops.fwd_route`` chose and the backward's the dQ / dKV design that
    ``ops.bwd_route`` chose (``sm90``: the tensor-core kernels, for bf16 at
    head_dim 64 / 128; ``fma``: the f32 kernels), and check that the call
-   launched that design's kernels and not the other's;
+   launched that design's kernels and not the other's.  The decode lines
+   also report the rate their bytes moved at (``GBps``) and the share of
+   the byte bound reached; GQA groups 3, 6 and 16 are checked at a small
+   shape, untimed;
 4. ``model``: a 2-layer model at head_dim 128 run through prefill and
    decode, and through ``loss_fn`` and its backward, on the card (kernels)
    and on the CPU (plain versions) from the same weights: logits, int8
@@ -447,6 +451,7 @@ class Smoke:
             "phase": "kernel", "name": "flash_decode", "ok": ok,
             "shape": {"B": b, "Hkv": hkv, "G": g, "D": d, "S": s,
                       "splits": twin["splits"], "lengths": lengths_list},
+            **self._rate(nbytes, ms, max(t_ops, t_bytes)),
             "max_abs_err": err, "tol": tol, "counts_ok": counts_ok,
             "tiles_visited": twin["visited"] * hkv,
             "tiles_dense": twin["dense"] * hkv,
@@ -454,6 +459,49 @@ class Smoke:
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": flops, "bytes": nbytes})
+
+    @staticmethod
+    def _rate(nbytes: int, ms: float, bound_ms: float) -> dict:
+        """The rate a decode line's bytes moved at, and its share of the
+        byte bound."""
+        return {"GBps": nbytes / (ms * 1e-3) / 1e9,
+                "bound_share": bound_ms / ms}
+
+    def check_decode_group(self, g: int, d: int, splits: int) -> dict:
+        """The decode kernel at a GQA group the main paths do not run (3,
+        6, 16: G / GH head groups of CTAs), small, against its plain
+        version; correctness only."""
+        torch = self.torch
+        from repro_torch.kernels import tiling
+        from repro_torch.kernels.kvq import ops, ref
+        b, hkv, s = 3, 2, 1024
+        lengths_list = [1, 1024, 513]
+        gen = torch.Generator(device=self.dev).manual_seed(g)
+        q = torch.randn((b, hkv * g, d), generator=gen, device=self.dev)
+        kq, ks = ref.quantize_kv(torch.randn((b, hkv, s, d), generator=gen,
+                                             device=self.dev))
+        vq, vs = ref.quantize_kv(torch.randn((b, hkv, s, d), generator=gen,
+                                             device=self.dev))
+        lengths = torch.tensor(lengths_list, dtype=torch.int32,
+                               device=self.dev)
+        out, cnt = ops.decode_attention(q, kq, ks, vq, vs, lengths=lengths,
+                                        splits=splits, counts=True)
+        out_r = ref.decode_attention_ref(
+            q.reshape(b, hkv, g, d), kq, ks, vq, vs, None, d ** -0.5,
+            lengths=lengths).reshape(b, hkv * g, d)
+        self.sync()
+        err = float((out - out_r).abs().max())
+        twin = tiling.decode_tile_step_counts(s, lengths_list, splits=splits)
+        counts_ok = cnt.cpu().tolist() == [[row] * hkv
+                                           for row in twin["counts"]]
+        tol = 1e-5                 # f32 both; summation order only
+        return self.record({
+            "phase": "kernel", "name": "flash_decode", "timed": False,
+            "ok": err <= tol and counts_ok
+            and bool(torch.isfinite(out).all()),
+            "shape": {"B": b, "Hkv": hkv, "G": g, "D": d, "S": s,
+                      "splits": twin["splits"], "lengths": lengths_list},
+            "max_abs_err": err, "tol": tol, "counts_ok": counts_ok})
 
     def check_model(self) -> dict:
         """A 2-layer model through prefill + decode and through the loss
@@ -1147,6 +1195,7 @@ class Smoke:
             "ok": ok, "shape": {"B": b, "Hkv": hkv, "G": g, "D": d, "S": s,
                                 "splits": twin["splits"], "pos": s - 2,
                                 "window": window if bias else 0},
+            **self._rate(nbytes, ms, max(t_ops, t_bytes)),
             "max_abs_err": err, "tol": tol, "counts_ok": counts_ok,
             "tiles_visited": sum(map(sum, rows)) * hkv,
             "tiles_dense": twin["ns"] * b * hkv,
@@ -1463,20 +1512,25 @@ def main(argv=None) -> int:
     spill_free = {
         lib: all(int(n) == 0 for ln in ptxas[lib]
                  for n in re.findall(r"(\d+) bytes spill", ln))
-        if ptxas[lib] else None for lib in sm90}
+        if ptxas[lib] else None for lib in (*sm90, "flash_decode")}
     serialized = {lib: any("C7514" in ln for ln in ptxas[lib]) for lib in sm90}
     emit({"phase": "build", "kernels": sorted(logs),
           "source_dir": "src/repro_torch/kernels/csrc",
           "seconds": time.time() - t0, "sm90_spill_free": spill_free,
-          "sm90_wgmma_serialized": serialized, "ptxas": ptxas})
+          "sm90_wgmma_serialized": serialized,
+          # registers of each decode instantiation (heads a CTA x D)
+          "decode_registers": [int(n) for ln in ptxas["flash_decode"]
+                               for n in re.findall(r"Used (\d+) registers",
+                                                   ln)],
+          "ptxas": ptxas})
 
     smoke = Smoke(args)
-    for lib in sm90:
+    for lib in (*sm90, "flash_decode"):
         if spill_free[lib] is not True:
             smoke.failures.append(f"build: {lib}.cu spills registers"
                                   if spill_free[lib] is False else
                                   f"build: no ptxas log for {lib}.cu")
-        if serialized[lib]:
+        if serialized.get(lib):
             smoke.failures.append(f"build: ptxas serialized {lib}.cu's wgmma")
     bf16, f32 = torch.bfloat16, torch.float32
     # the tensor-core forward (bf16), last at the train shape; the FMA
@@ -1518,6 +1572,9 @@ def main(argv=None) -> int:
            smoke.check_ssd(192, 1, 128, 128, 64, 24)]     # a single chunk
     dbias = [smoke.check_decode_hymba(sp, bias=True) for sp in (1, 4)]
     decode.append(smoke.check_decode_hymba(1, bias=False))  # G = 5
+    decode += [smoke.check_decode_group(3, 128, 1),
+               smoke.check_decode_group(6, 64, 2),
+               smoke.check_decode_group(16, 128, 4)]
     smoke.check_ssm_model()
     smoke.run_serve_ssm()
     smoke.sync()

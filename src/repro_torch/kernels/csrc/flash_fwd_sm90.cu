@@ -78,13 +78,6 @@ __host__ __device__ constexpr int fwd_blocks_per_sm() {
   return D == 64 ? 4 : 2;
 }
 
-// 2^x, flushing subnormal results to 0 (ex2.approx: 2^-inf = +0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 template <int D>
 __global__ void __launch_bounds__(NT, fwd_blocks_per_sm<D>())
 fwd_kernel(const __grid_constant__ CUtensorMap mq,

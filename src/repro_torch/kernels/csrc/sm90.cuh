@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks shared by the tensor-core kernels:
-// mbarriers, TMA tile loads, wgmma shared-memory descriptors and the
+// Hopper (sm_90a) building blocks shared by the hand-written kernels:
+// mbarriers, TMA tile loads and 1-D bulk copies, cluster barriers and
+// distributed shared memory, wgmma shared-memory descriptors and the
 // wgmma products the flash kernels use, and the host-side encoding of
 // TMA tensor maps.  Header-only; each .cu that includes it is compiled on
 // its own by kernels/build.py.
@@ -32,6 +33,13 @@ constexpr int PANEL_BYTES = PANEL_ROWS * 128;  // 64 rows x 64 bf16
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 2^x, flushing subnormal results to 0 (ex2.approx: 2^-inf = +0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ---------------------------------------------------------------------------
@@ -83,9 +91,95 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (polls == (1u << 26)) __trap();
 }
 
+// The same wait with cluster-scope acquire: for a barrier that other CTAs
+// of the cluster store to (st_async).
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  for (uint32_t polls = 0;; ++polls) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Thread-block clusters
+// ---------------------------------------------------------------------------
+// The address of `p` (this CTA's shared memory) in CTA `rank` of the
+// cluster, as a shared::cluster address.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p,
+                                                 uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(smem_addr(p)), "r"(rank));
+  return r;
+}
+
+// Stores into another CTA's shared memory (addresses from cluster_addr)
+// that count their bytes on that CTA's barrier `bar` (complete_tx): the
+// receiver waits on the barrier, the sender needs no fence.
+__device__ __forceinline__ void st_async(uint32_t addr, float v,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, "
+      "[%2];\n" ::"r"(addr),
+      "f"(v), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void st_async(uint32_t addr, float4 v,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
+// The cluster barrier in two halves, so the wait can come long after the
+// arrival.  The arrival is relaxed: what it publishes is an mbarrier's
+// initialisation, ordered by fence_barrier_init.  Every thread of every
+// CTA of the cluster executes both.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// Order this thread's earlier generic-proxy accesses of shared memory
+// before its later async-proxy ones (a bulk copy that refills a buffer
+// the warp has just read).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ---------------------------------------------------------------------------
 // TMA
 // ---------------------------------------------------------------------------
+// `bytes` contiguous bytes from global `src` into shared `dst`, completion
+// counted on `bar` in bytes.  Both addresses 16-byte aligned, `bytes` a
+// multiple of 16.
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src,
+                                             uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // Box (c0, c1, c2) of a 3-D tensor map into shared memory; completion is
 // counted on `bar` in bytes.  Parts of the box outside the tensor are
 // filled with zeros (and still counted).

@@ -20,7 +20,7 @@ from repro_torch.kernels.kvq.ref import (combine_splits,  # noqa: F401
                                          quantize_kv)
 
 SUPPORTED_HEAD_DIMS = (64, 128)
-SUPPORTED_GROUPS = (1, 2, 4, 5, 8)
+SUPPORTED_GROUPS = (1, 2, 3, 4, 5, 6, 8, 16)
 MAX_BLOCK_S = 512
 
 _ARGTYPES = [
@@ -108,6 +108,8 @@ def decode_attention(q, k_q, k_s, v_q, v_s, *, lengths=None, bias=None,
     kernel = KERNEL if bias is None else BIAS_KERNEL
     block_s = tiling.DEFAULT_DECODE_BS if block_s is None else block_s
     qg = qg.contiguous()
+    if qg.data_ptr() % 16:          # the kernel bulk-copies q's rows
+        qg = qg.clone()
     _check_cuda(qg, k_q, k_s, v_q, v_s, mask, block_s)
     bs, ns, n_sp, spt = tiling.resolve_decode_grid(s, block_s=block_s,
                                                    splits=splits)

@@ -134,3 +134,28 @@ def decode_tile_step_counts(s: int, lengths=None, *,
     return {"bs": bs, "ns": ns, "splits": splits_eff, "spt": spt,
             "counts": counts, "visited": visited,
             "dense": len(lens) * ns}
+
+
+# ---------------------------------------------------------------------------
+# How ``csrc/flash_decode.cu`` partitions a split's live span among the
+# CTAs of a cluster and their warps (the kernel picks the cluster size).
+# ---------------------------------------------------------------------------
+DECODE_WARPS = 4          # warps a CTA
+DECODE_TOKENS = 32        # tokens a streamed block, one a lane
+DECODE_MAX_CLUSTER = 8    # CTAs a cluster, at most
+DECODE_MAX_HEADS = 5      # query heads a CTA keeps in registers
+
+
+def decode_heads_per_block(g: int) -> int:
+    """Query heads one CTA takes: the largest divisor of G that is at most
+    ``DECODE_MAX_HEADS`` (a larger G runs G / GH head groups)."""
+    return max(h for h in range(1, min(g, DECODE_MAX_HEADS) + 1)
+               if g % h == 0)
+
+
+def decode_warp_blocks(n_live: int, cluster: int) -> list[tuple[int, int]]:
+    """[first, last) 32-token blocks of a unit's ``n_live`` live tokens that
+    each of the cluster's warps streams, in (rank, warp) order."""
+    nbt = -(-max(0, n_live) // DECODE_TOKENS)
+    nwt = cluster * DECODE_WARPS
+    return [(w * nbt // nwt, (w + 1) * nbt // nwt) for w in range(nwt)]

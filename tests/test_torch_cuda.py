@@ -17,6 +17,7 @@ from repro_torch.kernels.flash import ops as flash_ops
 from repro_torch.kernels.flash import ref as flash_ref
 from repro_torch.kernels.kvq import ops as kvq_ops
 from repro_torch.kernels.kvq import ref as kvq_ref
+from repro_torch.models import attention
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
@@ -234,6 +235,65 @@ def test_decode_kernel_matches_plain(dev, splits):
     assert cnt.tolist() == [[row] * hkv for row in twin["counts"]]
 
 
+# (B, Hkv, G, D, S, lengths, splits): one or two (row, KV head) units, so
+# the kernel runs clusters of up to 8 CTAs over each split's span and
+# merges them through distributed shared memory; ragged lengths leave
+# whole warps and CTAs with no live token; G 3, 6, 16 (head groups of
+# 3, 3, 4 CTAs apart) and 8
+DECODE_FILL_CASES = [
+    (1, 1, 4, 128, 2048, [2048], 1), (1, 1, 4, 128, 2048, [33], 1),
+    (2, 1, 5, 64, 2080, [2079, 1], 1), (2, 1, 4, 128, 2048, [1, 1500], 4),
+    (1, 1, 1, 64, 4096, [4096], 2), (2, 2, 3, 128, 512, [1, 300], 1),
+    (2, 2, 6, 64, 512, [511, 33], 2), (1, 2, 16, 128, 1024, [1000], 1),
+    (2, 2, 8, 64, 1024, [1024, 65], 3),
+]
+
+
+@pytest.mark.parametrize("b,hkv,g,d,s,lens,splits", DECODE_FILL_CASES)
+def test_decode_kernel_fills_card(dev, b, hkv, g, d, s, lens, splits):
+    gen = torch.Generator(device=dev).manual_seed(s + g)
+    q = torch.randn((b, hkv * g, d), generator=gen, device=dev)
+    kq, ks = kvq_ref.quantize_kv(torch.randn((b, hkv, s, d), generator=gen,
+                                             device=dev))
+    vq, vs = kvq_ref.quantize_kv(torch.randn((b, hkv, s, d), generator=gen,
+                                             device=dev))
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    out, cnt = kvq_ops.decode_attention(q, kq, ks, vq, vs, lengths=lengths,
+                                        splits=splits, counts=True)
+    want = kvq_ref.decode_attention_ref(
+        q.reshape(b, hkv, g, d), kq, ks, vq, vs, None, d ** -0.5,
+        lengths=lengths).reshape(b, hkv * g, d)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=0)
+    twin = tiling.decode_tile_step_counts(s, lens, splits=splits)
+    assert cnt.tolist() == [[row] * hkv for row in twin["counts"]]
+
+
+@pytest.mark.parametrize("window,pos,splits", [
+    (100, 2050, 1), (100, 2050, 2), (40, 10, 1), (1024, 2078, 4)])
+def test_decode_bias_band_leaves_dead_ctas(dev, window, pos, splits):
+    # one row, two KV heads: clusters of 8 CTAs split the 2080 slots, so a
+    # narrow band leaves whole CTA (and split) slices at -1e30
+    b, hkv, g, d, s = 1, 2, 5, 64, 2080
+    gen = torch.Generator(device=dev).manual_seed(window + pos)
+    q = torch.randn((b, hkv * g, d), generator=gen, device=dev)
+    kq, ks = kvq_ref.quantize_kv(torch.randn((b, hkv, s, d), generator=gen,
+                                             device=dev))
+    vq, vs = kvq_ref.quantize_kv(torch.randn((b, hkv, s, d), generator=gen,
+                                             device=dev))
+    _, bias = attention.decode_mask(
+        torch.tensor(pos, dtype=torch.int32, device=dev), b, s, window)
+    out, cnt = kvq_ops.decode_attention(q, kq, ks, vq, vs, bias=bias,
+                                        splits=splits, counts=True)
+    want = kvq_ref.decode_attention_ref(
+        q.reshape(b, hkv, g, d), kq, ks, vq, vs, bias,
+        d ** -0.5).reshape(b, hkv * g, d)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=0)
+    twin = tiling.decode_tile_step_counts(s, None, splits=splits)
+    assert cnt.tolist() == [[twin["counts"][0]] * hkv]
+
+
 def test_unsupported_shapes_raise(dev):
     x = torch.zeros((2, 8, 32), device=dev)
     with pytest.raises(ValueError, match="head_dim"):
@@ -243,7 +303,7 @@ def test_unsupported_shapes_raise(dev):
     off = base[1:].view(2, 64, 64)
     with pytest.raises(ValueError, match="aligned"):
         flash_ops.flash_attention_fwd(off, off, off)
-    q = torch.zeros((1, 6, 64), device=dev)
+    q = torch.zeros((1, 14, 64), device=dev)     # G = 7
     cache = torch.zeros((1, 2, 64, 64), dtype=torch.int8, device=dev)
     scales = torch.ones((1, 2, 64), device=dev)
     with pytest.raises(ValueError, match="group"):
