@@ -11,9 +11,9 @@ JSON object per line:
 2. ``build``: the hand-written kernels of ``src/repro_torch/kernels/csrc``
    compiled with one ``nvcc`` each, all started together, the seconds it
    took, and ptxas's registers, spills and wgmma warnings (the
-   tensor-core kernels, ``flash_fwd_sm90.cu`` and ``flash_bwd_sm90.cu``,
-   and the decode kernel ``flash_decode.cu`` must spill nothing, and
-   ptxas must not serialize the tensor-core kernels' wgmma);
+   tensor-core kernels, ``flash_fwd_sm90.cu``, ``flash_bwd_sm90.cu`` and
+   ``ssd_sm90.cu``, and the decode kernel ``flash_decode.cu`` must spill
+   nothing, and ptxas must not serialize the tensor-core kernels' wgmma);
 3. ``kernel`` lines: each kernel against its plain PyTorch version on the
    card at the serving and training paths' shapes, with its tolerance, its
    visit counters against the ``tiling`` twins, and its time (CUDA events
@@ -69,7 +69,12 @@ JSON object per line:
     prefill shape (B=8, 25 / 5 heads of 64, S=2048, bf16; window 1024 and
     full causal), the SSD chunk kernel against its plain version at
     mamba2's and hymba's serve shapes, at Q=64 and for a single chunk
-    (tolerance 1e-4 of max|y| and of max|state|), and the decode kernel's
+    (tolerance 1e-4 of max|y| and of max|state|; ``ops.ssd_route``'s
+    design, the tensor-core ``ssd_sm90.cu`` at head_p 64, with a sweep of
+    the heads a CTA walks; the FMA ``ssd.cu`` once, at head_p 16; bounds
+    from the bytes and the operations at the rate of the route's units,
+    three TF32 passes at 495 TFLOP/s or f32 at 67, the f32 bound beside
+    as ``bound_fma_ms``), and the decode kernel's
     dense-bias entry point (splits 1 and 4) and its GQA group 5 on the
     lengths path at hymba's decode shape (tolerance 1e-5);
 14. ``ssm_model``: a 2-layer mamba2 (N=128, P=64) and a 2-layer hymba
@@ -82,7 +87,7 @@ JSON object per line:
     2048, 32 new tokens, int8 cache) after a one-step warm-up run, the
     launch counters zeroed just before each run and read just after, then
     ``torch.profiler`` over its prefill and its first 4 decode steps run
-    again;
+    again, the prefill's SSD op split by its profiler ranges;
 16. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
     ``{"ok": true, "device": {...}}``.
 
@@ -110,7 +115,8 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense; f32 off-TC
+PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12,    # dense tensor cores
+              "float32": 67e12}                       # f32 off the TCs
 L2_FLUSH_BYTES = 256 * 2**20     # > the 50 MB L2
 SLEEP_CYCLES = 2_000_000         # ~1 ms of device spin before each timing
 
@@ -130,6 +136,7 @@ PACK_TPU = {"decode": "src/repro/kernels/pack/kernel.py:44",
             "encode": "src/repro/kernels/pack/kernel.py:63"}
 CIFAR_STEPS = 200
 SSD_SRC = "src/repro_torch/kernels/csrc/ssd.cu"
+SSD_SM90_SRC = "src/repro_torch/kernels/csrc/ssd_sm90.cu"
 SSD_TPU = "src/repro/kernels/ssd/kernel.py:42"
 SSM_PROMPT, SSM_GEN, SSM_BATCH = 2048, 32, 8   # the serve_ssm lockstep
 # the reference for the baseline's accuracy: examples/cifar_optorch.py's
@@ -658,7 +665,8 @@ class Smoke:
 
     def _profile(self, fn):
         """``torch.profiler`` over ``fn()``: (wall s, device busy s, rows of
-        (device us, kernel name, launches)), busiest first."""
+        (device us, kernel name, launches)), busiest first.  The SSD op's
+        ranges go to ``last_scopes`` instead of the rows."""
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -667,8 +675,23 @@ class Smoke:
             self.sync()
             wall = time.time() - t0
         rows = []
+        self.last_scopes = {}
         for ev in prof.key_averages():
-            if "CUDA" not in str(getattr(ev, "device_type", "")):
+            on_host = "CUDA" not in str(getattr(ev, "device_type", ""))
+            if ev.key.startswith("ssd."):
+                # the SSD op's profiler ranges (kernels/ssd/ops.py ssd),
+                # apart from the rows (they would count their kernels
+                # twice): on the host record, the device time of the
+                # kernels launched inside; on the device's copy, the span
+                us = getattr(ev, "device_time_total",
+                             getattr(ev, "cuda_time_total", 0))
+                part = self.last_scopes.setdefault(
+                    ev.key, {"kernels_ms": 0.0, "span_ms": 0.0, "n": 0})
+                part["kernels_ms" if on_host else "span_ms"] = us / 1e3
+                if on_host:
+                    part["n"] = ev.count
+                continue
+            if on_host:
                 continue                      # host-side op records
             dev_us = getattr(ev, "self_device_time_total",
                              getattr(ev, "self_cuda_time_total", 0))
@@ -1091,9 +1114,11 @@ class Smoke:
     # -- the SSM serving slice -------------------------------------------
     def check_ssd(self, g: int, t: int, q: int, n: int, p: int,
                   heads: int) -> dict:
-        """The SSD chunk kernel against its plain version on the card, B
-        and C head-shared as the serving path passes them (the plain
-        version takes them broadcast over the heads)."""
+        """The SSD chunk kernel of ``ops.ssd_route``'s route against its
+        plain version on the card, B and C head-shared as the serving path
+        passes them (the plain version takes them broadcast over the
+        heads).  The sm90 route's line also sweeps the heads a CTA walks
+        (``ops.heads_per_cta`` picks ``group``)."""
         torch = self.torch
         from repro_torch.kernels.ssd import ops, ref
         gen = torch.Generator(device=self.dev).manual_seed(g + t + q + n)
@@ -1103,36 +1128,67 @@ class Smoke:
         x = rnd(g, t, q, p)
         acum = torch.cumsum(-0.2 * torch.rand((g, t, q), generator=gen,
                                               device=self.dev), dim=-1)
+        route = ops.ssd_route(n, p)
+        kernels = {"sm90": ops.KERNEL_SM90, "fma": ops.KERNEL}
+        before = {k: v.launches for k, v in kernels.items()}
         y, st = ops.ssd_chunk(c, b, x, acum)
+        launched = {k: v.launches - before[k] for k, v in kernels.items()}
         cf, bf = (z.repeat_interleave(heads, 0) for z in (c, b))
         y_r, st_r = ref.ssd_chunk_ref(cf, bf, x, acum)
         self.sync()
         errs = {"y": float((y - y_r).abs().max()),
                 "state": float((st - st_r).abs().max())}
-        # f32 on both sides (FMA in the kernel, cuBLAS without TF32 in the
-        # plain version): summation order only
+        # f32 on both sides: the FMA kernel and cuBLAS without TF32 differ
+        # in summation order only; the sm90 kernel's 3xTF32 products carry
+        # ~2^-22 of each operand
         tols = {"y": 1e-4 * float(y_r.abs().max()),
                 "state": 1e-4 * float(st_r.abs().max())}
-        ok = all(errs[k] <= tols[k] for k in errs)
+        ok = all(errs[k] <= tols[k] for k in errs) and launched == {
+            r: int(r == route) for r in kernels}
         ms = self.time_ms(lambda: ops.ssd_chunk(c, b, x, acum))
         plain_ms = self.time_ms(lambda: ref.ssd_chunk_ref(cf, bf, x, acum),
                                 n=20)
-        # the entries that pass the causal mask: Q(Q+1)/2 per chunk, 2N
-        # flops each for C B^T and 2P for G x; the state 2QNP
-        flops = g * t * (q * (q + 1) // 2 * (2 * n + 2 * p) + 2 * q * n * p)
+        pairs = g // heads * t
+        group = None
+        sweep = {}
+        if route == "sm90":
+            group = ops.heads_per_cta(pairs, heads, torch.cuda
+                                      .get_device_properties(self.dev)
+                                      .multi_processor_count)
+            # the C entry point's group argument, past heads_per_cta
+            outs = torch.empty_like(y), torch.empty_like(st)
+            args = [z.data_ptr() for z in (c, b, x, acum, *outs)] + [
+                g, t, q, n, p, heads]
+            stream = torch.cuda.current_stream(self.dev).cuda_stream
+            for grp in sorted({1, 2, 3, 4, 6, 8, 12, heads}):
+                sweep[grp] = self.time_ms(
+                    lambda: ops.KERNEL_SM90(*args, grp, stream), n=10)
+        # what these inputs need: the scores C B^T once per (batch, chunk)
+        # (the heads share C and B) on the Q(Q+1)/2 entries that pass the
+        # causal mask, 2N flops each; G x_bar 2P a live entry; the state
+        # 2QNP a head-chunk
+        live = q * (q + 1) // 2
+        flops = pairs * live * 2 * n + g * t * (live * 2 * p + 2 * q * n * p)
         nbytes = 4 * (2 * (g // heads) * t * q * n + 2 * g * t * q * p
                       + g * t * q + g * t * n * p)
-        t_ops = flops / PEAK_FLOPS["float32"] * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_fma = flops / PEAK_FLOPS["float32"] * 1e3
+        # the sm90 route's products: three TF32 passes on the tensor cores
+        t_ops = 3 * flops / PEAK_FLOPS["tf32"] * 1e3 if route == "sm90" \
+            else t_fma
         return self.record({
-            "phase": "kernel", "name": "ssd_chunk", "ok": ok,
+            "phase": "kernel", "name": "ssd_chunk", "route": route, "ok": ok,
             "shape": {"G": g, "T": t, "Q": q, "N": n, "P": p,
                       "heads_sharing_BC": heads},
+            "launched": launched, "group": group,
             "max_abs_err": max(errs.values()), "max_abs_err_by": errs,
             "tol": tols, "tol_rel": 1e-4, "kernel_ms": ms,
             "plain_ms": plain_ms, "library_ms": None,
+            "group_sweep_ms": sweep,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops,
+            "bound_fma_ms": max(t_fma, t_bytes),
             "flops": flops, "bytes": nbytes})
 
     def check_decode_hymba(self, splits: int, *, bias: bool) -> dict:
@@ -1381,8 +1437,11 @@ class Smoke:
                                        for us, name, c in rows[:12]]}
 
         (cache, tok), *pre = self._profile(prefill)
+        # the SSD op's parts over the prefill's layers
+        ssd_parts = dict(sorted(self.last_scopes.items()))
         _, *dec = self._profile(lambda: decode(cache, tok))
-        out = {"prefill": part(*pre), "decode": part(*dec)}
+        out = {"prefill": {**part(*pre), "ssd_op_ms": ssd_parts},
+               "decode": part(*dec)}
         out["decode"]["steps"] = steps
         return out
 
@@ -1400,7 +1459,8 @@ class Smoke:
         from repro_torch.kernels.ssd import ops as ssd_ops
         from repro_torch.launch import serve
         from repro_torch.models import transformer
-        kernels = {"ssd_chunk": ssd_ops.KERNEL,
+        kernels = {"ssd_chunk_sm90": ssd_ops.KERNEL_SM90,
+                   "ssd_chunk": ssd_ops.KERNEL,
                    "flash_fwd": flash_ops.KERNEL,
                    "flash_fwd_sm90": flash_ops.FWD_SM90,
                    "flash_decode": kvq_ops.KERNEL,
@@ -1434,7 +1494,8 @@ class Smoke:
             n_attn = cfg.n_layers if cfg.mixer != "ssm" else 0
             n_band = sum(w > 0 for w in windows) if n_attn else 0
             steps = SSM_GEN - 1
-            want = {"ssd_chunk": cfg.n_layers, "flash_fwd": 0,
+            want = {"ssd_chunk_sm90": cfg.n_layers, "ssd_chunk": 0,
+                    "flash_fwd": 0,
                     "flash_fwd_sm90": n_attn,
                     "flash_decode": (n_attn - n_band) * steps,
                     "flash_decode_bias": n_band * steps}
@@ -1508,7 +1569,7 @@ def main(argv=None) -> int:
     # the tensor-core kernels keep their accumulators in registers (a
     # reused library reports the log of its build; None: no log, a
     # failure), and ptxas did not serialize their wgmma (warning C7514)
-    sm90 = ("flash_fwd_sm90", "flash_bwd_sm90")
+    sm90 = ("flash_fwd_sm90", "flash_bwd_sm90", "ssd_sm90")
     spill_free = {
         lib: all(int(n) == 0 for ln in ptxas[lib]
                  for n in re.findall(r"(\d+) bytes spill", ln))
@@ -1570,6 +1631,8 @@ def main(argv=None) -> int:
            smoke.check_ssd(200, 16, 128, 16, 64, 25),     # hymba serve
            smoke.check_ssd(192, 1, 64, 128, 64, 24),      # a 64-token prompt
            smoke.check_ssd(192, 1, 128, 128, 64, 24)]     # a single chunk
+    # the FMA route (head_p 16, on no main path) at mamba2's serve shape
+    ssd_fma = [smoke.check_ssd(192, 16, 128, 128, 16, 24)]
     dbias = [smoke.check_decode_hymba(sp, bias=True) for sp in (1, 4)]
     decode.append(smoke.check_decode_hymba(1, bias=False))  # G = 5
     decode += [smoke.check_decode_group(3, 128, 1),
@@ -1644,7 +1707,9 @@ def main(argv=None) -> int:
         bwd_row("dkv", ("dk", "dv")),
         bwd_row("dq", ("dq",), "sm90"), bwd_row("dkv", ("dk", "dv"), "sm90"),
         pack_row("decode"), pack_row("encode"),
-        ssm_row("ssd_chunk", ssd, SSD_SRC, SSD_TPU),
+        ssm_row("ssd_chunk_sm90", ssd, SSD_SM90_SRC, SSD_TPU),
+        # no main path of this run takes head_p 16: 0 launches
+        ssm_row("ssd_chunk", ssd_fma, SSD_SRC, SSD_TPU),
         ssm_row("flash_decode_bias", dbias, DECODE_SRC, DECODE_TPU)]}
     if args.out:
         out = pathlib.Path(args.out)

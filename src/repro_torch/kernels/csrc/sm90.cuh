@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels:
 // mbarriers, TMA tile loads and 1-D bulk copies, cluster barriers and
-// distributed shared memory, wgmma shared-memory descriptors and the
-// wgmma products the flash kernels use, and the host-side encoding of
-// TMA tensor maps.  Header-only; each .cu that includes it is compiled on
-// its own by kernels/build.py.
+// distributed shared memory, wgmma shared-memory descriptors, the bf16
+// wgmma products the flash kernels use and the tf32 ones of the SSD
+// kernel, and the host-side encoding of TMA tensor maps.  Header-only;
+// each .cu that includes it is compiled on its own by kernels/build.py.
 //
 // Conventions.
 //  * A tile of 64 rows x D bf16 values (D a multiple of 64) lives in
@@ -340,6 +340,90 @@ __device__ __forceinline__ void acc_to_a(const float (&d)[32],
     a[k][2] = pack_bf16(d[8 * k + 4], d[8 * k + 5]);
     a[k][3] = pack_bf16(d[8 * k + 6], d[8 * k + 7]);
   }
+}
+
+// ---------------------------------------------------------------------------
+// tf32 products (the SSD kernel's 3xTF32)
+// ---------------------------------------------------------------------------
+// x rounded to tf32 (10 mantissa bits, nearest, ties away from zero), as
+// the .b32 the tensor cores read: cvt.rna.tf32.f32's result for finite x,
+// by an integer add and mask (two ALU operations instead of a conversion
+// on the SFU pipe; measured faster in tools/ssd_phases.py).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x ~= hi + lo to ~2^-22 relative: hi = tf32(x), lo = tf32(x - hi).
+// Three tf32 products, hi lo + lo hi + hi hi, then carry f32 precision
+// (the lo lo term is below it).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// The tf32 A fragment of a k8 step, for thread t of the warpgroup (warp
+// w = t / 32, lane l = t % 32): register r holds row 16 w + l / 4 +
+// 8 (r % 2), column l % 4 + 4 (r / 2) -- mma.m16n8k8's tf32 layout, the
+// warps stacked.  Unlike bf16 (acc_to_a), it is not the accumulator's
+// layout: a product's result reaches another product's A through shared
+// memory or shuffles.
+__host__ __device__ constexpr int tf32_frag_row(int lane, int r) {
+  return lane / 4 + 8 * (r % 2);
+}
+__host__ __device__ constexpr int tf32_frag_col(int lane, int r) {
+  return lane % 4 + 4 * (r / 2);
+}
+
+// A K-major operand of R rows x K f32 with the 128-byte swizzle: K / 32
+// panels of R rows x 128 bytes, each 1024-byte aligned, 16-byte chunk c of
+// row r at chunk c ^ (r % 8).  Byte offset of element (r, k):
+__host__ __device__ constexpr int sw128_f32(int r, int k, int R) {
+  return (k / 32) * R * 128 + r * 128 + ((((k % 32) / 4) ^ (r % 8)) * 16) +
+         (k % 4) * 4;
+}
+
+// Its descriptor at k8 step s: 8 f32 (32 bytes) of K, like a bf16 k16 step.
+__device__ __forceinline__ uint64_t desc_kmajor_f32(uint32_t tile, int s,
+                                                    int R) {
+  return desc_sw128(tile + (s / 4) * R * 128 + (s % 4) * 32, 16, 1024);
+}
+
+// D[64 x 16] (+)= A[64 x 8] B[8 x 16] in tf32 with f32 accumulation; A in
+// registers (tf32_frag's layout), B in shared memory, K-major.
+__device__ __forceinline__ void wgmma_tf32_m64n16(float (&d)[8],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(scale_d));
+}
+
+// D[64 x 64] (+)= A[64 x 8] B[8 x 64] in tf32 with f32 accumulation; A in
+// registers (tf32_frag's layout), B in shared memory, K-major.
+__device__ __forceinline__ void wgmma_tf32_m64n64(float (&d)[32],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(scale_d));
 }
 
 // ---------------------------------------------------------------------------

@@ -1,7 +1,10 @@
-// SSD (mamba2 state-space duality) intra-chunk kernel for Hopper (sm_90a).
+// SSD (mamba2 state-space duality) intra-chunk kernel for Hopper (sm_90a),
+// f32 FMA, at head_p 16 (the smoke configurations' width).
 //
 // Replaces the TPU kernel src/repro/kernels/ssd/kernel.py :: ssd_chunk_pallas
-// (body _ssd_chunk_kernel).  For every folded (batch * head) row g and chunk
+// (body _ssd_chunk_kernel) where kernels/ssd/ops.py ssd_route sends head_p
+// 16; head_p 64 (mamba2's and hymba's widths) goes to ssd_sm90.cu, whose
+// wgmma tiles are 64 wide.  For every folded (batch * head) row g and chunk
 // t, with C, B (Q, N), xbar (Q, P) and the inclusive cumulative log-decay
 // da (Q,), all f32:
 //   y[i]     = sum_{j <= i} (C[i] . B[j]) exp(da[i] - da[j]) xbar[j]
@@ -10,16 +13,17 @@
 // C and B are head-shared: they are read as (G / H, T, Q, N) and row g uses
 // batch g / H, so the serving path never broadcasts them over the heads.
 //
-// What bounds it on the H100: operations.  At mamba2's Q = 128, N = 128,
-// P = 64 a chunk does ~5.3 MFLOP on ~100 KB of operands and results (about
-// 50 FLOP/byte), and the kernel stays in f32 (FMA, no TF32) so that it can
-// be held tightly against its plain version: 67 TFLOP/s is the roof.
+// What bounds it on the H100: operations.  At P = 16 the scores C B^T (2N
+// flops a live entry, recomputed for each head) are most of a chunk's work:
+// at Q = 128, N = 128 ~2.1 of ~2.9 MFLOP, on ~150 KB of operands, most of
+// them C and B from L2.  The kernel stays in f32 (FMA, no TF32) so that it
+// can be held tightly against its plain version: 67 TFLOP/s is the roof.
 //
 // What the design does about it: one block of 256 threads per chunk, every
 // operand staged once in shared memory, each product from register tiles.
-// The TPU kernel holds C, B, x, y and the Q x Q decay in VMEM at once
-// (~290 KB); here N is tiled in steps of 16 for the scores, and one shared
-// region is reused phase by phase (~100 KB at Q = 128, so two blocks share
+// The TPU kernel holds C, B, x, y and the Q x Q decay in VMEM at once;
+// here N is tiled in steps of 16 for the scores, and one shared region is
+// reused phase by phase (~85 KB at Q = 128, N = 128, so two blocks share
 // an SM):
 //   A. scores C B^T: only the 8 x 8 register tiles on or below the
 //      diagonal are computed (thread k takes the k-th of them), masked and
@@ -28,8 +32,8 @@
 //   C. state = B^T (xbar * w): xbar scaled in place, B staged whole, register
 //      tiles of (N / 16) x 4.
 // Any Q in [1, 128] (a prompt shorter than the chunk gives Q = L), N in
-// {16, 128}, P in {16, 64}.  Rows and columns past Q are computed from
-// unloaded shared memory and never stored.
+// {16, 128}, P = 16.  Rows and columns past Q are computed from unloaded
+// shared memory and never stored.
 #include <cuda_runtime.h>
 
 namespace {
@@ -37,6 +41,7 @@ namespace {
 constexpr int NT = 256;
 constexpr int QMAX = 128;
 constexpr int NK = 16;  // N step of the score product
+constexpr int P = 16;   // head_p
 
 // j-major row stride of the transposed tiles: a multiple of 4 floats (16-byte
 // rows for float4 reads) with room for the 8-wide tiles that straddle Q
@@ -47,12 +52,12 @@ __host__ __device__ inline int region_a(int q, int n) {
   return g > b ? g : b;
 }
 
-__host__ __device__ inline int region_b(int q, int p) {
-  const int tiles = 2 * NK * row_stride(q), x = q * p;
+__host__ __device__ inline int region_b(int q) {
+  const int tiles = 2 * NK * row_stride(q), x = q * P;
   return tiles > x ? tiles : x;
 }
 
-template <int N, int P>
+template <int N>
 __global__ void __launch_bounds__(NT, 2)
 ssd_chunk_kernel(const float* __restrict__ c, const float* __restrict__ b,
                  const float* __restrict__ x, const float* __restrict__ acum,
@@ -197,16 +202,16 @@ ssd_chunk_kernel(const float* __restrict__ c, const float* __restrict__ b,
   }
 }
 
-template <int N, int P>
+template <int N>
 cudaError_t launch(const float* c, const float* b, const float* x,
                    const float* acum, float* y, float* state, int G, int T,
                    int Q, int H, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)region_a(Q, N) + region_b(Q, P));
+  const size_t smem = sizeof(float) * ((size_t)region_a(Q, N) + region_b(Q));
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_chunk_kernel<N, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_chunk_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  ssd_chunk_kernel<N, P><<<dim3(T, G), NT, smem, stream>>>(c, b, x, acum, y,
+  ssd_chunk_kernel<N><<<dim3(T, G), NT, smem, stream>>>(c, b, x, acum, y,
                                                           state, T, Q, H);
   return cudaGetLastError();
 }
@@ -217,7 +222,7 @@ cudaError_t launch(const float* c, const float* b, const float* x,
 // shape it does not take).
 extern "C" int ssd_chunk(const void* c, const void* b, const void* x,
                          const void* acum, void* y, void* state, int G, int T,
-                         int Q, int N, int P, int H, void* stream) {
+                         int Q, int N, int p, int H, void* stream) {
   if (G < 1 || T < 1 || Q < 1 || Q > QMAX || H < 1 || G % H) return (int)cudaErrorInvalidValue;
   const float* cf = static_cast<const float*>(c);
   const float* bf = static_cast<const float*>(b);
@@ -226,9 +231,8 @@ extern "C" int ssd_chunk(const void* c, const void* b, const void* x,
   float* yf = static_cast<float*>(y);
   float* sf = static_cast<float*>(state);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (N == 128 && P == 64) return (int)launch<128, 64>(cf, bf, xf, af, yf, sf, G, T, Q, H, st);
-  if (N == 16 && P == 64) return (int)launch<16, 64>(cf, bf, xf, af, yf, sf, G, T, Q, H, st);
-  if (N == 128 && P == 16) return (int)launch<128, 16>(cf, bf, xf, af, yf, sf, G, T, Q, H, st);
-  if (N == 16 && P == 16) return (int)launch<16, 16>(cf, bf, xf, af, yf, sf, G, T, Q, H, st);
+  if (p != P) return (int)cudaErrorInvalidValue;  // head_p 64: ssd_sm90.cu
+  if (N == 128) return (int)launch<128>(cf, bf, xf, af, yf, sf, G, T, Q, H, st);
+  if (N == 16) return (int)launch<16>(cf, bf, xf, af, yf, sf, G, T, Q, H, st);
   return (int)cudaErrorInvalidValue;
 }

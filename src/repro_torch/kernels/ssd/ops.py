@@ -3,17 +3,23 @@ of ``repro.kernels.ssd.ops``).
 
 The FLOP-heavy intra-chunk part goes through ``ssd_chunk``, which
 dispatches on the device: CPU tensors go to the plain
-``ref.ssd_chunk_ref``; CUDA tensors go to the hand-written kernel
-``kernels/csrc/ssd.cu`` or raise.  The inter-chunk state recurrence (T
-steps over (N, P) states), its fold and the ``y_inter`` product stay in
-PyTorch, as the JAX op keeps them out of its kernel.
+``ref.ssd_chunk_ref``; CUDA tensors go to a hand-written kernel or raise.
+Two designs, chosen by shape (:func:`ssd_route`): head_p 64 (mamba2's and
+hymba's widths) to ``kernels/csrc/ssd_sm90.cu`` (3xTF32 wgmma, the
+scores shared by a CTA's group of heads), head_p 16 to ``ssd.cu`` (f32
+FMA).  Nothing falls back from one to the other.  The inter-chunk state
+recurrence (T steps over (N, P) states), its fold and the ``y_inter``
+product stay in PyTorch, as the JAX op keeps them out of its kernel.
 
 The kernel has no backward (nor has the TPU kernel): on the card,
 ``ssd_chunk`` raises when autograd would need a gradient through it.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
+from torch.profiler import record_function
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ssd import ref
@@ -22,13 +28,43 @@ MAX_CHUNK = 128
 SUPPORTED_STATE = (16, 128)        # N
 SUPPORTED_HEAD_P = (16, 64)        # P
 
+SM90_HEAD_P = 64                   # P the tensor-core kernel takes
+
 KERNEL = build.Kernel("ssd", "ssd_chunk", [
     build.PTR, build.PTR, build.PTR, build.PTR, build.PTR, build.PTR,
     build.INT, build.INT, build.INT, build.INT, build.INT, build.INT,
     build.PTR])
+KERNEL_SM90 = build.Kernel("ssd_sm90", "ssd_chunk_sm90",
+                           KERNEL.argtypes[:-1] + [build.INT, build.PTR])
 
 
-def _check_cuda(c, b, xbar, acum):
+def ssd_route(n: int, p: int) -> str:
+    """Which hand-written kernel takes a CUDA chunk of d_state ``n`` and
+    head_p ``p``: ``"sm90"`` (``ssd_sm90.cu``, 3xTF32 on the tensor cores)
+    at head_p 64, whose wgmma tiles are 64 wide; ``"fma"`` (``ssd.cu``, f32
+    FMA, which takes head_p 16 only) at head_p 16, the smoke
+    configurations' width, which neither of the tensor-core kernel's forms
+    fits.  Raises for anything neither takes."""
+    if n not in SUPPORTED_STATE or p not in SUPPORTED_HEAD_P:
+        raise ValueError(f"ssd_chunk: the CUDA kernels take d_state in "
+                         f"{SUPPORTED_STATE} and head_p in "
+                         f"{SUPPORTED_HEAD_P}, got {n}, {p}")
+    return "sm90" if p == SM90_HEAD_P else "fma"
+
+
+def heads_per_cta(pairs: int, heads: int, sms: int) -> int:
+    """Heads one CTA of ``ssd_sm90.cu`` walks, computing the scores C B^T
+    once for all of them: the fewest groups of heads whose grid of
+    ``pairs`` (batch, chunk) pairs x groups still gives every one of the
+    ``sms`` SMs a CTA (one CTA an SM fits).  mamba2's and hymba's serve
+    shapes (128 pairs) take all their heads in one CTA; a one-chunk prompt
+    of 8 rows takes two heads a CTA."""
+    groups = max(1, min(heads, sms // pairs))
+    return -(-heads // groups)
+
+
+def _check_cuda(c, b, xbar, acum) -> str:
+    """Check a CUDA chunk's operands; return :func:`ssd_route`'s route."""
     tensors = (c, b, xbar, acum)
     if not all(t.is_cuda and t.device == xbar.device for t in tensors):
         raise ValueError("ssd_chunk: operands must all be on one CUDA device")
@@ -45,15 +81,15 @@ def _check_cuda(c, b, xbar, acum):
         raise ValueError(f"ssd_chunk: shapes do not match: c {tuple(c.shape)}"
                          f", b {tuple(b.shape)}, xbar {tuple(xbar.shape)}, "
                          f"acum {tuple(acum.shape)}")
-    if not 1 <= q <= MAX_CHUNK or n not in SUPPORTED_STATE \
-            or p not in SUPPORTED_HEAD_P:
-        raise ValueError(f"ssd_chunk: the CUDA kernel takes chunk <= "
-                         f"{MAX_CHUNK}, d_state in {SUPPORTED_STATE} and "
-                         f"head_p in {SUPPORTED_HEAD_P}, got {q}, {n}, {p}")
+    if not 1 <= q <= MAX_CHUNK:
+        raise ValueError(f"ssd_chunk: the CUDA kernels take chunk <= "
+                         f"{MAX_CHUNK}, got {q}")
+    route = ssd_route(n, p)
     if not all(x.is_contiguous() and x.data_ptr() % 16 == 0
                for x in tensors):
         raise ValueError("ssd_chunk: operands must be contiguous and "
                          "16-byte aligned")
+    return route
 
 
 def ssd_chunk(c, b, xbar, acum):
@@ -62,7 +98,9 @@ def ssd_chunk(c, b, xbar, acum):
     xbar (G, T, Q, P), acum (G, T, Q), all f32.  c, b are (G, T, Q, N), or
     head-shared (G // H, T, Q, N): folded row g then reads c[g // H] (the
     kernel's way of taking mamba2's one B/C group without broadcasting it
-    over the heads).  Returns (y_intra (G, T, Q, P), state (G, T, N, P))."""
+    over the heads).  The sm90 route's CTAs walk :func:`heads_per_cta`'s
+    group of heads.
+    Returns (y_intra (G, T, Q, P), state (G, T, N, P))."""
     g, t, q, p = xbar.shape
     heads = g // c.shape[0]
     if not xbar.is_cuda:
@@ -70,14 +108,32 @@ def ssd_chunk(c, b, xbar, acum):
             c = c.repeat_interleave(heads, dim=0)
             b = b.repeat_interleave(heads, dim=0)
         return ref.ssd_chunk_ref(c, b, xbar, acum)
-    _check_cuda(c, b, xbar, acum)
+    route = _check_cuda(c, b, xbar, acum)
     n = c.shape[-1]
-    y = torch.empty((g, t, q, p), dtype=torch.float32, device=xbar.device)
-    state = torch.empty((g, t, n, p), dtype=torch.float32, device=xbar.device)
-    KERNEL(c.data_ptr(), b.data_ptr(), xbar.data_ptr(), acum.data_ptr(),
-           y.data_ptr(), state.data_ptr(), g, t, q, n, p, heads,
-           torch.cuda.current_stream(xbar.device).cuda_stream)
+    dev = xbar.device
+    y = torch.empty((g, t, q, p), dtype=torch.float32, device=dev)
+    state = torch.empty((g, t, n, p), dtype=torch.float32, device=dev)
+    args = (c.data_ptr(), b.data_ptr(), xbar.data_ptr(), acum.data_ptr(),
+            y.data_ptr(), state.data_ptr(), g, t, q, n, p, heads)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if route == "fma":
+        KERNEL(*args, stream)
+    else:
+        group = heads_per_cta(g // heads * t, heads, torch.cuda
+                              .get_device_properties(dev)
+                              .multi_processor_count)
+        KERNEL_SM90(*args, group, stream)
     return y, state
+
+
+def _part(name: str):
+    """A profiler range over one part of :func:`ssd` (the folds and casts
+    in, the chunk kernel, the recurrence, y_inter, the sum, skip and cast
+    out), opened only while a profiler records: the op's device time by
+    part, read by chip_smoke.py's serve_ssm profile."""
+    if torch.autograd._profiler_enabled():
+        return record_function(name)
+    return contextlib.nullcontext()
 
 
 def ssd(x, dt, a, b, c, d, *, chunk: int = 128, initial_state=None,
@@ -95,38 +151,42 @@ def ssd(x, dt, a, b, c, d, *, chunk: int = 128, initial_state=None,
                          f"the chunk {chunk}")
     t = L // chunk
     f32 = torch.float32                  # state recurrences in f32
-    xbar = (x * dt[..., None]).to(f32)
-    alog = (dt * a[None, None, :]).to(f32)                          # (B,L,H)
-    acum = torch.cumsum(alog.reshape(bsz, t, chunk, h), dim=2)      # (B,T,Q,H)
-
-    # fold (B, H) -> G rows; B and C stay (B, T, Q, N), shared by the heads
-    c_f = c.reshape(bsz, t, chunk, n).to(f32).contiguous()
-    b_f = b.reshape(bsz, t, chunk, n).to(f32).contiguous()
-    x_f = xbar.reshape(bsz, t, chunk, h, p).permute(0, 3, 1, 2, 4).reshape(
-        bsz * h, t, chunk, p).contiguous()
-    a_f = acum.permute(0, 3, 1, 2).reshape(bsz * h, t, chunk).contiguous()
-    y_intra, chunk_states = ssd_chunk(c_f, b_f, x_f, a_f)
+    with _part("ssd.fold"):
+        xbar = (x * dt[..., None]).to(f32)
+        alog = (dt * a[None, None, :]).to(f32)                      # (B,L,H)
+        acum = torch.cumsum(alog.reshape(bsz, t, chunk, h), dim=2)  # (B,T,Q,H)
+        # fold (B, H) -> G rows; B and C stay (B, T, Q, N), head-shared
+        c_f = c.reshape(bsz, t, chunk, n).to(f32).contiguous()
+        b_f = b.reshape(bsz, t, chunk, n).to(f32).contiguous()
+        x_f = xbar.reshape(bsz, t, chunk, h, p).permute(0, 3, 1, 2, 4) \
+            .reshape(bsz * h, t, chunk, p).contiguous()
+        a_f = acum.permute(0, 3, 1, 2).reshape(bsz * h, t, chunk).contiguous()
+    with _part("ssd.chunk"):
+        y_intra, chunk_states = ssd_chunk(c_f, b_f, x_f, a_f)
 
     # inter-chunk state recurrence: S_{j+1} = exp(sum_j) S_j + state_j
-    chunk_decay = torch.exp(a_f[:, :, -1])                          # (G, T)
-    s = (torch.zeros((bsz * h, n, p), dtype=f32, device=x.device)
-         if initial_state is None
-         else initial_state.reshape(bsz * h, n, p).to(f32))
-    s_in = []                                   # the state entering chunk j
-    for j in range(t):
-        s_in.append(s)
-        s = s * chunk_decay[:, j, None, None] + chunk_states[:, j]
-    s_in = torch.stack(s_in, 1).reshape(bsz, h, t, n, p)
+    with _part("ssd.recurrence"):
+        chunk_decay = torch.exp(a_f[:, :, -1])                      # (G, T)
+        s = (torch.zeros((bsz * h, n, p), dtype=f32, device=x.device)
+             if initial_state is None
+             else initial_state.reshape(bsz * h, n, p).to(f32))
+        s_in = []                               # the state entering chunk j
+        for j in range(t):
+            s_in.append(s)
+            s = s * chunk_decay[:, j, None, None] + chunk_states[:, j]
+        s_in = torch.stack(s_in, 1).reshape(bsz, h, t, n, p)
 
     # exp(Acum_t) (C_t @ S): the JAX op scales C before the product; here
     # the (B, H, T, Q, P) product is scaled, so the head-shared C is never
     # broadcast over the heads (the same sum, rounded once more)
-    y_inter = torch.einsum("btqn,bhtnp->bhtqp", c_f, s_in) * torch.exp(
-        a_f).reshape(bsz, h, t, chunk)[..., None]
-    y = (y_intra.reshape(bsz, h, t, chunk, p) + y_inter)
-    y = y.permute(0, 2, 3, 1, 4).reshape(bsz, L, h, p)
-    y = y + x.to(f32) * d[None, None, :, None]
-    y = y.to(x.dtype)
+    with _part("ssd.y_inter"):
+        y_inter = torch.einsum("btqn,bhtnp->bhtqp", c_f, s_in) * torch.exp(
+            a_f).reshape(bsz, h, t, chunk)[..., None]
+    with _part("ssd.out"):
+        y = (y_intra.reshape(bsz, h, t, chunk, p) + y_inter)
+        y = y.permute(0, 2, 3, 1, 4).reshape(bsz, L, h, p)
+        y = y + x.to(f32) * d[None, None, :, None]
+        y = y.to(x.dtype)
     if return_state:
         return y, s.reshape(bsz, h, n, p)
     return y

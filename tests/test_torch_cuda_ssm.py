@@ -1,6 +1,8 @@
 """The SSM slice's CUDA kernels against their plain PyTorch versions, on the
-card: the SSD chunk kernel (``kernels/csrc/ssd.cu``) and the decode
-kernel's dense-bias entry point and GQA group 5
+card: the SSD chunk kernel's two designs (``kernels/csrc/ssd_sm90.cu``,
+3xTF32 on the tensor cores, for head_p 64; ``ssd.cu``, f32 FMA, for
+head_p 16; ``ssd_ops.ssd_route`` chooses) and the decode kernel's dense-bias
+entry point and GQA group 5
 (``kernels/csrc/flash_decode.cu``), then a 2-layer hybrid through prefill
 and decode on the card and on the CPU.  Marked ``cuda``: without a CUDA
 device (and nvcc) every test here skips; on the H100 run
@@ -61,7 +63,50 @@ def _chunk_inputs(g, t, q, n, p, heads, dev, seed=0):
 ])
 def test_ssd_chunk_kernel_matches_plain(dev, g, t, q, n, p, heads):
     c, b, x, acum = _chunk_inputs(g, t, q, n, p, heads, dev, seed=q + n)
+    launches = _launches()
     y, st = ssd_ops.ssd_chunk(c, b, x, acum)
+    route = ssd_ops.ssd_route(n, p)
+    assert _launches() == {r: k + (r == route) for r, k in launches.items()}
+    y_r, st_r = ssd_ref.ssd_chunk_ref(c.repeat_interleave(heads, 0),
+                                      b.repeat_interleave(heads, 0), x, acum)
+    _close(y, y_r, 1e-4)
+    _close(st, st_r, 1e-4)
+
+
+def _launches():
+    return {"sm90": ssd_ops.KERNEL_SM90.launches,
+            "fma": ssd_ops.KERNEL.launches}
+
+
+def _sm90_at_group(c, b, x, acum, group):
+    """The sm90 kernel through its C entry point, at a group of heads a CTA
+    that ``heads_per_cta`` would not pick."""
+    g, t, q, p = x.shape
+    n = c.shape[-1]
+    y = torch.empty_like(x)
+    st = torch.empty((g, t, n, p), device=x.device)
+    ssd_ops.KERNEL_SM90(*(z.data_ptr() for z in (c, b, x, acum, y, st)),
+                        g, t, q, n, p, g // c.shape[0], group,
+                        torch.cuda.current_stream(x.device).cuda_stream)
+    return y, st
+
+
+@pytest.mark.parametrize("g,t,q,n,heads,group", [
+    (14, 2, 128, 128, 7, 3),      # 7 heads in groups of 3: a last group of 1
+    (10, 3, 100, 16, 5, 2),       # hymba's N, Q = 100, groups of 2 and 1
+    (24, 1, 128, 128, 24, None),  # one chunk, 24 heads: heads_per_cta's groups
+    (48, 1, 64, 16, 24, None),    # a 64-token prompt, two rows of 24 heads
+    (24, 2, 128, 128, 24, 24),    # every head in one CTA
+])
+def test_ssd_sm90_head_groups(dev, g, t, q, n, heads, group):
+    # the scores are computed once per CTA's group of heads: every group
+    # size gives every head the same result as the plain version
+    c, b, x, acum = _chunk_inputs(g, t, q, n, 64, heads, dev, seed=g + q)
+    launches = _launches()
+    y, st = (ssd_ops.ssd_chunk(c, b, x, acum) if group is None
+             else _sm90_at_group(c, b, x, acum, group))
+    assert _launches() == {"sm90": launches["sm90"] + 1,
+                           "fma": launches["fma"]}
     y_r, st_r = ssd_ref.ssd_chunk_ref(c.repeat_interleave(heads, 0),
                                       b.repeat_interleave(heads, 0), x, acum)
     _close(y, y_r, 1e-4)
@@ -79,10 +124,10 @@ def test_ssd_op_card_matches_cpu(dev):
     d = torch.randn((h,), generator=gen)
     args = (x, dt, a, bm, cm, d)
     y_c, s_c = ssd_ops.ssd(*args, chunk=128, return_state=True)
-    before = ssd_ops.KERNEL.launches
+    before = ssd_ops.KERNEL_SM90.launches          # head_p 64: the sm90 route
     y_g, s_g = ssd_ops.ssd(*(z.to(dev) for z in args), chunk=128,
                            return_state=True)
-    assert ssd_ops.KERNEL.launches == before + 1
+    assert ssd_ops.KERNEL_SM90.launches == before + 1
     _close(y_g.cpu(), y_c, 1e-4)
     _close(s_g.cpu(), s_c, 1e-4)
 

@@ -5,13 +5,15 @@ root (so each tree builds and imports its own kernels), and print every
 result line tagged with its tree and turn.
 
     python3 tools/compare_trees.py OLD_ROOT NEW_ROOT \
-        [--phases decode,serve_ssm,serve] [--out FILE]
+        [--phases decode,ssd,serve_ssm,serve] [--out FILE]
 
 OLD_ROOT is typically the parent commit unpacked with ``git archive`` into
 a git-ignored directory (``build/parent``).  Phases (``Smoke`` methods):
 
 * ``decode``: the five timed decode kernel lines (llama's shape at splits
   1 and 4, hymba's window band at splits 1 and 4, hymba's G=5 lengths);
+* ``ssd``: the four SSD chunk kernel lines (mamba2's and hymba's serve
+  shapes, a 64-token prompt, a single chunk);
 * ``serve_ssm``: the mamba2-130m and hymba-1.5b lockstep serve runs and
   their profiles;
 * ``serve``: the llama3-8b engine run and its profile;
@@ -85,6 +87,11 @@ for phase in PHASES:
         s.check_decode_hymba(1, bias=True)
         s.check_decode_hymba(4, bias=True)
         s.check_decode_hymba(1, bias=False)
+    elif phase == "ssd":
+        s.check_ssd(192, 16, 128, 128, 64, 24)
+        s.check_ssd(200, 16, 128, 16, 64, 25)
+        s.check_ssd(192, 1, 64, 128, 64, 24)
+        s.check_ssd(192, 1, 128, 128, 64, 24)
     elif phase == "serve_ssm":
         s.run_serve_ssm()
     elif phase == "serve":

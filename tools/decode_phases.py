@@ -5,7 +5,8 @@
                                    [--out F]
 
 Builds three instrumented copies of the decode kernel into
-``build/decode_phases/`` (git-ignored):
+``build/decode_phases/`` (git-ignored; ``tools/variant_build.py``, one
+``nvcc`` each, all started together):
 
 * ``trace``: the kernel as it is, each warp's lane 0 keeping %globaltimer
   stamps in registers at its phases (entry, parameters read, barriers
@@ -42,6 +43,8 @@ import sys
 from collections import Counter
 
 import numpy as np
+
+import variant_build
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
@@ -191,30 +194,18 @@ def main(argv=None) -> int:
     if args.sass:
         build.build_all(["flash_decode"])
         emit({"sass": sass_loops(build.library_path("flash_decode"))})
-    out_dir = ROOT / "build" / "decode_phases"
-    out_dir.mkdir(parents=True, exist_ok=True)
     srcs = variants((csrc / "flash_decode.cu").read_text())
     if args.parent:
         srcs["parent"] = pathlib.Path(args.parent).read_text()
-    procs = {}
-    for name, text in srcs.items():
-        (out_dir / f"{name}.cu").write_text(text)
-        procs[name] = subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-I", str(csrc), "-o",
-             str(out_dir / f"{name}.so"), str(out_dir / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"decode_phases: nvcc failed on {name}:\n{log}")
-        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
+    for name, (lib, regs) in variant_build.build_variants(
+            ROOT / "build" / "decode_phases",
+            {name: {"flash_decode.cu": text} for name, text in srcs.items()},
+            "flash_decode.cu", "decode_phases").items():
         for f in (lib.flash_decode, lib.flash_decode_bias):
             f.argtypes, f.restype = ops._ARGTYPES, ctypes.c_int
         libs[name] = lib
-        emit({"lib": name, "registers": [
-            ln.split("Used ")[1].split(" ")[0] for ln in log.splitlines()
-            if "Used " in ln]})
+        emit({"lib": name, "registers": regs})
 
     dev = torch.device("cuda", 0)
     smoke = chip_smoke.Smoke(None)
