@@ -40,32 +40,54 @@ JSON object per line:
    the kernels' launch counters are zeroed just before the run and read
    just after it;
 6. ``profile``: ``torch.profiler`` over a short serve run after that one,
-   device time by kernel and the card's idle share;
+   device time by kernel and the card's idle share; then ``serve_budget``:
+   an engine with ``mem_budget_bytes`` of 5.5 slots at ``max_len`` 2048
+   and 8 slots asked for must clamp to 5 (``capacity_report``), a pool of
+   5 slots must allocate exactly 5 x ``bytes_per_slot`` on the card (its
+   ``pos`` lengths aside), and the trace's first 6 requests must finish
+   with never more than 5 resident;
 7. ``train``: llama3-8b at full width and 4 layers (random f32 master
    weights from ``--seed``), policy bf16, remat on every block, AdamW,
    batch 1 x 4096 tokens, through ``build_train_step``: 2 warm-up steps,
    then 5 timed steps with the launch counters zeroed before and read
    after (the forward and the backward's dQ / dKV on the tensor-core
    kernels only), then ``torch.profiler`` over one more step;
-8. ``train_cli``: ``python -m repro_torch.launch.train --smoke`` on the
+8. ``train_plan``: the ``train`` configuration from the same weights and
+   batch under eight remat settings: (a) off, (b) ``full`` on every block,
+   (c) the trainer's ``--remat auto`` without a budget (its
+   ``_auto_remat``: ``plan_min_peak`` at isqrt(L) checkpoints), (d)
+   ``TrainConfig.mem_budget_mb`` at the midpoint of (c)'s planned peak and
+   the profile's ``no_remat_bytes`` (``make_train_step`` solves it with
+   ``plan_for_budget``), (e) ``dots``, (f) ``dots_nobatch``, (g) ``full``
+   with ``save_names=("attn_out", "ffn_out")``, (h) (b) with the chunked
+   CE (``ce_chunk=512``).  Each: a warm-up step and 3 timed steps through
+   ``make_train_step``, the flash
+   launch counters zeroed before the timed steps and read after, one
+   forward and backward of ``loss_fn`` for the bytes still allocated after
+   the forward and the peak above what was allocated before, and
+   ``torch.profiler``'s count of GEMM launches in one step; the planner's
+   ``peak_bytes`` beside the measured bytes;
+9. ``train_cli``: ``python -m repro_torch.launch.train --smoke`` on the
    card for 4 steps with checkpoints, then again to 6 steps, which must
-   resume from step 4;
-9. ``kernel`` lines for the E-D codec's decode and encode kernels against
+   resume from step 4; then a run of 2 steps with ``--remat auto
+   --mem-budget-mb 1 --events F --trace --metrics-every 1``, whose
+   ``remat_plan.json`` and event file are checked;
+10. ``kernel`` lines for the E-D codec's decode and encode kernels against
    their plain versions, for equality, at the CIFAR batch (8 containers of
    32x32x3) and the memory shape (4 containers of 512x512x3);
-10. ``cifar_model``: full-width ResNet-18 from one set of weights through
+11. ``cifar_model``: full-width ResNet-18 from one set of weights through
     ``loss_fn`` on one packed batch of 32, on the card (decode kernel) and
     on the CPU (plain version): logits, loss and every gradient;
-11. ``cifar_train``: ``examples/cifar_optorch_torch.py``'s ``train()`` for
+12. ``cifar_train``: ``examples/cifar_optorch_torch.py``'s ``train()`` for
     the paper's four pipelines (baseline, ED, ED+SC, ED+SC+MP), ResNet-18
     at full width, 200 steps each, the launch counters zeroed before each
     and read after it; accuracy parity, step time, images/s, peak memory,
     and ``torch.profiler`` over 30 steps of ED+SC+MP;
-12. ``cifar_memory``: the paper's memory experiment at the repo's fig8
+13. ``cifar_memory``: the paper's memory experiment at the repo's fig8
     shape (ResNet-18, ``stem_stride=2``, 16 x 512x512x3): one forward and
     backward for each of B, ED, SC, ED+SC, ED+SC+MP, peak device memory
     above the parameters and gradients;
-13. ``kernel`` lines for the SSM slice: the flash forward at hymba's
+14. ``kernel`` lines for the SSM slice: the flash forward at hymba's
     prefill shape (B=8, 25 / 5 heads of 64, S=2048, bf16; window 1024 and
     full causal), the SSD chunk kernel against its plain version at
     mamba2's and hymba's serve shapes, at Q=64 and for a single chunk
@@ -77,18 +99,18 @@ JSON object per line:
     as ``bound_fma_ms``), and the decode kernel's
     dense-bias entry point (splits 1 and 4) and its GQA group 5 on the
     lengths path at hymba's decode shape (tolerance 1e-5);
-14. ``ssm_model``: a 2-layer mamba2 (N=128, P=64) and a 2-layer hymba
+15. ``ssm_model``: a 2-layer mamba2 (N=128, P=64) and a 2-layer hymba
     (head_dim 64, group 5, window 64, global layer 0) at full width,
     prefill 256 tokens and decode 80 steps past the window, on the card
     (kernels) and on the CPU (plain versions), same weights: logits,
     conv / SSM / int8 K/V caches, greedy tokens;
-15. ``serve_ssm``: ``launch/serve.py``'s lockstep at full width and depth
+16. ``serve_ssm``: ``launch/serve.py``'s lockstep at full width and depth
     for mamba2-130m and hymba-1.5b (random bf16 weights, batch 8, prompt
     2048, 32 new tokens, int8 cache) after a one-step warm-up run, the
     launch counters zeroed just before each run and read just after, then
     ``torch.profiler`` over its prefill and its first 4 decode steps run
     again, the prefill's SSD op split by its profiler ranges;
-16. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
+17. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failed check raises after the lines are printed, and the script exits
@@ -98,6 +120,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -131,6 +154,10 @@ BWD_TPU = {"delta": "src/repro/kernels/flash/kernel.py:418",
            "dq": "src/repro/kernels/flash/kernel.py:434",
            "dkv": "src/repro/kernels/flash/kernel.py:478"}
 TRAIN_LAYERS, TRAIN_SEQ = 4, 4096   # full width, depth cut to 4 layers
+TRAIN_PLAN_STEPS = 3                # timed steps of each train_plan run
+CE_CHUNK = 512                      # train_plan (h)'s chunk of the CE
+#: cuBLAS / CUTLASS GEMM kernel names on Hopper (nvjet: cuBLAS 12.8's)
+GEMM_NAME = re.compile(r"gemm|nvjet|xmma|cutlass", re.I)
 PACK_SRC = "src/repro_torch/kernels/csrc/pack.cu"
 PACK_TPU = {"decode": "src/repro/kernels/pack/kernel.py:44",
             "encode": "src/repro/kernels/pack/kernel.py:63"}
@@ -661,7 +688,57 @@ class Smoke:
             "kv_pool_bytes": engine.pool.bytes_per_slot() * 8,
             "init_s": init_s, "warmup_s": warmup_s})
         self.profile_serve(engine, cfg)
+        self.check_serve_budget(model, cfg, trace[:6],
+                                engine.pool.bytes_per_slot())
         return rec
+
+    def check_serve_budget(self, model, cfg, trace, bytes_per_slot) -> dict:
+        """``ServeEngine(mem_budget_bytes=)`` at 5.5 slots of llama3-8b's
+        int8 cache at ``max_len`` 2048, 8 slots asked for: the capacity
+        report must admit 5; a pool of 5 slots must take exactly 5 x
+        ``bytes_per_slot`` of device memory beside its (5,) int32 ``pos``
+        lengths; and ``trace`` (6 requests) must finish with never more
+        than 5 resident."""
+        torch = self.torch
+        from repro_torch.serve import ServeEngine, SlotPool
+        budget = int(5.5 * bytes_per_slot)
+        gc.collect()
+        self.sync()
+        base = torch.cuda.memory_allocated(self.dev)
+        pos = torch.zeros((5,), dtype=torch.int32, device=self.dev)
+        pos_block = torch.cuda.memory_allocated(self.dev) - base
+        del pos
+        base = torch.cuda.memory_allocated(self.dev)
+        pool = SlotPool(cfg, 5, 2048, device=self.dev)
+        pool_bytes = torch.cuda.memory_allocated(self.dev) - base - pos_block
+        del pool
+        engine = ServeEngine(model, cfg, max_slots=8, max_len=2048,
+                             policy_name="bf16", quantized=True, kv_splits=4,
+                             mem_budget_bytes=budget)
+        resident = []
+        engine.hooks["pre_decode"] = \
+            lambda e: resident.append(e.scheduler.resident)
+        summary = engine.run(trace)
+        self.sync()
+        cap = engine.capacity_report
+        checks = {
+            "max_slots_5": cap["max_slots"] == 5
+            and engine.pool.max_slots == 5,
+            "pool_bytes_exact": pool_bytes == 5 * bytes_per_slot,
+            "report_bytes_per_slot": cap["bytes_per_slot"] == bytes_per_slot,
+            "n_done_6": summary["n_done"] == len(trace) == 6,
+            "never_more_than_5": max(resident) <= 5,
+        }
+        return self.record({
+            "phase": "serve_budget", "ok": all(checks.values()),
+            "checks": checks, "budget_bytes": budget,
+            "bytes_per_slot": bytes_per_slot,
+            "bytes_per_slot_arithmetic": cfg.n_layers * cfg.n_kv * 2048
+            * (2 * cfg.head_dim + 2 * 4),
+            "capacity_report": cap, "pool_5_bytes": pool_bytes,
+            "pos_block_bytes": pos_block, "max_resident": max(resident),
+            "n_done": summary["n_done"],
+            "tokens_per_s": summary["tokens_per_s"]})
 
     def _profile(self, fn):
         """``torch.profiler`` over ``fn()``: (wall s, device busy s, rows of
@@ -815,34 +892,269 @@ class Smoke:
                         "top_kernels_ms": [[name[:80], round(us / 1e3, 3), c]
                                            for us, name, c in rows[:40]]}})
 
+    def run_train_plan(self) -> dict:
+        """The ``train`` configuration under eight remat settings, from the
+        same weights and batch (see the module docstring, item 8)."""
+        import contextlib
+        import io
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.core.checkpoint import CheckpointConfig
+        from repro_torch.launch import train as train_cli
+        from repro_torch.train.train_step import TrainConfig, plan_profile
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(configs.get_config("llama3-8b"),
+                                  n_layers=TRAIN_LAYERS)
+        model, opt = train_cli.init_state(cfg, self.args.seed, self.dev)
+        init = {n: p.detach().clone() for n, p in model.named_parameters()}
+        _, batch = next(train_cli.synthetic_lm_batches(
+            cfg, 1, TRAIN_SEQ, seed=self.args.seed, device=self.dev))
+        prof = plan_profile(cfg, TrainConfig(policy="bf16"), batch)
+        # (c) as the trainer's --remat auto solves it
+        cli = train_cli.build_parser().parse_args(
+            ["--remat", "auto", "--policy", "bf16", "--batch", "1",
+             "--seq", str(TRAIN_SEQ)])
+        banner = io.StringIO()
+        with contextlib.redirect_stdout(banner):
+            auto, auto_peak = train_cli._auto_remat(cfg, cli, batch)
+        # (d): a budget in whole MiB, as TrainConfig.mem_budget_mb takes it
+        budget_mb = int((auto_peak + prof.total_bytes()) / 2) // 2**20
+        per_block = CheckpointConfig(policy="full", segment_size=1)
+        settings = {        # (remat, mem_budget_mb, ce_chunk)
+            "a_off": (CheckpointConfig(enabled=False), 0, 0),
+            "b_full": (per_block, 0, 0),
+            "c_auto": (auto, 0, 0),
+            "d_budget": (CheckpointConfig(), budget_mb, 0),
+            "e_dots": (CheckpointConfig(policy="dots"), 0, 0),
+            "f_dots_nobatch": (CheckpointConfig(policy="dots_nobatch"), 0, 0),
+            "g_save_names": (CheckpointConfig(
+                save_names=("attn_out", "ffn_out")), 0, 0),
+            "h_ce_chunk": (per_block, 0, CE_CHUNK),
+        }
+        runs = {name: self._train_plan_run(cfg, model, opt, init, batch,
+                                           remat, budget, chunk, prof)
+                for name, (remat, budget, chunk) in settings.items()}
+        L, n = cfg.n_layers, TRAIN_PLAN_STEPS
+        a = runs["a_off"]
+
+        def close(x, y):
+            return abs(x - y) <= 1e-3 * abs(y)
+        carry = TRAIN_SEQ * cfg.d_model * 2           # bf16 (1, S, D)
+        saved = {k: r["saved_after_forward_bytes"] for k, r in runs.items()}
+        checks = {
+            "first_step_matches_off": all(
+                close(r["first_loss"], a["first_loss"])
+                and close(r["first_grad_norm"], a["first_grad_norm"])
+                for r in runs.values()),
+            "fwd_launches": all(
+                r["launches"]["flash_fwd_sm90"]
+                == (1 if k == "a_off" else 2) * L * n
+                and r["launches"]["flash_fwd"] == 0
+                for k, r in runs.items()),
+            "bwd_launches": all(
+                r["launches"][part] == L * n for r in runs.values()
+                for part in ("flash_bwd_delta", "flash_bwd_dq_sm90",
+                             "flash_bwd_dkv_sm90")),
+            "off_saves_most": all(saved["a_off"] > v for k, v in saved.items()
+                                  if k != "a_off"),
+            "selective_save_at_least_full": all(
+                saved[k] >= saved["b_full"]
+                for k in ("e_dots", "f_dots_nobatch", "g_save_names")),
+            "chunked_ce_lowers_peak": runs["h_ce_chunk"]["fwd_bwd_peak_bytes"]
+            < runs["b_full"]["fwd_bwd_peak_bytes"],
+            "fits": all(r["max_memory_allocated_bytes"] < 80e9
+                        for r in runs.values()),
+        }
+        segs = {k: len(runs[k]["plan"]["segment_sizes"]) for k in
+                ("b_full", "c_auto", "d_budget")}
+        return self.record({
+            "phase": "train_plan", "ok": all(checks.values()),
+            "checks": checks, "arch": cfg.arch_id, "n_layers": L,
+            "batch": 1, "seq": TRAIN_SEQ, "policy": "bf16",
+            "timed_steps": n, "ce_chunk": CE_CHUNK,
+            "profile": {"act_bytes": list(prof.act_bytes),
+                        "resid_bytes": list(prof.resid_bytes),
+                        "no_remat_bytes": prof.total_bytes()},
+            "auto_banner": banner.getvalue().strip(),
+            "auto_peak_bytes": auto_peak, "budget_mb": budget_mb,
+            "budget_bytes": budget_mb * 2**20,
+            "carry_bytes": carry,
+            # segment inputs stored under ``full``: the difference against
+            # (b) the planner predicts, beside the measured one
+            "saved_minus_b": {k: saved[k] - saved["b_full"]
+                              for k in ("c_auto", "d_budget")},
+            "segments_minus_b_x_carry": {
+                k: (segs[k] - segs["b_full"]) * carry
+                for k in ("c_auto", "d_budget")},
+            "runs": runs})
+
+    def _train_plan_run(self, cfg, model, opt, init, batch, remat,
+                        budget_mb, ce_chunk, prof) -> dict:
+        """One ``train_plan`` setting: weights and AdamW state reset to
+        ``init`` and zeros, the step from ``make_train_step`` (which solves
+        a plan for ``budget_mb`` > 0), a warm-up and TRAIN_PLAN_STEPS timed
+        steps on ``batch``, one forward and backward for memory, one
+        profiled step."""
+        import contextlib
+        from unittest import mock
+        torch = self.torch
+        from repro_torch import plan
+        from repro_torch.core.mixed_precision import get_policy
+        from repro_torch.kernels.flash import ops as flash_ops
+        from repro_torch.models import transformer
+        from repro_torch.optim import adamw
+        from repro_torch.train.train_step import (TrainConfig,
+                                                  init_loss_scale,
+                                                  make_train_step)
+        kernels = {"flash_fwd": flash_ops.KERNEL,
+                   "flash_fwd_sm90": flash_ops.FWD_SM90,
+                   "flash_bwd_delta": flash_ops.BWD_DELTA,
+                   "flash_bwd_dq_sm90": flash_ops.BWD_DQ_SM90,
+                   "flash_bwd_dkv_sm90": flash_ops.BWD_DKV_SM90}
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.copy_(init[name])
+            for t in (*opt.mu.values(), *opt.nu.values(), opt.count):
+                t.zero_()
+        tc = TrainConfig(policy="bf16", remat=remat, mem_budget_mb=budget_mb,
+                         opt=adamw.AdamWConfig())
+        # the chunked CE has no TrainConfig field (nor has the JAX
+        # package's): loss_fn(ce_chunk=) is its only entry
+        chunked = mock.patch.object(
+            transformer, "loss_fn",
+            functools.partial(transformer.loss_fn, ce_chunk=ce_chunk)) \
+            if ce_chunk else contextlib.nullcontext()
+        ls = init_loss_scale(tc, self.dev)
+        records = []
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        with chunked:
+            step, tc = make_train_step(cfg, tc, batch)
+            remat = tc.remat                    # (d): the solved plan
+
+            def one_step():
+                nonlocal opt, ls
+                t = time.time()
+                _, opt, ls, m = step(model, opt, ls, batch)
+                vals = {k: float(v) for k, v in m.items()}   # syncs
+                vals["step_s"] = time.time() - t
+                records.append(vals)
+
+            one_step()                                    # warm-up
+            for kern in kernels.values():
+                kern.launches = 0
+            for _ in range(TRAIN_PLAN_STEPS):
+                one_step()
+            launches = {k: kern.launches for k, kern in kernels.items()}
+            steps_peak = torch.cuda.max_memory_allocated(self.dev)
+            # one forward and backward: what the forward leaves for the
+            # backward, and the peak above what was allocated before
+            params = [p for p in model.parameters() if p.requires_grad]
+            gc.collect()
+            torch.cuda.empty_cache()
+            self.sync()
+            base = torch.cuda.memory_allocated(self.dev)
+            torch.cuda.reset_peak_memory_stats(self.dev)
+            loss, _ = transformer.loss_fn(model, cfg, batch,
+                                          policy=get_policy("bf16"),
+                                          remat=remat)
+            self.sync()
+            saved = torch.cuda.memory_allocated(self.dev) - base
+            grads = torch.autograd.grad(loss, params)
+            self.sync()
+            peak = torch.cuda.max_memory_allocated(self.dev) - base
+            grad_bytes = sum(g.numel() * g.element_size() for g in grads)
+            del loss, grads
+            _, wall, busy_s, rows = self._profile(one_step)
+        gemm = [(name, c) for _, name, c in rows if GEMM_NAME.search(name)]
+        timed = records[1:1 + TRAIN_PLAN_STEPS]
+        step_s = statistics.median(r["step_s"] for r in timed)
+        rp = remat.plan if remat.plan is not None else plan.RematPlan(
+            cfg.n_layers, tuple(range(1, cfg.n_layers)))
+        rep = plan.plan_report(prof, rp) if remat.enabled else \
+            plan.plan_report(prof, plan.RematPlan(cfg.n_layers, ()))
+        return {
+            "remat": {"enabled": remat.enabled, "policy": remat.policy,
+                      "save_names": list(remat.save_names),
+                      "segment_size": remat.segment_size},
+            "plan": {k: rep[k] for k in ("source", "boundaries",
+                                         "segment_sizes", "peak_bytes",
+                                         "recompute_frac")},
+            "first_loss": records[0]["loss"],
+            "first_grad_norm": records[0]["grad_norm"],
+            "losses": [r["loss"] for r in records],
+            "step_s": [r["step_s"] for r in records],
+            "median_step_s": step_s, "tokens_per_s": TRAIN_SEQ / step_s,
+            "saved_after_forward_bytes": saved,
+            "fwd_bwd_peak_bytes": peak,
+            "fwd_bwd_peak_minus_grads_bytes": peak - grad_bytes,
+            "max_memory_allocated_bytes": max(steps_peak, base + peak),
+            "launches": launches,
+            "profiled_step": {"wall_s": wall, "device_busy_s": busy_s,
+                              "gemm_launches": sum(c for _, c in gemm),
+                              "gemm_kernels": sorted({n[:60]
+                                                      for n, _ in gemm})}}
+
     def run_train_cli(self) -> dict:
         """The trainer's CLI on the card at smoke size: 4 steps with a
-        checkpoint every 2, then a second run to 6 steps that resumes."""
+        checkpoint every 2, then a second run to 6 steps that resumes;
+        then 2 steps under the planner with events, spans and memory
+        samples (``--remat auto --mem-budget-mb 1 --events F --trace
+        --metrics-every 1``)."""
+        from repro_torch.events import read_events
+        from repro_torch.obs.schema import validate_events
+        from repro_torch.plan import RematPlan
         ckpt = tempfile.mkdtemp(prefix="train_cli_")
+        plan_dir = os.path.join(ckpt, "planned")
+        events = os.path.join(ckpt, "events.jsonl")
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
         cmd = [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
-               "--ckpt-every", "2", "--ckpt-dir", ckpt, "--log-every", "1"]
+               "--ckpt-every", "2", "--log-every", "1"]
         try:
             runs = [subprocess.run(cmd + extra, cwd=ROOT, env=env,
                                    capture_output=True, text=True,
                                    timeout=300)
-                    for extra in (["--steps", "4", "--fresh"],
-                                  ["--steps", "6"])]
+                    for extra in (["--steps", "4", "--fresh",
+                                   "--ckpt-dir", ckpt],
+                                  ["--steps", "6", "--ckpt-dir", ckpt],
+                                  ["--steps", "2", "--fresh",
+                                   "--ckpt-dir", plan_dir, "--remat", "auto",
+                                   "--mem-budget-mb", "1", "--events",
+                                   events, "--trace", "--metrics-every",
+                                   "1"])]
+            plan_path = os.path.join(plan_dir, "remat_plan.json")
+            plan_text = pathlib.Path(plan_path).read_text() \
+                if os.path.exists(plan_path) else ""
+            loaded = RematPlan.load(plan_path) if plan_text else None
+            evs = read_events(events) if os.path.exists(events) else []
+            undeclared = validate_events(events) if evs else {"<none>"}
         finally:
             shutil.rmtree(ckpt, ignore_errors=True)
+        samples = [e for e in evs if e["kind"] == "mem_sample"]
+        steps = sorted(e.get("step") for e in evs
+                       if e["kind"] == "span_begin"
+                       and e["name"] == "train_step")
         checks = {
             "first_exit_0": runs[0].returncode == 0,
             "second_exit_0": runs[1].returncode == 0,
             "on_the_card": "device: cuda" in runs[0].stdout,
             "resumed": "resumed from step 4" in runs[1].stdout,
             "trained_on": "step     5 loss" in runs[1].stdout,
+            "planned_exit_0": runs[2].returncode == 0,
+            "plan_round_trips": loaded is not None
+            and json.loads(plan_text) == json.loads(loaded.to_json()),
+            "mem_samples": len(samples) == 2 and all(
+                e.get("plan_bytes", 0) > 0 and e["live_bytes"] > 0
+                and e.get("frac_of_plan") is not None for e in samples),
+            "train_step_spans": steps == [0, 1],
+            "events_validate": undeclared == set(),
         }
         return self.record({
             "phase": "train_cli", "ok": all(checks.values()),
-            "checks": checks,
+            "checks": checks, "remat_plan": plan_text,
+            "mem_samples": samples,
             "stdout": [r.stdout[-1500:] for r in runs],
             "stderr": [r.stderr[-1500:] for r in runs if r.returncode]})
-
 
     # -- the paper's CIFAR E-D path --------------------------------------
     def check_pack(self, m: int, hw: int, scale: float = 1.0 / 255.0,
@@ -1616,6 +1928,7 @@ def main(argv=None) -> int:
     smoke.check_model()
     smoke.run_serve()
     smoke.run_train()
+    smoke.run_train_plan()
     smoke.run_train_cli()
     pack = [smoke.check_pack(8, 32),                     # the CIFAR batch
             smoke.check_pack(8, 32, scale=0.0173, shift=-0.4217),

@@ -12,46 +12,106 @@ over segments of a Python loop of blocks.
   * ``remat_scan``       -- S-C over a stack of per-layer blocks.
   * ``checkpoint_sequential`` -- S-C over an explicit list of layer
     functions (the paper's algorithm; every segment but the last).
+  * ``optimal_segments`` -- the placement DP (paper Fig. 11).
+  * ``checkpoint_name``  -- tag a tensor for ``save_names``.
 
-Policies: ``full`` and ``nothing`` save nothing inside a segment (the
-paper's S-C); ``none`` saves everything, so nothing is recomputed.  The
-JAX package's ``dots`` / ``dots_nobatch`` policies and ``save_names``
-(which save chosen intermediates inside a segment) are not ported yet
-and raise.
+Policies (``POLICIES``), as in the JAX package: ``full`` and ``nothing``
+save nothing inside a segment (the paper's S-C); ``none`` saves
+everything, so nothing is recomputed; ``dots`` saves the outputs of the
+matrix products (``aten.mm``, ``addmm``, ``bmm``, ``baddbmm``) and
+``dots_nobatch`` those without a batch dimension (``mm``, ``addmm``), as
+XLA's ``dots_saveable`` / ``dots_with_no_batch_dims_saveable`` do; and
+``save_names`` saves the tensors tagged with :func:`checkpoint_name`, on
+top of the base policy.  The selective ones run through
+``torch.utils.checkpoint``'s selective-checkpoint contexts: every other
+operator is recomputed.  The flash op is one operator to the dispatcher
+(``kernels/flash/ops.py`` ``_fwd_op``), as the Pallas call is one
+primitive to JAX, so no policy saves what is inside it.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import warnings
 from typing import Any, Callable, Sequence
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
-from repro_torch.plan.solver import RematPlan
+from repro_torch.plan.solver import RematPlan, min_peak_boundaries
 
-#: policy name -> whether a segment under it is recomputed in the backward
-POLICIES = {"full": True, "nothing": True, "none": False}
-_NOT_PORTED = ("dots", "dots_nobatch")
+_aten = torch.ops.aten
+#: policy name -> the operators whose outputs a recomputed segment keeps,
+#: or None: the segment is not recomputed at all (``none``)
+POLICIES: dict[str, frozenset | None] = {
+    "full": frozenset(),
+    "nothing": frozenset(),
+    "none": None,
+    "dots": frozenset({_aten.mm, _aten.addmm, _aten.bmm, _aten.baddbmm}),
+    "dots_nobatch": frozenset({_aten.mm, _aten.addmm}),
+}
+
+
+@torch.library.custom_op("repro_torch::checkpoint_name", mutates_args=())
+def _name_op(x: torch.Tensor, name: str) -> torch.Tensor:
+    # an operator may not return an alias of its input: the tag is a copy
+    return x.clone()
+
+
+@_name_op.register_fake
+def _(x, name):
+    return torch.empty_like(x)
+
+
+torch.library.register_autograd(
+    "repro_torch::checkpoint_name",
+    lambda ctx, grad: (grad, None))
+
+
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``x`` tagged ``name`` for a ``save_names`` policy (the counterpart
+    of ``jax.ad_checkpoint.checkpoint_name``).  The tag costs a copy of
+    ``x``, so callers tag only when a policy asks for names
+    (``CheckpointConfig.tags``)."""
+    return _name_op(x, name)
+
+
+@dataclasses.dataclass(frozen=True)
+class SavePolicy:
+    """What a recomputed segment keeps: the outputs of ``ops`` and the
+    tensors tagged with one of ``names``.  Empty: it keeps nothing (the
+    paper's S-C)."""
+
+    ops: frozenset = frozenset()
+    names: frozenset = frozenset()
+
+    def __bool__(self) -> bool:
+        return bool(self.ops or self.names)
+
+    def decide(self, ctx, op, *args, **kwargs) -> CheckpointPolicy:
+        if op.overloadpacket in self.ops or (
+                op is torch.ops.repro_torch.checkpoint_name.default
+                and args[1] in self.names):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def resolve_policy(policy: str | None,
-                   save_names: Sequence[str] = ()) -> bool:
-    """True if a segment under ``policy`` is recomputed (saves nothing
-    inside), False if it keeps every intermediate (``none``)."""
-    if save_names or policy in _NOT_PORTED:
-        what = f"save_names {tuple(save_names)}" if save_names else \
-            f"remat policy {policy!r}"
-        raise NotImplementedError(
-            f"{what} is not ported yet: it saves chosen intermediates inside "
-            f"a segment and comes with a later slice of the port (ROADMAP.md "
-            f"lists it); use 'full' or 'none'")
+                   save_names: Sequence[str] = ()) -> SavePolicy | None:
+    """A policy name -> what a segment under it keeps (:class:`SavePolicy`),
+    or None when it is not recomputed (``none``).  ``save_names``
+    composes with the base policy: the tagged tensors are kept IN
+    ADDITION to what the base keeps."""
     if policy is None:
-        return True
+        policy = "full"
     if policy not in POLICIES:
         raise ValueError(f"unknown remat policy {policy!r}; have "
-                         f"{sorted(POLICIES) + list(_NOT_PORTED)}")
-    return POLICIES[policy]
+                         f"{sorted(POLICIES)}")
+    ops = POLICIES[policy]
+    if ops is None:                     # saves everything: names add nothing
+        return None
+    return SavePolicy(ops, frozenset(save_names))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +120,8 @@ class CheckpointConfig:
 
     enabled:       master switch (False == the paper's standard pipeline).
     policy:        intra-segment policy name (see ``POLICIES``).
-    save_names:    not ported yet; must stay empty.
+    save_names:    tags (:func:`checkpoint_name`) whose tensors a segment
+                   keeps on top of ``policy``.
     segment_size:  uniform fallback: blocks per remat segment (1 = remat
                    every block).  Ignored when ``plan`` is set.
     plan:          a :class:`RematPlan` -- possibly non-uniform segment
@@ -79,9 +140,22 @@ class CheckpointConfig:
             return fn
         return _remat(fn, resolve_policy(self.policy, self.save_names))
 
-    def segment_policy(self, j: int) -> bool:
-        """Whether plan segment ``j`` is recomputed.  A plan's own policy
-        (scalar or per segment) wins over ``self.policy``."""
+    @property
+    def tags(self) -> frozenset:
+        """The tags a model must apply (:func:`checkpoint_name`): those of
+        ``save_names`` when some segment is recomputed, else none (a tag
+        is a copy, and only a recomputed segment keeps it selectively)."""
+        if not (self.enabled and self.save_names):
+            return frozenset()
+        n = self.plan.n_segments if self.plan is not None else 1
+        if all(self.segment_policy(j) is None for j in range(n)):
+            return frozenset()                  # "none" everywhere
+        return frozenset(self.save_names)
+
+    def segment_policy(self, j: int) -> SavePolicy | None:
+        """What plan segment ``j`` keeps (:func:`resolve_policy`).  A
+        plan's own policy (scalar or per segment) wins over
+        ``self.policy``; ``save_names`` composes on top either way."""
         if self.plan is not None:
             return resolve_policy(self.plan.segment_policy(j),
                                   self.save_names)
@@ -99,17 +173,20 @@ class CheckpointConfig:
         return self.plan
 
 
-def _remat(fn: Callable, recompute: bool) -> Callable:
+def _remat(fn: Callable, keep: SavePolicy | None) -> Callable:
     """``fn`` whose intermediates are recomputed in the backward pass
-    (only its inputs are saved), or ``fn`` itself.  Without autograd
+    except what ``keep`` names (only its inputs are saved when ``keep`` is
+    empty), or ``fn`` itself when ``keep`` is None.  Without autograd
     (serving) nothing is saved either way, so ``fn`` runs as it is."""
-    if not recompute:
+    if keep is None:
         return fn
+    kw = {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, keep.decide)} if keep else {}
 
     def run(*args, **kwargs):
         if not torch.is_grad_enabled():
             return fn(*args, **kwargs)
-        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+        return checkpoint(fn, *args, use_reentrant=False, **kw, **kwargs)
     return run
 
 
@@ -158,7 +235,7 @@ def checkpoint_sequential(
                   for i in range(num_segments + 1)]
     else:
         bounds = [0, *sorted(boundaries), n]
-    recompute = resolve_policy(policy, save_names)
+    keep = resolve_policy(policy, save_names)
 
     segments = []
     for j, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])):
@@ -166,11 +243,11 @@ def checkpoint_sequential(
             continue
         seg = _chain(lambda x, f: f(x), layer_fns[lo:hi])
         segments.append((seg, seg_policies[j] if seg_policies is not None
-                         else recompute))
+                         else keep))
 
     def apply(x):
-        for seg, rc in segments[:-1]:
-            x = _remat(seg, rc)(x)
+        for seg, seg_keep in segments[:-1]:
+            x = _remat(seg, seg_keep)(x)
         return segments[-1][0](x)
 
     return apply
@@ -227,3 +304,34 @@ def remat_scan(body: Callable[[Any, Any], Any], carry: Any, blocks: Sequence,
     for lo in range(0, n, seg):
         carry = config.wrap(_chain(body, blocks[lo:lo + seg]))(carry)
     return carry
+
+
+# ---------------------------------------------------------------------------
+# Optimal checkpoint placement (paper Fig. 11, formalized).
+# ---------------------------------------------------------------------------
+def optimal_segments(activation_bytes: Sequence[int],
+                     num_checkpoints: int) -> list[int]:
+    """Checkpoint boundaries minimizing peak stored activation bytes.
+
+    ``activation_bytes[i]`` is the size of layer ``i``'s output (a
+    candidate checkpoint site).  Peak memory under S-C is modelled as the
+    stored checkpoints plus the largest segment's recompute live set (the
+    sum of its internal activations): the paper's "checkpoint the narrow
+    middle layer" advice as a DP.  Returns sorted boundary indices
+    (exclusive of 0 and n).  The DP lives in ``repro_torch.plan.solver``."""
+    return min_peak_boundaries(activation_bytes, num_checkpoints)
+
+
+def activation_bytes_of(fn: Callable, *args, **kwargs) -> int:
+    """Bytes of ``fn``'s output tensors, from a run on ``device="meta"``
+    copies of the tensor arguments (shapes and dtypes only, as
+    ``jax.eval_shape`` gives them): nothing is allocated."""
+    from repro_torch.plan.profile import _meta
+
+    def meta(x):
+        return _meta(x) if isinstance(x, torch.Tensor) else x
+    with torch.no_grad():
+        out = fn(*map(meta, args), **{k: meta(v) for k, v in kwargs.items()})
+    leaves = torch.utils._pytree.tree_leaves(out)
+    return sum(x.numel() * x.element_size() for x in leaves
+               if isinstance(x, torch.Tensor))

@@ -305,6 +305,33 @@ def _bwd_dkv(q, k, v, do, m, l, delta, *, dtype, causal, window, sm_scale,
     return dk, dv, cnt
 
 
+# :func:`flash_attention_fwd` as one operator to the dispatcher, as the
+# Pallas call is one primitive to JAX: a selective-checkpoint policy
+# (``core.checkpoint``) sees this op and not the plain version's products
+# or the kernel's output buffers, so a recomputed segment runs the forward
+# again, kernel launch included, under every policy.  Defined through
+# ``torch.library.Library`` rather than ``custom_op``, whose Python
+# wrapper costs several times the dispatch on every call (serve prefill
+# runs one a layer); the op is only ever called inside ``_FlashFn``, so
+# it needs no autograd formula of its own.
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("flash_fwd(Tensor q, Tensor k, Tensor v, bool causal, "
+            "int window, float sm_scale) -> (Tensor, Tensor, Tensor)")
+_LIB.impl("flash_fwd",
+          lambda q, k, v, causal, window, sm_scale: flash_attention_fwd(
+              q, k, v, causal=causal, window=window, sm_scale=sm_scale),
+          "CompositeExplicitAutograd")
+
+
+@torch.library.register_fake("repro_torch::flash_fwd", lib=_LIB)
+def _(q, k, v, causal, window, sm_scale):
+    stats = q.new_empty(q.shape[:2], dtype=torch.float32)
+    return torch.empty_like(q), stats, torch.empty_like(stats)
+
+
+_fwd_op = torch.ops.repro_torch.flash_fwd.default
+
+
 class _FlashFn(torch.autograd.Function):
     """Flat (BH, S, D) flash attention with the recompute backward.
 
@@ -314,8 +341,9 @@ class _FlashFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, sm_scale, resid_dtype):
-        o, m, l = flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                      sm_scale=sm_scale)
+        o, m, l = _fwd_op(q, k, v, causal, window,
+                          q.shape[-1] ** -0.5 if sm_scale is None
+                          else float(sm_scale))
         saved = (q, k, v, o)
         if resid_dtype is not None:
             saved = tuple(x.to(resid_dtype) for x in saved)

@@ -20,8 +20,10 @@ greedy is the default).
 
 Runs on the CUDA card by default, where prefill and decode go through the
 hand-written kernels; without a card it exits with an error unless
-``--device cpu`` asks for the plain versions.  The fleet, journal,
-worker, chaos, event and memory-budget flags come with later slices.
+``--device cpu`` asks for the plain versions.  ``--mem-budget-mb``
+clamps the engine's slots to what that many MB of KV cache admit (the
+``capacity:`` line).  The fleet, journal, worker, chaos and event flags
+come with later slices.
 """
 from __future__ import annotations
 
@@ -94,6 +96,8 @@ def run_engine(args, cfg, model) -> int:
               f"serve through the lockstep driver)")
         return 2
     _kv_banner(cfg, args, args.max_len)
+    budget = (int(args.mem_budget_mb * 2**20)
+              if args.mem_budget_mb else None)
     engine = ServeEngine(
         model, cfg, max_slots=args.max_slots, max_len=args.max_len,
         policy_name=args.policy, quantized=not args.no_quantize,
@@ -103,9 +107,12 @@ def run_engine(args, cfg, model) -> int:
         max_queue=args.max_queue or None,
         deadline_steps=(args.deadline_steps
                         if args.deadline_steps >= 0 else None),
-        max_retries=args.max_retries)
-    print(f"capacity: {engine.pool.bytes_per_slot()/2**20:.2f} MB/slot at "
-          f"max_len={args.max_len}, {engine.pool.max_slots} slots")
+        max_retries=args.max_retries, mem_budget_bytes=budget)
+    print(f"capacity: {engine.pool.bytes_per_slot_per_device()/2**20:.2f} "
+          f"MB/slot at max_len={args.max_len}"
+          + (f" -> budget {args.mem_budget_mb} MB admits "
+             f"{engine.pool.max_slots} of {args.max_slots} requested slots"
+             if budget else f", {engine.pool.max_slots} slots"))
     t0 = time.time()
     launches = engine.warmup()
     print(f"warmup: {time.time()-t0:.1f}s, kernel launches={launches}")
@@ -260,6 +267,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-retries", type=int, default=2,
                     help="engine: replay budget per request after a "
                          "detected decode fault")
+    ap.add_argument("--mem-budget-mb", type=float, default=0.0,
+                    help="engine: KV-cache byte budget; clamps the slots to "
+                         "what it admits (0 = no budget)")
     return ap
 
 

@@ -14,22 +14,36 @@ Fault-tolerance features wired here:
     loss-spike detector (``train/guards.py``) escalates consecutive bad
     steps to a rollback to the last good checkpoint.
 
+Memory-budgeted training: ``--remat auto`` solves a ``RematPlan`` from
+the transformer profile (``repro_torch.plan``): with ``--mem-budget-mb
+N`` (which implies the planner) the least recompute whose planned peak
+fits N MiB, else sqrt(L) checkpoints at the byte-optimal sites.  The plan
+is printed and written to ``remat_plan.json`` in the checkpoint
+directory.  ``--remat-policy`` takes every policy of
+``core.checkpoint.POLICIES``.  With ``--events F``, ``--trace`` writes
+``data`` / ``train_step`` / ``guard`` / ``checkpoint`` spans and
+``--metrics-every K`` a ``mem_sample`` (live bytes against the plan's
+peak) and a registry snapshot every K steps; ``tools/tracelens.py F``
+renders them.
+
 Runs on the CUDA card by default, where attention goes through the
 hand-written flash kernels (forward, and delta / dQ / dKV backward);
 without a card it exits with an error unless ``--device cpu`` asks for
 the plain versions:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \\
-      --smoke --steps 50 --batch 8 --seq 128 --device cpu
+      --smoke --steps 50 --batch 8 --seq 128 --device cpu \\
+      --remat auto --mem-budget-mb 64 --events ev.jsonl --trace \\
+      --metrics-every 10
 
-Not ported yet: ``--remat auto`` and ``--mem-budget-mb`` (the remat
-planner), ``--trace`` and ``--metrics-every`` (the tracer and memstat), the mesh
-flags (``--max-model``) and ``--attn-backend`` (the port dispatches on
-the device).
+Not ported yet: the mesh flags (``--max-model``; the distributed slice)
+and ``--attn-backend`` (the port dispatches on the device).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import math
 import os
 import signal
 import statistics
@@ -42,15 +56,17 @@ import torch
 
 from repro_torch import configs
 from repro_torch.checkpointing.ckpt import CheckpointManager
-from repro_torch.core.checkpoint import CheckpointConfig
+from repro_torch.core.checkpoint import POLICIES, CheckpointConfig
 from repro_torch.data.synthetic import token_stream
 from repro_torch.events import EventSink
 from repro_torch.launch.serve import resolve_device
 from repro_torch.models import bridge, transformer
+from repro_torch.obs import MemStat, MetricsRegistry, Tracer, maybe_span
 from repro_torch.optim import adamw
 from repro_torch.train.guards import GuardConfig, TrainGuard
-from repro_torch.train.train_step import (TrainConfig, build_train_step,
-                                          init_loss_scale)
+from repro_torch.train.train_step import (TrainConfig, init_loss_scale,
+                                          make_train_step, plan_profile,
+                                          resolve_remat)
 
 
 class Watchdog:
@@ -129,6 +145,33 @@ def synthetic_lm_batches(cfg, batch: int, seq: int, *, seed=0, state=None,
         i += 1
 
 
+def _auto_remat(cfg, args, batch_sds):
+    """Planner-driven remat: budget-constrained with ``--mem-budget-mb``
+    (through ``train_step.resolve_remat``, the path
+    ``TrainConfig.mem_budget_mb`` takes), else sqrt(L) checkpoints at the
+    byte-optimal sites.  Either way the profile is the microbatch in the
+    policy's compute dtype (``train_step.plan_profile``).  Returns the
+    remat config and the plan's peak bytes (what ``MemStat`` scores)."""
+    from repro_torch import plan as plan_mod
+    base = CheckpointConfig(enabled=True, policy=args.remat_policy)
+    tc0 = TrainConfig(policy=args.policy, remat=base, accum=args.accum,
+                      mem_budget_mb=args.mem_budget_mb)
+    prof = plan_profile(cfg, tc0, batch_sds)
+    if args.mem_budget_mb > 0:
+        remat = resolve_remat(cfg, tc0, batch_sds).remat
+    else:
+        rp = plan_mod.plan_min_peak(prof, math.isqrt(cfg.n_layers) or 1,
+                                    policy=args.remat_policy)
+        remat = dataclasses.replace(base, plan=rp)
+    rep = plan_mod.plan_report(prof, remat.plan)
+    print(f"remat plan [{remat.plan.source}]: "
+          f"segments {remat.plan.segment_sizes()} "
+          f"peak {rep['peak_bytes']/2**20:.1f} MiB/device "
+          f"(no-remat {rep['no_remat_bytes']/2**20:.1f} MiB, "
+          f"recompute >= {rep['recompute_frac']*100:.0f}% of fwd FLOPs)")
+    return remat, int(rep["peak_bytes"])
+
+
 def init_state(cfg, seed: int, device):
     """Fresh f32 master weights (``requires_grad`` on) and AdamW state."""
     model = transformer.init_params(cfg, seed, device=device,
@@ -155,19 +198,42 @@ def run(args) -> int:
     print(f"device: {device}"
           + (f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else ""))
-    remat = CheckpointConfig(enabled=args.remat == "on",
-                             policy=args.remat_policy)
+    from repro_torch.plan import flash_attn_flop_report
+    rep = flash_attn_flop_report(cfg, args.batch, args.seq)
+    if rep["eligible"]:
+        print(f"attention: flash op (O(S*D) residuals); sparse grids skip "
+              f"{rep['skip_frac']*100:.0f}% of KV tile-steps "
+              f"({rep['visited_flops']/1e9:.1f} GFLOPs visited vs "
+              f"{rep['dense_flops']/1e9:.1f} dense per step)")
+    if args.mem_budget_mb > 0:
+        print(f"mem budget: {args.mem_budget_mb} MiB (microbatch = batch / "
+              f"{args.accum} accum)")
+    batch_sds = {"tokens": torch.empty((args.batch, args.seq),
+                                       dtype=torch.int32, device="meta")}
+    if args.remat == "off" and args.mem_budget_mb > 0:
+        print("[warn] --mem-budget-mb ignored with remat off")
+    plan_bytes = None                     # activation budget (MemStat score)
+    if args.remat == "auto" or (args.remat == "on"
+                                and args.mem_budget_mb > 0):
+        # a budget implies the planner even without an explicit --remat auto
+        remat, plan_bytes = _auto_remat(cfg, args, batch_sds)
+    else:
+        remat = CheckpointConfig(enabled=args.remat == "on",
+                                 policy=args.remat_policy)
     tc = TrainConfig(
         policy=args.policy, remat=remat, accum=args.accum,
         use_loss_scale=(args.policy == "fp16"), skip_nonfinite=args.guard,
         opt=adamw.AdamWConfig(lr=args.lr, total_steps=args.steps,
                               warmup_steps=min(100, args.steps // 10 + 1)))
-    step_fn = build_train_step(cfg, tc)
+    step_fn, tc = make_train_step(cfg, tc, batch_sds)
     print(f"policy {args.policy}, remat {args.remat} "
           f"({args.remat_policy}), accum {args.accum}, "
           f"batch {args.batch} x seq {args.seq}")
 
     mgr = CheckpointManager(args.ckpt_dir, keep_last=args.keep_last)
+    if tc.remat.plan is not None:
+        os.makedirs(args.ckpt_dir, exist_ok=True)
+        tc.remat.plan.save(os.path.join(args.ckpt_dir, "remat_plan.json"))
     model, opt = init_state(cfg, args.seed, device)
     ls = init_loss_scale(tc, device)
     start_step, data_state = 0, 0
@@ -194,17 +260,27 @@ def run(args) -> int:
 
     def save(step):
         # ``step`` = completed steps; a resume continues there
-        mgr.save(step, train_state(model, opt),
-                 extra={"step": step, "data_state": data_state,
-                        "loss_scale": float(ls.scale), "arch": cfg.arch_id},
-                 config=cfg.arch_id)
+        with maybe_span(tracer, "checkpoint", step=step, op="save"):
+            mgr.save(step, train_state(model, opt),
+                     extra={"step": step, "data_state": data_state,
+                            "loss_scale": float(ls.scale),
+                            "arch": cfg.arch_id},
+                     config=cfg.arch_id)
 
     sink = EventSink(args.events) if args.events else None
+    if args.trace and sink is None:
+        print("[warn] --trace requires --events; tracing disabled")
+    registry = MetricsRegistry()
+    tracer = Tracer(sink, pid="train") if args.trace and sink is not None \
+        else None
+    memstat = MemStat(sink=sink, registry=registry, plan_bytes=plan_bytes,
+                      device=device)
     guard = None
     if args.guard:
         guard = TrainGuard(GuardConfig(
             window=args.guard_window, spike_factor=args.guard_spike_factor,
-            rollback_after=args.guard_rollback_after), sink=sink)
+            rollback_after=args.guard_rollback_after), sink=sink,
+            registry=registry)
         print(f"guard: skip non-finite steps on the device; loss spike > "
               f"{args.guard_spike_factor}x rolling median; "
               f"{args.guard_rollback_after} consecutive bad steps -> "
@@ -216,15 +292,20 @@ def run(args) -> int:
     step = start_step
     try:
         while step < args.steps:
-            data_state, batch = next(data)
+            with maybe_span(tracer, "data", step=step):
+                data_state, batch = next(data)
             wd.step_start()
-            model, opt, ls, metrics = step_fn(model, opt, ls, batch)
-            verdict = TrainGuard.OK
-            if guard is not None:
-                verdict = guard.observe(
-                    float(metrics["loss"]),  # sync
-                    bool(metrics["grads_finite"]),
-                    grad_norm=float(metrics["grad_norm"]))
+            with maybe_span(tracer, "train_step", step=step):
+                model, opt, ls, metrics = step_fn(model, opt, ls, batch)
+                verdict = TrainGuard.OK
+                if guard is not None:
+                    # the loss sync closes the step: the span measures
+                    # dispatch + device time, not just dispatch
+                    with maybe_span(tracer, "guard", step=step):
+                        verdict = guard.observe(
+                            float(metrics["loss"]),  # sync
+                            bool(metrics["grads_finite"]),
+                            grad_norm=float(metrics["grad_norm"]))
             if verdict == TrainGuard.ROLLBACK:
                 wd.step_end()
                 if guard.rollbacks > args.guard_max_rollbacks:
@@ -241,8 +322,11 @@ def run(args) -> int:
                     model, opt = init_state(cfg, args.seed, device)
                     step, data_state = 0, 0
                 else:
-                    restored, extra = mgr.restore(
-                        latest, train_state(model, opt), config=cfg.arch_id)
+                    with maybe_span(tracer, "checkpoint", step=latest,
+                                    op="restore"):
+                        restored, extra = mgr.restore(
+                            latest, train_state(model, opt),
+                            config=cfg.arch_id)
                     model, opt = load_state(cfg, restored, device)
                     step = extra.get("step", latest)
                     data_state = extra.get("data_state", 0)
@@ -269,6 +353,11 @@ def run(args) -> int:
             wd.step_end()
             data_state += 1
             step += 1
+            if args.metrics_every and step % args.metrics_every == 0:
+                # allocator counters and a registry snapshot; no sync
+                memstat.sample(step)
+                if sink is not None:
+                    registry.emit(sink, step=step)
             healthy = guard is None or guard.bad_streak == 0
             if step % args.ckpt_every == 0 and healthy:
                 # never checkpoint mid-bad-streak: the rollback target
@@ -287,11 +376,13 @@ def run(args) -> int:
             signal.signal(s, h)
     if guard is not None:
         print(f"guard: {guard.counters()}")
+    if memstat.samples:
+        print(memstat.banner())
     print("done")
     return 0
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3-8b")
     ap.add_argument("--smoke", action="store_true",
@@ -309,10 +400,20 @@ def main(argv=None) -> int:
                     help="mixed-precision policy; resid_bf16 = f32 compute "
                          "with the flash op's saved (q,k,v,o) residuals "
                          "stored in bf16 (stats stay f32)")
-    ap.add_argument("--remat", default="on", choices=["on", "off"],
-                    help="sequential checkpointing of every block")
+    ap.add_argument("--remat", default="on", choices=["on", "off", "auto"],
+                    help="on: sequential checkpointing of every block; "
+                         "auto: a profile-driven RematPlan "
+                         "(repro_torch.plan)")
+    ap.add_argument("--mem-budget-mb", type=int, default=0,
+                    help="activation-byte budget; > 0 engages the remat "
+                         "planner (with --remat auto, 0 means sqrt(L) "
+                         "checkpoints instead)")
     ap.add_argument("--remat-policy", default="full",
-                    help="full / nothing (recompute the block) or none")
+                    choices=sorted(POLICIES),
+                    help="what a recomputed segment keeps: full / nothing "
+                         "(nothing), dots (every product's output), "
+                         "dots_nobatch (products without a batch dim), "
+                         "none (everything: no recompute)")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=os.path.join(
@@ -331,9 +432,23 @@ def main(argv=None) -> int:
     ap.add_argument("--guard-rollback-after", type=int, default=3)
     ap.add_argument("--guard-max-rollbacks", type=int, default=5)
     ap.add_argument("--events", default=None,
-                    help="append-only JSONL event log: guard verdicts and "
-                         "watchdog alerts stream here")
-    return run(ap.parse_args(argv))
+                    help="append-only JSONL event log: guard verdicts, "
+                         "watchdog alerts, spans and memory samples "
+                         "stream here")
+    ap.add_argument("--metrics-every", type=int, default=0,
+                    help="every N steps: sample live device bytes "
+                         "(mem_sample, scored against the plan) and emit a "
+                         "metrics_snapshot of the obs registry to --events "
+                         "(0 = off)")
+    ap.add_argument("--trace", action="store_true",
+                    help="emit span_begin/span_end records (data / "
+                         "train_step / guard / checkpoint) to --events; "
+                         "tools/tracelens.py renders the timeline")
+    return ap
+
+
+def main(argv=None) -> int:
+    return run(build_parser().parse_args(argv))
 
 
 if __name__ == "__main__":

@@ -27,10 +27,14 @@ Public entry points:
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.checkpoint import CheckpointConfig, remat_scan
+from repro_torch.core.checkpoint import (CheckpointConfig, checkpoint_name,
+                                         remat_scan)
 from repro_torch.core.mixed_precision import Policy
 from repro_torch.kernels.kvq import ops as kvq_ops
 from repro_torch.models import attention as attn
@@ -144,9 +148,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
                 dtype=torch.float32) -> Transformer:
     """Random weights drawn from a ``torch.Generator`` seeded with ``seed``,
     straight in ``dtype`` on ``device`` (no host copy of a full-size model).
-    Same distributions as the JAX init; not the same numbers."""
+    Same distributions as the JAX init; not the same numbers.  On
+    ``device="meta"`` only the shapes and dtypes exist (the planner counts
+    them)."""
     check_supported(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = None if torch.device(device).type == "meta" else \
+        torch.Generator(device=device).manual_seed(seed)
     d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
     kw = dict(dtype=dtype, device=device)
     ones = lambda n: torch.ones(n, **kw)  # noqa: E731
@@ -240,14 +247,19 @@ def _mix(blk, cfg, a_out, s_out):
 def forward(model: Transformer, cfg: ModelConfig, batch: dict, *,
             policy: Policy = Policy.full(),
             remat: CheckpointConfig = CheckpointConfig(),
-            build_cache: bool = False, cache_quantized: bool = True):
+            build_cache: bool = False, cache_quantized: bool = True,
+            return_hidden: bool = False):
     """batch: {tokens (B, S)[, positions (B, S)]}.
 
     Returns (logits (B, S, V) in ``policy.output_dtype``, aux).  Weights
     are cast to ``policy.compute_dtype`` where they are used.  ``remat``
     applies sequential checkpointing to the block stack when autograd is
-    on.  With ``build_cache`` (serving prefill) aux["cache"] is a decode
-    cache positioned at S in the ``init_cache`` layout."""
+    on; each block tags its attention and FFN outputs ``"attn_out"`` and
+    ``"ffn_out"`` for ``remat.save_names``, as the JAX block does.  With
+    ``build_cache`` (serving prefill) aux["cache"] is a decode cache
+    positioned at S in the ``init_cache`` layout.  ``return_hidden``
+    returns the final normed hidden state (B, S, D) in place of the
+    logits (the chunked CE of :func:`loss_fn`)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     dt = policy.compute_dtype
@@ -256,6 +268,12 @@ def forward(model: Transformer, cfg: ModelConfig, batch: dict, *,
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
     entries = []
+    # a tag is a copy: only where a save_names policy will keep it
+    tags = remat.tags if torch.is_grad_enabled() and not build_cache \
+        else frozenset()
+
+    def tag(t, name):
+        return checkpoint_name(t, name) if name in tags else t
 
     def block(x, layer):
         blk, window = layer
@@ -275,14 +293,14 @@ def forward(model: Transformer, cfg: ModelConfig, batch: dict, *,
                 entry.update(state)
         if build_cache:
             entries.append(entry)
-        x = x + _mix(blk, cfg, a_out, s_out)
+        x = x + tag(_mix(blk, cfg, a_out, s_out), "attn_out")
         if blk.ffn is None:                  # pure-SSM blocks have no MLP
             return x
         h2 = rms_norm(x, blk.ln2.to(dt), cfg.norm_eps,
                       bf16_grad=cfg.norm_bf16_grad)
         f = blk.ffn
-        return x + swiglu(h2, f.w_gate.to(dt), f.w_up.to(dt),
-                          f.w_down.to(dt))
+        return x + tag(swiglu(h2, f.w_gate.to(dt), f.w_up.to(dt),
+                              f.w_down.to(dt)), "ffn_out")
 
     # each layer gets its own window as a Python int, so every layer of a
     # windowed hybrid reaches the flash kernel; the cache entries are
@@ -295,9 +313,24 @@ def forward(model: Transformer, cfg: ModelConfig, batch: dict, *,
     aux = {"moe_aux": 0.0}
     if build_cache:
         aux["cache"] = _assemble_cache(entries, s, tokens.device)
+    if return_hidden:
+        return x, aux
     logits = _mask_padded_vocab(
         (x @ model.head.to(dt)).to(policy.output_dtype), cfg)
     return logits, aux
+
+
+def _ce_terms(logits32, labels):
+    """Per-token NLL from f32 logits: the row max taken without gradient,
+    the label logit picked by comparing a vocab iota with the label
+    instead of gathering (the JAX package's sharding-friendly CE)."""
+    shifted = logits32 - logits32.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(shifted).sum(dim=-1))
+    vocab_iota = torch.arange(logits32.shape[-1], device=logits32.device)
+    label_logit = torch.where(vocab_iota == labels[..., None].long(),
+                              shifted, torch.zeros((), device=shifted.device)
+                              ).sum(dim=-1)
+    return lse - label_logit
 
 
 def loss_fn(model: Transformer, cfg: ModelConfig, batch: dict, *,
@@ -307,28 +340,36 @@ def loss_fn(model: Transformer, cfg: ModelConfig, batch: dict, *,
     """Mean next-token cross entropy over ``batch["loss_mask"]`` (default
     all ones) -> (loss, {"nll": loss, "moe_aux": 0.0}).
 
-    The CE of the JAX package (``transformer.py:450-465``): in f32, the
-    row max taken without gradient, the label logit picked by comparing a
-    vocab iota with the label instead of gathering.  The chunked CE
-    (``ce_chunk > 0``) is not ported yet."""
-    if ce_chunk > 0:
-        raise NotImplementedError(
-            "loss_fn: the chunked CE (ce_chunk > 0) is not ported yet; it "
-            "comes with a later slice of the port (ROADMAP.md lists it)")
+    The CE of the JAX package (``transformer.py:420-465``), in f32.  With
+    ``ce_chunk > 0`` the LM head and the softmax run per sequence chunk of
+    that many tokens (the last one ragged), each under ``checkpoint``, so
+    the (B, S, V) logits never exist at once: the peak holds one (B,
+    chunk, V) block, recomputed in the backward."""
     labels = batch["labels"]
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32,
                           device=labels.device)
+    if ce_chunk > 0:
+        hidden, aux = forward(model, cfg, batch, policy=policy, remat=remat,
+                              return_hidden=True)
+        head = model.head.to(policy.compute_dtype)
+
+        def chunk_nll(x_c, lab_c, mask_c):
+            logits = _mask_padded_vocab((x_c @ head).float(), cfg)
+            return (_ce_terms(logits, lab_c) * mask_c).sum()
+
+        if torch.is_grad_enabled():
+            chunk_nll = functools.partial(checkpoint, chunk_nll,
+                                          use_reentrant=False)
+        total = sum(chunk_nll(hidden[:, c:c + ce_chunk],
+                              labels[:, c:c + ce_chunk],
+                              mask[:, c:c + ce_chunk])
+                    for c in range(0, hidden.shape[1], ce_chunk))
+        loss = total / torch.clamp(mask.sum(), min=1.0)
+        return loss, {"nll": loss, **aux}
     logits, aux = forward(model, cfg, batch, policy=policy, remat=remat)
-    logits32 = logits.float()
-    shifted = logits32 - logits32.amax(dim=-1, keepdim=True).detach()
-    lse = torch.log(torch.exp(shifted).sum(dim=-1))
-    vocab_iota = torch.arange(logits.shape[-1], device=logits.device)
-    label_logit = torch.where(vocab_iota == labels[..., None].long(),
-                              shifted, torch.zeros((), device=logits.device)
-                              ).sum(dim=-1)
-    nll = lse - label_logit
+    nll = _ce_terms(logits.float(), labels)
     loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return loss, {"nll": loss, **aux}
 

@@ -144,3 +144,9 @@ class SlotPool:
         total = sum(x.numel() * x.element_size()
                     for k, x in self.cache.items() if k != "pos")
         return total // self.max_slots
+
+    def bytes_per_slot_per_device(self) -> int:
+        """Bytes one resident request pins on each device: what a byte
+        budget admits against.  Without a mesh (the port has none yet) it
+        equals :meth:`bytes_per_slot`, as the JAX pool's does unsharded."""
+        return self.bytes_per_slot()

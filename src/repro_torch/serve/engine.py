@@ -26,9 +26,11 @@ bounded queue, ``cancel`` and ``drain`` work as there.
 Instead of ``compile_counts`` (PyTorch runs eagerly and compiles nothing)
 the engine reports the kernels' launch counters
 (:func:`kernel_launches`) and its own prefill / decode-round counts, so a
-run shows that its main path went through the kernels.  The mesh, the
-request-keyed sampler, the tracer and the memory budget come with later
-slices.
+run shows that its main path went through the kernels.  With
+``mem_budget_bytes`` the slot count is clamped to what the budget admits
+(``plan.serve_capacity_report``, the JAX engine's arithmetic) and the
+scheduler admits against the same bytes.  The mesh, the request-keyed
+sampler and the tracer come with later slices.
 """
 from __future__ import annotations
 
@@ -93,7 +95,8 @@ class ServeEngine:
                  max_prefill_per_step: int = 1,
                  max_queue: Optional[int] = None,
                  deadline_steps: Optional[int] = None,
-                 max_retries: int = 2):
+                 max_retries: int = 2,
+                 mem_budget_bytes: Optional[int] = None):
         if not supports(cfg):
             raise NotImplementedError(
                 "ServeEngine needs a GQA attention arch with a full-causal "
@@ -115,10 +118,25 @@ class ServeEngine:
         # the one cast to the compute dtype (a no-op for a model built in it)
         self.model = model.cast_to_compute(self.policy)
         self.device = self.model.embed.device
+        self.capacity_report = None
+        if mem_budget_bytes is not None:
+            from repro_torch import plan as plan_mod
+            self.capacity_report = plan_mod.serve_capacity_report(
+                cfg, max_len, mem_budget_bytes, quantized=quantized)
+            cap = self.capacity_report["max_slots"]
+            if cap < 1:
+                raise ValueError(
+                    f"ServeEngine: memory budget {mem_budget_bytes} admits "
+                    f"0 slots at max_len={max_len} "
+                    f"({self.capacity_report['bytes_per_slot_per_device']} "
+                    f"B/slot/device)")
+            max_slots = min(max_slots, cap)
+        self.mem_budget_bytes = mem_budget_bytes
         self.pool = SlotPool(cfg, max_slots, max_len, quantized=quantized,
                              device=self.device)
         self.scheduler = Scheduler(
-            max_slots, bytes_per_slot=self.pool.bytes_per_slot(),
+            max_slots, bytes_per_slot=self.pool.bytes_per_slot_per_device(),
+            byte_budget=mem_budget_bytes,
             max_prefill_per_step=max_prefill_per_step, max_queue=max_queue)
         self.metrics = ServeMetrics()
         self.buckets = default_buckets(max_len)
@@ -237,7 +255,9 @@ class ServeEngine:
         self.pool = SlotPool(self.cfg, self.pool.max_slots, self.max_len,
                              quantized=self.quantized, device=self.device)
         self.scheduler = Scheduler(
-            self.pool.max_slots, bytes_per_slot=self.pool.bytes_per_slot(),
+            self.pool.max_slots,
+            bytes_per_slot=self.pool.bytes_per_slot_per_device(),
+            byte_budget=self.mem_budget_bytes,
             max_prefill_per_step=self.scheduler.max_prefill_per_step,
             max_queue=self.scheduler.max_queue)
         self.metrics = ServeMetrics()

@@ -1,7 +1,10 @@
 """Training step factory: OpTorch S-C x M-P x gradient accumulation x
 AdamW on one device (counterpart of ``repro.train.train_step``).
 
-``build_train_step`` assembles the step:
+``make_train_step`` is the production entry: it resolves the remat plan
+(:func:`resolve_remat`: a memory budget solves a ``RematPlan`` from the
+transformer profile) and builds the step.  ``build_train_step`` assembles
+the step:
   - mixed precision (the forward casts f32 master weights per use, with
     optional fp16 dynamic loss scaling),
   - sequential-checkpoint remat over the block stack,
@@ -9,11 +12,14 @@ AdamW on one device (counterpart of ``repro.train.train_step``).
   - AdamW with clipping and schedule, skipping a non-finite step on the
     device (``torch.where``) without a host sync.
 The JAX package jits the step with mesh shardings; the port runs it
-eagerly on the device of the model.
+eagerly on the device of the model (the mesh comes with the distributed
+slice, so the planner's microbatch is ``batch // accum``).
 """
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 from repro_torch.core.checkpoint import CheckpointConfig
 from repro_torch.core.mixed_precision import (LossScale, get_policy,
@@ -34,6 +40,60 @@ class TrainConfig:
     #   (fp16 loss scaling always skips; this extends the guard to the
     #   other policies -- see train/guards.py for the escalation layer)
     opt: adamw.AdamWConfig = adamw.AdamWConfig()
+    mem_budget_mb: int = 0              # >0: auto-solve a RematPlan to fit
+
+
+def microbatch_specs(batch_sds: dict, *, accum: int = 1) -> dict:
+    """The microbatch token spec the remat planner budgets for: batch /
+    accum steps, as a ``device="meta"`` tensor.  The one place this
+    formula lives; the launcher reuses it."""
+    b, s = batch_sds["tokens"].shape
+    return {"tokens": torch.empty((max(1, b // max(1, accum)), s),
+                                  dtype=torch.int32, device="meta")}
+
+
+def plan_profile(cfg: ModelConfig, tc: TrainConfig, batch_sds: dict):
+    """The ChainProfile the planner budgets against for this train config:
+    the microbatch, in the policy's compute dtype, with the flash
+    residuals at ``Policy.flash_resid_dtype``'s width.  The one source
+    for :func:`resolve_remat` and the launcher's ``--remat auto``."""
+    from repro_torch import plan as plan_mod
+    pol = get_policy(tc.policy)
+    dtype_bytes = pol.compute_dtype.itemsize
+    flash_resid_bytes = None if pol.flash_resid_dtype is None else \
+        pol.flash_resid_dtype.itemsize
+    return plan_mod.profile_transformer(
+        cfg, microbatch_specs(batch_sds, accum=tc.accum),
+        dtype_bytes=dtype_bytes, flash_resid_bytes=flash_resid_bytes)
+
+
+def resolve_remat(cfg: ModelConfig, tc: TrainConfig,
+                  batch_sds: dict) -> TrainConfig:
+    """Fill ``tc.remat.plan`` from the memory planner when a budget is set.
+
+    Profiles the block stack at microbatch shape in the policy's compute
+    dtype (:func:`plan_profile`) and solves min-recompute s.t. peak <=
+    budget.  A plan already present (e.g. loaded from a run's
+    ``remat_plan.json``) wins; an explicit plan is validated against the
+    model depth either way."""
+    if tc.remat.plan is not None:
+        tc.remat.validated_plan(cfg.n_layers)
+        return tc
+    if tc.mem_budget_mb <= 0 or not tc.remat.enabled:
+        return tc
+    from repro_torch import plan as plan_mod
+    prof = plan_profile(cfg, tc, batch_sds)
+    rp = plan_mod.plan_for_budget(prof, tc.mem_budget_mb * 2 ** 20,
+                                  policy=tc.remat.policy)
+    return dataclasses.replace(
+        tc, remat=dataclasses.replace(tc.remat, plan=rp))
+
+
+def make_train_step(cfg: ModelConfig, tc: TrainConfig, batch_sds: dict):
+    """:func:`resolve_remat` then :func:`build_train_step` -> (step, the
+    resolved TrainConfig).  No sharding: one device."""
+    tc = resolve_remat(cfg, tc, batch_sds)
+    return build_train_step(cfg, tc), tc
 
 
 def build_train_step(cfg: ModelConfig, tc: TrainConfig):

@@ -330,3 +330,38 @@ def test_engine_goes_through_both_kernels(dev):
         cfg.n_layers * diag["prefills"]
     assert after["flash_decode"] - before["flash_decode"] == \
         cfg.n_layers * diag["decode_rounds"]
+
+
+@pytest.mark.parametrize("remat", [
+    {"policy": "dots"}, {"policy": "dots_nobatch"},
+    {"save_names": ("attn_out", "ffn_out")}, {"policy": "full"}])
+def test_selective_remat_relaunches_flash_on_card(dev, remat):
+    """Under every remat policy the flash forward is recomputed, kernel
+    launch included (no policy caches what is inside the op), and the
+    loss and gradients equal remat off's on the card."""
+    from repro_torch.core.checkpoint import CheckpointConfig
+    from repro_torch.core.mixed_precision import Policy
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(configs.get_config("llama3-8b"), n_layers=2,
+                              d_model=512, n_heads=4, n_kv=1, d_ff=1024,
+                              vocab=1000, head_dim=128)
+    model = tf.init_params(cfg, 0, device=dev).requires_grad_()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 100), generator=gen, device=dev)
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    params = [p for p in model.parameters()]
+
+    def run(config):
+        flash_ops.FWD_SM90.launches = 0
+        loss, _ = tf.loss_fn(model, cfg, batch, policy=Policy.bf16(),
+                             remat=config)
+        grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        return loss, grads, flash_ops.FWD_SM90.launches
+
+    loss0, grads0, n0 = run(CheckpointConfig(enabled=False))
+    loss, grads, n = run(CheckpointConfig(**remat))
+    assert n0 == cfg.n_layers and n == 2 * cfg.n_layers
+    assert float(loss) == float(loss0)
+    for g, g0 in zip(grads, grads0):       # the same arithmetic, rerun
+        assert float((g - g0).abs().max()) <= 1e-6 * float(g0.abs().max())

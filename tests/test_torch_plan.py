@@ -3,9 +3,17 @@ JAX package's on the CPU: the ResNet chain's activation bytes (walked on
 meta tensors here, with ``jax.eval_shape`` there) and the plan the
 example's S-C pipeline solves, exactly; and the solvers on seeded random
 chains, exactly.  FLOPs are analytic in the port (XLA's cost analysis has
-no counterpart): held to be positive and within a band of XLA's count."""
+no counterpart): held to be positive and within a band of XLA's count.
+
+The transformer half: carry and residual bytes, labels, the KV-cache and
+serve-capacity reports exactly as JAX's; FLOPs exactly as JAX's at its
+128 x 128 tiles with S a multiple of 128, and as the port's kernel
+counters at its own 64 x 64 tiles; the decode tile report; the placement
+DP and ``activation_bytes_of``; and hymba's eligibility, which differs
+from JAX's on purpose."""
 from __future__ import annotations
 
+import dataclasses
 import json
 import warnings
 
@@ -15,10 +23,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro import configs as jconfigs
 from repro import plan as jplan
+from repro.core import checkpoint as jckpt
 from repro.models import cnn as jcnn
 from repro.plan import solver as jsolver
-from repro_torch import plan
+from repro_torch import configs, plan
+from repro_torch.core import checkpoint as ckpt
+from repro_torch.kernels.flash import ops as flash_ops
 from repro_torch.models import cnn
 from repro_torch.plan import solver
 
@@ -158,3 +170,175 @@ def test_chain_profile_json_round_trip_and_checks():
         plan.ChainProfile((1, 2), (1.0,))
     with pytest.raises(ValueError, match="mismatch"):
         plan.ChainProfile((1, 2), (1.0, 2.0), (), (1,))
+
+
+# --------------------------------------------------------------------------
+# The transformer half: byte arithmetic exactly as JAX's; FLOPs as JAX's at
+# JAX's geometry (tile 128, S a multiple of 128) and as the port's kernel
+# counters at the port's own (tile 64).
+# --------------------------------------------------------------------------
+# llama3-8b's smoke configuration as it is, with one KV head, and windowed
+LLAMA_VARIANTS = {"as_is": {}, "n_kv1": {"n_kv": 1}, "window16": {"window": 16}}
+SHAPES = [(1, 32), (2, 100), (3, 256), (1, 512)]
+
+
+def _cfgs(**kw):
+    """(JAX config on its flash path, port config) for llama3-8b smoke."""
+    jcfg = dataclasses.replace(jconfigs.smoke_config("llama3-8b"),
+                               attn_backend="interpret", **kw)
+    return jcfg, dataclasses.replace(configs.smoke_config("llama3-8b"), **kw)
+
+
+#: the JAX capacity report's mesh fields, which the port leaves to the
+#: distributed slice; with no mesh they hold these constants
+MESH_FIELDS = {"devices": 1, "model_shards": 1, "kv_shard": "none"}
+
+
+def _jax_capacity(*args, **kw):
+    """The JAX package's serve_capacity_report without its mesh fields,
+    which must hold their no-mesh constants."""
+    rep = jplan.serve_capacity_report(*args, **kw)
+    assert {k: rep.pop(k) for k in MESH_FIELDS} == MESH_FIELDS
+    return rep
+
+
+def _profiles(jcfg, cfg, b, s, **kw):
+    jp = jplan.profile_transformer(
+        jcfg, {"tokens": jax.ShapeDtypeStruct((b, s), jnp.int32)}, **kw)
+    tp = plan.profile_transformer(
+        cfg, {"tokens": torch.empty((b, s), dtype=torch.int32,
+                                    device="meta")}, **kw)
+    return jp, tp
+
+
+@pytest.fixture
+def jax_tiles(monkeypatch):
+    """The port's planner at the TPU kernels' 128 x 128 tiles: a test
+    seam on the tile geometry, nothing a user sets."""
+    monkeypatch.setattr(flash_ops, "BQ", 128)
+    monkeypatch.setattr(flash_ops, "BK", 128)
+
+
+@pytest.mark.parametrize("variant", sorted(LLAMA_VARIANTS))
+@pytest.mark.parametrize("b,s", SHAPES)
+def test_transformer_bytes_and_labels_equal_jax(variant, b, s):
+    jcfg, cfg = _cfgs(**LLAMA_VARIANTS[variant])
+    for kw in ({}, {"dtype_bytes": 4}, {"dtype_bytes": 4,
+                                         "flash_resid_bytes": 2}):
+        jp, tp = _profiles(jcfg, cfg, b, s, **kw)
+        assert tp.act_bytes == jp.act_bytes
+        assert tp.resid_bytes == jp.resid_bytes
+        assert tp.labels == jp.labels
+    for ctx in (s, 16):             # the JAX flash path ignores ctx too
+        assert plan.attn_resid_bytes(cfg, b, s) == \
+            jplan.attn_resid_bytes(jcfg, b, s, ctx)
+    assert plan.kv_cache_report(cfg, b, s) == jplan.kv_cache_report(jcfg, b, s)
+
+
+@pytest.mark.parametrize("variant", sorted(LLAMA_VARIANTS))
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("s_max,budget,params", [
+    (64, 10**6, 0), (128, 3 * 10**5, 10**4), (1000, 12345, 0)])
+def test_serve_capacity_report_equals_jax(variant, quantized, s_max, budget,
+                                          params):
+    jcfg, cfg = _cfgs(**LLAMA_VARIANTS[variant])
+    kw = dict(quantized=quantized, params_bytes=params)
+    assert plan.serve_capacity_report(cfg, s_max, budget, **kw) == \
+        _jax_capacity(jcfg, s_max, budget, **kw)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "hymba-1.5b"])
+def test_ssm_capacity_and_carry_equal_jax(arch):
+    """The SSM family's slot bytes (conv tail + state) and carry bytes."""
+    jcfg = jconfigs.smoke_config(arch)
+    cfg = configs.smoke_config(arch)
+    assert plan.serve_capacity_report(cfg, 64, 10**6) == \
+        _jax_capacity(jcfg, 64, 10**6)
+    jp, tp = _profiles(jcfg, cfg, 2, 64)
+    assert tp.act_bytes == jp.act_bytes and tp.labels == jp.labels
+    assert plan.kv_cache_report(cfg, 2, 64) == jplan.kv_cache_report(
+        jcfg, 2, 64)
+
+
+@pytest.mark.parametrize("variant", sorted(LLAMA_VARIANTS))
+@pytest.mark.parametrize("b,s", [(1, 128), (2, 256), (1, 512)])
+def test_transformer_flops_equal_jax_at_jax_tiles(jax_tiles, variant, b, s):
+    jcfg, cfg = _cfgs(**LLAMA_VARIANTS[variant])
+    jp, tp = _profiles(jcfg, cfg, b, s)
+    assert tp.flops == jp.flops
+    assert plan.flash_bwd_recompute_flops(cfg, b, s) == \
+        jplan.flash_bwd_recompute_flops(jcfg, b, s)
+    assert plan.flash_attn_flop_report(cfg, b, s) == \
+        jplan.flash_attn_flop_report(jcfg, b, s)
+
+
+@pytest.mark.parametrize("window", [0, 16, 100])
+@pytest.mark.parametrize("s", [1, 50, 64, 100, 128, 300])
+def test_tile_counts_equal_the_kernel_counters(window, s):
+    """At the port's own 64 x 64 tiles the planner counts what the
+    kernels' counters count, ragged S included."""
+    cfg = dataclasses.replace(configs.smoke_config("llama3-8b"),
+                              window=window)
+    g = cfg.n_heads // cfg.n_kv
+    for c in plan.profile._flash_tile_counts(cfg, s):
+        assert c["bq"] == c["bk"] == flash_ops.BQ == 64
+        fwd = flash_ops.expected_counts(s, window=window)
+        dq, dkv = flash_ops.expected_bwd_counts(s, g, window=window)
+        assert c["fwd"] == sum(fwd) and c["dq"] == sum(dq)
+        assert g * c["dkv"] == sum(dkv)
+    rep = plan.flash_attn_flop_report(cfg, 1, s)
+    bhd = cfg.n_heads * cfg.head_dim * 64 * 64
+    assert rep["visited_flops"] == cfg.n_layers * bhd * (
+        4.0 * sum(fwd) + 6.0 * sum(dq) + 8.0 * sum(dkv) / g)
+
+
+@pytest.mark.parametrize("splits", [1, 4])
+@pytest.mark.parametrize("lengths", [None, [5, 1024, 333], [1, 1, 1024]])
+@pytest.mark.parametrize("variant", sorted(LLAMA_VARIANTS))
+def test_decode_tile_report_equals_jax(variant, lengths, splits):
+    jcfg, cfg = _cfgs(**LLAMA_VARIANTS[variant])
+    assert plan.decode_tile_report(cfg, 3, 1024, lengths=lengths,
+                                   splits=splits) == \
+        jplan.decode_tile_report(jcfg, 3, 1024, lengths=lengths,
+                                 splits=splits)
+
+
+def test_hymba_eligibility_differs_from_jax_on_purpose():
+    """The JAX package sends hymba's global layers down its jnp path
+    (O(S^2) probabilities); the port runs them through the flash op, so
+    it budgets flash residuals there: a known difference, pinned."""
+    jcfg = dataclasses.replace(jconfigs.smoke_config("hymba-1.5b"),
+                               attn_backend="interpret")
+    cfg = configs.smoke_config("hymba-1.5b")
+    assert plan.flash_training_eligible(cfg, 64)
+    assert not jplan.flash_training_eligible(jcfg, 64)
+    jp, tp = _profiles(jcfg, cfg, 2, 64)
+    assert tp.act_bytes == jp.act_bytes
+    flash = plan.attn_resid_bytes(cfg, 2, 64)
+    assert tp.resid_bytes == (flash,) * cfg.n_layers
+    assert flash < jp.resid_bytes[0]
+    # the SSM family has no attention: neither package is eligible
+    assert not plan.flash_training_eligible(
+        configs.smoke_config("mamba2-130m"), 64)
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_optimal_segments_equals_jax(seed, k):
+    rng = np.random.default_rng(seed)
+    acts = [int(x) for x in rng.integers(1, 10_000, int(rng.integers(4, 12)))]
+    assert ckpt.optimal_segments(acts, k) == jckpt.optimal_segments(acts, k)
+
+
+def test_activation_bytes_of_equals_jax():
+    x = np.zeros((3, 5, 7), np.float32)
+
+    def jfn(a):
+        return {"y": (a @ jnp.ones((7, 4))).astype(jnp.bfloat16),
+                "s": a.sum(-1)}
+
+    def fn(a):
+        return {"y": (a @ torch.ones((7, 4), device=a.device)).to(
+            torch.bfloat16), "s": a.sum(-1)}
+    assert ckpt.activation_bytes_of(fn, torch.from_numpy(x)) == \
+        jckpt.activation_bytes_of(jfn, jnp.asarray(x))

@@ -1,8 +1,10 @@
 """The port's serving engine against the JAX package's: the same smoke
 weights (bridged), the same seeded trace, greedy under the f32 policy ->
 identical tokens for every request, with full-causal and with windowed
-(dense-bias decode) attention; the slot-pool invariants; and the CLI's
-device handling, engine and lockstep, the SSM family included."""
+(dense-bias decode) attention; the slot-pool invariants; the memory
+budget's slot clamp, as the JAX engine computes it; and the CLI's device
+handling, engine and lockstep, the SSM family included, and its
+``--mem-budget-mb``."""
 from __future__ import annotations
 
 import dataclasses
@@ -174,3 +176,65 @@ def test_cli_lockstep_ssm_on_cpu(arch):
     no_card = _cli("--smoke", "--arch", arch,
                    env_extra={"CUDA_VISIBLE_DEVICES": ""})
     assert no_card.returncode != 0 and "--device cpu" in no_card.stderr
+
+
+# --------------------------------------------------------------------------
+# The serve memory budget: the JAX engine's capacity arithmetic.
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("window", [0, 16])
+@pytest.mark.parametrize("slots_in_budget", [1.0, 2.5, 3.99, 9.0])
+def test_budget_clamps_slots_as_the_jax_engine(window, slots_in_budget):
+    jcfg = dataclasses.replace(jconfigs.smoke_config("llama3-8b"),
+                               window=window)
+    cfg = dataclasses.replace(configs.smoke_config("llama3-8b"),
+                              window=window)
+    params = jtf.init_params(jcfg, jax.random.PRNGKey(0))
+    model = bridge.load_jax_params(cfg, jax.tree.map(np.asarray, params),
+                                   device="cpu")
+    kw = dict(max_slots=4, max_len=64, policy_name="full")
+    per_slot = SlotPool(cfg, 1, 64, device="cpu").bytes_per_slot()
+    budget = int(slots_in_budget * per_slot)
+    jeng = JServeEngine(params, jcfg, kv_backend="ref",
+                        mem_budget_bytes=budget, **kw)
+    eng = ServeEngine(model, cfg, mem_budget_bytes=budget, **kw)
+    # the port leaves the mesh fields to the distributed slice
+    jrep = dict(jeng.capacity_report)
+    assert {k: jrep.pop(k) for k in ("devices", "model_shards",
+                                     "kv_shard")} == \
+        {"devices": 1, "model_shards": 1, "kv_shard": "none"}
+    assert eng.capacity_report == jrep
+    assert eng.pool.max_slots == jeng.pool.max_slots == \
+        min(4, int(slots_in_budget))
+    assert eng.pool.bytes_per_slot_per_device() == \
+        jeng.pool.bytes_per_slot_per_device() == per_slot
+    assert eng.scheduler.byte_budget == budget
+    # the budget holds through a trace: never more slots resident
+    seen = []
+    eng.hooks["pre_decode"] = lambda e: seen.append(e.scheduler.resident)
+    summ = eng.run(synthetic_trace(6, seed=0, **TRACE_KW))
+    assert summ["n_done"] == 6
+    assert max(seen) <= eng.pool.max_slots
+    eng.reset()
+    assert eng.scheduler.byte_budget == budget
+
+
+def test_budget_admitting_no_slot_raises():
+    cfg = configs.smoke_config("llama3-8b")
+    model = bridge.load_jax_params(cfg, jax.tree.map(
+        np.asarray, jtf.init_params(jconfigs.smoke_config("llama3-8b"),
+                                    jax.random.PRNGKey(0))), device="cpu")
+    per_slot = SlotPool(cfg, 1, 64, device="cpu").bytes_per_slot()
+    with pytest.raises(ValueError, match="admits 0 slots"):
+        ServeEngine(model, cfg, max_slots=4, max_len=64,
+                    mem_budget_bytes=per_slot - 1)
+
+
+def test_cli_budget_prints_capacity():
+    out = _cli("--device", "cpu", "--smoke", "--engine", "--requests", "6",
+               "--max-slots", "4", "--mem-budget-mb", "0.05")
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "capacity: 0.02 MB/slot at max_len=128 -> budget 0.05 MB " \
+        "admits 2 of 4 requested slots" in out.stdout
+    refused = _cli("--device", "cpu", "--smoke", "--engine",
+                   "--mem-budget-mb", "0.01")
+    assert refused.returncode != 0 and "admits 0 slots" in refused.stderr

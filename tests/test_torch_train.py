@@ -3,8 +3,11 @@ size, from the same weights (``bridge.load_jax_params``) and the same
 numpy token batches: three AdamW steps of ``build_train_step`` under the
 ``full``, ``bf16`` and ``resid_bf16`` policies against the JAX step with
 both of its attention paths, sequential checkpointing in every form the
-port takes, the bf16-cotangent RMSNorm, AdamW, loss scaling,
-accumulation, and the ``launch/train.py`` CLI with resume.
+port takes, the selective remat policies (``dots``, ``dots_nobatch``,
+``save_names``) and the chunked CE against JAX under the same settings,
+the memory planner's ``resolve_remat`` / ``make_train_step``, the
+bf16-cotangent RMSNorm, AdamW, loss scaling, accumulation, and the
+``launch/train.py`` CLI with resume.
 
 Tolerances, each with its reason:
   * f32 (``full``, ``resid_bf16``): 1e-4 abs on losses and on the final
@@ -21,7 +24,12 @@ Tolerances, each with its reason:
     the final parameters to 2 x steps x lr abs (AdamW moves a
     near-zero-gradient weight by about lr per step in a direction that
     rounding can flip);
-  * remat forms against each other: 1e-6 (the same arithmetic, rerun).
+  * remat forms against each other: 1e-6 (the same arithmetic, rerun;
+    relative for the selective policies);
+  * selective policies against JAX under the same policy: 1e-4 abs on
+    the loss and every gradient (f32);
+  * the chunked CE against JAX's chunked CE and the port's unchunked
+    one: 1e-5 abs (f32 sums in another order).
 """
 from __future__ import annotations
 
@@ -37,14 +45,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro import configs as jconfigs
+from repro.core.checkpoint import CheckpointConfig as JCheckpointConfig
 from repro.core.mixed_precision import LossScale as JLossScale
 from repro.models import layers as jlayers
 from repro.models import transformer as jtf
 from repro.optim import adamw as jadamw
 from repro.train.train_step import TrainConfig as JTrainConfig
+from repro.plan import RematPlan as JRematPlan
 from repro.train.train_step import build_train_step as jbuild
+from repro.train.train_step import resolve_remat as jresolve
 from repro_torch import configs
 from repro_torch.core import api
 from repro_torch.core.checkpoint import (CheckpointConfig,
@@ -57,7 +69,8 @@ from repro_torch.models import transformer as tf
 from repro_torch.optim import adamw
 from repro_torch.plan import RematPlan
 from repro_torch.train.train_step import (TrainConfig, build_train_step,
-                                          init_loss_scale)
+                                          init_loss_scale, make_train_step,
+                                          microbatch_specs, resolve_remat)
 
 torch.set_num_threads(2)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -217,19 +230,243 @@ def test_plan_depth_is_validated(deep):
                         CheckpointConfig(plan=RematPlan(3, (1,))))
 
 
-@pytest.mark.parametrize("bad", [
-    CheckpointConfig(policy="dots"), CheckpointConfig(policy="dots_nobatch"),
-    CheckpointConfig(save_names=("attn_out",))])
-def test_unported_remat_policies_raise(deep, bad):
-    cfg, model, batch = deep
-    with pytest.raises(NotImplementedError, match="later slice"):
-        _loss_and_grads(cfg, model, batch, bad)
+# --------------------------------------------------------------------------
+# Selective remat policies and the chunked CE, against the JAX package.
+# --------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def deep_jax():
+    """The 4-layer smoke model from one set of JAX weights: (JAX config on
+    its flash path, params, port config, port model) and one batch."""
+    jcfg = dataclasses.replace(jconfigs.smoke_config("llama3-8b"),
+                               n_layers=4, attn_backend="interpret")
+    params = jtf.init_params(jcfg, jax.random.PRNGKey(3))
+    cfg = dataclasses.replace(configs.smoke_config("llama3-8b"), n_layers=4)
+    model = bridge.load_jax_params(cfg, jax.tree.map(np.asarray, params),
+                                   device="cpu").requires_grad_()
+    (t, lab), = _batches(cfg.vocab, 1, seed=4)
+    return jcfg, params, cfg, model, (t, lab)
 
 
-def test_unported_options_raise(deep):
+POLICY_REMATS = {
+    "dots": (CheckpointConfig(policy="dots"), JCheckpointConfig(policy="dots")),
+    "dots_nobatch": (CheckpointConfig(policy="dots_nobatch"),
+                     JCheckpointConfig(policy="dots_nobatch")),
+    "save_names": (CheckpointConfig(save_names=("attn_out", "ffn_out")),
+                   JCheckpointConfig(save_names=("attn_out", "ffn_out"))),
+    "dots_and_names": (
+        CheckpointConfig(policy="dots", save_names=("attn_out",)),
+        JCheckpointConfig(policy="dots", save_names=("attn_out",))),
+    "plan_full_dots": (
+        CheckpointConfig(plan=RematPlan(4, (1, 3), ("full", "dots",
+                                                    "dots"))),
+        JCheckpointConfig(plan=JRematPlan(4, (1, 3), ("full", "dots",
+                                                      "dots")))),
+}
+
+
+def _grad_tree(grads):
+    return dict(jax.tree_util.tree_leaves_with_path(bridge.to_jax_tree(grads)))
+
+
+def _jax_loss_and_grads(jcfg, params, batch, remat, **kw):
+    def f(p):
+        return jtf.loss_fn(p, jcfg, batch, remat=remat, **kw)[0]
+    loss, g = jax.value_and_grad(f)(params)
+    return float(loss), dict(jax.tree_util.tree_leaves_with_path(
+        jax.tree.map(np.asarray, g)))
+
+
+@pytest.mark.parametrize("name", sorted(POLICY_REMATS))
+def test_selective_policies_match_jax_and_remat_off(deep_jax, monkeypatch,
+                                                    name):
+    jcfg, params, cfg, model, (t, lab) = deep_jax
+    remat, jremat = POLICY_REMATS[name]
+    batch = _torch_batch(t, lab)
+    loss0, grads0, _ = _loss_and_grads(cfg, model, batch, REMATS["off"])
+    calls = []
+    real = flash_ref.flash_fwd_ref
+    monkeypatch.setattr(flash_ref, "flash_fwd_ref",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    loss, grads, finite = _loss_and_grads(cfg, model, batch, remat)
+    assert bool(finite)
+    # against the port with remat off: the same arithmetic, rerun
+    assert abs(float(loss) - float(loss0)) <= 1e-6 * abs(float(loss0))
+    for n, g in grads.items():
+        ref = float(grads0[n].abs().max())
+        assert float((g - grads0[n]).abs().max()) <= 1e-6 * ref, n
+    # the flash forward is no product: every recomputed layer runs it again
+    assert len(calls) == 2 * cfg.n_layers
+    # against the JAX package under the same policy (f32)
+    jloss, jgrads = _jax_loss_and_grads(jcfg, params, _jax_batch(t, lab),
+                                        jremat)
+    assert abs(float(loss) - jloss) <= 1e-4
+    got = _grad_tree(grads)
+    assert got.keys() == jgrads.keys()
+    for path, g in got.items():
+        assert np.abs(g - jgrads[path]).max() <= 1e-4, path
+
+
+class _OpCount(TorchDispatchMode):
+    """Counts the operators dispatched while it is active."""
+
+    def __init__(self):
+        super().__init__()
+        self.n: dict = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        key = str(func.overloadpacket)
+        self.n[key] = self.n.get(key, 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+def _backward_ops(cfg, model, batch, remat):
+    loss, _ = tf.loss_fn(model, cfg, batch, remat=remat)
+    with _OpCount() as count:
+        loss.backward()
+    model.zero_grad(set_to_none=True)
+    return count.n
+
+
+def test_policies_recompute_what_they_say(deep):
+    """In the backward: ``full`` re-runs the blocks' products, ``dots``
+    and ``dots_nobatch`` re-run none (each block's products are 2-D
+    ``aten.mm``), and all three re-run the flash forward, one operator to
+    the dispatcher, once per layer."""
     cfg, model, batch = deep
-    with pytest.raises(NotImplementedError, match="chunked CE"):
-        tf.loss_fn(model, cfg, batch, ce_chunk=8)
+    off = _backward_ops(cfg, model, batch, REMATS["off"])
+    assert off.get("repro_torch.flash_fwd", 0) == 0
+    for policy, extra_mm in (("full", True), ("dots", False),
+                             ("dots_nobatch", False)):
+        n = _backward_ops(cfg, model, batch,
+                          CheckpointConfig(policy=policy))
+        assert n["repro_torch.flash_fwd"] == cfg.n_layers, policy
+        assert (n["aten.mm"] > off["aten.mm"]) == extra_mm, (policy, n)
+        if not extra_mm:
+            assert n["aten.mm"] == off["aten.mm"], policy
+    # save_names keeps the tagged tensors: the tag is never re-run
+    n = _backward_ops(cfg, model, batch,
+                      CheckpointConfig(save_names=("attn_out", "ffn_out")))
+    assert n.get("repro_torch.checkpoint_name", 0) == 0
+    assert n["repro_torch.flash_fwd"] == cfg.n_layers
+
+
+def test_tags_only_when_asked(deep, monkeypatch):
+    """The tag is a copy, so the forward applies it only under a
+    save_names policy that recomputes some segment, and only the names
+    asked for."""
+    cfg, model, batch = deep
+    from repro_torch.core import checkpoint as ckpt_mod
+    names = []
+    real = ckpt_mod.checkpoint_name
+    monkeypatch.setattr(tf, "checkpoint_name",
+                        lambda x, n: names.append(n) or real(x, n))
+    L = cfg.n_layers
+    for remat in (CheckpointConfig(), CheckpointConfig(policy="dots"),
+                  CheckpointConfig(enabled=False,
+                                   save_names=("attn_out",)),
+                  CheckpointConfig(policy="none", save_names=("attn_out",)),
+                  CheckpointConfig(save_names=("attn_out",), plan=RematPlan(
+                      L, (1,), ("none", "none")))):
+        tf.loss_fn(model, cfg, batch, remat=remat)
+    assert names == []
+    tf.loss_fn(model, cfg, batch,
+               remat=CheckpointConfig(save_names=("ffn_out",)))
+    assert names == ["ffn_out"] * L
+    names.clear()           # one recomputed segment: the model tags
+    tf.loss_fn(model, cfg, batch, remat=CheckpointConfig(
+        save_names=("ffn_out",), plan=RematPlan(L, (1,), ("none", "dots"))))
+    assert names == ["ffn_out"] * L
+
+
+def test_unknown_policy_raises(deep):
+    cfg, model, batch = deep
+    with pytest.raises(ValueError, match="unknown remat policy"):
+        _loss_and_grads(cfg, model, batch, CheckpointConfig(policy="dot"))
+
+
+@pytest.mark.parametrize("chunk", [8, 12, 32, 100])
+@pytest.mark.parametrize("masked", [False, True])
+def test_chunked_ce_matches_jax_and_unchunked(smoke, chunk, masked):
+    """chunk 8 divides S=32; 12 leaves a ragged last chunk of 8; 32 and
+    100 are one chunk.  Tolerance 1e-5: f32 sums in another order."""
+    jcfg, cfg, params, tree = smoke
+    jcfg = dataclasses.replace(jcfg, attn_backend="interpret")
+    model = bridge.load_jax_params(cfg, tree, device="cpu").requires_grad_()
+    (t, lab), = _batches(cfg.vocab, 1, seed=5)
+    jb, tb = _jax_batch(t, lab), _torch_batch(t, lab)
+    if masked:
+        mask = (np.random.default_rng(6).random(t.shape) < 0.7).astype(
+            np.float32)
+        jb["loss_mask"] = jnp.asarray(mask)
+        tb["loss_mask"] = torch.from_numpy(mask)
+    vg = scaled_value_and_grad(
+        lambda m, b, c: tf.loss_fn(m, cfg, b, remat=REMATS["off"],
+                                   ce_chunk=c))
+    (loss, _), grads, _ = vg(model, tb, chunk)
+    (loss0, _), grads0, _ = vg(model, tb, 0)
+    jloss, jgrads = _jax_loss_and_grads(jcfg, params, jb,
+                                        JCheckpointConfig(enabled=False),
+                                        ce_chunk=chunk)
+    assert abs(float(loss) - jloss) <= 1e-5
+    assert abs(float(loss) - float(loss0)) <= 1e-5
+    got = _grad_tree(grads)
+    for path, g in got.items():
+        assert np.abs(g - jgrads[path]).max() <= 1e-5, path
+    for n, g in grads.items():
+        assert float((g - grads0[n]).abs().max()) <= 1e-5, n
+
+
+def test_chunked_ce_never_holds_the_whole_logits(deep, monkeypatch):
+    """The LM head runs once per chunk, on (B, chunk, D) rows."""
+    cfg, model, batch = deep
+    rows = []
+    real = tf._mask_padded_vocab
+    monkeypatch.setattr(tf, "_mask_padded_vocab",
+                        lambda x, c: rows.append(x.shape[1]) or real(x, c))
+    tf.loss_fn(model, cfg, batch, ce_chunk=12)
+    assert rows == [12, 12, 8]
+
+
+@pytest.mark.parametrize("budget_mb", [30, 60, 80, 1000])
+def test_resolve_remat_plan_equals_jax(budget_mb):
+    """The plan the budget solves from the transformer profile, in both
+    packages, for llama3-8b's 4-layer smoke config at 64 x 1024 tokens
+    (carry 8 MiB a layer, so MiB budgets bind)."""
+    jcfg = dataclasses.replace(jconfigs.smoke_config("llama3-8b"),
+                               n_layers=4, attn_backend="interpret")
+    cfg = dataclasses.replace(configs.smoke_config("llama3-8b"), n_layers=4)
+    jtc = jresolve(jcfg, JTrainConfig(mem_budget_mb=budget_mb),
+                   {"tokens": jax.ShapeDtypeStruct((64, 1024), jnp.int32)})
+    step, tc = make_train_step(
+        cfg, TrainConfig(mem_budget_mb=budget_mb),
+        {"tokens": torch.empty((64, 1024), dtype=torch.int32,
+                               device="meta")})
+    assert callable(step)
+    assert tc.remat.plan.to_json() == jtc.remat.plan.to_json()
+    assert resolve_remat(cfg, TrainConfig(mem_budget_mb=budget_mb), {
+        "tokens": torch.empty((64, 1024), device="meta")}).remat.plan == \
+        tc.remat.plan
+
+
+def test_existing_plan_wins_and_is_validated():
+    cfg = dataclasses.replace(configs.smoke_config("llama3-8b"), n_layers=4)
+    sds = {"tokens": torch.empty((64, 1024), device="meta")}
+    mine = RematPlan(4, (2,), "dots", source="mine")
+    tc = TrainConfig(mem_budget_mb=30, remat=CheckpointConfig(plan=mine))
+    assert resolve_remat(cfg, tc, sds).remat.plan is mine
+    with pytest.raises(ValueError, match="solved for 3 layers"):
+        resolve_remat(cfg, TrainConfig(remat=CheckpointConfig(
+            plan=RematPlan(3, (1,)))), sds)
+    # no budget, or remat off: no plan
+    assert resolve_remat(cfg, TrainConfig(), sds).remat.plan is None
+    assert resolve_remat(cfg, TrainConfig(mem_budget_mb=30, remat=(
+        CheckpointConfig(enabled=False))), sds).remat.plan is None
+
+
+def test_microbatch_specs_divide_by_accum():
+    sds = {"tokens": torch.empty((8, 128), device="meta")}
+    assert microbatch_specs(sds, accum=4)["tokens"].shape == (2, 128)
+    assert microbatch_specs(sds, accum=16)["tokens"].shape == (1, 128)
 
 
 def test_checkpoint_sequential_and_remat_scan_recompute():

@@ -5,7 +5,7 @@ root (so each tree builds and imports its own kernels), and print every
 result line tagged with its tree and turn.
 
     python3 tools/compare_trees.py OLD_ROOT NEW_ROOT \
-        [--phases decode,ssd,serve_ssm,serve] [--out FILE]
+        [--phases decode,ssd,serve_ssm,serve,train] [--out FILE]
 
 OLD_ROOT is typically the parent commit unpacked with ``git archive`` into
 a git-ignored directory (``build/parent``).  Phases (``Smoke`` methods):
@@ -17,6 +17,7 @@ a git-ignored directory (``build/parent``).  Phases (``Smoke`` methods):
 * ``serve_ssm``: the mamba2-130m and hymba-1.5b lockstep serve runs and
   their profiles;
 * ``serve``: the llama3-8b engine run and its profile;
+* ``train``: the 4-layer llama3-8b train steps and their profile;
 * ``ssm_greedy``: hymba-1.5b's lockstep greedy tokens (batch 8 x 32) with
   the decode kernel and with its plain PyTorch version on the card, and
   the first step at which each row's two token streams differ.
@@ -96,6 +97,8 @@ for phase in PHASES:
         s.run_serve_ssm()
     elif phase == "serve":
         s.run_serve()
+    elif phase == "train":
+        s.run_train()
     elif phase == "ssm_greedy":
         greedy(s)
     else:
