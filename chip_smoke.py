@@ -40,12 +40,39 @@ JSON object per line:
    the kernels' launch counters are zeroed just before the run and read
    just after it;
 6. ``profile``: ``torch.profiler`` over a short serve run after that one,
-   device time by kernel and the card's idle share; then ``serve_budget``:
+   device time by kernel and the card's idle share, and over 8 engine
+   steps that only decode (8 requests resident): the device time of one
+   decode round; then ``serve_budget``:
    an engine with ``mem_budget_bytes`` of 5.5 slots at ``max_len`` 2048
    and 8 slots asked for must clamp to 5 (``capacity_report``), a pool of
    5 slots must allocate exactly 5 x ``bytes_per_slot`` on the card (its
    ``pos`` lengths aside), and the trace's first 6 requests must finish
    with never more than 5 resident;
+6b. ``fleet``: the serving fleet on that model and trace (``serve/router.py``,
+   ``faults.py``, ``journal.py``, ``worker.py``): 2 in-process replicas
+   (8 slots, ``max_len`` 2048, int8, ``kv_splits`` 4, request keys), one
+   line a sub-phase: (a) ``fleet_reference``, greedy and fault-free, each
+   token's top-1 / top-2 logit gap recorded; (b) ``fleet_chaos``, the same
+   under ``chaos_plan`` seed 33 (a replica crash with requests resident, a
+   slow replica) and a ``nan_logits``; (c) ``fleet_recover``, a journaled
+   run crashed by ``crash_after_appends`` and finished by ``recover()`` on
+   a new router over fresh engines; (d) ``fleet_request_keys``, sampling
+   at temperature 0.8, top-k 50, one request evicted mid-stream and
+   resubmitted with its emitted tokens and key on the other replica; (e)
+   ``fleet_workers``, 2 subprocess workers (their own weights from
+   ``--seed``, full size) on the first 8 requests, one SIGKILLed, the
+   survivor's kernel launches and no ``nvcc`` in the children; (f)
+   ``fleet_traced``, (b) again with tracers on the engines, the router
+   and the journal: spans by name and the median host duration of an
+   engine step beside ``profile``'s device time of a decode round.  Tokens
+   of (b)-(f) equal the reference's or differ first at a near-tie: the
+   reference's top-2 gap within 2 bf16 ulps of its top logit and the held
+   run's token among its best within that much; where the held run ran in
+   this process ((b)-(d), (f)) also the reverse, and the two runs' top
+   logits within 2 ulps of each other (``top_logit_drift`` reads that
+   drift over every draw both runs recorded).  The launch counters are
+   zeroed before each of (a)-(c), (d)'s migrated run and (f), and read
+   after: one launch a layer for each prefill and each decode round;
 7. ``train``: llama3-8b at full width and 4 layers (random f32 master
    weights from ``--seed``), policy bf16, remat on every block, AdamW,
    batch 1 x 4096 tokens, through ``build_train_step``: 2 warm-up steps,
@@ -119,6 +146,7 @@ non-zero without the final ``ok`` line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -166,6 +194,20 @@ SSD_SRC = "src/repro_torch/kernels/csrc/ssd.cu"
 SSD_SM90_SRC = "src/repro_torch/kernels/csrc/ssd_sm90.cu"
 SSD_TPU = "src/repro/kernels/ssd/kernel.py:42"
 SSM_PROMPT, SSM_GEN, SSM_BATCH = 2048, 32, 8   # the serve_ssm lockstep
+# the fleet phase over the serve trace, 2 replicas of the serve engine (the
+# schedule depends on the trace's lengths only, so these land as planned):
+# (b)'s chaos plan is a replica_crash of replica 0 at router step 8 (2
+# requests resident, 1 queued there) and a replica_slow of the survivor at
+# step 19 for 3 steps, plus a nan_logits on the survivor's slot 0 at its
+# engine step 20; (c) crashes at journal append 200 of the run's 444; (d)
+# evicts after 6 steps; (e) SIGKILLs worker 1 at router step 6
+FLEET_CHAOS = dict(seed=33, steps=40, n_events=2)
+FLEET_NAN = (1, 20, 0)                  # (replica, engine step, slot)
+FLEET_CRASH_AT = 200
+FLEET_EVICT_AFTER = 6
+FLEET_SIGKILL_STEP = 6
+FLEET_SLOTS, FLEET_LEN = 8, 2048
+TOP_N = 4                       # best scores the fleet records per draw
 # the reference for the baseline's accuracy: examples/cifar_optorch.py's
 # train("baseline", *make_cifar_like(n=2048, seed=0), 200), the JAX
 # package on the CPU: mean accuracy of its last 20 steps
@@ -174,6 +216,62 @@ JAX_CPU_BASELINE_ACC = 1.0
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bfloat16 values at ``x`` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
+
+
+def hold_to(ref: dict, recs: dict, got: dict, got_recs=None):
+    """Hold token streams to a reference.  ``recs[(key, index)] = (top
+    logit, the TOP_N best scores, their token ids)`` of the reference's
+    draws, scores in logit units (``_record_scores``); ``got_recs`` the
+    same of the held run where it ran in this process.  Per key:
+    ``equal``; ``near_tie`` when the streams first differ at a draw where
+    the reference's top-2 gap was within 2 bf16 ulps of its top logit, the
+    held run's token is among the reference's scores within that much of
+    its best, and -- where ``got_recs`` has the draw -- the reference's
+    token is within 2 ulps of the held run's best too and the two runs'
+    top logits agree within 2 ulps (a near-tie in both runs, on logits
+    that agree); else ``diverged`` (a missing stream too).  Returns (the
+    counts, the first differences, the top-logit drift between the runs
+    over every draw both recorded up to a stream's first difference)."""
+    counts = {"equal": 0, "near_tie": 0, "diverged": 0}
+    firsts, drift = [], []
+    nan = (float("nan"), [float("nan")] * TOP_N, [-1] * TOP_N)
+
+    def within(rec, tok, tol):          # tok's score is near rec's best
+        _, vals, ids = rec
+        return tok in ids and vals[0] - vals[ids.index(tok)] <= tol
+
+    for key, want in ref.items():
+        have = got.get(key) or []
+        n = min(len(want), len(have))
+        i = next((j for j in range(n) if want[j] != have[j]), n)
+        if got_recs is not None:
+            drift += [abs(recs[(key, j)][0] - got_recs[(key, j)][0])
+                      for j in range(min(i + 1, len(want)))
+                      if (key, j) in recs and (key, j) in got_recs]
+        if have == want:
+            counts["equal"] += 1
+            continue
+        a = recs.get((key, i), nan)
+        tol = 2 * bf16_ulp(a[0]) if a[0] == a[0] else 0.0
+        first = {"key": key, "index": i, "top": a[0],
+                 "gap": a[1][0] - a[1][1], "tol": tol}
+        ok = i < n and first["gap"] <= tol and within(a, have[i], tol)
+        if ok and got_recs is not None:
+            b = got_recs.get((key, i), nan)
+            first.update(got_top=b[0], got_gap=b[1][0] - b[1][1])
+            ok = (b[0] == b[0] and within(b, want[i], 2 * bf16_ulp(b[0]))
+                  and abs(a[0] - b[0]) <= tol)
+        first["kind"] = kind = "near_tie" if ok else "diverged"
+        counts[kind] += 1
+        firsts.append(first)
+    return counts, firsts, {"n": len(drift),
+                            "n_nonzero": sum(d > 0 for d in drift),
+                            "max": max(drift, default=None)}
 
 
 def live_pairs(s: int, *, causal: bool = True, window: int = 0,
@@ -690,6 +788,13 @@ class Smoke:
         self.profile_serve(engine, cfg)
         self.check_serve_budget(model, cfg, trace[:6],
                                 engine.pool.bytes_per_slot())
+        # the fleet's workers make their own weights: free the engine first
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        self.run_fleet(model, cfg, trace, dict(
+            arch=cfg.arch_id, smoke=False, init_seed=self.args.seed,
+            device="cuda"))
         return rec
 
     def check_serve_budget(self, model, cfg, trace, bytes_per_slot) -> dict:
@@ -740,6 +845,465 @@ class Smoke:
             "n_done": summary["n_done"],
             "tokens_per_s": summary["tokens_per_s"]})
 
+    # -- the fault-tolerant fleet -------------------------------------------
+    def _fleet_engines(self, model, cfg, n: int = 2, **extra) -> list:
+        """``n`` warmed engines of the serve phase's configuration in
+        request-key mode, on one shared model, with the fleet's buckets
+        (``launch/serve.py``: a ``max_len`` bucket so a replay fits)."""
+        from repro_torch.launch.serve import _fleet_buckets
+        from repro_torch.serve import ServeEngine
+        out = [ServeEngine(model, cfg, max_slots=FLEET_SLOTS,
+                           max_len=FLEET_LEN,
+                           prompt_buckets=_fleet_buckets(FLEET_LEN),
+                           policy_name="bf16", quantized=True, kv_splits=4,
+                           sampler_keys="request", seed=self.args.seed,
+                           **extra) for _ in range(n)]
+        for e in out:
+            e.warmup()
+        return out
+
+    @staticmethod
+    def _fresh(engines) -> list:
+        for e in engines:
+            e.reset()
+            e.hooks.clear()
+            e.tracer = None
+        return engines
+
+    @contextlib.contextmanager
+    def _record_scores(self, engines, vocab: int, out: dict,
+                       temperature: float = 0.0):
+        """Record through the engines' ``post_logits`` hook, for every
+        token they draw, its logits' top value and the ``TOP_N`` best
+        sampling scores with their token ids into ``out[(key_id,
+        index)]``, in logit units (scores times T when sampling): the
+        first token's from the prefill, the rest from each decode round.
+        A later draw of the same token (a replay) replaces an earlier one.
+        The values stay on the device until the run ends, so recording
+        adds a top-k a draw and no host sync."""
+        kept: list = []
+        scale = temperature if temperature > 0.0 else 1.0
+
+        def hook(e, logits, scores, rows):
+            vals, ids = scores[..., :vocab].topk(TOP_N, dim=-1)
+            kept.append(({r: (q.key_id, len(q.tokens))
+                          for r, q in rows.items()},
+                         logits[..., :vocab].amax(-1), vals, ids))
+
+        for e in engines:
+            e.hooks["post_logits"] = hook
+        try:
+            yield
+        finally:
+            for e in engines:
+                e.hooks.pop("post_logits", None)
+        for rows, top, vals, ids in kept:
+            top = top.float().tolist()
+            vals = (vals.double() * scale).tolist()
+            ids = ids.tolist()
+            for r, key in rows.items():
+                out[key] = (top[r], vals[r], ids[r])
+
+    @staticmethod
+    def _rates(summary: dict, hists: dict) -> dict:
+        """Tokens/s and goodput from a ``fleet_summary``; TTFT and ITL
+        means from the replicas' merged registry histograms."""
+        mean = lambda h: h["sum"] / h["n"] if h.get("n") else None  # noqa: E731
+        return {"tokens_per_s": summary["tokens_per_s"],
+                "goodput_tokens_per_s": summary["goodput_tokens_per_s"],
+                "ttft_mean_s": mean(hists.get("serve.ttft_s", {})),
+                "itl_mean_s": mean(hists.get("serve.itl_s", {}))}
+
+    def _fleet_counts(self, router, summary: dict, wall: float,
+                      launches: dict, engines) -> dict:
+        """One sub-phase's numbers: the fleet summary's rates, the fleet's
+        TTFT / ITL means from the merged registries, the router's ledger
+        and the launch counts beside what the engines' prefills and
+        decode rounds predict."""
+        fleet = summary["fleet"]
+        return {
+            "wall_s": wall,
+            **self._rates(summary, router.registry_snapshot()["hists"]),
+            "n_done": fleet["n_done"], "n_failed": fleet["n_failed"],
+            "failovers": fleet["failovers"],
+            "n_migrations": fleet["n_migrations"],
+            "replay_success_rate": fleet["replay_success_rate"],
+            "health": summary["health"], "kernel_launches": launches,
+            "prefills": sum(e.n_prefills for e in engines),
+            "decode_rounds": sum(e.n_decode_rounds for e in engines)}
+
+    def _launches_follow(self, rec: dict, n_layers: int,
+                         prefills=None, rounds=None) -> bool:
+        """Every prefill ran the tensor-core forward once a layer and every
+        decode round the decode kernel once a layer, and nothing else."""
+        got = rec["kernel_launches"]
+        p = rec["prefills"] if prefills is None else prefills
+        r = rec["decode_rounds"] if rounds is None else rounds
+        return (got["flash_fwd_sm90"] == n_layers * p > 0
+                and got["flash_decode"] == n_layers * r > 0
+                and got["flash_fwd"] == got["flash_decode_bias"] == 0)
+
+    def run_fleet(self, model, cfg, trace, worker_kwargs: dict) -> dict:
+        """The serving fleet over the serve phase's model and trace: (a) a
+        fault-free 2-replica ``Router`` (greedy, request keys), recording
+        each token's top-1 / top-2 logit gap; (b) the same under a chaos
+        plan and one ``nan_logits``; (c) a journaled run crashed by
+        ``crash_after_appends`` and recovered by a new router over fresh
+        engines; (d) request-key sampling across a migration; (e) two
+        subprocess workers with their own weights, one SIGKILLed; (f) (b)
+        again with tracers on the engines, the router and the journal.
+        Tokens of (b)-(f) are held to (a)'s (or (d)'s unmigrated run's)
+        by ``hold_to``: equal, or first different at a near-tie in both
+        runs."""
+        torch = self.torch
+        from repro_torch.events import EventSink, read_events
+        from repro_torch.kernels import build
+        from repro_torch.kernels.flash import ops as flash_ops
+        from repro_torch.kernels.kvq import ops as kvq_ops
+        from repro_torch.obs import MetricsRegistry, Tracer
+        from repro_torch.serve import (DONE, TERMINAL, FaultInjector,
+                                       FaultPlan, FleetFaultInjector,
+                                       RequestJournal, Router, SimulatedCrash,
+                                       chaos_plan, crash_after_appends,
+                                       fleet_summary, kernel_launches,
+                                       spawn_workers)
+        counters = (flash_ops.KERNEL, flash_ops.FWD_SM90, kvq_ops.KERNEL,
+                    kvq_ops.BIAS_KERNEL)
+        L, n_req = cfg.n_layers, len(trace)
+        tmp = tempfile.mkdtemp(prefix="fleet_")
+        lines = {}
+
+        def zero():
+            for k in counters:
+                k.launches = 0
+
+        def timed_run(router, reqs):
+            t0 = time.time()
+            summary = router.run(reqs)
+            self.sync()
+            return summary, time.time() - t0
+
+        def tokens_of(router):
+            return {g: list(fr.tokens) for g, fr in router._reqs.items()
+                    if fr.state == DONE}
+
+        def leak_free(engines):
+            return all(e.pool.occupancy == 0
+                       and e.pool.allocs == e.pool.frees for e in engines)
+
+        def emit_line(name, rec, checks, **extra):
+            rec = {"phase": f"fleet_{name}", "ok": all(checks.values()),
+                   "checks": checks, **rec, **extra}
+            lines[name] = self.record(rec)
+            return rec
+
+        t_start = time.time()
+        engines = self._fleet_engines(model, cfg)
+        warm_s = time.time() - t_start
+
+        # (a) fault-free reference ------------------------------------------
+        recs: dict = {}
+        zero()
+        router = Router(self._fresh(engines))
+        with self._record_scores(engines, cfg.vocab, recs):
+            summary, wall = timed_run(router, trace)
+        ref = tokens_of(router)
+        rec = self._fleet_counts(router, summary, wall, kernel_launches(),
+                                 engines)
+        emit_line("reference", rec, {
+            "n_done": rec["n_done"] == n_req,
+            "reconcile": summary["reconcile"]["ok"],
+            "no_slot_leak": leak_free(engines),
+            "scores_recorded": len(recs) == sum(map(len, ref.values())),
+            "launches": self._launches_follow(rec, L)},
+            replicas=2, max_slots=FLEET_SLOTS, max_len=FLEET_LEN,
+            kv_splits=4, n_requests=n_req, warmup_s=warm_s,
+            min_gap=min(v[0] - v[1] for _, v, _ in recs.values()),
+            near_ties=sum(v[0] - v[1] <= 2 * bf16_ulp(t)
+                          for t, v, _ in recs.values()))
+
+        def chaos(router, engines):
+            plan = chaos_plan(FLEET_CHAOS["seed"], steps=FLEET_CHAOS["steps"],
+                              replicas=2, n_events=FLEET_CHAOS["n_events"])
+            fleet_inj = FleetFaultInjector(router, plan)
+            replica, step, slot = FLEET_NAN
+            inj = FaultInjector(engines[replica],
+                                FaultPlan().nan_logits(step, slot=slot))
+            return fleet_inj, inj
+
+        def chaos_checks(rec, summary, fleet_inj, inj, engines, held):
+            return {
+                "reconcile": summary["reconcile"]["ok"],
+                "all_done": rec["n_done"] == n_req,
+                "no_slot_leak": leak_free(engines),
+                "crash_landed": fleet_inj.injected["replica_crash"] == 1,
+                "sick_or_slow_landed":
+                    fleet_inj.injected["replica_sick"]
+                    + fleet_inj.injected["replica_slow"] >= 1,
+                "nan_landed": inj.injected["nan_logits"] == 1,
+                "failover": rec["failovers"] >= 1
+                and rec["n_migrations"] >= 1,
+                "tokens_held": held["diverged"] == 0,
+                "launches": self._launches_follow(rec, L)}
+
+        # (b) chaos ----------------------------------------------------------
+        zero()
+        router = Router(self._fresh(engines))
+        fleet_inj, inj = chaos(router, engines)
+        got_recs: dict = {}
+        with self._record_scores(engines, cfg.vocab, got_recs):
+            summary, wall_b = timed_run(router, trace)
+        held, firsts, drift = hold_to(ref, recs, tokens_of(router), got_recs)
+        rec = self._fleet_counts(router, summary, wall_b, kernel_launches(),
+                                 engines)
+        emit_line("chaos", rec, chaos_checks(rec, summary, fleet_inj, inj,
+                                             engines, held),
+                  chaos=FLEET_CHAOS, nan_logits=FLEET_NAN,
+                  injected={**fleet_inj.injected, **inj.injected},
+                  tokens_vs_reference=held, first_differences=firsts,
+                  top_logit_drift=drift)
+
+        # (c) crash and recover ----------------------------------------------
+        fresh = self._fleet_engines(model, cfg)
+        path = os.path.join(tmp, "wal.jsonl")
+        zero()
+        journal = RequestJournal(path, snapshot_every=64)
+        crash = crash_after_appends(journal, FLEET_CRASH_AT)
+        router = Router(self._fresh(engines), journal=journal)
+        got_recs = {}
+        with self._record_scores(engines + fresh, cfg.vocab, got_recs):
+            try:
+                router.run(trace)
+            except SimulatedCrash:
+                pass
+            done_before = tokens_of(router)     # delivered before the crash
+            crash_step, appends = router.step_no, journal.appends
+            pre = (sum(e.n_prefills for e in engines),
+                   sum(e.n_decode_rounds for e in engines))
+            journal.close()
+            for e in engines:                   # kill -9: the requests vanish
+                for rid, st in list(e.request_states().items()):
+                    if st["state"] not in TERMINAL:
+                        e.evict_request(rid)
+                e.reset()
+            journal = RequestJournal(path, snapshot_every=64)
+            n_live = journal.state.n_live
+            n_submitted = journal.state.next_gid
+            router = Router(fresh, journal=journal)
+            t0 = time.time()
+            info = router.recover()
+            rest = sorted(trace, key=lambda r: r.arrival_step)[n_submitted:]
+            rest = [dataclasses.replace(
+                r, arrival_step=max(0, r.arrival_step - crash_step))
+                for r in rest]
+            summary = router.run(rest)
+            self.sync()
+            wall = time.time() - t0
+        got = {**done_before, **tokens_of(router)}
+        held, firsts, drift = hold_to(ref, recs, got, got_recs)
+        rec = self._fleet_counts(router, summary, wall, kernel_launches(),
+                                 fresh)
+        rounds = (pre[0] + rec["prefills"], pre[1] + rec["decode_rounds"])
+        checks = {
+            "crashed": crash["fired"] and n_live > 0,
+            "recovered": info["n_recovered"] == n_live,
+            "reconcile": summary["reconcile"]["ok"]
+            and summary["reconcile"]["checks"]["journal_accounted"],
+            "all_done": len(got) == n_req,
+            "no_slot_leak": leak_free(fresh) and leak_free(engines),
+            "tokens_held": held["diverged"] == 0,
+            "launches": self._launches_follow(rec, L, *rounds)}
+        emit_line("recover", rec, checks, crash_after_appends=FLEET_CRASH_AT,
+                  crash_router_step=crash_step, appends_before_crash=appends,
+                  appends_after=journal.appends,
+                  snapshots=journal.snapshots, recover=info,
+                  done_before_crash=len(done_before),
+                  prefills_before_crash=pre[0],
+                  decode_rounds_before_crash=pre[1],
+                  tokens_vs_reference=held, first_differences=firsts,
+                  top_logit_drift=drift)
+        journal.close()
+        del engines, fleet_inj, inj
+        gc.collect()
+
+        # (d) request keys across a migration ----------------------------------
+        temperature, top_k = 0.8, 50
+        sampled = self._fleet_engines(model, cfg, temperature=temperature,
+                                      top_k=top_k)
+        sub = sorted(trace, key=lambda r: r.arrival_step)[:FLEET_SLOTS]
+        kids = [1000 + i for i in range(len(sub))]
+
+        def submit_all(e):
+            return {k: e.submit(r.prompt, r.max_new_tokens, key_id=k)
+                    for k, r in zip(kids, sub)}
+
+        s_recs: dict = {}
+        a, b = self._fresh(sampled)
+        with self._record_scores(sampled, cfg.vocab, s_recs, temperature):
+            rids = submit_all(a)
+            while a.scheduler.has_work():
+                a.step()
+        states = a.request_states()
+        s_ref = {k: states[rid]["tokens"] for k, rid in rids.items()}
+        a, b = self._fresh(sampled)
+        got_recs = {}
+        zero()
+        with self._record_scores(sampled, cfg.vocab, got_recs, temperature):
+            rids = submit_all(a)
+            for _ in range(FLEET_EVICT_AFTER):
+                a.step()
+            states = a.request_states()
+            victim = max((rid for rid, st in states.items()
+                          if st["slot"] is not None),
+                         key=lambda rid: (len(states[rid]["tokens"]), -rid))
+            moved = a.evict_request(victim)
+            new = b.submit(moved.prompt, moved.max_new_tokens,
+                           key_id=moved.key_id, emitted=moved.tokens,
+                           front=True)
+            while a.scheduler.has_work() or b.scheduler.has_work():
+                for e in (a, b):
+                    if e.scheduler.has_work():
+                        e.step()
+            self.sync()
+        rec = {**self._rates(
+            fleet_summary([a.summary(), b.summary()]),
+            MetricsRegistry.merge(a.metrics.registry_snapshot(),
+                                  b.metrics.registry_snapshot())["hists"]),
+            "failovers": 0, "n_migrations": 1,
+            "kernel_launches": kernel_launches(),
+            "prefills": sum(e.n_prefills for e in sampled),
+            "decode_rounds": sum(e.n_decode_rounds for e in sampled)}
+        states = a.request_states()
+        s_got = {k: states[rid]["tokens"] for k, rid in rids.items()
+                 if rid != victim}
+        s_got[moved.key_id] = b.request_states()[new]["tokens"]
+        held, firsts, drift = hold_to(s_ref, s_recs, s_got, got_recs)
+        emit_line("request_keys", rec, {
+            "victim_held": held["diverged"] == 0,
+            "sampled": len({t for v in s_ref.values() for t in v}) > 1,
+            "all_done": all(len(s_got[k]) == r_.max_new_tokens
+                            for k, r_ in zip(kids, sub)),
+            "no_slot_leak": leak_free(sampled),
+            "launches": self._launches_follow(rec, L)},
+            temperature=temperature, top_k=top_k, n_requests=len(sub),
+            evicted_after_steps=FLEET_EVICT_AFTER, victim_key=moved.key_id,
+            victim_emitted=len(moved.tokens),
+            tokens_vs_unmigrated=held, first_differences=firsts,
+            top_logit_drift=drift)
+        del sampled, a, b
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (e) subprocess workers -----------------------------------------------
+        libs = set(build.BUILD_DIR.glob("*.so"))
+        sub = sorted(trace, key=lambda r: r.arrival_step)[:FLEET_SLOTS]
+        t0 = time.time()
+        workers = spawn_workers(2, kwargs={
+            **worker_kwargs, "max_slots": FLEET_SLOTS, "max_len": FLEET_LEN,
+            "prompt_buckets": fresh[0].buckets, "policy_name": "bf16",
+            "quantized": True, "kv_splits": 4, "sampler_keys": "request",
+            "seed": self.args.seed})
+        spawn_s = time.time() - t0
+        try:
+            ready = [w.kernel_launches() for w in workers]
+            router = Router(workers)
+            fleet_inj = FleetFaultInjector(
+                router, FaultPlan().worker_sigkill(FLEET_SIGKILL_STEP,
+                                                   replica=1))
+            summary, wall = timed_run(router, sub)
+            end = [w.kernel_launches() for w in workers]
+            # the RPC's own cost: round trips that do no engine work, a
+            # ping (a tiny frame) and a harvest (the per-step snapshot)
+            rpc_ms = {}
+            for op in ("ping", "harvest"):
+                times = []
+                for _ in range(21):
+                    t1 = time.perf_counter()
+                    getattr(workers[0], op)()
+                    times.append((time.perf_counter() - t1) * 1e3)
+                rpc_ms[op] = statistics.median(times)
+            runs = [{k: e_[k] - r_[k] for k in e_} for r_, e_ in
+                    zip(ready, end)]
+            held, firsts, _ = hold_to({g: ref[g] for g in range(len(sub))},
+                                      recs, tokens_of(router))
+            rec = self._fleet_counts(router, summary, wall, runs[0], [])
+            survivor = runs[0]
+            emit_line("workers", rec, {
+                "reconcile": summary["reconcile"]["ok"],
+                "all_done": rec["n_done"] == len(sub),
+                "killed": fleet_inj.injected["worker_sigkill"] == 1
+                and not workers[1].alive,
+                "breaker": router.health[1] in ("QUARANTINED", "DEAD")
+                and rec["failovers"] >= 1,
+                "survivor_ran_kernels": survivor["flash_fwd_sm90"] > 0
+                and survivor["flash_decode"] > 0,
+                "no_slot_leak": leak_free(workers),
+                "no_nvcc_in_children":
+                    set(build.BUILD_DIR.glob("*.so")) == libs,
+                "tokens_held": held["diverged"] == 0},
+                n_requests=len(sub), sigkill_router_step=FLEET_SIGKILL_STEP,
+                spawn_to_ready_s=spawn_s, pids=[w.pid for w in workers],
+                survivor_launches=survivor,
+                victim_launches_at_ready=ready[1],
+                victim_death=workers[1].death_reason, rpc_median_ms=rpc_ms,
+                tokens_vs_reference=held, first_differences=firsts)
+        finally:
+            for w in workers:
+                w.shutdown()
+
+        # (f) (b) traced -------------------------------------------------------
+        ev = os.path.join(tmp, "events.jsonl")
+        sink = EventSink(ev)
+        journal = RequestJournal(os.path.join(tmp, "wal_f.jsonl"),
+                                 snapshot_every=64)
+        zero()
+        router = Router(self._fresh(fresh), journal=journal)
+        for i, e in enumerate(fresh):
+            e.tracer = Tracer(sink, pid=f"r{i}")
+        router.tracer = Tracer(sink, pid="router")
+        journal.tracer = Tracer(sink, pid="journal")
+        fleet_inj, inj = chaos(router, fresh)
+        got_recs = {}
+        try:
+            with self._record_scores(fresh, cfg.vocab, got_recs):
+                summary, wall = timed_run(router, trace)
+        finally:
+            for e in fresh:
+                e.tracer = None
+            journal.close()
+            sink.close()
+        held, firsts, drift = hold_to(ref, recs, tokens_of(router), got_recs)
+        ends = {e["sid"]: e["ts"] for e in read_events(ev, "span_end")}
+        begins = read_events(ev, "span_begin")
+        spans: dict = {}
+        for e in begins:
+            spans[e["name"]] = spans.get(e["name"], 0) + 1
+        step_ms = [(ends[e["sid"]] - e["ts"]) * 1e3 for e in begins
+                   if e["name"] == "step" and e["sid"] in ends]
+        rec = self._fleet_counts(router, summary, wall, kernel_launches(),
+                                 fresh)
+        checks = chaos_checks(rec, summary, fleet_inj, inj, fresh, held)
+        checks["spans_closed"] = len(ends) == len(begins)
+        emit_line("traced", rec, checks, spans=spans,
+                  step_span_median_ms=statistics.median(step_ms),
+                  step_span_p90_ms=sorted(step_ms)[int(0.9 * len(step_ms))],
+                  step_spans=len(step_ms),
+                  profile_decode_round_device_ms=getattr(
+                      self, "decode_round_device_ms", None),
+                  wall_vs_untraced=wall / wall_b,
+                  tokens_vs_reference=held, first_differences=firsts,
+                  top_logit_drift=drift)
+        shutil.rmtree(tmp, ignore_errors=True)
+        self.fleet_launches = {
+            "flash_fwd_sm90": sum(lines[n]["kernel_launches"][
+                "flash_fwd_sm90"] for n in ("reference", "chaos", "recover",
+                                            "request_keys", "traced")),
+            "flash_decode": sum(lines[n]["kernel_launches"]["flash_decode"]
+                                for n in ("reference", "chaos", "recover",
+                                          "request_keys", "traced"))}
+        return lines
+
+
     def _profile(self, fn):
         """``torch.profiler`` over ``fn()``: (wall s, device busy s, rows of
         (device us, kernel name, launches)), busiest first.  The SSD op's
@@ -780,7 +1344,9 @@ class Smoke:
     def profile_serve(self, engine, cfg) -> dict:
         """Where a serving step's device time goes: ``torch.profiler`` over
         8 requests (prompt 256, 16 new tokens) served after the measured
-        run, device time summed by kernel name."""
+        run, device time summed by kernel name; then 8 engine steps that
+        only decode (8 requests resident, nothing to admit), profiled
+        alone: the device time of one decode round."""
         import numpy as np
         from repro_torch.serve.trace import TraceRequest
         rng = np.random.default_rng(1)
@@ -788,13 +1354,33 @@ class Smoke:
                               .astype(np.int32), 16) for _ in range(8)]
         engine.reset()
         summary, wall, busy_s, rows = self._profile(lambda: engine.run(trace))
+        engine.reset()
+        rids = [engine.submit(r.prompt, 64) for r in trace]
+        while engine.scheduler.queue_depth:          # one admission a step
+            engine.step()
+        rounds = engine.n_decode_rounds
+        _, d_wall, d_busy, d_rows = self._profile(
+            lambda: [engine.step() for _ in range(8)])
+        rounds = engine.n_decode_rounds - rounds
+        for rid in rids:
+            engine.cancel(rid)
+        engine.reset()
+        self.decode_round_device_ms = d_busy / rounds * 1e3
         return self.record({
             "phase": "profile", "wall_s": wall, "device_busy_s": busy_s,
             "idle_share": 1 - busy_s / wall if wall > 0 else None,
             "prefills": summary["diagnostics"]["prefills"],
             "decode_rounds": summary["diagnostics"]["decode_rounds"],
             "top_kernels_ms": [[name[:80], round(us / 1e3, 3), n]
-                               for us, name, n in rows[:15]]})
+                               for us, name, n in rows[:15]],
+            # the decode-only window: 8 rounds of 8 resident requests
+            "decode_window_rounds": rounds,
+            "decode_round_device_ms": self.decode_round_device_ms,
+            "decode_round_wall_ms": d_wall / rounds * 1e3,
+            "decode_window_idle_share": 1 - d_busy / d_wall,
+            "decode_window_top_kernels_ms": [
+                [name[:80], round(us / 1e3, 3), n]
+                for us, name, n in d_rows[:8]]})
 
     def run_train(self) -> dict:
         """llama3-8b at full width and TRAIN_LAYERS layers through
@@ -2008,14 +2594,17 @@ def main(argv=None) -> int:
                 "library_ms": None}
 
     kernels = {"kernels": [
-        # launches in the 5 timed train steps, time at the train shape
-        summary_row("flash_fwd_sm90", flash + flash_ssm, flash[-1],
-                    FLASH_SM90_SRC, FLASH_TPU, smoke.train_launches),
+        # launches in the 5 timed train steps, time at the train shape; the
+        # fleet phase's launches beside (its sub-phases (a)-(d) and (f))
+        dict(summary_row("flash_fwd_sm90", flash + flash_ssm, flash[-1],
+                         FLASH_SM90_SRC, FLASH_TPU, smoke.train_launches),
+             fleet_launches=smoke.fleet_launches["flash_fwd_sm90"]),
         # no main path of this run takes the f32 forward: 0 launches
         summary_row("flash_fwd", flash_fma, flash_fma[-1], FLASH_SRC,
                     FLASH_TPU),
-        summary_row("flash_decode", decode, decode[1], DECODE_SRC,
-                    DECODE_TPU),
+        dict(summary_row("flash_decode", decode, decode[1], DECODE_SRC,
+                         DECODE_TPU),
+             fleet_launches=smoke.fleet_launches["flash_decode"]),
         bwd_row("delta", ("delta",)), bwd_row("dq", ("dq",)),
         bwd_row("dkv", ("dk", "dv")),
         bwd_row("dq", ("dq",), "sm90"), bwd_row("dkv", ("dk", "dv"), "sm90"),

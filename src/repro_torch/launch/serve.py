@@ -15,15 +15,34 @@ The default (lockstep) mode prefills one fixed batch once and decodes
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
         --smoke --device cpu
 
-Both modes share the seeded sampler (``--temperature`` / ``--top-k``;
-greedy is the default).
+Both modes sample from ``--seed`` at ``--temperature`` / ``--top-k``
+(greedy is the default): the lockstep batch with one generator, the
+engine with per-row keys (``serve/sampling.py``).
+
+Fleet mode (``--engine --replicas N``) fronts N engine replicas with the
+health-routing ``repro_torch.serve.Router``: least-loaded admission, an
+error-budget circuit breaker per replica, and cross-replica request
+migration.  ``--chaos-seed`` runs the seeded chaos harness (replica
+crash / sick / slow events) against the fleet; ``--journal wal.jsonl``
+writes every fleet request transition ahead to an fsync'd journal, and a
+rerun with ``--recover`` rebuilds the fleet from it and finishes every
+in-flight request; ``--workers`` runs each replica as a real subprocess
+behind the pipe RPC (``repro_torch.serve.worker``), each with its own
+weights:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --engine \
+        --device cpu --replicas 2 --chaos-seed 0 --journal wal.jsonl
+
+``--events out.jsonl`` streams fault / health / failover events to an
+append-only JSONL sink, ``--trace`` adds request spans (queue / prefill /
+decode / step / migrate / journal / rpc) and ``--metrics-every N``
+registry and memory snapshots; ``tools/tracelens.py`` renders them.
 
 Runs on the CUDA card by default, where prefill and decode go through the
 hand-written kernels; without a card it exits with an error unless
 ``--device cpu`` asks for the plain versions.  ``--mem-budget-mb``
 clamps the engine's slots to what that many MB of KV cache admit (the
-``capacity:`` line).  The fleet, journal, worker, chaos and event flags
-come with later slices.
+``capacity:`` line).
 """
 from __future__ import annotations
 
@@ -34,25 +53,12 @@ import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch.core.device import resolve_device
 from repro_torch.core.mixed_precision import get_policy
 from repro_torch.kernels.kvq import ops as kvq_ops
 from repro_torch.models import transformer
+from repro_torch.obs import MemStat, Tracer
 from repro_torch.serve import sampling
-
-
-def resolve_device(name: str) -> torch.device:
-    """The device an entry point runs on.  CUDA unless the caller asks for
-    the CPU; no quiet fallback when there is no card."""
-    device = torch.device(name)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device available; pass --device cpu "
-                               "to run the plain PyTorch versions")
-        # f32 matmuls and convolutions in full f32, not TF32 (three decimal
-        # digits): the f32 policy must mean f32 on the card too
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    return device
 
 
 def _kv_banner(cfg, args, s_total: int) -> None:
@@ -77,6 +83,51 @@ def build_model(args, cfg, device):
                                    dtype=policy.compute_dtype)
 
 
+def _fleet_buckets(max_len: int) -> tuple:
+    """Fleet prefill buckets: the defaults plus a max_len bucket, so a
+    migration or crash-recovery replay (prompt + emitted tokens, up to
+    max_len) always fits some bucket instead of going FAILED."""
+    from repro_torch.serve import default_buckets
+    base = default_buckets(max_len)
+    return base if base[-1] >= max_len else base + (max_len,)
+
+
+def _engine_kwargs(args, *, sampler_keys: str, replay_buckets: bool) -> dict:
+    """The ``ServeEngine`` knobs the flags set, shared by in-process
+    replicas and the workers' ``engine_factory``."""
+    return dict(
+        max_slots=args.max_slots, max_len=args.max_len,
+        prompt_buckets=(_fleet_buckets(args.max_len)
+                        if replay_buckets else None),
+        policy_name=args.policy, quantized=not args.no_quantize,
+        kv_splits=args.kv_splits, temperature=args.temperature,
+        top_k=args.top_k, seed=args.seed,
+        max_prefill_per_step=args.max_prefill_per_step,
+        mem_budget_bytes=(int(args.mem_budget_mb * 2**20)
+                          if args.mem_budget_mb else None),
+        max_queue=args.max_queue or None,
+        deadline_steps=(args.deadline_steps
+                        if args.deadline_steps >= 0 else None),
+        max_retries=args.max_retries, sampler_keys=sampler_keys)
+
+
+def _build_engine(args, cfg, model, *, sink=None, sampler_keys: str = "step",
+                  replay_buckets: bool = False):
+    from repro_torch.serve import ServeEngine
+    return ServeEngine(model, cfg, sink=sink,
+                       **_engine_kwargs(args, sampler_keys=sampler_keys,
+                                        replay_buckets=replay_buckets))
+
+
+def _worker_kwargs(args) -> dict:
+    """The ``engine_factory`` spec for subprocess replicas: each worker
+    makes its own weights from ``--seed`` on ``--device``."""
+    return dict(arch=args.arch, smoke=args.smoke, init_seed=args.seed,
+                device=args.device,
+                **_engine_kwargs(args, sampler_keys="request",
+                                 replay_buckets=True))
+
+
 def _make_trace(args, cfg, engine):
     from repro_torch.serve import synthetic_trace
     # prompts within the largest bucket, prompt + gen within max_len
@@ -88,26 +139,195 @@ def _make_trace(args, cfg, engine):
         arrival_rate=args.arrival_rate, min_prompt=min(4, max_prompt))
 
 
+def _open_sink(args):
+    if not args.events:
+        return None
+    from repro_torch.events import EventSink
+    print(f"events: streaming to {args.events}")
+    return EventSink(args.events)
+
+
+def _want_trace(args, sink) -> bool:
+    if args.trace and sink is None:
+        print("[warn] --trace requires --events; tracing disabled")
+        return False
+    return bool(args.trace)
+
+
+def _install_obs_hook(obj, sink, memstat, every: int, snapshot_fn) -> None:
+    """Chain a periodic metrics/memory emitter onto ``pre_step`` -- after
+    any fault injector, so neither hook clobbers the other."""
+    prev = obj.hooks.get("pre_step")
+
+    def _hook(o, _prev=prev):
+        if _prev is not None:
+            _prev(o)
+        if o.step_no and o.step_no % every == 0:
+            memstat.sample(o.step_no)
+            if sink is not None:
+                sink.emit("metrics_snapshot", snapshot=snapshot_fn(),
+                          step=o.step_no)
+
+    obj.hooks["pre_step"] = _hook
+
+
+def run_fleet(args, cfg, model) -> int:
+    """N engine replicas behind the health-routing Router, optionally
+    under the seeded chaos harness, the journal and subprocess workers."""
+    from repro_torch.serve import supports
+    if not supports(cfg):
+        print(f"fleet: {cfg.arch_id} is not engine-eligible")
+        return 2
+    if args.recover and not args.journal:
+        print("--recover needs --journal")
+        return 2
+    _kv_banner(cfg, args, args.max_len)
+    sink = _open_sink(args)
+    journal = None
+    if args.journal:
+        from repro_torch.serve import RequestJournal
+        journal = RequestJournal(args.journal, snapshot_every=64)
+        print(f"journal: write-ahead log at {args.journal} "
+              f"({journal.state.n_live} live requests on open)")
+    t0 = time.time()
+    if args.workers:
+        from repro_torch.serve import spawn_workers
+        engines = spawn_workers(args.replicas, kwargs=_worker_kwargs(args))
+        for i, w in enumerate(engines):
+            w.metrics.replica = i
+        print(f"fleet: {args.replicas} subprocess workers "
+              f"(pids {[w.pid for w in engines]}) warmed in "
+              f"{time.time()-t0:.1f}s "
+              f"({engines[0].pool.max_slots} slots each)")
+    else:
+        engines = []
+        for i in range(args.replicas):
+            e = _build_engine(args, cfg, model, sink=sink,
+                              sampler_keys="request", replay_buckets=True)
+            e.metrics.replica = i
+            e.warmup()
+            engines.append(e)
+        print(f"fleet: {args.replicas} replicas warmed in "
+              f"{time.time()-t0:.1f}s "
+              f"({engines[0].pool.max_slots} slots each)")
+    try:
+        return _serve_fleet(args, cfg, engines, journal, sink)
+    finally:
+        if journal is not None:
+            journal.close()
+        if args.workers:
+            for w in engines:
+                w.shutdown()
+        if sink is not None:
+            sink.close()
+
+
+def _serve_fleet(args, cfg, engines, journal, sink) -> int:
+    from repro_torch.serve import (BreakerConfig, FleetFaultInjector, Router,
+                                   chaos_plan, kernel_launches)
+    breaker = BreakerConfig(
+        window_steps=args.breaker_window,
+        degrade_faults=args.breaker_degrade,
+        quarantine_faults=args.breaker_quarantine,
+        cooldown_steps=args.breaker_cooldown,
+        stall_steps=args.breaker_stall)
+    router = Router(engines, policy=args.route, breaker=breaker,
+                    max_migrations=args.max_migrations, sink=sink,
+                    journal=journal,
+                    journal_tokens_every=args.journal_tokens_every)
+    if _want_trace(args, sink):
+        # tracers attach after warmup (the warmup probe must not trace)
+        # and before recover() so recovery replays get root spans;
+        # subprocess workers trace their RPCs from the parent
+        for i, e in enumerate(engines):
+            e.tracer = Tracer(sink, pid=f"r{i}")
+        router.tracer = Tracer(sink, pid="router")
+        if journal is not None:
+            journal.tracer = Tracer(sink, pid="journal")
+        print("trace: span records -> events "
+              "(render with tools/tracelens.py)")
+    if args.recover:
+        info = router.recover()
+        print(f"recover: {info['n_recovered']} requests rebuilt from the "
+              f"journal ({info['n_done']} already complete on disk, "
+              f"{info['n_placed']} re-placed, {info['n_pending']} pending, "
+              f"{info['n_failed']} failed)")
+    if args.chaos_seed >= 0:
+        plan = chaos_plan(args.chaos_seed, steps=max(8, args.requests),
+                          replicas=args.replicas,
+                          n_events=args.chaos_events)
+        FleetFaultInjector(router, plan)
+        print(f"chaos: seed {args.chaos_seed} -> {dict(plan.counts())}")
+    memstat = None
+    if args.metrics_every:
+        memstat = MemStat(sink=sink, device=args.device,
+                          plan_bytes=(int(args.mem_budget_mb * 2**20)
+                                      or None))
+        _install_obs_hook(router, sink, memstat, args.metrics_every,
+                          router.registry_snapshot)
+    trace = _make_trace(args, cfg, engines[0])
+    t0 = time.time()
+    summary = router.run(trace)
+    wall = time.time() - t0
+    fleet = summary["fleet"]
+    print(f"fleet trace: {args.requests} requests in {wall:.2f}s; "
+          f"health={summary['health']}")
+    print(f"throughput: {summary['tokens_per_s']:.1f} tok/s, goodput "
+          f"{summary['goodput_tokens_per_s']:.1f} tok/s "
+          f"({summary['total_tokens']} tokens)")
+    print(f"failover: {fleet['failovers']} failovers, "
+          f"{fleet['n_migrations']} migrations, replay success "
+          f"{fleet['replay_success_rate']:.2f}, quarantine steps "
+          f"{summary['time_in_quarantine']}")
+    print(f"outcomes: done {fleet['n_done']} dropped {fleet['n_dropped']} "
+          f"cancelled {fleet['n_cancelled']} failed {fleet['n_failed']} "
+          f"rejected {fleet['n_rejected']}")
+    if fleet["n_recovered"]:
+        print(f"recovery: {fleet['n_recovered']} recovered, replay "
+              f"success {fleet['recovery_replay_success']:.2f}")
+    # in-process replicas share this process's counters; a worker has its own
+    print("kernel launches: "
+          + (str([w.kernel_launches() for w in engines]) if args.workers
+             else str(kernel_launches())))
+    if memstat is not None and memstat.samples:
+        print(memstat.banner())
+    if journal is not None:
+        st = journal.state
+        print(f"journal: {journal.appends} appends, "
+              f"{journal.snapshots} snapshots, {st.n_submits} submits -> "
+              f"{st.n_terminals} terminals (+{st.n_live} live)")
+    if summary["stalled"]:
+        print("STALLED fleet run")
+        return 1
+    rec = summary["reconcile"]
+    if not rec["ok"]:
+        raise RuntimeError(f"fleet ledger does not reconcile: {rec}")
+    for e in engines:
+        if e.pool.occupancy or e.pool.allocs != e.pool.frees:
+            raise RuntimeError("slot leak")
+    return 0
+
+
 def run_engine(args, cfg, model) -> int:
-    from repro_torch.serve import ServeEngine, supports
+    from repro_torch.serve import supports
     if not supports(cfg):
         print(f"engine: {cfg.arch_id} is not engine-eligible (needs a "
               f"uniform-window GQA attention cache; SSM and hybrid archs "
               f"serve through the lockstep driver)")
         return 2
     _kv_banner(cfg, args, args.max_len)
+    sink = _open_sink(args)
+    try:
+        return _serve_engine(args, cfg, model, sink)
+    finally:
+        if sink is not None:
+            sink.close()
+
+
+def _serve_engine(args, cfg, model, sink) -> int:
     budget = (int(args.mem_budget_mb * 2**20)
               if args.mem_budget_mb else None)
-    engine = ServeEngine(
-        model, cfg, max_slots=args.max_slots, max_len=args.max_len,
-        policy_name=args.policy, quantized=not args.no_quantize,
-        kv_splits=args.kv_splits, temperature=args.temperature,
-        top_k=args.top_k, seed=args.seed,
-        max_prefill_per_step=args.max_prefill_per_step,
-        max_queue=args.max_queue or None,
-        deadline_steps=(args.deadline_steps
-                        if args.deadline_steps >= 0 else None),
-        max_retries=args.max_retries, mem_budget_bytes=budget)
+    engine = _build_engine(args, cfg, model, sink=sink)
     print(f"capacity: {engine.pool.bytes_per_slot_per_device()/2**20:.2f} "
           f"MB/slot at max_len={args.max_len}"
           + (f" -> budget {args.mem_budget_mb} MB admits "
@@ -116,6 +336,16 @@ def run_engine(args, cfg, model) -> int:
     t0 = time.time()
     launches = engine.warmup()
     print(f"warmup: {time.time()-t0:.1f}s, kernel launches={launches}")
+    if _want_trace(args, sink):
+        engine.tracer = Tracer(sink, pid="r0")   # attached after warmup
+        print("trace: span records -> events "
+              "(render with tools/tracelens.py)")
+    memstat = None
+    if args.metrics_every:
+        memstat = MemStat(sink=sink, plan_bytes=budget, device=args.device,
+                          registry=engine.metrics.registry)
+        _install_obs_hook(engine, sink, memstat, args.metrics_every,
+                          engine.metrics.registry_snapshot)
     trace = _make_trace(args, cfg, engine)
     t0 = time.time()
     summary = engine.run(trace)
@@ -144,6 +374,8 @@ def run_engine(args, cfg, model) -> int:
               f"rejected {summary['n_rejected']} "
               f"(faults {summary['n_faults']}, "
               f"retries {summary['n_retried']})")
+    if memstat is not None and memstat.samples:
+        print(memstat.banner())
     if summary["stalled"]:
         print(f"STALLED: {diag}")
         return 1
@@ -213,11 +445,17 @@ def run(args) -> int:
     device = resolve_device(args.device)
     cfg = configs.smoke_config(args.arch) if args.smoke \
         else configs.get_config(args.arch)
-    model = build_model(args, cfg, device)
+    # subprocess workers make their own weights; the parent holds none
+    model = None if args.engine and args.workers else \
+        build_model(args, cfg, device)
     print(f"device: {device}"
           + (f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else ""))
     if args.engine:
+        if args.replicas > 1 or args.workers or args.journal:
+            # journal and worker modes always go through the router: a
+            # single replica is a fleet of one
+            return run_fleet(args, cfg, model)
         return run_engine(args, cfg, model)
     return run_lockstep(args, cfg, model, device)
 
@@ -270,6 +508,57 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--mem-budget-mb", type=float, default=0.0,
                     help="engine: KV-cache byte budget; clamps the slots to "
                          "what it admits (0 = no budget)")
+    ap.add_argument("--events", default="",
+                    help="append fault / health / failover events to this "
+                         "JSONL file (repro_torch.events.EventSink)")
+    ap.add_argument("--metrics-every", type=int, default=0,
+                    help="every N steps: a mem_sample and a "
+                         "metrics_snapshot of the obs registry to --events "
+                         "(0 = off)")
+    ap.add_argument("--trace", action="store_true",
+                    help="emit span_begin / span_end records (queue / "
+                         "prefill / decode / step / migrate / journal / rpc) "
+                         "to --events; tools/tracelens.py renders them")
+    # -- replica fleet (router) --------------------------------------------
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="fleet: engine replicas behind the router "
+                         "(1 = plain single-engine mode)")
+    ap.add_argument("--route", default="least_loaded",
+                    choices=["least_loaded", "round_robin"],
+                    help="fleet: admission routing policy")
+    ap.add_argument("--max-migrations", type=int, default=2,
+                    help="fleet: cross-replica moves per request before "
+                         "it FAILs at fleet level")
+    ap.add_argument("--breaker-window", type=int, default=32,
+                    help="fleet: circuit-breaker fault window (steps)")
+    ap.add_argument("--breaker-degrade", type=int, default=1,
+                    help="fleet: faults in window -> DEGRADED")
+    ap.add_argument("--breaker-quarantine", type=int, default=3,
+                    help="fleet: faults in window -> QUARANTINED")
+    ap.add_argument("--breaker-cooldown", type=int, default=16,
+                    help="fleet: quarantine steps before probation rejoin")
+    ap.add_argument("--breaker-stall", type=int, default=8,
+                    help="fleet: no-progress steps -> QUARANTINED")
+    ap.add_argument("--chaos-seed", type=int, default=-1,
+                    help="fleet: run the seeded chaos harness (replica "
+                         "crash / sick / slow; -1 = off)")
+    ap.add_argument("--chaos-events", type=int, default=3,
+                    help="fleet: chaos events to schedule")
+    # -- durability (write-ahead journal + subprocess workers) -------------
+    ap.add_argument("--journal", default="",
+                    help="fleet: write-ahead request journal (JSONL, "
+                         "fsync'd); reopening an existing journal replays "
+                         "it")
+    ap.add_argument("--workers", action="store_true",
+                    help="fleet: run each replica as a real subprocess "
+                         "behind the pipe RPC (repro_torch.serve.worker)")
+    ap.add_argument("--recover", action="store_true",
+                    help="fleet: rebuild in-flight requests from the "
+                         "--journal before serving the trace (whole-router "
+                         "crash recovery)")
+    ap.add_argument("--journal-tokens-every", type=int, default=1,
+                    help="fleet: journal token deltas every N router steps "
+                         "(lost tail tokens are regenerated on recovery)")
     return ap
 
 

@@ -57,9 +57,9 @@ import torch
 from repro_torch import configs
 from repro_torch.checkpointing.ckpt import CheckpointManager
 from repro_torch.core.checkpoint import POLICIES, CheckpointConfig
+from repro_torch.core.device import resolve_device
 from repro_torch.data.synthetic import token_stream
 from repro_torch.events import EventSink
-from repro_torch.launch.serve import resolve_device
 from repro_torch.models import bridge, transformer
 from repro_torch.obs import MemStat, MetricsRegistry, Tracer, maybe_span
 from repro_torch.optim import adamw

@@ -122,7 +122,7 @@ class Scheduler:
         self.rejected = 0
         self.terminal_counts = {DONE: 0, CANCELLED: 0, DROPPED: 0,
                                 FAILED: 0, MIGRATED: 0}
-        #: optional span tracer (none in the port yet); queue-wait spans are owned here
+        #: optional repro_torch.obs Tracer; queue-wait spans are owned here
         #: because every QUEUED<->resident transition runs through the
         #: scheduler, so TTFT's queue segment can't drift from the real
         #: state machine
