@@ -98,7 +98,10 @@ JSON object per line:
    card for 4 steps with checkpoints, then again to 6 steps, which must
    resume from step 4; then a run of 2 steps with ``--remat auto
    --mem-budget-mb 1 --events F --trace --metrics-every 1``, whose
-   ``remat_plan.json`` and event file are checked;
+   ``remat_plan.json`` and event file are checked; then ``--arch
+   mamba2-130m --smoke`` for 4 steps and again to 6, which must resume,
+   mamba2 for 2 steps under ``--no-remat``, and ``--arch hymba-1.5b``
+   for 2 under ``--remat auto --mem-budget-mb 1 --policy full --guard``;
 10. ``kernel`` lines for the E-D codec's decode and encode kernels against
    their plain versions, for equality, at the CIFAR batch (8 containers of
    32x32x3) and the memory shape (4 containers of 512x512x3);
@@ -137,7 +140,31 @@ JSON object per line:
     launch counters zeroed just before each run and read just after, then
     ``torch.profiler`` over its prefill and its first 4 decode steps run
     again, the prefill's SSD op split by its profiler ranges;
-17. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
+17. ``kernel`` lines for the SSD chunk's backward (``ssd_bwd.cu``, f32
+    FMA; no TPU kernel: the JAX package differentiates ``ssd_chunk_ref``)
+    against ``ref.ssd_chunk_bwd_ref`` at mamba2's and hymba's train shapes
+    (batch 8 x 2048) and at the smoke configs' widths: dc, db, dxbar,
+    dacum within 1e-4 of the largest entry of each, run twice for
+    determinism; bound from the bytes and the f32 operations;
+18. ``ssm_train_model``: 2-layer mamba2 and hymba (window 64) at full
+    width, policy full, the loss and every gradient on the card (the SSD
+    chunk forward and backward, the FMA flash kernels) against the CPU,
+    with the ``model`` line's tolerances and exact launches;
+19. ``train_ssm``: mamba2-130m and hymba-1.5b at full width and depth
+    through ``build_train_step`` (random f32 masters, bf16, remat every
+    block, AdamW, batch 8 x 2048): 2 warm-up and 5 timed steps with the
+    launch counters zeroed before and read after (``ssd_chunk_sm90`` 2 x L
+    x 5, ``ssd_chunk_bwd`` L x 5, hymba's flash forward 2 x 32 x 5 and
+    delta / dQ / dKV 32 x 5, the FMA routes 0), one profiled step, then
+    saved-after-forward bytes and the fwd+bwd peak under remat off and on
+    (hymba at ``SSM_MEM_LAYERS`` layers);
+20. ``two_tier``: the two-tier rolling cache against the uniform cache:
+    a 2-layer hymba (window 64) decoding 160 greedy steps from an empty
+    cache (tokens held by ``hold_to``, decode launches exact), and
+    full-depth hymba at batch 8, s_max 4096: each cache's bytes against
+    the arithmetic, to the byte, and ms/token over 64 steps from position
+    0 and from 4031;
+21. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failed check raises after the lines are printed, and the script exits
@@ -194,6 +221,13 @@ SSD_SRC = "src/repro_torch/kernels/csrc/ssd.cu"
 SSD_SM90_SRC = "src/repro_torch/kernels/csrc/ssd_sm90.cu"
 SSD_TPU = "src/repro/kernels/ssd/kernel.py:42"
 SSM_PROMPT, SSM_GEN, SSM_BATCH = 2048, 32, 8   # the serve_ssm lockstep
+# train_ssm's remat-off against remat-on memory: hymba at this depth
+SSM_MEM_LAYERS = 8
+# the two-tier cache: the 2-layer run's window and steps, the full run's
+# s_max (its window stays hymba's 1024)
+TWO_TIER_WINDOW, TWO_TIER_STEPS, TWO_TIER_SMAX = 64, 160, 4096
+SSD_BWD_SRC = "src/repro_torch/kernels/csrc/ssd_bwd.cu"
+SSD_REF_JAX = "src/repro/kernels/ssd/ref.py:22"    # what JAX differentiates
 # the fleet phase over the serve trace, 2 replicas of the serve engine (the
 # schedule depends on the trace's lengths only, so these land as planned):
 # (b)'s chaos plan is a replica_crash of replica 0 at router step 8 (2
@@ -1586,7 +1620,6 @@ class Smoke:
         from unittest import mock
         torch = self.torch
         from repro_torch import plan
-        from repro_torch.core.mixed_precision import get_policy
         from repro_torch.kernels.flash import ops as flash_ops
         from repro_torch.models import transformer
         from repro_torch.optim import adamw
@@ -1633,24 +1666,7 @@ class Smoke:
                 one_step()
             launches = {k: kern.launches for k, kern in kernels.items()}
             steps_peak = torch.cuda.max_memory_allocated(self.dev)
-            # one forward and backward: what the forward leaves for the
-            # backward, and the peak above what was allocated before
-            params = [p for p in model.parameters() if p.requires_grad]
-            gc.collect()
-            torch.cuda.empty_cache()
-            self.sync()
-            base = torch.cuda.memory_allocated(self.dev)
-            torch.cuda.reset_peak_memory_stats(self.dev)
-            loss, _ = transformer.loss_fn(model, cfg, batch,
-                                          policy=get_policy("bf16"),
-                                          remat=remat)
-            self.sync()
-            saved = torch.cuda.memory_allocated(self.dev) - base
-            grads = torch.autograd.grad(loss, params)
-            self.sync()
-            peak = torch.cuda.max_memory_allocated(self.dev) - base
-            grad_bytes = sum(g.numel() * g.element_size() for g in grads)
-            del loss, grads
+            memory = self._saved_and_peak(model, cfg, batch, remat)
             _, wall, busy_s, rows = self._profile(one_step)
         gemm = [(name, c) for _, name, c in rows if GEMM_NAME.search(name)]
         timed = records[1:1 + TRAIN_PLAN_STEPS]
@@ -1671,10 +1687,10 @@ class Smoke:
             "losses": [r["loss"] for r in records],
             "step_s": [r["step_s"] for r in records],
             "median_step_s": step_s, "tokens_per_s": TRAIN_SEQ / step_s,
-            "saved_after_forward_bytes": saved,
-            "fwd_bwd_peak_bytes": peak,
-            "fwd_bwd_peak_minus_grads_bytes": peak - grad_bytes,
-            "max_memory_allocated_bytes": max(steps_peak, base + peak),
+            **{k: v for k, v in memory.items() if k != "base_bytes"},
+            "max_memory_allocated_bytes": max(
+                steps_peak, memory["base_bytes"]
+                + memory["fwd_bwd_peak_bytes"]),
             "launches": launches,
             "profiled_step": {"wall_s": wall, "device_busy_s": busy_s,
                               "gemm_launches": sum(c for _, c in gemm),
@@ -1692,6 +1708,7 @@ class Smoke:
         from repro_torch.plan import RematPlan
         ckpt = tempfile.mkdtemp(prefix="train_cli_")
         plan_dir = os.path.join(ckpt, "planned")
+        mamba = os.path.join(ckpt, "mamba2")
         events = os.path.join(ckpt, "events.jsonl")
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
         cmd = [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
@@ -1707,7 +1724,22 @@ class Smoke:
                                    "--ckpt-dir", plan_dir, "--remat", "auto",
                                    "--mem-budget-mb", "1", "--events",
                                    events, "--trace", "--metrics-every",
-                                   "1"])]
+                                   "1"],
+                                  # the SSM family: the chunk's backward
+                                  ["--arch", "mamba2-130m", "--steps", "4",
+                                   "--fresh", "--ckpt-dir", mamba],
+                                  ["--arch", "mamba2-130m", "--steps", "6",
+                                   "--ckpt-dir", mamba],
+                                  # the other remat modes, f32, the guard
+                                  ["--arch", "mamba2-130m", "--steps", "2",
+                                   "--fresh", "--ckpt-dir",
+                                   os.path.join(ckpt, "mamba2_off"),
+                                   "--no-remat"],
+                                  ["--arch", "hymba-1.5b", "--steps", "2",
+                                   "--fresh", "--ckpt-dir",
+                                   os.path.join(ckpt, "hymba"), "--remat",
+                                   "auto", "--mem-budget-mb", "1",
+                                   "--policy", "full", "--guard"])]
             plan_path = os.path.join(plan_dir, "remat_plan.json")
             plan_text = pathlib.Path(plan_path).read_text() \
                 if os.path.exists(plan_path) else ""
@@ -1734,6 +1766,15 @@ class Smoke:
                 and e.get("frac_of_plan") is not None for e in samples),
             "train_step_spans": steps == [0, 1],
             "events_validate": undeclared == set(),
+            "mamba2_exit_0": runs[3].returncode == 0
+            and runs[4].returncode == 0,
+            "mamba2_resumed": "resumed from step 4" in runs[4].stdout
+            and "step     5 loss" in runs[4].stdout,
+            "mamba2_no_remat": runs[5].returncode == 0
+            and "remat off" in runs[5].stdout,
+            "hymba_planned": runs[6].returncode == 0
+            and "remat plan [budget:" in runs[6].stdout
+            and "step     1 loss" in runs[6].stdout,
         }
         return self.record({
             "phase": "train_cli", "ok": all(checks.values()),
@@ -2429,6 +2470,442 @@ class Smoke:
             "batch": SSM_BATCH, "prompt": SSM_PROMPT, "gen": SSM_GEN,
             "policy": "bf16", "kv": "int8", "kv_splits": 1, "runs": runs})
 
+    # -- training the SSM family ------------------------------------------
+    def check_ssd_bwd(self, g: int, t: int, q: int, n: int, p: int,
+                      heads: int) -> dict:
+        """The SSD chunk's backward kernel (``ssd_bwd.cu``) against its
+        plain version (``ref.ssd_chunk_bwd_ref``) on the card, C and B
+        head-shared as the training path passes them: dc, db, dxbar and
+        dacum within 1e-4 of the largest entry of each."""
+        torch = self.torch
+        from repro_torch.kernels.ssd import ops, ref
+        gen = torch.Generator(device=self.dev).manual_seed(g + t + q + n + p)
+        rnd = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
+                                         device=self.dev)
+        gh = g // heads
+        c, b, x = rnd(gh, t, q, n), rnd(gh, t, q, n), rnd(g, t, q, p)
+        acum = torch.cumsum(-0.2 * torch.rand((g, t, q), generator=gen,
+                                              device=self.dev), dim=-1)
+        dy, dst = rnd(g, t, q, p), rnd(g, t, n, p)
+        args = (c, b, x, acum, dy, dst)
+        before = ops.KERNEL_BWD.launches
+        got = ops.ssd_chunk_bwd(*args)
+        launched = ops.KERNEL_BWD.launches - before
+        want = ref.ssd_chunk_bwd_ref(*args)
+        self.sync()
+        names = ("dc", "db", "dxbar", "dacum")
+        errs = {k: float((a - w).abs().max()) for k, a, w in
+                zip(names, got, want)}
+        # f32 FMA in another order than the plain version's f32 einsums
+        tols = {k: 1e-4 * float(w.abs().max()) for k, w in zip(names, want)}
+        again = ops.ssd_chunk_bwd(*args)
+        deterministic = all(torch.equal(a, r) for a, r in zip(got, again))
+        ok = all(errs[k] <= tols[k] for k in names) and launched == 1 \
+            and deterministic
+        ms = self.time_ms(lambda: ops.ssd_chunk_bwd(*args))
+        plain_ms = self.time_ms(lambda: ref.ssd_chunk_bwd_ref(*args), n=10)
+        # what these inputs need: the scores C B^T once per (batch, chunk)
+        # on the Q(Q+1)/2 entries the mask keeps (2N flops each); a head's
+        # dM = dy xbar^T and M^T dy (2P each a live entry), dS B and
+        # dS^T C (2N each), U = B dstate and xbar dstate^T (2QNP each)
+        live = q * (q + 1) // 2
+        flops = gh * t * live * 2 * n + g * t * (
+            live * (4 * p + 4 * n) + 4 * q * n * p)
+        # c, b, xbar, acum, dy, dstate in; dc, db, dxbar, dacum out
+        nbytes = 4 * (4 * gh * t * q * n + 3 * g * t * q * p
+                      + 2 * g * t * q + g * t * n * p)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+        return self.record({
+            "phase": "kernel", "name": "ssd_chunk_bwd", "route": "fma",
+            "ok": ok, "shape": {"G": g, "T": t, "Q": q, "N": n, "P": p,
+                                "heads_sharing_BC": heads},
+            "launched": launched, "deterministic": deterministic,
+            "max_abs_err": max(errs.values()), "max_abs_err_by": errs,
+            "tol": tols, "tol_rel": 1e-4, "kernel_ms": ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops,
+            "flops": flops, "bytes": nbytes})
+
+    def _ssm_kernels(self) -> dict:
+        from repro_torch.kernels.flash import ops as flash_ops
+        from repro_torch.kernels.ssd import ops as ssd_ops
+        return {"ssd_chunk_sm90": ssd_ops.KERNEL_SM90,
+                "ssd_chunk": ssd_ops.KERNEL,
+                "ssd_chunk_bwd": ssd_ops.KERNEL_BWD,
+                "flash_fwd_sm90": flash_ops.FWD_SM90,
+                "flash_fwd": flash_ops.KERNEL,
+                "flash_bwd_delta": flash_ops.BWD_DELTA,
+                "flash_bwd_dq_sm90": flash_ops.BWD_DQ_SM90,
+                "flash_bwd_dkv_sm90": flash_ops.BWD_DKV_SM90,
+                "flash_bwd_dq": flash_ops.BWD_DQ,
+                "flash_bwd_dkv": flash_ops.BWD_DKV}
+
+    def check_ssm_train_model(self) -> dict:
+        """2-layer mamba2 and hymba (window 64, global layer 0) at full
+        width through ``loss_fn`` and its gradient (the trainer's
+        ``scaled_value_and_grad``, remat on every block), policy ``full``,
+        on the card (kernels: the SSD chunk forward and backward, the flash
+        forward and backward) and on the CPU (plain versions), same weights
+        and batch: the loss and every parameter's gradient, with
+        ``check_model``'s tolerances."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.core.checkpoint import CheckpointConfig
+        from repro_torch.core.mixed_precision import (Policy,
+                                                      scaled_value_and_grad)
+        from repro_torch.models import bridge, transformer as tf
+        kernels = self._ssm_kernels()
+        seq, out = 256, {}
+        vg = scaled_value_and_grad(lambda m, b, cfg: tf.loss_fn(
+            m, cfg, b, policy=Policy.full(), remat=CheckpointConfig()))
+        for arch, extra in (("mamba2-130m", {}),
+                            ("hymba-1.5b", {"window": 64,
+                                            "global_layers": (0,)})):
+            cfg = dataclasses.replace(configs.get_config(arch), n_layers=2,
+                                      **extra)
+            cpu = tf.init_params(cfg, self.args.seed, device="cpu")
+            gpu = bridge.load_jax_params(cfg, bridge.export_params(cpu),
+                                         device=self.dev)
+            rng = np.random.default_rng(self.args.seed)
+            toks = rng.integers(0, cfg.vocab, (2, seq + 1)).astype(np.int32)
+            batch = {"tokens": torch.from_numpy(toks[:, :-1].copy()),
+                     "labels": torch.from_numpy(toks[:, 1:].copy())}
+            (loss_c, _), grads_c, _ = vg(cpu.requires_grad_(), batch, cfg)
+            before = {k: v.launches for k, v in kernels.items()}
+            (loss_g, _), grads_g, finite = vg(
+                gpu.requires_grad_(),
+                {k: v.to(self.dev) for k, v in batch.items()}, cfg)
+            self.sync()
+            launched = {k: v.launches - before[k] for k, v in kernels.items()
+                        if v.launches - before[k]}
+            loss_err = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+            grad_err = {n: float((grads_g[n].cpu() - g).abs().max()
+                                 / max(1e-30, float(g.abs().max())))
+                        for n, g in grads_c.items()}
+            n_attn = cfg.n_layers if cfg.mixer != "ssm" else 0
+            want = {"ssd_chunk_sm90": 2 * cfg.n_layers,
+                    "ssd_chunk_bwd": cfg.n_layers}
+            if n_attn:     # policy full: f32, the FMA flash kernels
+                want.update(flash_fwd=2 * n_attn, flash_bwd_delta=n_attn,
+                            flash_bwd_dq=n_attn, flash_bwd_dkv=n_attn)
+            checks = {"loss": loss_err <= 1e-5,
+                      "grads": max(grad_err.values()) <= 1e-3,
+                      "grads_finite": bool(finite),
+                      "launches": launched == want}
+            out[arch] = {"ok": all(checks.values()), "checks": checks,
+                         "loss": {"cpu": float(loss_c), "card": float(loss_g)},
+                         "loss_rel_err": loss_err,
+                         "grad_rel_err_max": max(grad_err.values()),
+                         "worst_grad": max(grad_err, key=grad_err.get),
+                         "launches": launched, "expected_launches": want}
+            del cpu, gpu
+        return self.record({
+            "phase": "ssm_train_model",
+            "ok": all(v["ok"] for v in out.values()), "seq": [2, seq],
+            "policy": "full", "remat": "per block, full",
+            "tol": {"loss_rel": 1e-5, "grad_rel_of_max": 1e-3},
+            "models": out})
+
+    def _saved_and_peak(self, model, cfg, batch, remat) -> dict:
+        """One forward and backward of ``loss_fn`` (policy bf16): the bytes
+        the forward leaves allocated for the backward, and the peak above
+        what was allocated before (``base_bytes``)."""
+        torch = self.torch
+        from repro_torch.core.mixed_precision import get_policy
+        from repro_torch.models import transformer
+        params = [p for p in model.parameters() if p.requires_grad]
+        gc.collect()
+        torch.cuda.empty_cache()
+        self.sync()
+        base = torch.cuda.memory_allocated(self.dev)
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        loss, _ = transformer.loss_fn(model, cfg, batch,
+                                      policy=get_policy("bf16"), remat=remat)
+        self.sync()
+        saved = torch.cuda.memory_allocated(self.dev) - base
+        grads = torch.autograd.grad(loss, params, allow_unused=True,
+                                    materialize_grads=True)
+        self.sync()
+        peak = torch.cuda.max_memory_allocated(self.dev) - base
+        grad_bytes = sum(g.numel() * g.element_size() for g in grads)
+        del loss, grads
+        return {"saved_after_forward_bytes": saved,
+                "fwd_bwd_peak_bytes": peak,
+                "fwd_bwd_peak_minus_grads_bytes": peak - grad_bytes,
+                "base_bytes": base}
+
+    def run_train_ssm(self) -> dict:
+        """mamba2-130m (24 layers) and hymba-1.5b (32 layers) at full width
+        and depth through ``build_train_step`` as ``launch/train.py``
+        drives it, without checkpoint I/O: random f32 master weights,
+        policy bf16, remat on every block, AdamW defaults, batch SSM_BATCH
+        x SSM_PROMPT (the serve_ssm shape); 2 warm-up steps, 5 timed steps
+        with the launch counters zeroed before and read after, one
+        profiled step; then saved-after-forward bytes and the fwd+bwd peak
+        under remat off and on (hymba at SSM_MEM_LAYERS layers: its
+        remat-off activations at full depth are not known to fit)."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.core.checkpoint import CheckpointConfig
+        from repro_torch.launch.train import init_state, synthetic_lm_batches
+        from repro_torch.optim import adamw
+        from repro_torch.train.train_step import (TrainConfig,
+                                                  build_train_step,
+                                                  init_loss_scale)
+        kernels = self._ssm_kernels()
+        tokens = SSM_BATCH * SSM_PROMPT
+        runs, total = {}, {k: 0 for k in kernels}
+        for arch in ("mamba2-130m", "hymba-1.5b"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(self.dev)
+            cfg = configs.get_config(arch)
+            tc = TrainConfig(policy="bf16", remat=CheckpointConfig(
+                enabled=True, policy="full", segment_size=1),
+                opt=adamw.AdamWConfig())
+            t0 = time.time()
+            model, opt = init_state(cfg, self.args.seed, self.dev)
+            ls = init_loss_scale(tc, self.dev)
+            step = build_train_step(cfg, tc)
+            data = synthetic_lm_batches(cfg, SSM_BATCH, SSM_PROMPT,
+                                        seed=self.args.seed, device=self.dev)
+            n_params = sum(p.numel() for p in model.parameters())
+            self.sync()
+            init_s = time.time() - t0
+            records = []
+
+            def one_step():
+                nonlocal model, opt, ls
+                _, batch = next(data)
+                t = time.time()
+                model, opt, ls, m = step(model, opt, ls, batch)
+                vals = {k: float(v) for k, v in m.items()}   # syncs
+                vals["step_s"] = time.time() - t
+                records.append(vals)
+
+            for _ in range(2):                              # warm-up
+                one_step()
+            for kern in kernels.values():                   # the main
+                kern.launches = 0                           # path's counts
+            for _ in range(5):
+                one_step()
+            launches = {n: k.launches for n, k in kernels.items()}
+            for n in total:
+                total[n] += launches[n]
+            _, wall, busy_s, rows = self._profile(one_step)
+            ssd_parts = dict(sorted(self.last_scopes.items()))
+            steps_peak = torch.cuda.max_memory_allocated(self.dev)
+            timed = records[2:7]
+            step_s = statistics.median(r["step_s"] for r in timed)
+            L, n = cfg.n_layers, len(timed)
+            n_attn = L if cfg.mixer != "ssm" else 0
+            want = {k: 0 for k in kernels}
+            want.update(ssd_chunk_sm90=2 * L * n, ssd_chunk_bwd=L * n,
+                        flash_fwd_sm90=2 * n_attn * n,
+                        flash_bwd_delta=n_attn * n,
+                        flash_bwd_dq_sm90=n_attn * n,
+                        flash_bwd_dkv_sm90=n_attn * n)
+            # memory: remat off against on, one forward and backward each
+            del opt
+            batch = next(data)[1]
+            mem_layers = L if cfg.mixer == "ssm" else SSM_MEM_LAYERS
+            if mem_layers < L:
+                del model
+                gc.collect()
+                torch.cuda.empty_cache()
+                cfg_m = dataclasses.replace(cfg, n_layers=mem_layers)
+                model, _ = init_state(cfg_m, self.args.seed, self.dev)
+            else:
+                cfg_m = cfg
+            memory = {name: self._saved_and_peak(
+                model, cfg_m, batch, CheckpointConfig(enabled=on))
+                for name, on in (("remat_off", False), ("remat_on", True))}
+            del model
+            checks = {
+                "losses_finite": all(math.isfinite(r["loss"])
+                                     for r in records),
+                "grad_norms_finite": all(math.isfinite(r["grad_norm"])
+                                         for r in records),
+                "grads_finite": all(r["grads_finite"] for r in records),
+                "launches": launches == want,
+                "fits": steps_peak < 80e9,
+                "remat_saves_memory": memory["remat_on"][
+                    "saved_after_forward_bytes"] < memory["remat_off"][
+                    "saved_after_forward_bytes"]}
+            runs[arch] = {
+                "ok": all(checks.values()), "checks": checks,
+                "n_layers": L, "d_model": cfg.d_model, "params": n_params,
+                "losses": [r["loss"] for r in records],
+                "grad_norms": [r["grad_norm"] for r in records],
+                "step_s": [r["step_s"] for r in records],
+                "median_step_s": step_s, "tokens_per_s": tokens / step_s,
+                "kernel_launches_5_steps": launches,
+                "expected_launches": want,
+                "max_memory_allocated_bytes": steps_peak, "init_s": init_s,
+                "memory_layers": mem_layers, "memory": memory,
+                "profile": {"wall_s": wall, "device_busy_s": busy_s,
+                            "idle_share": 1 - busy_s / wall if wall > 0
+                            else None, "ssd_op_ms": ssd_parts,
+                            "top_kernels_ms": [
+                                [name[:80], round(us / 1e3, 3), c]
+                                for us, name, c in rows[:25]]}}
+        self.train_ssm_launches = total
+        return self.record({
+            "phase": "train_ssm", "ok": all(v["ok"] for v in runs.values()),
+            "batch": SSM_BATCH, "seq": SSM_PROMPT, "policy": "bf16",
+            "remat": "per block, full", "runs": runs})
+
+    def run_two_tier(self) -> dict:
+        """The two-tier rolling cache (``transformer.init_cache_two_tier``
+        / ``decode_step_two_tier``), decode-only from an empty cache, bf16:
+        (a) a 2-layer hymba at full width with its window cut to
+        TWO_TIER_WINDOW decodes TWO_TIER_STEPS greedy tokens, two-tier
+        against the uniform cache (tokens equal, or first different at a
+        near-tie, ``hold_to``; decode launches exact); (b) full-depth
+        hymba at batch SSM_BATCH: both caches' bytes at s_max
+        TWO_TIER_SMAX against the arithmetic, to the byte, and ms/token
+        over 64 steps from an empty cache and from position
+        TWO_TIER_SMAX - 65."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.core.mixed_precision import get_policy
+        from repro_torch.kernels.kvq import ops as kvq_ops
+        from repro_torch.models import transformer as tf
+        pol = get_policy("bf16")
+        kernels = {"flash_decode": kvq_ops.KERNEL,
+                   "flash_decode_bias": kvq_ops.BIAS_KERNEL}
+        modes = {"uniform": (tf.init_cache, tf.decode_step),
+                 "two_tier": (tf.init_cache_two_tier,
+                              tf.decode_step_two_tier)}
+
+        # (a) greedy streams, each draw's best scores recorded
+        cfg = dataclasses.replace(configs.get_config("hymba-1.5b"),
+                                  n_layers=2, window=TWO_TIER_WINDOW,
+                                  global_layers=(0,))
+        model = tf.init_params(cfg, self.args.seed, device=self.dev,
+                               dtype=pol.compute_dtype)
+        first = torch.from_numpy(np.random.default_rng(self.args.seed)
+                                 .integers(0, cfg.vocab, (2,))
+                                 .astype(np.int32)).to(self.dev)
+        streams, recs, launched = {}, {}, {}
+        with torch.no_grad():
+            for name, (init, step) in modes.items():
+                cache = init(cfg, 2, TWO_TIER_STEPS + 1, device=self.dev)
+                tok, toks, kept = first, [], []
+                for k in kernels.values():
+                    k.launches = 0
+                for _ in range(TWO_TIER_STEPS):
+                    logits, cache = step(model, cfg, cache, tok, policy=pol)
+                    lg = logits[:, :cfg.vocab].float()
+                    vals, ids = lg.topk(TOP_N, dim=-1)
+                    kept.append((lg.amax(-1), vals, ids))
+                    tok = lg.argmax(-1).to(torch.int32)
+                    toks.append(tok)
+                launched[name] = {n: k.launches for n, k in kernels.items()}
+                toks = torch.stack(toks, 1).tolist()
+                streams[name] = {r: toks[r] for r in range(2)}
+                recs[name] = {}
+                for i, (top, vals, ids) in enumerate(kept):
+                    for r in range(2):
+                        recs[name][(r, i)] = (float(top[r]),
+                                              vals[r].double().tolist(),
+                                              ids[r].tolist())
+        counts, firsts, drift = hold_to(streams["uniform"], recs["uniform"],
+                                        streams["two_tier"],
+                                        recs["two_tier"])
+        s = TWO_TIER_STEPS
+        want = {"uniform": {"flash_decode": s, "flash_decode_bias": s},
+                "two_tier": {"flash_decode": 2 * s, "flash_decode_bias": 0}}
+        del model
+
+        # (b) full depth: cache bytes and ms/token
+        cfg = configs.get_config("hymba-1.5b")
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = tf.init_params(cfg, self.args.seed, device=self.dev,
+                               dtype=pol.compute_dtype)
+        b, smax, steps = SSM_BATCH, TWO_TIER_SMAX, 64
+        n_g = len(cfg.global_layers)
+        w = min(cfg.window, smax)
+        s = cfg.ssm
+        kv_row = cfg.n_kv * (cfg.head_dim + 4)     # int8 K (or V) + f32 scale
+        ssm_bytes = cfg.n_layers * b * (
+            (s.conv_kernel - 1) * (s.d_inner + 2 * s.d_state) * 2
+            + s.heads * s.d_state * s.head_p * 4)
+        arith = {"uniform": 4 + ssm_bytes + 2 * cfg.n_layers * b * smax
+                 * kv_row,
+                 "two_tier": 4 + ssm_bytes + 2 * b * kv_row
+                 * (n_g * smax + (cfg.n_layers - n_g) * w)}
+        full = {}
+        tok0 = torch.zeros((b,), dtype=torch.int32, device=self.dev)
+        for name, (init, step) in modes.items():
+            gc.collect()
+            torch.cuda.empty_cache()
+            self.sync()
+            before = torch.cuda.memory_allocated(self.dev)
+            cache = init(cfg, b, smax, device=self.dev)
+            self.sync()
+            allocated = torch.cuda.memory_allocated(self.dev) - before
+            nbytes = sum(t.untyped_storage().nbytes()
+                         for t in cache.values())
+            timing = {}
+            with torch.no_grad():
+                for start in (0, smax - steps - 1):
+                    cache["pos"].fill_(start)
+                    for k in kernels.values():
+                        k.launches = 0
+                    step(model, cfg, cache, tok0, policy=pol)  # warm-up
+                    self.sync()
+                    t0 = time.time()
+                    tok = tok0
+                    for _ in range(steps):
+                        logits, cache = step(model, cfg, cache, tok,
+                                             policy=pol)
+                        tok = logits.argmax(-1).to(torch.int32)
+                    self.sync()
+                    timing[f"from_pos_{start}"] = {
+                        "ms_per_token": (time.time() - t0) / steps * 1e3,
+                        "launches": {n: k.launches
+                                     for n, k in kernels.items()}}
+            full[name] = {"cache_bytes": nbytes, "arithmetic_bytes":
+                          arith[name], "allocated_bytes": allocated,
+                          **timing}
+            del cache
+        n_w = cfg.n_layers - n_g
+        want_full = {"uniform": {"flash_decode": n_g * (steps + 1),
+                                 "flash_decode_bias": n_w * (steps + 1)},
+                     "two_tier": {"flash_decode": cfg.n_layers * (steps + 1),
+                                  "flash_decode_bias": 0}}
+        del model
+        checks = {
+            "tokens_held": counts["diverged"] == 0,
+            "launches_2_layer": launched == want,
+            "bytes_equal_arithmetic": all(
+                v["cache_bytes"] == v["arithmetic_bytes"]
+                for v in full.values()),
+            "launches_full": all(
+                full[m][k]["launches"] == want_full[m]
+                for m in full for k in full[m] if k.startswith("from_pos"))}
+        return self.record({
+            "phase": "two_tier", "ok": all(checks.values()),
+            "checks": checks,
+            "small": {"n_layers": 2, "window": TWO_TIER_WINDOW,
+                      "steps": TWO_TIER_STEPS, "tokens": counts,
+                      "first_differences": firsts, "top_logit_drift": drift,
+                      "launches": launched, "expected_launches": want},
+            "full": {"n_layers": cfg.n_layers, "batch": b, "s_max": smax,
+                     "window": cfg.window,
+                     "global_layers": list(cfg.global_layers),
+                     "steps": steps, "runs": full,
+                     "expected_launches": want_full,
+                     "bytes_ratio": full["uniform"]["cache_bytes"]
+                     / full["two_tier"]["cache_bytes"]}})
+
 
 def nvidia_smi() -> str:
     out = subprocess.run(
@@ -2539,6 +3016,14 @@ def main(argv=None) -> int:
                smoke.check_decode_group(16, 128, 4)]
     smoke.check_ssm_model()
     smoke.run_serve_ssm()
+    # training the SSM family: the chunk's backward at mamba2's and hymba's
+    # train shapes (batch 8 x 2048) and at the smoke configs' widths
+    ssd_bwd = [smoke.check_ssd_bwd(192, 16, 128, 128, 64, 24),
+               smoke.check_ssd_bwd(200, 16, 128, 16, 64, 25),
+               smoke.check_ssd_bwd(8, 2, 32, 16, 16, 4)]
+    smoke.check_ssm_train_model()
+    smoke.run_train_ssm()
+    smoke.run_two_tier()
     smoke.sync()
 
     def summary_row(name, rows, main, route_src, tpu, launches=None):
@@ -2584,10 +3069,11 @@ def main(argv=None) -> int:
                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
                 "library_ms": None}
 
-    def ssm_row(name, rows, route_src, tpu):
-        main = rows[0]                      # the serve run's shape
+    def ssm_row(name, rows, route_src, tpu, launches=None):
+        main = rows[0]                      # the serve / train shape
         return {"name": name, "route": "cuda", "source": route_src,
-                "replaces": tpu, "launches": smoke.ssm_launches[name],
+                "replaces": tpu,
+                "launches": (launches or smoke.ssm_launches)[name],
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -2612,7 +3098,16 @@ def main(argv=None) -> int:
         ssm_row("ssd_chunk_sm90", ssd, SSD_SM90_SRC, SSD_TPU),
         # no main path of this run takes head_p 16: 0 launches
         ssm_row("ssd_chunk", ssd_fma, SSD_SRC, SSD_TPU),
-        ssm_row("flash_decode_bias", dbias, DECODE_SRC, DECODE_TPU)]}
+        ssm_row("flash_decode_bias", dbias, DECODE_SRC, DECODE_TPU),
+        # no TPU kernel: the JAX package differentiates ssd_chunk_ref;
+        # launches in train_ssm's 5 timed steps of both archs, time at
+        # mamba2's train shape
+        ssm_row("ssd_chunk_bwd", ssd_bwd, SSD_BWD_SRC, SSD_REF_JAX,
+                smoke.train_ssm_launches)]}
+    # the launches of train_ssm's 5 timed steps (both archs) beside
+    for row in kernels["kernels"]:
+        row.setdefault("train_ssm_launches",
+                       smoke.train_ssm_launches.get(row["name"], 0))
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -141,7 +141,10 @@ def scaled_value_and_grad(loss_fn: Callable,
         loss, aux = loss_fn(model, *args)
         scaled = loss_scale.scale_loss(loss) if loss_scale is not None \
             else loss
-        grads = torch.autograd.grad(scaled.float(), params)
+        # a leaf the loss never reaches (mamba2's ln2: its blocks have no
+        # MLP) gets a zero gradient, as ``jax.grad`` gives it
+        grads = torch.autograd.grad(scaled.float(), params, allow_unused=True,
+                                    materialize_grads=True)
         grads = {n: g.float() for n, g in zip(names, grads)}
         loss = scaled.detach().float()
         if loss_scale is not None:

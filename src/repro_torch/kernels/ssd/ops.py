@@ -1,18 +1,25 @@
 """Public SSD op: the chunked scan of mamba2's sequence mixer (counterpart
 of ``repro.kernels.ssd.ops``).
 
-The FLOP-heavy intra-chunk part goes through ``ssd_chunk``, which
-dispatches on the device: CPU tensors go to the plain
-``ref.ssd_chunk_ref``; CUDA tensors go to a hand-written kernel or raise.
-Two designs, chosen by shape (:func:`ssd_route`): head_p 64 (mamba2's and
-hymba's widths) to ``kernels/csrc/ssd_sm90.cu`` (3xTF32 wgmma, the
-scores shared by a CTA's group of heads), head_p 16 to ``ssd.cu`` (f32
-FMA).  Nothing falls back from one to the other.  The inter-chunk state
-recurrence (T steps over (N, P) states), its fold and the ``y_inter``
-product stay in PyTorch, as the JAX op keeps them out of its kernel.
+The FLOP-heavy intra-chunk part goes through ``ssd_chunk``, one operator
+to the dispatcher (``repro_torch::ssd_chunk``) inside a differentiable
+``torch.autograd.Function``, each direction dispatched on the device:
 
-The kernel has no backward (nor has the TPU kernel): on the card,
-``ssd_chunk`` raises when autograd would need a gradient through it.
+* forward: CPU tensors go to the plain ``ref.ssd_chunk_ref``; CUDA tensors
+  go to a hand-written kernel chosen by shape (:func:`ssd_route`): head_p
+  64 (mamba2's and hymba's widths) to ``kernels/csrc/ssd_sm90.cu`` (3xTF32
+  wgmma, the scores shared by a CTA's group of heads), head_p 16 to
+  ``ssd.cu`` (f32 FMA);
+* backward: CPU tensors go to the plain ``ref.ssd_chunk_bwd_ref`` (the
+  explicit formulas, head sum included); CUDA tensors to
+  ``kernels/csrc/ssd_bwd.cu`` (f32 FMA, every d_state / head_p the forward
+  takes), which recomputes the scores and the decay from the saved
+  (c, b, xbar, acum) and sums dc / db over the heads in a fixed order.
+
+No route falls back to another: a shape no kernel takes raises, and so does
+a kernel that fails to build or launch.  The inter-chunk state recurrence
+(T steps over (N, P) states), its fold and the ``y_inter`` product stay in
+PyTorch under autograd, as the JAX op keeps them out of its kernel.
 """
 from __future__ import annotations
 
@@ -36,6 +43,8 @@ KERNEL = build.Kernel("ssd", "ssd_chunk", [
     build.PTR])
 KERNEL_SM90 = build.Kernel("ssd_sm90", "ssd_chunk_sm90",
                            KERNEL.argtypes[:-1] + [build.INT, build.PTR])
+KERNEL_BWD = build.Kernel("ssd_bwd", "ssd_chunk_bwd",
+                          [build.PTR] * 10 + [build.INT] * 6 + [build.PTR])
 
 
 def ssd_route(n: int, p: int) -> str:
@@ -63,17 +72,14 @@ def heads_per_cta(pairs: int, heads: int, sms: int) -> int:
     return -(-heads // groups)
 
 
-def _check_cuda(c, b, xbar, acum) -> str:
-    """Check a CUDA chunk's operands; return :func:`ssd_route`'s route."""
-    tensors = (c, b, xbar, acum)
+def _check_cuda(c, b, xbar, acum, *grads) -> str:
+    """Check a CUDA chunk's operands (and the backward's incoming dy,
+    dstate); return :func:`ssd_route`'s route."""
+    tensors = (c, b, xbar, acum, *grads)
     if not all(t.is_cuda and t.device == xbar.device for t in tensors):
         raise ValueError("ssd_chunk: operands must all be on one CUDA device")
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError("ssd_chunk: the CUDA kernel takes float32 operands")
-    if any(t.requires_grad for t in tensors) and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "ssd_chunk: the CUDA kernel has no backward; training the SSM "
-            "family on the card comes with a later slice of the port")
     g, t, q, p = xbar.shape
     gc, _, _, n = c.shape
     if (c.shape[1:3] != (t, q) or b.shape != c.shape
@@ -85,6 +91,11 @@ def _check_cuda(c, b, xbar, acum) -> str:
         raise ValueError(f"ssd_chunk: the CUDA kernels take chunk <= "
                          f"{MAX_CHUNK}, got {q}")
     route = ssd_route(n, p)
+    if grads and (grads[0].shape != xbar.shape
+                  or grads[1].shape != (g, t, n, p)):
+        raise ValueError(f"ssd_chunk: gradients do not match: dy "
+                         f"{tuple(grads[0].shape)}, dstate "
+                         f"{tuple(grads[1].shape)}")
     if not all(x.is_contiguous() and x.data_ptr() % 16 == 0
                for x in tensors):
         raise ValueError("ssd_chunk: operands must be contiguous and "
@@ -92,15 +103,9 @@ def _check_cuda(c, b, xbar, acum) -> str:
     return route
 
 
-def ssd_chunk(c, b, xbar, acum):
-    """Intra-chunk output and chunk-end states.
-
-    xbar (G, T, Q, P), acum (G, T, Q), all f32.  c, b are (G, T, Q, N), or
-    head-shared (G // H, T, Q, N): folded row g then reads c[g // H] (the
-    kernel's way of taking mamba2's one B/C group without broadcasting it
-    over the heads).  The sm90 route's CTAs walk :func:`heads_per_cta`'s
-    group of heads.
-    Returns (y_intra (G, T, Q, P), state (G, T, N, P))."""
+def _chunk_fwd(c, b, xbar, acum):
+    """The operator's body: :func:`ssd_chunk` without autograd.  The sm90
+    route's CTAs walk :func:`heads_per_cta`'s group of heads."""
     g, t, q, p = xbar.shape
     heads = g // c.shape[0]
     if not xbar.is_cuda:
@@ -124,6 +129,77 @@ def ssd_chunk(c, b, xbar, acum):
                               .multi_processor_count)
         KERNEL_SM90(*args, group, stream)
     return y, state
+
+
+def ssd_chunk_bwd(c, b, xbar, acum, dy, dstate):
+    """The gradient of :func:`ssd_chunk` -> (dc, db, dxbar, dacum), all f32.
+
+    Operands as :func:`ssd_chunk`'s, c and b head-shared (G // H, T, Q, N);
+    dy (G, T, Q, P) and dstate (G, T, N, P) the incoming gradients.  dc and
+    db come back summed over the H heads that share them.  CPU tensors take
+    ``ref.ssd_chunk_bwd_ref``; CUDA tensors ``ssd_bwd.cu``, which takes
+    every shape the forward's kernels take."""
+    if not xbar.is_cuda:
+        return ref.ssd_chunk_bwd_ref(c, b, xbar, acum, dy, dstate)
+    _check_cuda(c, b, xbar, acum, dy, dstate)
+    g, t, q, p = xbar.shape
+    n = c.shape[-1]
+    dc, db = torch.empty_like(c), torch.empty_like(b)
+    dx, da = torch.empty_like(xbar), torch.empty_like(acum)
+    KERNEL_BWD(*(z.data_ptr() for z in (c, b, xbar, acum, dy, dstate, dx, da,
+                                        dc, db)),
+               g, t, q, n, p, g // c.shape[0],
+               torch.cuda.current_stream(xbar.device).cuda_stream)
+    return dc, db, dx, da
+
+
+# The chunk as one operator to the dispatcher, as the Pallas call is one
+# primitive to JAX: a selective-checkpoint policy (``core.checkpoint``
+# ``SavePolicy``) sees this op and not the plain version's products, so a
+# recomputed segment runs the forward again, kernel launch included, and
+# on ``device="meta"`` the fake gives the shapes.  Defined through
+# ``torch.library.Library`` as ``repro_torch::flash_fwd`` is
+# (``kernels/flash/ops.py``); only ever called inside ``_SSDChunkFn``.
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("ssd_chunk(Tensor c, Tensor b, Tensor xbar, Tensor acum) -> "
+            "(Tensor, Tensor)")
+_LIB.impl("ssd_chunk", _chunk_fwd, "CompositeExplicitAutograd")
+
+
+@torch.library.register_fake("repro_torch::ssd_chunk", lib=_LIB)
+def _(c, b, xbar, acum):
+    g, t, q, p = xbar.shape
+    return (xbar.new_empty((g, t, q, p)),
+            xbar.new_empty((g, t, c.shape[-1], p)))
+
+
+_chunk_op = torch.ops.repro_torch.ssd_chunk.default
+
+
+class _SSDChunkFn(torch.autograd.Function):
+    """The chunk with its hand-written backward: saves (c, b, xbar, acum)
+    and recomputes the rest (no (Q, Q) tensor is kept)."""
+
+    @staticmethod
+    def forward(ctx, c, b, xbar, acum):
+        ctx.save_for_backward(c, b, xbar, acum)
+        return _chunk_op(c, b, xbar, acum)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        return ssd_chunk_bwd(*ctx.saved_tensors, dy.contiguous(),
+                             dstate.contiguous())
+
+
+def ssd_chunk(c, b, xbar, acum):
+    """Intra-chunk output and chunk-end states, differentiable.
+
+    xbar (G, T, Q, P), acum (G, T, Q), all f32.  c, b are (G, T, Q, N), or
+    head-shared (G // H, T, Q, N): folded row g then reads c[g // H] (the
+    kernels' way of taking mamba2's one B/C group without broadcasting it
+    over the heads).  Returns (y_intra (G, T, Q, P), state (G, T, N, P));
+    the backward is :func:`ssd_chunk_bwd`."""
+    return _SSDChunkFn.apply(c, b, xbar, acum)
 
 
 def _part(name: str):

@@ -12,7 +12,9 @@ The chunked form splits L into chunks of Q and computes, per chunk,
   inter  : y_t += exp(Acum_t) (C_t @ S)
 
 ``ssd_chunk_ref`` covers the intra + state terms (what the CUDA kernel
-computes); ``ssd_scan_ref`` is the full O(L) recurrence.
+computes), ``ssd_chunk_bwd_ref`` its gradient by the explicit formulas
+(what ``kernels/csrc/ssd_bwd.cu`` computes); ``ssd_scan_ref`` is the full
+O(L) recurrence.
 """
 from __future__ import annotations
 
@@ -33,6 +35,44 @@ def ssd_chunk_ref(c, b, xbar, acum):
     w = torch.exp(acum[..., -1:] - acum)                           # (G,T,Q)
     state = torch.einsum("gtqn,gtqp->gtnp", b * w[..., None], xbar)
     return y_intra, state
+
+
+def ssd_chunk_bwd_ref(c, b, xbar, acum, dy, dstate):
+    """The gradient of :func:`ssd_chunk_ref` by its explicit formulas.
+
+    c, b: (G // H, T, Q, N), shared by the H heads of a folded batch row
+    (row g reads c[g // H]); xbar, dy: (G, T, Q, P); acum: (G, T, Q);
+    dstate: (G, T, N, P).  With S = C B^T, L = exp(acum_i - acum_j) on and
+    below the diagonal (0 above), M = S o L and w = exp(acum_Q - acum):
+      dM = (dy xbar^T) o mask,  dS = dM o L,  U = B dstate
+      dxbar = M^T dy + w o U;  dc = dS B;  db = dS^T C + w o (xbar dstate^T)
+      dacum_i = rowsum(dM o M)_i - colsum(dM o M)_i - w_i (xbar_i . U_i)
+                + [i = Q-1] sum_j w_j (xbar_j . U_j)
+    Returns (dc, db) summed over the heads that share them, as (G // H, T,
+    Q, N), then dxbar, dacum."""
+    g, t, q, p = xbar.shape
+    heads = g // c.shape[0]
+    ce = c.repeat_interleave(heads, dim=0)
+    be = b.repeat_interleave(heads, dim=0)
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=c.device))
+    # exp of the masked log-decay only: above the diagonal it would overflow
+    ldecay = torch.exp(torch.where(mask, acum[..., :, None]
+                                   - acum[..., None, :], -torch.inf))
+    m = torch.einsum("gtqn,gtsn->gtqs", ce, be) * ldecay
+    dm = torch.einsum("gtqp,gtsp->gtqs", dy, xbar) * mask
+    ds = dm * ldecay
+    w = torch.exp(acum[..., -1:] - acum)                           # (G,T,Q)
+    u = torch.einsum("gtqn,gtnp->gtqp", be, dstate)
+    dx = torch.einsum("gtqs,gtqp->gtsp", m, dy) + w[..., None] * u
+    dc = torch.einsum("gtqs,gtsn->gtqn", ds, be)
+    db = torch.einsum("gtqs,gtqn->gtsn", ds, ce) + w[..., None] * torch.einsum(
+        "gtqp,gtnp->gtqn", xbar, dstate)
+    z = dm * m
+    wu = w * (xbar * u).sum(-1)
+    da = z.sum(-1) - z.sum(-2) - wu
+    da[..., -1] += wu.sum(-1)
+    fold = lambda v: v.reshape(g // heads, heads, *v.shape[1:]).sum(1)  # noqa
+    return fold(dc), fold(db), dx, da
 
 
 def ssd_scan_ref(x, dt, a, b, c, d):

@@ -210,6 +210,8 @@ def run(args) -> int:
               f"{args.accum} accum)")
     batch_sds = {"tokens": torch.empty((args.batch, args.seq),
                                        dtype=torch.int32, device="meta")}
+    if args.no_remat:                     # the JAX trainer's alias
+        args.remat = "off"
     if args.remat == "off" and args.mem_budget_mb > 0:
         print("[warn] --mem-budget-mb ignored with remat off")
     plan_bytes = None                     # activation budget (MemStat score)
@@ -414,6 +416,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "(nothing), dots (every product's output), "
                          "dots_nobatch (products without a batch dim), "
                          "none (everything: no recompute)")
+    ap.add_argument("--no-remat", action="store_true",
+                    help="alias for --remat off (the JAX trainer's flag)")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=os.path.join(

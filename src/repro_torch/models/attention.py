@@ -8,9 +8,10 @@ gets its window as a Python int, so windowed and global layers both reach
 the flash kernel.  Decode writes the new token into the cache in place and
 reads the cache through ``kernels/kvq.decode_attention`` (quantized) or
 the plain masked softmax (unquantized), masked by length for a full-causal
-layer and by a dense (B, S) bias for a window band.  MLA, cross-attention,
-the rolling two-tier cache and the sequence-sharded cache come with later
-slices.
+layer and for a rolling window buffer (the two-tier cache,
+``transformer.decode_step_two_tier``), and by a dense (B, S) bias for a
+window band over a full-length cache.  MLA, cross-attention and the
+sequence-sharded cache come with later slices.
 """
 from __future__ import annotations
 
@@ -77,9 +78,17 @@ def decode_mask(pos, b: int, s_max: int, window: int):
     return None, bias.expand(b, s_max).contiguous()
 
 
+def rolling_mask(pos, b: int, s_max: int):
+    """The decode mask of a rolling buffer of ``s_max`` slots (the two-tier
+    cache's window layers): (lengths = min(pos + 1, S) (B,) int32, None).
+    Every filled slot is in the window by construction, so no bias."""
+    return (torch.clamp(pos + 1, max=s_max).to(torch.int32).expand(b)
+            .contiguous(), None)
+
+
 def attn_decode(p, x_t, cfg, cache_k, cache_s_k, cache_v, cache_s_v, pos,
                 *, window: int = 0, mask=None, quantized: bool = True,
-                splits: int = 1):
+                splits: int = 1, rolling: bool = False):
     """One-token GQA decode against a per-layer cache.
 
     x_t: (B, D_model); cache_k/v (B, Hkv, S, hd) int8 (or the compute dtype
@@ -87,11 +96,14 @@ def attn_decode(p, x_t, cfg, cache_k, cache_s_k, cache_v, cache_s_v, pos,
     int32 per-row positions (slot-pooled serving: each row rotates, writes
     and masks at its own position).  ``window`` <= 0 masks by length,
     ``pos + 1``; a window > 0 masks by the dense bias of
-    :func:`decode_mask`.  ``mask`` is that (lengths, bias) pair when the
-    caller already built it for this window and position (a decode step
-    builds one for all the layers that share a window).  The cache leaves
-    are updated in place and returned.  Returns (attn_out (B, D_model),
-    (k, k_scale, v, v_scale))."""
+    :func:`decode_mask`.  ``rolling``: the cache is a circular buffer of
+    its S slots (a window layer of the two-tier cache): the token is
+    written at ``pos % S`` and masked by :func:`rolling_mask`'s lengths.
+    ``mask`` is that (lengths, bias) pair when the caller already built it
+    for this window and position (a decode step builds one for all the
+    layers that share a window).  The cache leaves are updated in place
+    and returned.  Returns (attn_out (B, D_model), (k, k_scale, v,
+    v_scale))."""
     b, _ = x_t.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     per_row = pos.ndim == 1
@@ -102,22 +114,26 @@ def attn_decode(p, x_t, cfg, cache_k, cache_s_k, cache_v, cache_s_v, pos,
     q = apply_rope(q, pos_arr, cfg.rope_theta, cfg.rope_fraction)[:, 0]
     k_new = apply_rope(k_t, pos_arr, cfg.rope_theta, cfg.rope_fraction)[:, 0]
     v_new = v_t[:, 0]
-    lengths, bias = mask if mask is not None else decode_mask(
-        pos, b, cache_k.shape[2], window)
+    s_max = cache_k.shape[2]
+    if mask is None:
+        mask = rolling_mask(pos, b, s_max) if rolling else decode_mask(
+            pos, b, s_max, window)
+    lengths, bias = mask
+    at = pos % s_max if rolling else pos
 
     if quantized:
         kq_new, ks_new = kvq_ops.quantize_kv(k_new)
         vq_new, vs_new = kvq_ops.quantize_kv(v_new)
-        _write_token(cache_k, kq_new, pos)
-        _write_token(cache_v, vq_new, pos)
-        _write_token(cache_s_k, ks_new, pos)
-        _write_token(cache_s_v, vs_new, pos)
+        _write_token(cache_k, kq_new, at)
+        _write_token(cache_v, vq_new, at)
+        _write_token(cache_s_k, ks_new, at)
+        _write_token(cache_s_v, vs_new, at)
         out = kvq_ops.decode_attention(q, cache_k, cache_s_k, cache_v,
                                        cache_s_v, lengths=lengths, bias=bias,
                                        splits=splits)
     else:
-        _write_token(cache_k, k_new, pos)
-        _write_token(cache_v, v_new, pos)
+        _write_token(cache_k, k_new, at)
+        _write_token(cache_v, v_new, at)
         qg = q.reshape(b, hkv, h // hkv, hd).float()
         logits = masked_decode_logits(qg, cache_k.float(), hd ** -0.5, bias,
                                       lengths)

@@ -24,6 +24,8 @@ Public entry points:
   loss_fn(model, cfg, batch, ...)      -> (loss, aux)
   init_cache(cfg, batch, s_max, ...)   -> decode cache dict
   decode_step(model, cfg, cache, ...)  -> (logits (B, V), cache)
+  init_cache_two_tier / decode_step_two_tier: the windowed archs' cache,
+  full-length for the global layers, a rolling window for the others
 """
 from __future__ import annotations
 
@@ -450,29 +452,137 @@ def decode_step(model: Transformer, cfg: ModelConfig, cache: dict, tokens_t,
     x = model.embed[tokens_t]                               # (B, D)
     masks = {}                                              # window -> mask
     for i, (blk, window) in enumerate(zip(model.blocks, layer_windows(cfg))):
-        h = rms_norm(x[:, None], blk.ln1, cfg.norm_eps)[:, 0]
-        a_out = s_out = None
-        if blk.attn is not None:
+        def attend(h, blk=blk, i=i, window=window):
             if window not in masks:
                 masks[window] = attn.decode_mask(
                     pos, x.shape[0], cache["k"][i].shape[2], window)
-            a_out, _ = attn.attn_decode(
+            return attn.attn_decode(
                 blk.attn, h, cfg, cache["k"][i], cache["k_scale"][i],
                 cache["v"][i], cache["v_scale"][i], pos, window=window,
-                mask=masks[window], quantized=quantized, splits=kvq_splits)
-        if blk.ssm is not None:
-            s_out, conv, state = ssm_mod.ssm_decode_step(
-                blk.ssm, h, cfg, cache["conv"][i], cache["ssm"][i])
-            cache["conv"][i] = conv
-            cache["ssm"][i] = state
-        x = x + _mix(blk, cfg, a_out, s_out)
-        if blk.ffn is not None:
-            h2 = rms_norm(x[:, None], blk.ln2, cfg.norm_eps)
-            x = x + swiglu(h2, blk.ffn.w_gate, blk.ffn.w_up,
-                           blk.ffn.w_down)[:, 0]
-    x = rms_norm(x[:, None], model.final_norm, cfg.norm_eps)[:, 0]
-    logits = _mask_padded_vocab((x @ model.head).to(policy.output_dtype), cfg)
+                mask=masks[window], quantized=quantized, splits=kvq_splits)[0]
+
+        x = _decode_block(blk, cfg, x, cache, i, attend)
     new_cache = dict(cache)
     new_cache["pos"] = pos + (active.to(torch.int32) if active is not None
                               else 1)
-    return logits, new_cache
+    return _decode_logits(model, cfg, x, policy), new_cache
+
+
+def _decode_block(blk, cfg, x, cache, i, attend):
+    """One layer of a decode step: ``attend(h)`` the layer's attention over
+    its cache, the SSM's step on ``cache["conv"][i]`` / ``["ssm"][i]``
+    (updated in place), the mix and the MLP."""
+    h = rms_norm(x[:, None], blk.ln1, cfg.norm_eps)[:, 0]
+    a_out = attend(h) if blk.attn is not None else None
+    s_out = None
+    if blk.ssm is not None:
+        s_out, conv, state = ssm_mod.ssm_decode_step(
+            blk.ssm, h, cfg, cache["conv"][i], cache["ssm"][i])
+        cache["conv"][i] = conv
+        cache["ssm"][i] = state
+    x = x + _mix(blk, cfg, a_out, s_out)
+    if blk.ffn is not None:
+        h2 = rms_norm(x[:, None], blk.ln2, cfg.norm_eps)
+        x = x + swiglu(h2, blk.ffn.w_gate, blk.ffn.w_up, blk.ffn.w_down)[:, 0]
+    return x
+
+
+def _decode_logits(model, cfg, x, policy):
+    x = rms_norm(x[:, None], model.final_norm, cfg.norm_eps)[:, 0]
+    return _mask_padded_vocab((x @ model.head).to(policy.output_dtype), cfg)
+
+
+# ---------------------------------------------------------------------------
+# Two-tier cache (windowed archs): the global layers keep the whole context,
+# the window layers a rolling buffer of ``window`` slots (hymba: 29 of its
+# 32 layers keep 1024 slots instead of the context).  A decode-only path
+# from an empty cache, as in the JAX package (``transformer.py:477-600``).
+# ---------------------------------------------------------------------------
+def layer_runs(cfg: ModelConfig) -> list[tuple[int, int, bool]]:
+    """Contiguous layer runs [(lo, hi, is_global)], in order."""
+    glob = set(cfg.global_layers)
+    runs: list[tuple[int, int, bool]] = []
+    for i in range(cfg.n_layers):
+        is_g = i in glob
+        if runs and runs[-1][2] == is_g:
+            runs[-1] = (runs[-1][0], i + 1, is_g)
+        else:
+            runs.append((i, i + 1, is_g))
+    return runs
+
+
+def _tier_slots(cfg: ModelConfig) -> list[tuple[str, int]]:
+    """Per layer: its tier (``"g"`` / ``"w"``) and its index in that tier's
+    stacked leaves."""
+    slots, count = [], {"g": 0, "w": 0}
+    for lo, hi, is_global in layer_runs(cfg):
+        tier = "g" if is_global else "w"
+        for _ in range(lo, hi):
+            slots.append((tier, count[tier]))
+            count[tier] += 1
+    return slots
+
+
+def init_cache_two_tier(cfg: ModelConfig, batch: int, s_max: int, *,
+                        quantized: bool = True, dtype=torch.bfloat16,
+                        device="cuda") -> dict:
+    """A 0-d ``pos``; for each tier ``g`` (the global layers, ``s_max``
+    slots) and ``w`` (the window layers, ``min(window, s_max)`` slots):
+    ``{tier}k`` / ``{tier}v`` (n_tier, B, Hkv, S_tier, hd) int8 (``dtype``
+    when not quantized) and ``{tier}k_scale`` / ``{tier}v_scale`` f32; for
+    the hybrid, ``conv`` and ``ssm`` as :func:`init_cache`'s."""
+    if not (cfg.window > 0 and cfg.global_layers
+            and cfg.mixer in ("attn", "hybrid")):
+        raise ValueError(f"{cfg.arch_id}: the two-tier cache needs a "
+                         f"windowed attention arch with global layers")
+    check_supported(cfg)
+    L = cfg.n_layers
+    n_g = len([g for g in cfg.global_layers if g < L])
+    z = lambda shp, dt: torch.zeros(shp, dtype=dt, device=device)  # noqa
+    kv_dtype = torch.int8 if quantized else dtype
+    cache = {"pos": z((), torch.int32)}
+    for tier, n_t, s_t in (("g", n_g, s_max),
+                           ("w", L - n_g, min(cfg.window, s_max))):
+        shape = (n_t, batch, cfg.n_kv, s_t, cfg.head_dim)
+        cache[f"{tier}k"] = z(shape, kv_dtype)
+        cache[f"{tier}v"] = z(shape, kv_dtype)
+        cache[f"{tier}k_scale"] = z(shape[:-1], torch.float32)
+        cache[f"{tier}v_scale"] = z(shape[:-1], torch.float32)
+    if cfg.mixer == "hybrid":
+        s = cfg.ssm
+        cache["conv"] = z((L, batch, s.conv_kernel - 1,
+                           s.d_inner + 2 * s.d_state), dtype)
+        cache["ssm"] = z((L, batch, s.heads, s.d_state, s.head_p),
+                         torch.float32)
+    return cache
+
+
+def decode_step_two_tier(model: Transformer, cfg: ModelConfig, cache: dict,
+                         tokens_t, *, policy: Policy = Policy.full(),
+                         quantized: bool = True, kvq_splits: int = 1):
+    """One token over a two-tier cache (:func:`init_cache_two_tier`).
+
+    Every layer masks by length and builds no bias: a window layer rolls
+    its buffer (writes at ``pos % W``, ``lengths = min(pos + 1, W)``), a
+    global layer reads ``lengths = pos + 1``.  The cache's leaves are
+    updated in place; returns (logits (B, V), the cache with ``pos``
+    advanced)."""
+    pos = cache["pos"]
+    x = model.embed[tokens_t]
+    b = x.shape[0]
+    masks = {"g": attn.decode_mask(pos, b, cache["gk"].shape[3], 0),
+             "w": attn.rolling_mask(pos, b, cache["wk"].shape[3])}
+    for i, (blk, (tier, k)) in enumerate(zip(model.blocks,
+                                             _tier_slots(cfg))):
+        def attend(h, blk=blk, tier=tier, k=k):
+            return attn.attn_decode(
+                blk.attn, h, cfg, cache[f"{tier}k"][k],
+                cache[f"{tier}k_scale"][k], cache[f"{tier}v"][k],
+                cache[f"{tier}v_scale"][k], pos, mask=masks[tier],
+                quantized=quantized, splits=kvq_splits,
+                rolling=tier == "w")[0]
+
+        x = _decode_block(blk, cfg, x, cache, i, attend)
+    new_cache = dict(cache)
+    new_cache["pos"] = pos + 1
+    return _decode_logits(model, cfg, x, policy), new_cache

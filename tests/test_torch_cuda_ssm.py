@@ -133,9 +133,17 @@ def test_ssd_op_card_matches_cpu(dev):
 
 
 def test_ssd_kernel_refuses_autograd_and_bad_shapes(dev):
+    # autograd is no longer refused: a chunk that needs a gradient goes
+    # through _SSDChunkFn, whose backward launches ssd_bwd.cu; a shape no
+    # kernel takes still raises
     c, b, x, acum = _chunk_inputs(2, 1, 32, 16, 16, 1, dev)
-    with pytest.raises(NotImplementedError, match="backward"):
-        ssd_ops.ssd_chunk(c, b, x.requires_grad_(), acum)
+    before = ssd_ops.KERNEL_BWD.launches
+    y, st = ssd_ops.ssd_chunk(c, b, x.requires_grad_(), acum)
+    (gx,) = torch.autograd.grad((y.sum() + st.sum()), [x])
+    assert ssd_ops.KERNEL_BWD.launches == before + 1
+    dy, dst = torch.ones_like(y), torch.ones_like(st)
+    _close(gx, ssd_ref.ssd_chunk_bwd_ref(c, b, x.detach(), acum, dy,
+                                         dst)[2], 1e-4)
     c, b, x, acum = _chunk_inputs(2, 1, 32, 32, 16, 1, dev)
     with pytest.raises(ValueError, match="d_state"):
         ssd_ops.ssd_chunk(c, b, x, acum)
