@@ -11,8 +11,9 @@ JSON object per line:
 2. ``build``: the hand-written kernels of ``src/repro_torch/kernels/csrc``
    compiled with one ``nvcc`` each, all started together, the seconds it
    took, and ptxas's registers, spills and wgmma warnings (the
-   tensor-core kernels, ``flash_fwd_sm90.cu``, ``flash_bwd_sm90.cu`` and
-   ``ssd_sm90.cu``, and the decode kernel ``flash_decode.cu`` must spill
+   tensor-core kernels, ``flash_fwd_sm90.cu``, ``flash_bwd_sm90.cu``,
+   ``ssd_sm90.cu`` and ``ssd_bwd_sm90.cu``, and the decode kernel
+   ``flash_decode.cu`` must spill
    nothing, and ptxas must not serialize the tensor-core kernels' wgmma);
 3. ``kernel`` lines: each kernel against its plain PyTorch version on the
    card at the serving and training paths' shapes, with its tolerance, its
@@ -140,22 +141,28 @@ JSON object per line:
     launch counters zeroed just before each run and read just after, then
     ``torch.profiler`` over its prefill and its first 4 decode steps run
     again, the prefill's SSD op split by its profiler ranges;
-17. ``kernel`` lines for the SSD chunk's backward (``ssd_bwd.cu``, f32
-    FMA; no TPU kernel: the JAX package differentiates ``ssd_chunk_ref``)
-    against ``ref.ssd_chunk_bwd_ref`` at mamba2's and hymba's train shapes
-    (batch 8 x 2048) and at the smoke configs' widths: dc, db, dxbar,
-    dacum within 1e-4 of the largest entry of each, run twice for
-    determinism; bound from the bytes and the f32 operations;
+17. ``kernel`` lines for the SSD chunk's backward (no TPU kernel: the JAX
+    package differentiates ``ssd_chunk_ref``) against
+    ``ref.ssd_chunk_bwd_ref``: ``ops.ssd_bwd_route``'s design, the
+    tensor-core ``ssd_bwd_sm90.cu`` (one launch a call) at mamba2's and
+    hymba's train shapes (batch 8 x 2048), the FMA ``ssd_bwd.cu`` at head_p
+    16 at mamba2's train shape and at the smoke configs' widths: dc, db,
+    dxbar, dacum within 1e-4 of the largest entry of each, run twice for
+    determinism; bound from the bytes and the head-summed operations (the
+    scores and dc / db once a (batch, chunk)) at the route's rate, three
+    TF32 passes or f32, with the f32 bound and the per-head operation
+    count beside;
 18. ``ssm_train_model``: 2-layer mamba2 and hymba (window 64) at full
     width, policy full, the loss and every gradient on the card (the SSD
-    chunk forward and backward, the FMA flash kernels) against the CPU,
-    with the ``model`` line's tolerances and exact launches;
+    chunk forward and its tensor-core backward, the FMA flash kernels)
+    against the CPU, with the ``model`` line's tolerances and exact
+    launches;
 19. ``train_ssm``: mamba2-130m and hymba-1.5b at full width and depth
     through ``build_train_step`` (random f32 masters, bf16, remat every
     block, AdamW, batch 8 x 2048): 2 warm-up and 5 timed steps with the
     launch counters zeroed before and read after (``ssd_chunk_sm90`` 2 x L
-    x 5, ``ssd_chunk_bwd`` L x 5, hymba's flash forward 2 x 32 x 5 and
-    delta / dQ / dKV 32 x 5, the FMA routes 0), one profiled step, then
+    x 5, ``ssd_chunk_bwd_sm90`` L x 5, hymba's flash forward 2 x 32 x 5
+    and delta / dQ / dKV 32 x 5, the FMA routes 0), one profiled step, then
     saved-after-forward bytes and the fwd+bwd peak under remat off and on
     (hymba at ``SSM_MEM_LAYERS`` layers);
 20. ``two_tier``: the two-tier rolling cache against the uniform cache:
@@ -227,6 +234,7 @@ SSM_MEM_LAYERS = 8
 # s_max (its window stays hymba's 1024)
 TWO_TIER_WINDOW, TWO_TIER_STEPS, TWO_TIER_SMAX = 64, 160, 4096
 SSD_BWD_SRC = "src/repro_torch/kernels/csrc/ssd_bwd.cu"
+SSD_BWD_SM90_SRC = "src/repro_torch/kernels/csrc/ssd_bwd_sm90.cu"
 SSD_REF_JAX = "src/repro/kernels/ssd/ref.py:22"    # what JAX differentiates
 # the fleet phase over the serve trace, 2 replicas of the serve engine (the
 # schedule depends on the trace's lengths only, so these land as planned):
@@ -2473,10 +2481,12 @@ class Smoke:
     # -- training the SSM family ------------------------------------------
     def check_ssd_bwd(self, g: int, t: int, q: int, n: int, p: int,
                       heads: int) -> dict:
-        """The SSD chunk's backward kernel (``ssd_bwd.cu``) against its
-        plain version (``ref.ssd_chunk_bwd_ref``) on the card, C and B
+        """The SSD chunk's backward kernel of ``ops.ssd_bwd_route``'s route
+        (``ssd_bwd_sm90.cu`` at head_p 64, ``ssd_bwd.cu`` at 16) against
+        its plain version (``ref.ssd_chunk_bwd_ref``) on the card, C and B
         head-shared as the training path passes them: dc, db, dxbar and
-        dacum within 1e-4 of the largest entry of each."""
+        dacum within 1e-4 of the largest entry of each, one launch of the
+        route's kernel and none of the other's, two calls bit-equal."""
         torch = self.torch
         from repro_torch.kernels.ssd import ops, ref
         gen = torch.Generator(device=self.dev).manual_seed(g + t + q + n + p)
@@ -2488,36 +2498,50 @@ class Smoke:
                                               device=self.dev), dim=-1)
         dy, dst = rnd(g, t, q, p), rnd(g, t, n, p)
         args = (c, b, x, acum, dy, dst)
-        before = ops.KERNEL_BWD.launches
+        route = ops.ssd_bwd_route(n, p)
+        kernels = {"sm90": ops.KERNEL_BWD_SM90, "fma": ops.KERNEL_BWD}
+        before = {k: v.launches for k, v in kernels.items()}
         got = ops.ssd_chunk_bwd(*args)
-        launched = ops.KERNEL_BWD.launches - before
+        launched = {k: v.launches - before[k] for k, v in kernels.items()}
         want = ref.ssd_chunk_bwd_ref(*args)
         self.sync()
         names = ("dc", "db", "dxbar", "dacum")
         errs = {k: float((a - w).abs().max()) for k, a, w in
                 zip(names, got, want)}
-        # f32 FMA in another order than the plain version's f32 einsums
+        # the kernels' sums run in another order than the plain version's
+        # f32 einsums; the sm90 route's 3xTF32 products carry ~2^-22 of
+        # each operand
         tols = {k: 1e-4 * float(w.abs().max()) for k, w in zip(names, want)}
         again = ops.ssd_chunk_bwd(*args)
         deterministic = all(torch.equal(a, r) for a, r in zip(got, again))
-        ok = all(errs[k] <= tols[k] for k in names) and launched == 1 \
-            and deterministic
+        ok = all(errs[k] <= tols[k] for k in names) and launched == {
+            r: int(r == route) for r in kernels} and deterministic
         ms = self.time_ms(lambda: ops.ssd_chunk_bwd(*args))
         plain_ms = self.time_ms(lambda: ref.ssd_chunk_bwd_ref(*args), n=10)
-        # what these inputs need: the scores C B^T once per (batch, chunk)
-        # on the Q(Q+1)/2 entries the mask keeps (2N flops each); a head's
-        # dM = dy xbar^T and M^T dy (2P each a live entry), dS B and
-        # dS^T C (2N each), U = B dstate and xbar dstate^T (2QNP each)
+        # what these inputs need, on the Q(Q+1)/2 entries the mask keeps:
+        # once per (batch, chunk), as C and B do not depend on the head,
+        # the scores C B^T, dc = D B and D^T C with D the head sum of dS
+        # (2N flops a live entry each); a head's dM = dy xbar^T and M^T dy
+        # (2P each a live entry), U = B dstate and (w o xbar) dstate^T
+        # (2QNP each).  The per-head form (dS B and dS^T C every head, as
+        # ssd_bwd.cu runs them) beside it
         live = q * (q + 1) // 2
-        flops = gh * t * live * 2 * n + g * t * (
-            live * (4 * p + 4 * n) + 4 * q * n * p)
+        per_head = g * t * (live * 4 * p + 4 * q * n * p)
+        flops = gh * t * live * 6 * n + per_head
+        flops_per_head_form = gh * t * live * 2 * n + per_head + \
+            g * t * live * 4 * n
         # c, b, xbar, acum, dy, dstate in; dc, db, dxbar, dacum out
         nbytes = 4 * (4 * gh * t * q * n + 3 * g * t * q * p
                       + 2 * g * t * q + g * t * n * p)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+        t_fma = flops / PEAK_FLOPS["float32"] * 1e3
+        # the sm90 route's products: three TF32 passes on the tensor cores
+        t_ops = 3 * flops / PEAK_FLOPS["tf32"] * 1e3 if route == "sm90" \
+            else t_fma
         return self.record({
-            "phase": "kernel", "name": "ssd_chunk_bwd", "route": "fma",
+            "phase": "kernel",
+            "name": "ssd_chunk_bwd_sm90" if route == "sm90"
+            else "ssd_chunk_bwd", "route": route,
             "ok": ok, "shape": {"G": g, "T": t, "Q": q, "N": n, "P": p,
                                 "heads_sharing_BC": heads},
             "launched": launched, "deterministic": deterministic,
@@ -2527,13 +2551,16 @@ class Smoke:
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops,
-            "flops": flops, "bytes": nbytes})
+            "bound_fma_ms": max(t_fma, t_bytes),
+            "flops": flops, "flops_per_head_form": flops_per_head_form,
+            "bytes": nbytes})
 
     def _ssm_kernels(self) -> dict:
         from repro_torch.kernels.flash import ops as flash_ops
         from repro_torch.kernels.ssd import ops as ssd_ops
         return {"ssd_chunk_sm90": ssd_ops.KERNEL_SM90,
                 "ssd_chunk": ssd_ops.KERNEL,
+                "ssd_chunk_bwd_sm90": ssd_ops.KERNEL_BWD_SM90,
                 "ssd_chunk_bwd": ssd_ops.KERNEL_BWD,
                 "flash_fwd_sm90": flash_ops.FWD_SM90,
                 "flash_fwd": flash_ops.KERNEL,
@@ -2588,7 +2615,7 @@ class Smoke:
                         for n, g in grads_c.items()}
             n_attn = cfg.n_layers if cfg.mixer != "ssm" else 0
             want = {"ssd_chunk_sm90": 2 * cfg.n_layers,
-                    "ssd_chunk_bwd": cfg.n_layers}
+                    "ssd_chunk_bwd_sm90": cfg.n_layers}
             if n_attn:     # policy full: f32, the FMA flash kernels
                 want.update(flash_fwd=2 * n_attn, flash_bwd_delta=n_attn,
                             flash_bwd_dq=n_attn, flash_bwd_dkv=n_attn)
@@ -2704,7 +2731,7 @@ class Smoke:
             L, n = cfg.n_layers, len(timed)
             n_attn = L if cfg.mixer != "ssm" else 0
             want = {k: 0 for k in kernels}
-            want.update(ssd_chunk_sm90=2 * L * n, ssd_chunk_bwd=L * n,
+            want.update(ssd_chunk_sm90=2 * L * n, ssd_chunk_bwd_sm90=L * n,
                         flash_fwd_sm90=2 * n_attn * n,
                         flash_bwd_delta=n_attn * n,
                         flash_bwd_dq_sm90=n_attn * n,
@@ -2944,7 +2971,7 @@ def main(argv=None) -> int:
     # the tensor-core kernels keep their accumulators in registers (a
     # reused library reports the log of its build; None: no log, a
     # failure), and ptxas did not serialize their wgmma (warning C7514)
-    sm90 = ("flash_fwd_sm90", "flash_bwd_sm90", "ssd_sm90")
+    sm90 = ("flash_fwd_sm90", "flash_bwd_sm90", "ssd_sm90", "ssd_bwd_sm90")
     spill_free = {
         lib: all(int(n) == 0 for ln in ptxas[lib]
                  for n in re.findall(r"(\d+) bytes spill", ln))
@@ -3017,10 +3044,13 @@ def main(argv=None) -> int:
     smoke.check_ssm_model()
     smoke.run_serve_ssm()
     # training the SSM family: the chunk's backward at mamba2's and hymba's
-    # train shapes (batch 8 x 2048) and at the smoke configs' widths
+    # train shapes (batch 8 x 2048, the tensor-core route), then the FMA
+    # route (head_p 16, on no main path) at mamba2's train shape and at the
+    # smoke configs' widths
     ssd_bwd = [smoke.check_ssd_bwd(192, 16, 128, 128, 64, 24),
-               smoke.check_ssd_bwd(200, 16, 128, 16, 64, 25),
-               smoke.check_ssd_bwd(8, 2, 32, 16, 16, 4)]
+               smoke.check_ssd_bwd(200, 16, 128, 16, 64, 25)]
+    ssd_bwd_fma = [smoke.check_ssd_bwd(192, 16, 128, 128, 16, 24),
+                   smoke.check_ssd_bwd(8, 2, 32, 16, 16, 4)]
     smoke.check_ssm_train_model()
     smoke.run_train_ssm()
     smoke.run_two_tier()
@@ -3101,8 +3131,10 @@ def main(argv=None) -> int:
         ssm_row("flash_decode_bias", dbias, DECODE_SRC, DECODE_TPU),
         # no TPU kernel: the JAX package differentiates ssd_chunk_ref;
         # launches in train_ssm's 5 timed steps of both archs, time at
-        # mamba2's train shape
-        ssm_row("ssd_chunk_bwd", ssd_bwd, SSD_BWD_SRC, SSD_REF_JAX,
+        # mamba2's train shape (the FMA route's at head_p 16: 0 launches)
+        ssm_row("ssd_chunk_bwd_sm90", ssd_bwd, SSD_BWD_SM90_SRC, SSD_REF_JAX,
+                smoke.train_ssm_launches),
+        ssm_row("ssd_chunk_bwd", ssd_bwd_fma, SSD_BWD_SRC, SSD_REF_JAX,
                 smoke.train_ssm_launches)]}
     # the launches of train_ssm's 5 timed steps (both archs) beside
     for row in kernels["kernels"]:

@@ -2,7 +2,7 @@
 // mbarriers, TMA tile loads and 1-D bulk copies, cluster barriers and
 // distributed shared memory, wgmma shared-memory descriptors, the bf16
 // wgmma products the flash kernels use and the tf32 ones of the SSD
-// kernel, and the host-side encoding of TMA tensor maps.  Header-only;
+// kernels (forward and backward), and the host-side encoding of TMA tensor maps.  Header-only;
 // each .cu that includes it is compiled on its own by kernels/build.py.
 //
 // Conventions.
@@ -424,6 +424,62 @@ __device__ __forceinline__ void wgmma_tf32_m64n64(float (&d)[32],
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
         "r"(scale_d));
+}
+
+// D[64 x 128] (+)= A[64 x 8] B[8 x 128] in tf32 with f32 accumulation; A
+// in registers (tf32_frag's layout), B in shared memory, K-major.
+__device__ __forceinline__ void wgmma_tf32_m64n128(float (&d)[64],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// The m64nNC tf32 product for NC in {16, 64, 128}.
+template <int NC>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[NC / 2],
+                                           const uint32_t (&a)[4], uint64_t b,
+                                           int scale_d) {
+  if constexpr (NC == 16)
+    wgmma_tf32_m64n16(d, a, b, scale_d);
+  else if constexpr (NC == 64)
+    wgmma_tf32_m64n64(d, a, b, scale_d);
+  else
+    wgmma_tf32_m64n128(d, a, b, scale_d);
+}
+
+// Four values split hi / lo (split_tf32), packed for one 16-byte store.
+__device__ __forceinline__ void split4(const float (&v)[4], uint4& hi,
+                                       uint4& lo) {
+  split_tf32(v[0], hi.x, lo.x);
+  split_tf32(v[1], hi.y, lo.y);
+  split_tf32(v[2], hi.z, lo.z);
+  split_tf32(v[3], hi.w, lo.w);
+}
+
+// The first 1024-byte aligned address at or after p (the 128-byte swizzle
+// repeats every 1024 bytes, so a swizzled operand starts on one).
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  const uint32_t a = smem_addr(p);
+  return p + (((a + 1023) & ~1023u) - a);
 }
 
 // ---------------------------------------------------------------------------

@@ -1,5 +1,8 @@
 // Backward of the SSD (mamba2 state-space duality) intra-chunk product for
-// Hopper (sm_90a), f32 FMA.
+// Hopper (sm_90a), f32 FMA: the route of kernels/ssd/ops.py
+// (ops.ssd_bwd_route) for head_p 16, the smoke configurations' width, on no
+// full-size path.  head_p 64 (mamba2's and hymba's widths) goes to the
+// tensor-core ssd_bwd_sm90.cu.
 //
 // No TPU kernel to replace: the JAX package trains through
 // src/repro/kernels/ssd/ref.py :: ssd_chunk_ref under XLA's autodiff (the
@@ -19,11 +22,10 @@
 //   da_i  = sum_j Z_ij - sum_j Z_ji - w_i (xbar_i . U_i)
 //           + [i = Q-1] sum_j w_j (xbar_j . U_j)
 //
-// What bounds it on the H100: operations.  At mamba2's train shape a
-// (batch, chunk) pair's 24 heads take ~160 MFLOP of products (the scores
-// once a head: they are recomputed with each head's decay) on ~3.4 MB of
-// operands, ~50 FLOP a byte, above the f32 FMA ridge (67 TFLOP/s over
-// 3.35 TB/s = 20).
+// What bounds it on the H100: operations.  At mamba2's widths at head_p
+// 16 a (batch, chunk) pair's 24 heads take ~190 MFLOP of products as this
+// kernel runs them (the scores, dS B and dS^T C once a head) on ~1.1 MB of
+// operands, above the f32 FMA ridge (67 TFLOP/s over 3.35 TB/s = 20).
 //
 // What the design does: one CTA of 256 threads a (batch, chunk) pair walks
 // the H heads that share its C and B, so the head sum of dc and db is
@@ -45,10 +47,10 @@
 // threads idle.
 //
 // Shapes: any Q in [1, 128] (rows past Q are zero in every staged operand
-// and never stored), N in {16, 128}, P in {16, 64}.  Layouts, row-major
+// and never stored), N in {16, 128}, P = 16 (cudaErrorInvalidValue at 64).  Layouts, row-major
 // f32: c, b, dc, db (G / H, T, Q, N); x, dy, dx (G, T, Q, P); acum, dacum
 // (G, T, Q); dstate (G, T, N, P); all 16-byte aligned.  Shared memory at
-// Q = 128, N = 128, P = 64: 222 KB (one CTA an SM).
+// Q = 128, N = 128, P = 16: 174 KB (one CTA an SM).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -473,8 +475,6 @@ extern "C" int ssd_chunk_bwd(const void* c, const void* b, const void* x,
   if (N == NN && P == PP)                                                     \
     return (int)launch<NN, PP>(cf, bf, xf, af, dyf, dsf, dxf, daf, dcf, dbf, \
                                G, T, Q, H, st);
-  SSD_BWD_LAUNCH(128, 64)
-  SSD_BWD_LAUNCH(16, 64)
   SSD_BWD_LAUNCH(128, 16)
   SSD_BWD_LAUNCH(16, 16)
 #undef SSD_BWD_LAUNCH

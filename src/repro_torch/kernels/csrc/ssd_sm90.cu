@@ -98,38 +98,15 @@ struct Smem {
   static constexpr int BYTES = 1024 + BAR + 8 * RS;  // + 1024-byte alignment
 };
 
-__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
-  const uint32_t a = smem_addr(p);
-  return p + (((a + 1023) & ~1023u) - a);
-}
-
 // A barrier for code that the warpgroups reach on different paths.
 __device__ __forceinline__ void cta_barrier() {
   asm volatile("barrier.sync 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void split4(const float (&v)[4], uint4& hi,
-                                       uint4& lo) {
-  split_tf32(v[0], hi.x, lo.x);
-  split_tf32(v[1], hi.y, lo.y);
-  split_tf32(v[2], hi.z, lo.z);
-  split_tf32(v[3], hi.w, lo.w);
 }
 
 // Byte offset of A-fragment register r of lane l, warp w, k8 step s in a
 // fragment-ordered operand: 16 bytes a lane, 512 a warp, 2048 a k8 step.
 __device__ __forceinline__ int frag_off(int s, int w, int l, int r) {
   return s * 2048 + w * 512 + l * 16 + r * 4;
-}
-
-template <int NC>
-__device__ __forceinline__ void wgmma_tf32(float (&d)[NC / 2],
-                                           const uint32_t (&a)[4], uint64_t b,
-                                           int scale_d) {
-  if constexpr (NC == 16)
-    wgmma_tf32_m64n16(d, a, b, scale_d);
-  else
-    wgmma_tf32_m64n64(d, a, b, scale_d);
 }
 
 // KC k8 steps (fewer if `steps` says so), three passes each, on A

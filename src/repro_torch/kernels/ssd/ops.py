@@ -11,10 +11,13 @@ to the dispatcher (``repro_torch::ssd_chunk``) inside a differentiable
   wgmma, the scores shared by a CTA's group of heads), head_p 16 to
   ``ssd.cu`` (f32 FMA);
 * backward: CPU tensors go to the plain ``ref.ssd_chunk_bwd_ref`` (the
-  explicit formulas, head sum included); CUDA tensors to
-  ``kernels/csrc/ssd_bwd.cu`` (f32 FMA, every d_state / head_p the forward
-  takes), which recomputes the scores and the decay from the saved
-  (c, b, xbar, acum) and sums dc / db over the heads in a fixed order.
+  explicit formulas, head sum included); CUDA tensors to a hand-written
+  kernel chosen by shape (:func:`ssd_bwd_route`): head_p 64 to
+  ``kernels/csrc/ssd_bwd_sm90.cu`` (3xTF32 wgmma, the scores once a
+  (batch, chunk), dc / db from the head-summed dS), head_p 16 to
+  ``ssd_bwd.cu`` (f32 FMA).  Both recompute the scores and the decay from
+  the saved (c, b, xbar, acum) and sum dc / db over the heads in a fixed
+  order.
 
 No route falls back to another: a shape no kernel takes raises, and so does
 a kernel that fails to build or launch.  The inter-chunk state recurrence
@@ -45,6 +48,8 @@ KERNEL_SM90 = build.Kernel("ssd_sm90", "ssd_chunk_sm90",
                            KERNEL.argtypes[:-1] + [build.INT, build.PTR])
 KERNEL_BWD = build.Kernel("ssd_bwd", "ssd_chunk_bwd",
                           [build.PTR] * 10 + [build.INT] * 6 + [build.PTR])
+KERNEL_BWD_SM90 = build.Kernel("ssd_bwd_sm90", "ssd_chunk_bwd_sm90",
+                               KERNEL_BWD.argtypes)
 
 
 def ssd_route(n: int, p: int) -> str:
@@ -61,6 +66,15 @@ def ssd_route(n: int, p: int) -> str:
     return "sm90" if p == SM90_HEAD_P else "fma"
 
 
+def ssd_bwd_route(n: int, p: int) -> str:
+    """Which hand-written kernel takes the gradient of a CUDA chunk of
+    d_state ``n`` and head_p ``p``: ``"sm90"`` (``ssd_bwd_sm90.cu``, 3xTF32
+    on the tensor cores) at head_p 64, ``"fma"`` (``ssd_bwd.cu``, f32 FMA,
+    head_p 16 only) at head_p 16, as :func:`ssd_route` splits the forward.
+    Raises for anything neither takes."""
+    return ssd_route(n, p)
+
+
 def heads_per_cta(pairs: int, heads: int, sms: int) -> int:
     """Heads one CTA of ``ssd_sm90.cu`` walks, computing the scores C B^T
     once for all of them: the fewest groups of heads whose grid of
@@ -74,7 +88,8 @@ def heads_per_cta(pairs: int, heads: int, sms: int) -> int:
 
 def _check_cuda(c, b, xbar, acum, *grads) -> str:
     """Check a CUDA chunk's operands (and the backward's incoming dy,
-    dstate); return :func:`ssd_route`'s route."""
+    dstate); return :func:`ssd_route`'s route (the backward's
+    :func:`ssd_bwd_route` is the same)."""
     tensors = (c, b, xbar, acum, *grads)
     if not all(t.is_cuda and t.device == xbar.device for t in tensors):
         raise ValueError("ssd_chunk: operands must all be on one CUDA device")
@@ -137,19 +152,21 @@ def ssd_chunk_bwd(c, b, xbar, acum, dy, dstate):
     Operands as :func:`ssd_chunk`'s, c and b head-shared (G // H, T, Q, N);
     dy (G, T, Q, P) and dstate (G, T, N, P) the incoming gradients.  dc and
     db come back summed over the H heads that share them.  CPU tensors take
-    ``ref.ssd_chunk_bwd_ref``; CUDA tensors ``ssd_bwd.cu``, which takes
-    every shape the forward's kernels take."""
+    ``ref.ssd_chunk_bwd_ref``; CUDA tensors the kernel of
+    :func:`ssd_bwd_route`: ``ssd_bwd_sm90.cu`` at head_p 64,
+    ``ssd_bwd.cu`` at head_p 16."""
     if not xbar.is_cuda:
         return ref.ssd_chunk_bwd_ref(c, b, xbar, acum, dy, dstate)
-    _check_cuda(c, b, xbar, acum, dy, dstate)
+    route = _check_cuda(c, b, xbar, acum, dy, dstate)
     g, t, q, p = xbar.shape
     n = c.shape[-1]
     dc, db = torch.empty_like(c), torch.empty_like(b)
     dx, da = torch.empty_like(xbar), torch.empty_like(acum)
-    KERNEL_BWD(*(z.data_ptr() for z in (c, b, xbar, acum, dy, dstate, dx, da,
-                                        dc, db)),
-               g, t, q, n, p, g // c.shape[0],
-               torch.cuda.current_stream(xbar.device).cuda_stream)
+    kernel = KERNEL_BWD_SM90 if route == "sm90" else KERNEL_BWD
+    kernel(*(z.data_ptr() for z in (c, b, xbar, acum, dy, dstate, dx, da, dc,
+                                    db)),
+           g, t, q, n, p, g // c.shape[0],
+           torch.cuda.current_stream(xbar.device).cuda_stream)
     return dc, db, dx, da
 
 

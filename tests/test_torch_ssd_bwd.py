@@ -1,6 +1,7 @@
 """The SSD chunk's backward (``kernels/ssd``: ``ref.ssd_chunk_bwd_ref`` and
 the ``_SSDChunkFn`` autograd wiring that the card runs with
-``kernels/csrc/ssd_bwd.cu``) against ``torch.autograd`` through the plain
+``kernels/csrc/ssd_bwd_sm90.cu`` at head_p 64 and ``ssd_bwd.cu`` at head_p
+16) against ``torch.autograd`` through the plain
 forward and against ``jax.vjp`` / ``jax.grad`` of the JAX package's
 reference, on the CPU, from the same numpy inputs; then the kernel against
 the plain backward on the card (marked ``cuda``, skips here; on the H100:
@@ -13,9 +14,9 @@ Tolerances, each with its reason:
     the largest entry; the recurrence and the y_inter product are rounded
     in another order than JAX's (the port scales the product where JAX
     scales C), and dt / a collect sums over every position;
-  * the kernel against the plain backward on the card: 1e-4 of the largest
-    entry (f32 FMA in another order, against the plain version's f32
-    einsums).
+  * the kernels against the plain backward on the card: 1e-4 of the
+    largest entry (f32 FMA or 3xTF32 products in another order, against
+    the plain version's f32 einsums).
 """
 from __future__ import annotations
 
@@ -213,10 +214,13 @@ def dev():
 def test_bwd_kernel_matches_plain(dev, gh, heads, t, q, n, p):
     args = [torch.from_numpy(z).to(dev) for z in
             _chunk_inputs(gh, heads, t, q, n, p, seed=q + n + p)]
-    before = ops.KERNEL_BWD.launches
+    # head_p 64 takes the tensor-core kernel, head_p 16 the FMA one
+    sm90 = ops.ssd_bwd_route(n, p) == "sm90"
+    before = (ops.KERNEL_BWD_SM90.launches, ops.KERNEL_BWD.launches)
     got = ops.ssd_chunk_bwd(*args)
     torch.cuda.synchronize()
-    assert ops.KERNEL_BWD.launches == before + 1
+    assert (ops.KERNEL_BWD_SM90.launches, ops.KERNEL_BWD.launches) == (
+        before[0] + sm90, before[1] + (not sm90))
     want = ref.ssd_chunk_bwd_ref(*args)
     for g_, w in zip(got, want):
         assert _rel(g_.cpu(), w.cpu()) <= CARD_TOL
@@ -238,9 +242,14 @@ def test_ssd_gradient_card_matches_cpu(dev):
         y = ops.ssd(*leaves[:6], chunk=128, initial_state=leaves[6])
         return torch.autograd.grad((y * wy.to(device)).sum(), leaves)
 
-    before = (ops.KERNEL_SM90.launches, ops.KERNEL_BWD.launches)
+    # head_p 64: the tensor-core forward and backward, not the FMA ones
+    kernels = (ops.KERNEL_SM90, ops.KERNEL_BWD_SM90, ops.KERNEL,
+               ops.KERNEL_BWD)
+    before = [k.launches for k in kernels]
     on_card = grads(dev)
-    assert (ops.KERNEL_SM90.launches, ops.KERNEL_BWD.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 0, 0]
     for g_, w in zip(on_card, grads("cpu")):
         assert _rel(g_.cpu(), w) <= OP_TOL
+    # deterministic: a second call gives the same gradients, bit for bit
+    for g_, a in zip(on_card, grads(dev)):
+        assert torch.equal(g_, a)

@@ -5,7 +5,8 @@ root (so each tree builds and imports its own kernels), and print every
 result line tagged with its tree and turn.
 
     python3 tools/compare_trees.py OLD_ROOT NEW_ROOT \
-        [--phases decode,ssd,serve_ssm,serve,train] [--out FILE]
+        [--phases decode,ssd,ssd_bwd,serve_ssm,serve,train,train_ssm]
+        [--out FILE]
 
 OLD_ROOT is typically the parent commit unpacked with ``git archive`` into
 a git-ignored directory (``build/parent``).  Phases (``Smoke`` methods):
@@ -14,10 +15,15 @@ a git-ignored directory (``build/parent``).  Phases (``Smoke`` methods):
   1 and 4, hymba's window band at splits 1 and 4, hymba's G=5 lengths);
 * ``ssd``: the four SSD chunk kernel lines (mamba2's and hymba's serve
   shapes, a 64-token prompt, a single chunk);
+* ``ssd_bwd``: the three SSD chunk backward kernel lines every tree has
+  (mamba2's and hymba's train shapes, the smoke configs' widths), each on
+  the tree's own route;
 * ``serve_ssm``: the mamba2-130m and hymba-1.5b lockstep serve runs and
   their profiles;
 * ``serve``: the llama3-8b engine run and its profile;
 * ``train``: the 4-layer llama3-8b train steps and their profile;
+* ``train_ssm``: the full-size mamba2-130m and hymba-1.5b train steps,
+  their profiles and their remat-off / remat-on memory;
 * ``ssm_greedy``: hymba-1.5b's lockstep greedy tokens (batch 8 x 32) with
   the decode kernel and with its plain PyTorch version on the card, and
   the first step at which each row's two token streams differ.
@@ -93,12 +99,18 @@ for phase in PHASES:
         s.check_ssd(200, 16, 128, 16, 64, 25)
         s.check_ssd(192, 1, 64, 128, 64, 24)
         s.check_ssd(192, 1, 128, 128, 64, 24)
+    elif phase == "ssd_bwd":
+        s.check_ssd_bwd(192, 16, 128, 128, 64, 24)
+        s.check_ssd_bwd(200, 16, 128, 16, 64, 25)
+        s.check_ssd_bwd(8, 2, 32, 16, 16, 4)
     elif phase == "serve_ssm":
         s.run_serve_ssm()
     elif phase == "serve":
         s.run_serve()
     elif phase == "train":
         s.run_train()
+    elif phase == "train_ssm":
+        s.run_train_ssm()
     elif phase == "ssm_greedy":
         greedy(s)
     else:
