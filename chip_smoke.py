@@ -30,8 +30,8 @@ JSON object per line:
    head_dim 64 / 128; ``fma``: the f32 kernels), and check that the call
    launched that design's kernels and not the other's.  The decode lines
    also report the rate their bytes moved at (``GBps``) and the share of
-   the byte bound reached; GQA groups 3, 6 and 16 are checked at a small
-   shape, untimed;
+   the byte bound reached; GQA group 6 is checked at a small shape,
+   untimed (groups 16, 1 and 3 are timed at full size in item 21);
 4. ``model``: a 2-layer model at head_dim 128 run through prefill and
    decode, and through ``loss_fn`` and its backward, on the card (kernels)
    and on the CPU (plain versions) from the same weights: logits, int8
@@ -171,8 +171,44 @@ JSON object per line:
     full-depth hymba at batch 8, s_max 4096: each cache's bytes against
     the arithmetic, to the byte, and ms/token over 64 steps from position
     0 and from 4031;
-21. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
-    ``{"ok": true, "device": {...}}``.
+21. ``kernel`` lines for the MoE family and glm4-9b, each arch's
+    attention heads (glm4-9b 32 / 2 of 128, G=16;
+    deepseek-moe-16b 16 / 16 of 128, G=1; granite-moe-3b-a800m 24 / 8 of
+    64, G=3): the flash forward and backward (bf16, the tensor-core
+    designs) at the train shape B=1 x S=4096 with SDPA beside, and the
+    decode kernel at B=8, S=2048, ragged lengths, splits 4 (lengths
+    entry), each against its plain version and its ``tiling`` twin; then
+    ``variant_kernels``, the seconds they took;
+22. ``moe_model``: 2-layer deepseek-moe-16b and granite-moe-3b-a800m at
+    full width, policy full, card against CPU from one set of weights
+    (``bridge``): prefill logits and int8 caches, 4 decode steps, the
+    loss with its ``moe_aux`` and every gradient (remat on every block,
+    so each layer routes again in the backward), at the ``model`` line's
+    tolerances; every routing call's top-k indices token for token (a
+    differing choice must sit at a near-tie, the CPU's k-th and (k+1)-th
+    probabilities within 2 f32 ulps; the count is reported either way)
+    and its dropped assignments, which must be equal;
+23. ``serve_variants``: glm4-9b, deepseek-moe-16b and granite-moe-3b-a800m
+    at full width and depth (random bf16 weights from ``--seed``: 9.40 B /
+    16.88 B / 3.37 B parameters), one at a time, each freed before the
+    next, served by ``ServeEngine`` as ``serve`` is (8 slots, ``max_len``
+    2048, int8, ``kv_splits`` 4, the same 16-request trace): 16 of 16
+    done, tok/s, TTFT, ITL, peak memory, and the launches counted exactly
+    (one flash forward a layer an admission, one decode a layer a round);
+    for the two MoE archs ``torch.profiler`` over 4 decode-only rounds
+    (8 requests resident): device ms a round by the MoE FFN's ranges
+    (``moe.router``, ``moe.dispatch``, ``moe.experts``, ``moe.combine``,
+    ``moe.shared``), the decode kernel and the GEMMs;
+24. ``train_variants``: the three archs at full width with depth cut
+    (``VARIANT_TRAIN_LAYERS``: 4, 2 and 8 layers), as ``train`` runs (f32
+    masters, bf16, remat every block, AdamW, batch 1 x 4096, 2 warm-up
+    and 5 timed steps, launches exact), with ``moe_aux`` from one more
+    forward, the peak, and the arithmetic that chose the depth (the
+    ``train`` phase's bytes per parameter times each cut model's
+    parameters);
+25. the ``{"kernels": [...]}`` summary (each row with its launches in
+    ``serve_variants`` and ``train_variants`` by arch beside), the
+    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises after the lines are printed, and the script exits
 non-zero without the final ``ok`` line.
@@ -249,6 +285,16 @@ FLEET_CRASH_AT = 200
 FLEET_EVICT_AFTER = 6
 FLEET_SIGKILL_STEP = 6
 FLEET_SLOTS, FLEET_LEN = 8, 2048
+# the MoE family and glm4-9b (GQA groups 16, 1 and 3) and the depth
+# train_variants cuts each to; the depths keep AdamW's peak near the train
+# phase's (the arithmetic: its bytes per parameter, printed by the phase,
+# times each cut model's parameters)
+VARIANT_TRAIN_LAYERS = {"glm4-9b": 4, "deepseek-moe-16b": 2,
+                        "granite-moe-3b-a800m": 8}
+# the train phase's peak when that phase did not run in this process
+# (llama3-8b at 4 layers: 43.71 GB in every chip run since PR 12, NVIDIA
+# H100 80GB HBM3 at 700 W)
+TRAIN_PEAK_FALLBACK = 43.71e9
 TOP_N = 4                       # best scores the fleet records per draw
 # the reference for the baseline's accuracy: examples/cifar_optorch.py's
 # train("baseline", *make_cifar_like(n=2048, seed=0), 200), the JAX
@@ -335,6 +381,7 @@ class Smoke:
         self.dev = torch.device("cuda", 0)
         self.failures: list[str] = []
         self.records: list[dict] = []
+        self.variant_launches: dict = {}    # arch -> serve / train launches
         self.t0 = time.time()
         self._flush_buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
                                       device=self.dev)
@@ -374,7 +421,8 @@ class Smoke:
 
     # -- phases ------------------------------------------------------------
     def check_flash(self, s: int, dtype, window: int = 0, *, b: int = 1,
-                    h: int = 32, hkv: int = 8, d: int = 128) -> dict:
+                    h: int = 32, hkv: int = 8, d: int = 128,
+                    arch: str | None = None) -> dict:
         """The flash forward against its plain version; by default at
         llama3-8b's heads (32 / 8 of 128), one row.  The kernel is the one
         ``ops.fwd_route`` names (``sm90``: flash_fwd_sm90.cu, ``fma``:
@@ -428,7 +476,7 @@ class Smoke:
         t_ops = flops / PEAK_FLOPS[dname] * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         return self.record({
-            "phase": "kernel", "name": "flash_fwd", "ok": ok,
+            "phase": "kernel", "name": "flash_fwd", "ok": ok, "arch": arch,
             "shape": {"B": b, "H": h, "Hkv": hkv, "D": d, "S": s,
                       "window": window, "dtype": dname},
             "route": route, "route_ok": route_ok,
@@ -461,7 +509,8 @@ class Smoke:
 
     def check_flash_bwd(self, s: int, rdt, gdt, *, causal: bool = True,
                         window: int = 0, kv_len=None, b: int = 1,
-                        h: int = 32, hkv: int = 8, d: int = 128) -> dict:
+                        h: int = 32, hkv: int = 8, d: int = 128,
+                        arch: str | None = None) -> dict:
         """The three backward kernels (delta, dQ, dKV) against their plain
         versions on the same residuals, from the forward kernel; ``rdt``
         is the dtype of the saved q, k, v, o, ``gdt`` that of dO and of
@@ -558,7 +607,7 @@ class Smoke:
             bound_by[name] = "operations" if t_ops >= t_bytes else "bytes"
         dname = lambda t: str(t).removeprefix("torch.")  # noqa: E731
         return self.record({
-            "phase": "kernel", "name": "flash_bwd", "ok": ok,
+            "phase": "kernel", "name": "flash_bwd", "ok": ok, "arch": arch,
             "shape": {"B": b, "H": h, "Hkv": hkv, "D": d, "S": s,
                       "causal": causal, "window": window, "kv_len": kv_len,
                       "residual_dtype": dname(rdt),
@@ -581,13 +630,17 @@ class Smoke:
         return self.time_ms(lambda: torch.autograd.grad(
             out, (q4, k4, v4), do4, retain_graph=True))
 
-    def check_decode(self, splits: int) -> dict:
+    def check_decode(self, splits: int, *, hkv: int = 8, g: int = 4,
+                     d: int = 128, arch: str = "llama3-8b") -> dict:
+        """The lengths entry point against its plain version at B=8,
+        S=2048, ragged lengths; by default at llama3-8b's heads (8 KV heads,
+        G=4, D=128)."""
         torch = self.torch
         from repro_torch.kernels import tiling
         from repro_torch.kernels.kvq import ops, ref
-        b, hkv, g, d, s = 8, 8, 4, 128, 2048
+        b, s = 8, 2048
         lengths_list = [1, 2048, 513, 512, 7, 1500, 1024, 64]
-        gen = torch.Generator(device=self.dev).manual_seed(splits)
+        gen = torch.Generator(device=self.dev).manual_seed(splits + 100 * g)
         q = torch.randn((b, hkv * g, d), generator=gen, device=self.dev)
         kq, ks = ref.quantize_kv(torch.randn((b, hkv, s, d), generator=gen,
                                              device=self.dev))
@@ -623,6 +676,7 @@ class Smoke:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         return self.record({
             "phase": "kernel", "name": "flash_decode", "ok": ok,
+            "arch": arch,
             "shape": {"B": b, "Hkv": hkv, "G": g, "D": d, "S": s,
                       "splits": twin["splits"], "lengths": lengths_list},
             **self._rate(nbytes, ms, max(t_ops, t_bytes)),
@@ -642,9 +696,9 @@ class Smoke:
                 "bound_share": bound_ms / ms}
 
     def check_decode_group(self, g: int, d: int, splits: int) -> dict:
-        """The decode kernel at a GQA group the main paths do not run (3,
-        6, 16: G / GH head groups of CTAs), small, against its plain
-        version; correctness only."""
+        """The decode kernel at a GQA group no main path runs (6: G / GH
+        head groups of CTAs), small, against its plain version;
+        correctness only."""
         torch = self.torch
         from repro_torch.kernels import tiling
         from repro_torch.kernels.kvq import ops, ref
@@ -759,15 +813,19 @@ class Smoke:
             "loss": losses, "loss_rel_err": loss_err, "loss_tol": 1e-5,
             "grad_rel_err_max": grad_err, "grad_tol": 1e-3})
 
-    def run_serve(self) -> dict:
+    def _serve_trace(self, cfg):
+        """``cfg`` at full size (random bf16 weights from ``--seed``)
+        served by ``ServeEngine`` (8 slots, ``max_len`` 2048, bf16, int8,
+        ``kv_splits`` 4) over the serve trace (16 requests), after a
+        warm-up, the serving kernels' launch counters zeroed just before
+        the run and read just after.  Returns (the model, the engine, the
+        trace, the launches, the line's fields with its checks)."""
         torch = self.torch
-        from repro_torch import configs
         from repro_torch.kernels.flash import ops as flash_ops
         from repro_torch.kernels.kvq import ops as kvq_ops
         from repro_torch.models import transformer
         from repro_torch.serve import (ServeEngine, kernel_launches,
                                        synthetic_trace)
-        cfg = configs.get_config("llama3-8b")
         t0 = time.time()
         model = transformer.init_params(cfg, self.args.seed, device=self.dev,
                                         dtype=torch.bfloat16)
@@ -782,14 +840,15 @@ class Smoke:
         trace = synthetic_trace(16, seed=0, vocab=cfg.vocab, mean_prompt=256,
                                 max_prompt=1024, mean_gen=32, max_gen=64)
         torch.cuda.reset_peak_memory_stats(self.dev)
-        for kern in (flash_ops.KERNEL, flash_ops.FWD_SM90,  # the main
-                     kvq_ops.KERNEL):                      # path's counts
+        for kern in (flash_ops.KERNEL, flash_ops.FWD_SM90, kvq_ops.KERNEL,
+                     kvq_ops.BIAS_KERNEL):
             kern.launches = 0
         t0 = time.time()
         summary = engine.run(trace)
         self.sync()
         wall = time.time() - t0
         launches = kernel_launches()
+        peak = torch.cuda.max_memory_allocated(self.dev)
         diag = summary["diagnostics"]
         tokens = [t for r in engine._requests_done for t in r.tokens]
         L = cfg.n_layers
@@ -797,19 +856,21 @@ class Smoke:
             "n_done": summary["n_done"] == len(trace),
             "no_faults": summary["n_faults"] == 0,
             "tokens_in_vocab": all(0 <= t < cfg.vocab for t in tokens),
-            # policy bf16 at head_dim 128: the tensor-core forward only
+            # one flash forward a layer an admission, one decode a layer a
+            # round, on the tensor-core forward (policy bf16 at head_dim
+            # 64 / 128) and the lengths entry only
             "flash_launches": launches["flash_fwd_sm90"]
-            == L * diag["prefills"] and launches["flash_fwd_sm90"] > 0
-            and launches["flash_fwd"] == 0,
+            == L * diag["prefills"] > 0 and launches["flash_fwd"] == 0,
             "decode_launches": launches["flash_decode"]
-            == L * diag["decode_rounds"] and launches["flash_decode"] > 0,
+            == L * diag["decode_rounds"] > 0
+            and launches["flash_decode_bias"] == 0,
             "no_slot_leak": engine.pool.occupancy == 0
             and engine.pool.allocs == engine.pool.frees,
             "not_stalled": not summary["stalled"],
+            "fits": peak < 80e9,
         }
-        self.serve_launches = launches
-        rec = self.record({
-            "phase": "serve", "ok": all(checks.values()), "checks": checks,
+        return model, engine, trace, launches, {
+            "ok": all(checks.values()), "checks": checks,
             "arch": cfg.arch_id, "n_layers": L, "d_model": cfg.d_model,
             "max_slots": 8, "max_len": 2048, "policy": "bf16",
             "kv_splits": 4, "n_requests": len(trace),
@@ -823,10 +884,18 @@ class Smoke:
             "ttft_p95_s": summary["ttft_p95_s"],
             "itl_mean_s": summary["itl_mean_s"],
             "occupancy_mean": summary["occupancy_mean"],
-            "max_memory_allocated_bytes":
-                torch.cuda.max_memory_allocated(self.dev),
-            "kv_pool_bytes": engine.pool.bytes_per_slot() * 8,
-            "init_s": init_s, "warmup_s": warmup_s})
+            "max_memory_allocated_bytes": peak, "init_s": init_s,
+            "warmup_s": warmup_s}
+
+    def run_serve(self) -> dict:
+        torch = self.torch
+        from repro_torch import configs
+        cfg = configs.get_config("llama3-8b")
+        model, engine, trace, launches, fields = self._serve_trace(cfg)
+        self.serve_launches = launches
+        rec = self.record({
+            "phase": "serve", **fields,
+            "kv_pool_bytes": engine.pool.bytes_per_slot() * 8})
         self.profile_serve(engine, cfg)
         self.check_serve_budget(model, cfg, trace[:6],
                                 engine.pool.bytes_per_slot())
@@ -1349,7 +1418,8 @@ class Smoke:
     def _profile(self, fn):
         """``torch.profiler`` over ``fn()``: (wall s, device busy s, rows of
         (device us, kernel name, launches)), busiest first.  The SSD op's
-        ranges go to ``last_scopes`` instead of the rows."""
+        and the MoE FFN's ranges go to ``last_scopes`` instead of the
+        rows."""
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1361,11 +1431,12 @@ class Smoke:
         self.last_scopes = {}
         for ev in prof.key_averages():
             on_host = "CUDA" not in str(getattr(ev, "device_type", ""))
-            if ev.key.startswith("ssd."):
-                # the SSD op's profiler ranges (kernels/ssd/ops.py ssd),
-                # apart from the rows (they would count their kernels
-                # twice): on the host record, the device time of the
-                # kernels launched inside; on the device's copy, the span
+            if ev.key.startswith(("ssd.", "moe.")):
+                # the SSD op's and the MoE FFN's profiler ranges
+                # (kernels/ssd/ops.py ssd, models/moe.py), apart from the
+                # rows (they would count their kernels twice): on the host
+                # record, the device time of the kernels launched inside;
+                # on the device's copy, the span
                 us = getattr(ev, "device_time_total",
                              getattr(ev, "cuda_time_total", 0))
                 part = self.last_scopes.setdefault(
@@ -1396,17 +1467,7 @@ class Smoke:
                               .astype(np.int32), 16) for _ in range(8)]
         engine.reset()
         summary, wall, busy_s, rows = self._profile(lambda: engine.run(trace))
-        engine.reset()
-        rids = [engine.submit(r.prompt, 64) for r in trace]
-        while engine.scheduler.queue_depth:          # one admission a step
-            engine.step()
-        rounds = engine.n_decode_rounds
-        _, d_wall, d_busy, d_rows = self._profile(
-            lambda: [engine.step() for _ in range(8)])
-        rounds = engine.n_decode_rounds - rounds
-        for rid in rids:
-            engine.cancel(rid)
-        engine.reset()
+        rounds, d_wall, d_busy, d_rows = self._decode_window(engine, cfg, 8)
         self.decode_round_device_ms = d_busy / rounds * 1e3
         return self.record({
             "phase": "profile", "wall_s": wall, "device_busy_s": busy_s,
@@ -1424,13 +1485,14 @@ class Smoke:
                 [name[:80], round(us / 1e3, 3), n]
                 for us, name, n in d_rows[:8]]})
 
-    def run_train(self) -> dict:
-        """llama3-8b at full width and TRAIN_LAYERS layers through
-        ``build_train_step`` as ``launch/train.py`` drives it, without
-        checkpoint I/O: random f32 master weights, policy bf16, remat on
-        every block, the AdamW defaults, batch 1 x TRAIN_SEQ."""
+    def _train_steps(self, cfg) -> dict:
+        """``cfg`` through ``build_train_step`` as ``launch/train.py``
+        drives it, without checkpoint I/O: random f32 master weights,
+        policy bf16, remat on every block, the AdamW defaults, batch 1 x
+        TRAIN_SEQ; 2 warm-up steps, then 5 with the flash kernels' launch
+        counters zeroed before and read after.  Returns the run's
+        records, launches, peak and ``one_step`` (for a profile)."""
         torch = self.torch
-        from repro_torch import configs
         from repro_torch.core.checkpoint import CheckpointConfig
         from repro_torch.kernels.flash import ops as flash_ops
         from repro_torch.launch.train import init_state, synthetic_lm_batches
@@ -1445,11 +1507,9 @@ class Smoke:
                    "flash_bwd_dkv": flash_ops.BWD_DKV,
                    "flash_bwd_dq_sm90": flash_ops.BWD_DQ_SM90,
                    "flash_bwd_dkv_sm90": flash_ops.BWD_DKV_SM90}
-        gc.collect()                     # the serve model is gone: free it
+        gc.collect()                   # an earlier model is gone: free it
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(self.dev)
-        cfg = dataclasses.replace(configs.get_config("llama3-8b"),
-                                  n_layers=TRAIN_LAYERS)
         tc = TrainConfig(policy="bf16", remat=CheckpointConfig(
             enabled=True, policy="full", segment_size=1),
             opt=adamw.AdamWConfig())
@@ -1480,13 +1540,20 @@ class Smoke:
         for _ in range(5):
             one_step()
         launches = {n: k.launches for n, k in kernels.items()}
-        self.train_launches = launches
-        _, wall, busy_s, rows = self._profile(one_step)
-        peak = torch.cuda.max_memory_allocated(self.dev)
-        timed = records[2:7]
-        step_s = statistics.median(r["step_s"] for r in timed)
-        L, n = cfg.n_layers, len(timed)
-        checks = {
+        return {"records": records, "launches": launches,
+                "peak": torch.cuda.max_memory_allocated(self.dev),
+                "n_params": n_params, "init_s": init_s,
+                "one_step": one_step, "model": lambda: model,
+                "batch": lambda: next(data)[1]}
+
+    @staticmethod
+    def _train_checks(cfg, run: dict) -> dict:
+        """The train phases' checks: finite losses and gradients, the
+        5 timed steps' launches (remat: every layer's forward twice, the
+        bf16 policy on the tensor-core designs only), the peak < 80 GB."""
+        records, launches = run["records"], run["launches"]
+        L, n = cfg.n_layers, len(records[2:7])
+        return {
             "losses_finite": all(math.isfinite(r["loss"]) for r in records),
             "grad_norms_finite": all(math.isfinite(r["grad_norm"])
                                      for r in records),
@@ -1500,8 +1567,48 @@ class Smoke:
                                 ("flash_bwd_delta", "flash_bwd_dq_sm90",
                                  "flash_bwd_dkv_sm90"))
             and launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == 0,
-            "fits": peak < 80e9,
+            "fits": run["peak"] < 80e9,
         }
+
+    def _decode_window(self, engine, cfg, steps: int):
+        """``torch.profiler`` over ``steps`` engine steps that only decode:
+        8 requests of 256 prompt tokens admitted first (one a step), then
+        nothing to admit.  Returns (decode rounds, wall s, device busy s,
+        rows); the engine is reset after."""
+        import numpy as np
+        rng = np.random.default_rng(1)
+        engine.reset()
+        rids = [engine.submit(rng.integers(0, cfg.vocab, 256)
+                              .astype(np.int32), 64) for _ in range(8)]
+        while engine.scheduler.queue_depth:          # one admission a step
+            engine.step()
+        rounds = engine.n_decode_rounds
+        _, wall, busy, rows = self._profile(
+            lambda: [engine.step() for _ in range(steps)])
+        rounds = engine.n_decode_rounds - rounds
+        for rid in rids:
+            engine.cancel(rid)
+        engine.reset()
+        return rounds, wall, busy, rows
+
+    def run_train(self) -> dict:
+        """llama3-8b at full width and TRAIN_LAYERS layers
+        (:meth:`_train_steps`), then ``torch.profiler`` over one more
+        step."""
+        from repro_torch import configs
+        cfg = dataclasses.replace(configs.get_config("llama3-8b"),
+                                  n_layers=TRAIN_LAYERS)
+        run = self._train_steps(cfg)
+        records, launches = run["records"], run["launches"]
+        n_params, peak, init_s = run["n_params"], run["peak"], run["init_s"]
+        self.train_launches = launches
+        self.train_bytes_per_param = peak / n_params
+        _, wall, busy_s, rows = self._profile(run["one_step"])
+        peak = run["peak"] = self.torch.cuda.max_memory_allocated(self.dev)
+        timed = records[2:7]
+        step_s = statistics.median(r["step_s"] for r in timed)
+        L = cfg.n_layers
+        checks = self._train_checks(cfg, run)
         return self.record({
             "phase": "train", "ok": all(checks.values()), "checks": checks,
             "arch": cfg.arch_id, "n_layers": L, "d_model": cfg.d_model,
@@ -2933,6 +3040,273 @@ class Smoke:
                      "bytes_ratio": full["uniform"]["cache_bytes"]
                      / full["two_tier"]["cache_bytes"]}})
 
+    # -- the MoE family and glm4-9b -----------------------------------------
+    def check_moe_model(self) -> list:
+        """``moe_model``: 2-layer deepseek-moe-16b and granite-moe-3b-a800m
+        at full width, policy full, card against CPU from one set of
+        weights (see the module docstring)."""
+        from repro_torch import configs
+        return [self._moe_model(arch) for arch in VARIANT_TRAIN_LAYERS
+                if configs.get_config(arch).moe is not None]
+
+    def _moe_model(self, arch: str) -> dict:
+        import numpy as np
+        torch = self.torch
+        t_phase = time.time()
+        from repro_torch import configs
+        from repro_torch.core.checkpoint import CheckpointConfig
+        from repro_torch.core.mixed_precision import Policy
+        from repro_torch.models import bridge, moe, transformer as tf
+        cfg = dataclasses.replace(configs.get_config(arch), n_layers=2)
+        k = cfg.moe.top_k
+        cpu = tf.init_params(cfg, self.args.seed, device="cpu")
+        gpu = bridge.load_jax_params(cfg, bridge.export_params(cpu),
+                                     device=self.dev)
+        rng = np.random.default_rng(self.args.seed)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 100))
+                                  .astype(np.int32))
+        labels = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 100))
+                                  .astype(np.int32))
+        pol = Policy.full()
+        # every routing call on each side (``side`` names the one running):
+        # the top-k indices, the router's probabilities, the assignments
+        # dropped under capacity
+        seen = {"cpu": [], "card": []}
+        side = ["cpu"]
+        real_topk, real_slots = moe.router_topk, moe.dispatch_slots
+
+        def topk_spy(x, w, kk):
+            out = real_topk(x, w, kk)
+            probs = torch.softmax(x.float() @ w.float(), dim=-1)
+            seen[side[0]].append([out[1].cpu(), probs.detach().cpu(), None])
+            return out
+
+        def slots_spy(top_i, e, cap):
+            dst, keep = real_slots(top_i, e, cap)
+            seen[side[0]][-1][2] = int((~keep).sum())
+            return dst, keep
+
+        rel = lambda a, b: float(  # noqa: E731
+            (a.detach().cpu() - b.detach()).abs().max()
+            / max(float(b.detach().abs().max()), 1e-30))
+        live = slice(0, cfg.vocab)
+        moe.router_topk, moe.dispatch_slots = topk_spy, slots_spy
+        try:
+            with torch.no_grad():
+                want, aux_c = tf.forward(cpu, cfg, {"tokens": tokens},
+                                         policy=pol, build_cache=True)
+                side[0] = "card"
+                got, aux_g = tf.forward(gpu, cfg,
+                                        {"tokens": tokens.to(self.dev)},
+                                        policy=pol, build_cache=True)
+                prefill_err = rel(got[..., live], want[..., live])
+                off = [int((aux_g["cache"][n].cpu().int()
+                            - aux_c["cache"][n].int()).abs().gt(0).sum())
+                       for n in ("k", "v")]
+                off_frac = sum(off) / (2 * aux_c["cache"]["k"].numel())
+                cache_c = tf.grow_cache(aux_c["cache"], 1024)
+                cache_g = {n: t.to(self.dev) for n, t in cache_c.items()}
+                pos = torch.tensor([100, 60], dtype=torch.int32)
+                cache_c["pos"], cache_g["pos"] = pos, pos.to(self.dev)
+                decode_err = 0.0
+                act = torch.tensor([True, True])
+                for _ in range(4):
+                    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2,))
+                                            .astype(np.int32))
+                    side[0] = "cpu"
+                    lw, cache_c = tf.decode_step(cpu, cfg, cache_c, toks,
+                                                 policy=pol, active=act)
+                    side[0] = "card"
+                    lg, cache_g = tf.decode_step(
+                        gpu, cfg, cache_g, toks.to(self.dev), policy=pol,
+                        kvq_splits=2, active=act.to(self.dev))
+                    decode_err = max(decode_err,
+                                     rel(lg[:, live], lw[:, live]))
+            # training: the loss with its aux and its backward, remat on
+            # every block (the recompute routes again)
+            out = {}
+            for name, model, dev in (("cpu", cpu, "cpu"),
+                                     ("card", gpu, self.dev)):
+                side[0] = name
+                model.requires_grad_()
+                loss, aux = tf.loss_fn(
+                    model, cfg, {"tokens": tokens.to(dev),
+                                 "labels": labels.to(dev)},
+                    policy=pol, remat=CheckpointConfig())
+                loss.backward()
+                out[name] = (float(loss.detach()),
+                             float(aux["moe_aux"].detach()))
+        finally:
+            moe.router_topk, moe.dispatch_slots = real_topk, real_slots
+        self.sync()
+        loss_err = abs(out["card"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+        aux_err = abs(out["card"][1] - out["cpu"][1]) / abs(out["cpu"][1])
+        grads_c = dict(cpu.named_parameters())
+        grad_err = max(rel(p.grad, grads_c[n].grad)
+                       for n, p in gpu.named_parameters())
+        # routing: the same experts token for token, the same drops call for
+        # call; a differing choice must sit at a near-tie of the CPU's k-th
+        # and (k+1)-th probabilities (within 2 f32 ulps of the k-th)
+        calls = len(seen["cpu"])
+        n_tok = n_diff = n_not_tie = 0
+        drops_c, drops_g = [], []
+        for (ic, pc, dc), (ig, _, dg) in zip(seen["cpu"], seen["card"]):
+            drops_c.append(dc)
+            drops_g.append(dg)
+            differ = (ic.sort(-1).values != ig.sort(-1).values).any(-1)
+            n_tok += ic.shape[0]
+            n_diff += int(differ.sum())
+            ranked = pc[differ].sort(-1, descending=True).values
+            for row in ranked.numpy():
+                ulp = np.spacing(np.float32(row[k - 1]))
+                n_not_tie += int(row[k - 1] - row[k] > 2 * ulp)
+        checks = {
+            "prefill": prefill_err <= 1e-4, "decode": decode_err <= 1e-3,
+            "int8_cache": off_frac <= 1e-3, "loss": loss_err <= 1e-5,
+            "moe_aux": aux_err <= 1e-5, "grads": grad_err <= 1e-3,
+            "routing_calls": calls == len(seen["card"]) == 7 * cfg.n_layers,
+            "routing": n_not_tie == 0, "drops": drops_c == drops_g,
+        }
+        del cpu, gpu
+        gc.collect()
+        torch.cuda.empty_cache()
+        return self.record({
+            "phase": "moe_model", "arch": arch, "ok": all(checks.values()),
+            "checks": checks,
+            "cfg": {"n_layers": 2, "d_model": cfg.d_model,
+                    "n_heads": cfg.n_heads, "n_kv": cfg.n_kv,
+                    "head_dim": cfg.head_dim, "vocab": cfg.vocab,
+                    "experts": cfg.moe.num_experts, "top_k": k,
+                    "d_expert": cfg.moe.d_expert,
+                    "shared": cfg.moe.num_shared, "prompt": [2, 100]},
+            "prefill_logits_rel_err": prefill_err, "prefill_tol": 1e-4,
+            "int8_cache_off_by_one_frac": off_frac,
+            "decode_logits_rel_err": decode_err, "decode_tol": 1e-3,
+            "loss": dict(zip(("cpu", "card"), (out["cpu"][0],
+                                               out["card"][0]))),
+            "loss_rel_err": loss_err, "loss_tol": 1e-5,
+            "moe_aux": dict(zip(("cpu", "card"), (out["cpu"][1],
+                                                  out["card"][1]))),
+            "moe_aux_rel_err": aux_err, "moe_aux_tol": 1e-5,
+            "grad_rel_err_max": grad_err, "grad_tol": 1e-3,
+            # prefill, 4 decode steps, the loss's forward and its
+            # recompute: each layer routes once in each
+            "routing_calls": calls, "tokens_routed": n_tok,
+            "tokens_routed_differently": n_diff,
+            "differences_not_at_a_near_tie": n_not_tie,
+            "dropped_assignments": {"cpu": drops_c, "card": drops_g},
+            "seconds": time.time() - t_phase})
+
+    def run_serve_variants(self) -> list:
+        """``serve_variants``: glm4-9b, deepseek-moe-16b and
+        granite-moe-3b-a800m at full width and depth, one at a time (see
+        the module docstring); a profiled window of decode rounds for the
+        two MoE archs."""
+        return [self._serve_variant(arch) for arch in VARIANT_TRAIN_LAYERS]
+
+    def _serve_variant(self, arch: str) -> dict:
+        torch = self.torch
+        from repro_torch import configs
+        t_phase = time.time()
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = configs.get_config(arch)
+        model, engine, _, launches, fields = self._serve_trace(cfg)
+        self.variant_launches[arch] = {"serve": launches}
+        profile = None
+        if cfg.moe is not None:
+            # where a decode round's device time goes: the MoE FFN by its
+            # profiler ranges, the decode kernel, the GEMMs (the experts'
+            # among them), per round
+            rounds, p_wall, p_busy, rows = self._decode_window(engine, cfg, 4)
+            per = lambda ms: ms / rounds  # noqa: E731
+            profile = {
+                "rounds": rounds, "wall_ms_per_round": per(p_wall * 1e3),
+                "device_ms_per_round": per(p_busy * 1e3),
+                "idle_share": 1 - p_busy / p_wall,
+                "moe_ms_per_round": {
+                    n: per(v["kernels_ms"])
+                    for n, v in sorted(self.last_scopes.items())},
+                "decode_kernel_ms_per_round": per(sum(
+                    us for us, name, _ in rows if "decode_kernel" in name)
+                    / 1e3),
+                "gemm_ms_per_round": per(sum(
+                    us for us, name, _ in rows if GEMM_NAME.search(name))
+                    / 1e3),
+                "top_kernels_ms": [[name[:80], round(us / 1e3, 3), n]
+                                   for us, name, n in rows[:12]]}
+        del engine, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        return self.record({
+            "phase": "serve_variants", **fields,
+            "n_heads": cfg.n_heads, "n_kv": cfg.n_kv,
+            "head_dim": cfg.head_dim, "params": cfg.param_count(),
+            "active_params": cfg.active_param_count(),
+            "decode_profile": profile, "seconds": time.time() - t_phase})
+
+    def run_train_variants(self) -> list:
+        """``train_variants``: the three archs at full width, depth cut by
+        VARIANT_TRAIN_LAYERS, through :meth:`_train_steps`."""
+        return [self._train_variant(arch, layers)
+                for arch, layers in VARIANT_TRAIN_LAYERS.items()]
+
+    def _train_variant(self, arch: str, layers: int) -> dict:
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.core.mixed_precision import Policy
+        from repro_torch.models import transformer as tf
+        t_phase = time.time()
+        cfg = dataclasses.replace(configs.get_config(arch), n_layers=layers)
+        # the arithmetic behind the depth: the train phase's bytes per
+        # parameter (AdamW's peak over llama3-8b's 4 layers) times this
+        # cut model's parameters, padded vocab included
+        bpp = getattr(self, "train_bytes_per_param", None)
+        if bpp is None:
+            llama = dataclasses.replace(configs.get_config("llama3-8b"),
+                                        n_layers=TRAIN_LAYERS)
+            bpp = TRAIN_PEAK_FALLBACK / llama.param_count()
+        n_params = cfg.param_count() + 2 * (cfg.padded_vocab - cfg.vocab) \
+            * cfg.d_model
+        predicted = bpp * n_params
+        run = self._train_steps(cfg)
+        records, launches = run["records"], run["launches"]
+        with torch.no_grad():
+            _, aux = tf.forward(run["model"](), cfg, run["batch"](),
+                                policy=Policy.bf16())
+        moe_aux = float(aux["moe_aux"]) if cfg.moe is not None else None
+        checks = self._train_checks(cfg, run)
+        checks["params_as_counted"] = run["n_params"] == n_params
+        if cfg.moe is not None:
+            checks["moe_aux_finite"] = math.isfinite(moe_aux)
+        self.variant_launches.setdefault(arch, {})["train"] = launches
+        timed = records[2:7]
+        step_s = statistics.median(r["step_s"] for r in timed)
+        peak, init_s = run["peak"], run["init_s"]
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+        return self.record({
+            "phase": "train_variants", "arch": arch,
+            "ok": all(checks.values()), "checks": checks,
+            "n_layers": layers, "d_model": cfg.d_model,
+            "n_heads": cfg.n_heads, "n_kv": cfg.n_kv,
+            "head_dim": cfg.head_dim, "params": n_params,
+            "policy": "bf16", "remat": "per block, full", "batch": 1,
+            "seq": TRAIN_SEQ,
+            "arithmetic": {"bytes_per_param": bpp,
+                           "from": "train" if getattr(
+                               self, "train_bytes_per_param", None)
+                           else "TRAIN_PEAK_FALLBACK",
+                           "predicted_peak_bytes": predicted},
+            "losses": [r["loss"] for r in records],
+            "grad_norms": [r["grad_norm"] for r in records],
+            "moe_aux": moe_aux, "step_s": [r["step_s"] for r in records],
+            "median_step_s": step_s, "tokens_per_s": TRAIN_SEQ / step_s,
+            "kernel_launches_5_steps": launches,
+            "max_memory_allocated_bytes": peak, "init_s": init_s,
+            "seconds": time.time() - t_phase})
+
 
 def nvidia_smi() -> str:
     out = subprocess.run(
@@ -3038,9 +3412,7 @@ def main(argv=None) -> int:
     ssd_fma = [smoke.check_ssd(192, 16, 128, 128, 16, 24)]
     dbias = [smoke.check_decode_hymba(sp, bias=True) for sp in (1, 4)]
     decode.append(smoke.check_decode_hymba(1, bias=False))  # G = 5
-    decode += [smoke.check_decode_group(3, 128, 1),
-               smoke.check_decode_group(6, 64, 2),
-               smoke.check_decode_group(16, 128, 4)]
+    decode.append(smoke.check_decode_group(6, 64, 2))
     smoke.check_ssm_model()
     smoke.run_serve_ssm()
     # training the SSM family: the chunk's backward at mamba2's and hymba's
@@ -3054,6 +3426,24 @@ def main(argv=None) -> int:
     smoke.check_ssm_train_model()
     smoke.run_train_ssm()
     smoke.run_two_tier()
+    # the MoE family and glm4-9b: the kernels at each arch's heads (GQA
+    # groups 16, 1 and 3) at the train shape and the decode shape, then the
+    # models
+    from repro_torch import configs
+    t0 = time.time()
+    flash_var = []
+    for arch in VARIANT_TRAIN_LAYERS:
+        cfg = configs.get_config(arch)
+        heads = dict(h=cfg.n_heads, hkv=cfg.n_kv, d=cfg.head_dim, arch=arch)
+        flash_var.append(smoke.check_flash(TRAIN_SEQ, bf16, **heads))
+        bwd.append(smoke.check_flash_bwd(TRAIN_SEQ, bf16, bf16, **heads))
+        decode.append(smoke.check_decode(
+            4, hkv=cfg.n_kv, g=cfg.n_heads // cfg.n_kv, d=cfg.head_dim,
+            arch=arch))
+    smoke.record({"phase": "variant_kernels", "seconds": time.time() - t0})
+    smoke.check_moe_model()
+    smoke.run_serve_variants()
+    smoke.run_train_variants()
     smoke.sync()
 
     def summary_row(name, rows, main, route_src, tpu, launches=None):
@@ -3112,8 +3502,9 @@ def main(argv=None) -> int:
     kernels = {"kernels": [
         # launches in the 5 timed train steps, time at the train shape; the
         # fleet phase's launches beside (its sub-phases (a)-(d) and (f))
-        dict(summary_row("flash_fwd_sm90", flash + flash_ssm, flash[-1],
-                         FLASH_SM90_SRC, FLASH_TPU, smoke.train_launches),
+        dict(summary_row("flash_fwd_sm90", flash + flash_ssm + flash_var,
+                         flash[-1], FLASH_SM90_SRC, FLASH_TPU,
+                         smoke.train_launches),
              fleet_launches=smoke.fleet_launches["flash_fwd_sm90"]),
         # no main path of this run takes the f32 forward: 0 launches
         summary_row("flash_fwd", flash_fma, flash_fma[-1], FLASH_SRC,
@@ -3136,10 +3527,16 @@ def main(argv=None) -> int:
                 smoke.train_ssm_launches),
         ssm_row("ssd_chunk_bwd", ssd_bwd_fma, SSD_BWD_SRC, SSD_REF_JAX,
                 smoke.train_ssm_launches)]}
-    # the launches of train_ssm's 5 timed steps (both archs) beside
+    # the launches of train_ssm's 5 timed steps (both archs) beside, and
+    # those of serve_variants and train_variants' 5 timed steps, by arch
     for row in kernels["kernels"]:
         row.setdefault("train_ssm_launches",
                        smoke.train_ssm_launches.get(row["name"], 0))
+        for part in ("serve", "train"):
+            row[f"{part}_variants_launches"] = {
+                arch: runs[part].get(row["name"], 0)
+                for arch, runs in smoke.variant_launches.items()
+                if part in runs}
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -11,15 +11,13 @@ import importlib
 
 from repro_torch.models.config import ModelConfig, SSMConfig
 
-ARCHS = ["llama3_8b", "mamba2_130m", "hymba_1_5b"]
+ARCHS = ["llama3_8b", "mamba2_130m", "hymba_1_5b", "glm4_9b",
+         "deepseek_moe_16b", "granite_moe_3b_a800m"]
 
 #: architectures of the reference not yet ported -> the slice that brings them
 PENDING = {
-    "deepseek-moe-16b": "slice F (MoE)",
-    "granite-moe-3b-a800m": "slice F (MoE)",
-    "stablelm-12b": "slice F (other archs)",
-    "minicpm3-4b": "slice F (MLA)",
-    "glm4-9b": "slice F (other archs)",
+    "stablelm-12b": "slice F (head dims: head_dim 160)",
+    "minicpm3-4b": "slice F (head dims: MLA, q / k 96, v 64)",
     "whisper-base": "slice F (encoder)",
     "qwen2-vl-2b": "slice F (M-RoPE)",
 }
@@ -54,6 +52,11 @@ def smoke_config(arch_id: str) -> ModelConfig:
         d_ff=128 if cfg.d_ff else 0, vocab=256, head_dim=16,
         global_layers=(0,) if cfg.global_layers else (),
         window=16 if cfg.window else 0)
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, num_experts=8, top_k=2, d_expert=32,
+            d_shared=64 if cfg.moe.num_shared else 0)
+        kw["d_ff"] = 0
     if cfg.ssm is not None:
         kw["ssm"] = SSMConfig(d_state=16, d_inner=64, head_p=16, chunk=32)
     return dataclasses.replace(cfg, **kw)

@@ -22,12 +22,12 @@ import torch
 
 from repro_torch.core.mixed_precision import Policy
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import (SSM, Attention, Block, SwiGLU,
-                                            Transformer)
+from repro_torch.models.transformer import (SSM, Attention, Block, MoE,
+                                            SwiGLU, Transformer)
 from repro_torch.optim.adamw import AdamWState
 
 _ATTN = ("wq", "wk", "wv", "wo")
-_FFN = ("w_gate", "w_up", "w_down")
+_FFN = ("w_gate", "w_up", "w_down")     # the dense SwiGLU's leaves
 
 
 def _to_tensor(x, device):
@@ -51,7 +51,12 @@ def load_jax_params(cfg: ModelConfig, tree: dict, *, device="cuda",
             kw["attn_mod"] = Attention(*(t(bt["attn"][n][i]) for n in _ATTN))
         if "ssm" in bt:
             kw["ssm"] = SSM(*(t(bt["ssm"][n][i]) for n in SSM.NAMES))
-        if "ffn" in bt:
+        if "ffn" in bt and "router" in bt["ffn"]:
+            # stacked (L, E, D, F) as the JAX tree keeps them
+            kw["ffn"] = MoE(*(t(bt["ffn"][n][i])
+                              for n in MoE.NAMES + MoE.SHARED
+                              if n in bt["ffn"]))
+        elif "ffn" in bt:
             kw["ffn"] = SwiGLU(*(t(bt["ffn"][n][i]) for n in _FFN))
         for n in ("mix_norm_attn", "mix_norm_ssm"):
             if n in bt:

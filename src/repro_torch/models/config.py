@@ -1,9 +1,11 @@
 """Model configuration dataclasses (counterpart of ``repro.models.config``).
 
 The port dispatches attention on the tensor's device, not on a backend
-name, so ``ModelConfig`` has no ``attn_backend`` field.  The MoE / MLA /
+name, so ``ModelConfig`` has no ``attn_backend`` field.  The MLA and
 encoder sub-configs are kept as plain fields so later slices fit;
 ``models.transformer`` rejects them at build time for now.
+``param_count`` / ``active_param_count`` are the reference's analytic
+counts, for every family (the MLA and encoder terms included).
 """
 from __future__ import annotations
 
@@ -89,3 +91,69 @@ class ModelConfig:
         """Vocab rounded up to a multiple of 256 (rows beyond ``vocab`` are
         dead weight; their logits are masked)."""
         return -(-self.vocab // 256) * 256
+
+    # ------------------------------------------------------------- sizing --
+    def param_count(self) -> int:
+        """Analytic parameter count (embeddings included once if tied)."""
+        d, n_layers = self.d_model, self.n_layers
+        total = self.vocab * d                     # embed
+        if not self.tie_embeddings:
+            total += self.vocab * d                # lm head
+        total += d                                 # final norm
+        per_layer = 0
+        if self.mixer in ("attn", "hybrid"):
+            per_layer += d                         # ln1
+            if self.mla is not None:
+                m = self.mla
+                per_layer += d * m.q_lora_rank + m.q_lora_rank
+                per_layer += m.q_lora_rank * self.n_heads \
+                    * (m.qk_nope_dim + m.qk_rope_dim)
+                per_layer += d * (m.kv_lora_rank + m.qk_rope_dim) \
+                    + m.kv_lora_rank
+                per_layer += m.kv_lora_rank * self.n_heads \
+                    * (m.qk_nope_dim + m.v_head_dim)
+                per_layer += self.n_heads * m.v_head_dim * d
+            else:
+                hd = self.head_dim
+                per_layer += d * self.n_heads * hd          # wq
+                per_layer += 2 * d * self.n_kv * hd         # wk, wv
+                per_layer += self.n_heads * hd * d          # wo
+        if self.mixer in ("ssm", "hybrid"):
+            s = self.ssm
+            per_layer += d              # ln (shared with ln1 in the hybrid)
+            conv_dim = s.d_inner + 2 * s.d_state
+            per_layer += d * (2 * s.d_inner + 2 * s.d_state + s.heads)
+            per_layer += conv_dim * s.conv_kernel
+            per_layer += 3 * s.heads                # A, D, dt_bias
+            per_layer += s.d_inner                  # gated norm
+            per_layer += s.d_inner * d              # out_proj
+        per_layer += d                             # ln2
+        if self.moe is not None:
+            m = self.moe
+            per_layer += d * m.num_experts                   # router
+            per_layer += m.num_experts * 3 * d * m.d_expert  # experts
+            if m.num_shared:
+                per_layer += 3 * d * m.d_shared              # shared
+        elif self.d_ff:
+            mult = 3 if self.mlp_kind == "swiglu" else 2
+            per_layer += mult * d * self.d_ff
+        total += n_layers * per_layer
+        if self.encoder is not None:
+            hd = self.head_dim
+            attn = d * self.n_heads * hd + 2 * d * self.n_kv * hd \
+                + self.n_heads * hd * d
+            total += self.encoder.n_layers * (2 * d + attn
+                                              + 2 * d * self.d_ff) + d
+            # the decoder's cross-attention: another attention a layer
+            total += n_layers * (d + attn)
+        return total
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: the top-k and shared experts
+        only)."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        per_expert = 3 * self.d_model * m.d_expert
+        return self.param_count() - self.n_layers * per_expert \
+            * (m.num_experts - m.top_k)

@@ -1,7 +1,9 @@
 """The decoder stack (counterpart of ``repro.models.transformer``): dense
-GQA (llama3), pure SSM (mamba2: SSD blocks, no MLP) and hybrid (hymba:
-attention and SSM heads in parallel, each output normed, the two averaged,
-then a SwiGLU), with per-layer sliding windows and global layers.
+GQA (llama3, glm4), MoE (deepseek-moe, granite-moe: GQA attention, then
+``models/moe.py``'s routed experts in place of the SwiGLU), pure SSM
+(mamba2: SSD blocks, no MLP) and hybrid (hymba: attention and SSM heads
+in parallel, each output normed, the two averaged, then a SwiGLU), with
+per-layer sliding windows and global layers.
 
 The JAX package keeps per-layer parameters stacked along a layer axis and
 scans over them; the port holds one ``Block`` module per layer in an
@@ -40,6 +42,7 @@ from repro_torch.core.checkpoint import (CheckpointConfig, checkpoint_name,
 from repro_torch.core.mixed_precision import Policy
 from repro_torch.kernels.kvq import ops as kvq_ops
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, embed_init, rms_norm, swiglu
@@ -52,7 +55,7 @@ CACHE_SEQ_AXES = {"k": 3, "v": 3, "k_scale": 3, "v_scale": 3}
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port does not build yet."""
     unsupported = [name for name, present in (
-        ("MoE", cfg.moe is not None), ("MLA", cfg.mla is not None),
+        ("MLA", cfg.mla is not None),
         ("encoder", cfg.encoder is not None),
         ("M-RoPE", cfg.mrope_sections is not None),
         ("gelu MLP", cfg.mlp_kind != "swiglu"),
@@ -60,8 +63,8 @@ def check_supported(cfg: ModelConfig) -> None:
     if unsupported:
         raise NotImplementedError(
             f"{cfg.arch_id}: {', '.join(unsupported)} not ported yet (the "
-            f"port builds dense GQA, SSM and hybrid decoders; the other "
-            f"families come with slice F)")
+            f"port builds dense GQA, MoE, SSM and hybrid decoders; the "
+            f"other families come with slice F)")
 
 
 def layer_windows(cfg: ModelConfig) -> list[int]:
@@ -91,6 +94,37 @@ class SwiGLU(nn.Module):
                                                   (w_gate, w_up, w_down))
 
 
+class MoE(nn.Module):
+    """Routed experts (``models/moe.py``): ``router`` (D, E), ``w_gate`` /
+    ``w_up`` (E, D, F), ``w_down`` (E, F, D), and the shared experts'
+    ``shared_gate`` / ``shared_up`` / ``shared_down`` when there are
+    any."""
+
+    NAMES = ("router", "w_gate", "w_up", "w_down")
+    SHARED = ("shared_gate", "shared_up", "shared_down")
+
+    def __init__(self, *weights):
+        super().__init__()
+        self.names = (self.NAMES + self.SHARED)[:len(weights)]
+        for name, w in zip(self.names, weights, strict=True):
+            setattr(self, name, _frozen(w))
+
+    def weights(self, dtype=None) -> dict:
+        return {n: getattr(self, n) if dtype is None
+                else getattr(self, n).to(dtype) for n in self.names}
+
+
+def ffn_apply(ffn, h, cfg, dtype=None):
+    """The block's MLP on ``h`` (..., D) -> (out, aux): the SwiGLU (aux
+    0.0) or the MoE (``moe.moe_ffn`` over a (B, S, D) view), its weights
+    cast to ``dtype`` where they are used."""
+    if isinstance(ffn, MoE):
+        return moe_mod.moe_ffn(ffn.weights(dtype), h, cfg)
+    cast = (lambda w: w) if dtype is None else (lambda w: w.to(dtype))
+    return swiglu(h, cast(ffn.w_gate), cast(ffn.w_up),
+                  cast(ffn.w_down)), 0.0
+
+
 class SSM(nn.Module):
     """Mamba2 mixer weights (``models/ssm.py``)."""
 
@@ -110,7 +144,7 @@ class Block(nn.Module):
     ``ln2``, as the JAX tree does, even without an MLP."""
 
     def __init__(self, ln1, ln2, attn_mod: Attention | None = None,
-                 ffn: SwiGLU | None = None, *, ssm: SSM | None = None,
+                 ffn: SwiGLU | MoE | None = None, *, ssm: SSM | None = None,
                  mix_norm_attn=None, mix_norm_ssm=None):
         super().__init__()
         self.ln1, self.ln2 = _frozen(ln1), _frozen(ln2)
@@ -181,7 +215,19 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
                 dense_init(gen, (s.d_inner, d), **kw))
         if cfg.mixer == "hybrid":
             mix.update(mix_norm_attn=ones(d), mix_norm_ssm=ones(d))
-        if cfg.d_ff:
+        if cfg.moe is not None:
+            m = cfg.moe
+            e, f = m.num_experts, m.d_expert
+            experts = [dense_init(gen, (d, e), **kw),
+                       dense_init(gen, (e, d, f), in_axis=1, **kw),
+                       dense_init(gen, (e, d, f), in_axis=1, **kw),
+                       dense_init(gen, (e, f, d), in_axis=1, **kw)]
+            if m.num_shared:
+                experts += [dense_init(gen, (d, m.d_shared), **kw),
+                            dense_init(gen, (d, m.d_shared), **kw),
+                            dense_init(gen, (m.d_shared, d), **kw)]
+            mix["ffn"] = MoE(*experts)
+        elif cfg.d_ff:
             mix["ffn"] = SwiGLU(dense_init(gen, (d, cfg.d_ff), **kw),
                                 dense_init(gen, (d, cfg.d_ff), **kw),
                                 dense_init(gen, (cfg.d_ff, d), **kw))
@@ -277,7 +323,8 @@ def forward(model: Transformer, cfg: ModelConfig, batch: dict, *,
     def tag(t, name):
         return checkpoint_name(t, name) if name in tags else t
 
-    def block(x, layer):
+    def block(carry, layer):
+        x, aux_sum = carry
         blk, window = layer
         h = rms_norm(x, blk.ln1.to(dt), cfg.norm_eps,
                      bf16_grad=cfg.norm_bf16_grad)
@@ -297,22 +344,27 @@ def forward(model: Transformer, cfg: ModelConfig, batch: dict, *,
             entries.append(entry)
         x = x + tag(_mix(blk, cfg, a_out, s_out), "attn_out")
         if blk.ffn is None:                  # pure-SSM blocks have no MLP
-            return x
+            return x, aux_sum
         h2 = rms_norm(x, blk.ln2.to(dt), cfg.norm_eps,
                       bf16_grad=cfg.norm_bf16_grad)
-        f = blk.ffn
-        return x + tag(swiglu(h2, f.w_gate.to(dt), f.w_up.to(dt),
-                              f.w_down.to(dt)), "ffn_out")
+        f, aux = ffn_apply(blk.ffn, h2, cfg, dt)
+        if cfg.moe is not None:
+            aux_sum = aux_sum + aux
+        return x + tag(f, "ffn_out"), aux_sum
 
     # each layer gets its own window as a Python int, so every layer of a
     # windowed hybrid reaches the flash kernel; the cache entries are
-    # collected as a side effect: no recompute there
-    x = remat_scan(block, x, list(zip(model.blocks, layer_windows(cfg))),
-                   config=CheckpointConfig(enabled=False) if build_cache
-                   else remat)
+    # collected as a side effect: no recompute there.  The carry also sums
+    # the layers' MoE aux (a remat segment recomputes it with its block)
+    x, aux_sum = remat_scan(
+        block, (x, torch.zeros((), device=tokens.device)),
+        list(zip(model.blocks, layer_windows(cfg))),
+        config=CheckpointConfig(enabled=False) if build_cache else remat)
     x = rms_norm(x, model.final_norm.to(dt), cfg.norm_eps,
                  bf16_grad=cfg.norm_bf16_grad)
-    aux = {"moe_aux": 0.0}
+    # the mean over layers of each layer's aux (JAX: jnp.mean over the scan)
+    aux = {"moe_aux": aux_sum / cfg.n_layers if cfg.moe is not None
+           else 0.0}
     if build_cache:
         aux["cache"] = _assemble_cache(entries, s, tokens.device)
     if return_hidden:
@@ -338,11 +390,13 @@ def _ce_terms(logits32, labels):
 def loss_fn(model: Transformer, cfg: ModelConfig, batch: dict, *,
             policy: Policy = Policy.full(),
             remat: CheckpointConfig = CheckpointConfig(),
-            ce_chunk: int = 0):
+            moe_aux_weight: float = 0.01, ce_chunk: int = 0):
     """Mean next-token cross entropy over ``batch["loss_mask"]`` (default
-    all ones) -> (loss, {"nll": loss, "moe_aux": 0.0}).
+    all ones), plus ``moe_aux_weight`` times the layers' mean MoE aux for
+    an MoE arch -> (loss, {"nll": loss, "moe_aux": ...}); as in the JAX
+    package, ``nll`` is the loss with the aux term.
 
-    The CE of the JAX package (``transformer.py:420-465``), in f32.  With
+    The CE of the JAX package (``transformer.py:420-467``), in f32.  With
     ``ce_chunk > 0`` the LM head and the softmax run per sequence chunk of
     that many tokens (the last one ragged), each under ``checkpoint``, so
     the (B, S, V) logits never exist at once: the peak holds one (B,
@@ -369,10 +423,12 @@ def loss_fn(model: Transformer, cfg: ModelConfig, batch: dict, *,
                               mask[:, c:c + ce_chunk])
                     for c in range(0, hidden.shape[1], ce_chunk))
         loss = total / torch.clamp(mask.sum(), min=1.0)
-        return loss, {"nll": loss, **aux}
-    logits, aux = forward(model, cfg, batch, policy=policy, remat=remat)
-    nll = _ce_terms(logits.float(), labels)
-    loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    else:
+        logits, aux = forward(model, cfg, batch, policy=policy, remat=remat)
+        nll = _ce_terms(logits.float(), labels)
+        loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    if cfg.moe is not None:
+        loss = loss + moe_aux_weight * aux["moe_aux"]
     return loss, {"nll": loss, **aux}
 
 
@@ -482,8 +538,10 @@ def _decode_block(blk, cfg, x, cache, i, attend):
         cache["ssm"][i] = state
     x = x + _mix(blk, cfg, a_out, s_out)
     if blk.ffn is not None:
+        # the MoE routes the (B, 1, D) step as B tokens, every row of the
+        # batch (a free slot too) taking capacity, as in the JAX package
         h2 = rms_norm(x[:, None], blk.ln2, cfg.norm_eps)
-        x = x + swiglu(h2, blk.ffn.w_gate, blk.ffn.w_up, blk.ffn.w_down)[:, 0]
+        x = x + ffn_apply(blk.ffn, h2, cfg)[0][:, 0]
     return x
 
 

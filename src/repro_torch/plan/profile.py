@@ -364,7 +364,8 @@ def profile_transformer(cfg, batch_sds, *, dtype_bytes: int = 2,
     ``resid_bytes`` carries the attention backward residuals
     (:func:`attn_resid_bytes`); ``flash_resid_bytes`` forwards a
     ``Policy.flash_resid_dtype`` width.  Block parameters are counted on
-    a ``device="meta"`` model."""
+    a ``device="meta"`` model: an MoE block's are every expert's, as the
+    JAX planner counts them (not the top-k a token reaches)."""
     from repro_torch.models import transformer
     b, s = batch_sds["tokens"].shape
     carry_bytes = b * s * cfg.d_model * dtype_bytes

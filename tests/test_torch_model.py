@@ -1,10 +1,12 @@
 """The port's dense decoder against the JAX package's, at smoke size, from
 the same weights (``bridge.load_jax_params``) and the same numpy inputs:
 prefill logits and int8 cache, eight per-slot decode steps with an active
-mask, the padded-vocab mask, and the bridge round trip."""
+mask, the padded-vocab mask, the loss, and the bridge round trip; for
+llama3-8b and glm4-9b (2 KV heads, half-dim rotary)."""
 from __future__ import annotations
 
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -40,13 +42,17 @@ def _int8_close(got, want, frac=1e-3):
     assert (diff > 0).mean() <= frac
 
 
-@pytest.fixture(scope="module", params=[256, 250], ids=["vocab256",
-                                                         "vocab250"])
+@pytest.fixture(scope="module", params=[
+    ("llama3-8b", 256), ("llama3-8b", 250), ("glm4-9b", 256),
+    ("glm4-9b", 250)],
+    # llama keeps its earlier ids
+    ids=lambda p: ("" if p[0] == "llama3-8b" else f"{p[0]}-")
+    + f"vocab{p[1]}")
 def pair(request):
-    vocab = request.param
-    jcfg = dataclasses.replace(jconfigs.smoke_config("llama3-8b"),
+    arch, vocab = request.param
+    jcfg = dataclasses.replace(jconfigs.smoke_config(arch),
                                vocab=vocab, attn_backend="interpret")
-    cfg = dataclasses.replace(configs.smoke_config("llama3-8b"), vocab=vocab)
+    cfg = dataclasses.replace(configs.smoke_config(arch), vocab=vocab)
     params = jtf.init_params(jcfg, jax.random.PRNGKey(vocab))
     tree = jax.tree.map(np.asarray, params)
     return jcfg, cfg, params, tree, bridge.load_jax_params(cfg, tree,
@@ -141,14 +147,22 @@ def test_bf16_policy_logits(pair):
 
 
 def test_unported_families_raise():
-    jcfg = jconfigs.smoke_config("deepseek-moe-16b")
-    assert jcfg.moe is not None
+    jcfg = jconfigs.smoke_config("minicpm3-4b")
+    assert jcfg.mla is not None
     with pytest.raises(NotImplementedError, match="slice F"):
-        configs.get_config("deepseek-moe-16b")
+        configs.get_config("minicpm3-4b")
     cfg = dataclasses.replace(configs.smoke_config("llama3-8b"),
                               mlp_kind="gelu")
     with pytest.raises(NotImplementedError, match="gelu"):
         tf.init_params(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("arch", sorted(configs.PENDING))
+def test_pending_archs_name_their_slice(arch):
+    assert arch in jconfigs.list_archs()
+    with pytest.raises(NotImplementedError,
+                       match=re.escape(configs.PENDING[arch])):
+        configs.get_config(arch)
 
 
 def test_scalar_pos_decode_and_unquantized_cache(pair):
@@ -174,3 +188,17 @@ def test_scalar_pos_decode_and_unquantized_cache(pair):
         assert _rel_err(got.numpy()[:, live],
                         np.asarray(want)[:, live]) <= DECODE_TOL
     assert int(cache["pos"]) == int(jcache["pos"]) == 9
+
+
+def test_loss_matches_jax(pair):
+    jcfg, cfg, params, _, model = pair
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, cfg.vocab, (2, 25)).astype(np.int32)
+    t, lab = toks[:, :-1].copy(), toks[:, 1:].copy()
+    want, jaux = jtf.loss_fn(params, jcfg, {"tokens": jnp.asarray(t),
+                                            "labels": jnp.asarray(lab)})
+    with torch.no_grad():
+        got, aux = tf.loss_fn(model, cfg, {"tokens": torch.from_numpy(t),
+                                           "labels": torch.from_numpy(lab)})
+    assert abs(float(got) - float(want)) <= LOGIT_RTOL * abs(float(want))
+    assert aux["moe_aux"] == jaux["moe_aux"] == 0.0
