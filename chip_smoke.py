@@ -27,7 +27,7 @@ JSON object per line:
    the port never calls.  The flash forward's lines name the design that
    ``ops.fwd_route`` chose and the backward's the dQ / dKV design that
    ``ops.bwd_route`` chose (``sm90``: the tensor-core kernels, for bf16 at
-   head_dim 64 / 128; ``fma``: the f32 kernels), and check that the call
+   head_dim 64 / 128 / 160; ``fma``: the f32 kernels), and check that the call
    launched that design's kernels and not the other's.  The decode lines
    also report the rate their bytes moved at (``GBps``) and the share of
    the byte bound reached; GQA group 6 is checked at a small shape,
@@ -188,9 +188,10 @@ JSON object per line:
     differing choice must sit at a near-tie, the CPU's k-th and (k+1)-th
     probabilities within 2 f32 ulps; the count is reported either way)
     and its dropped assignments, which must be equal;
-23. ``serve_variants``: glm4-9b, deepseek-moe-16b and granite-moe-3b-a800m
-    at full width and depth (random bf16 weights from ``--seed``: 9.40 B /
-    16.88 B / 3.37 B parameters), one at a time, each freed before the
+23. ``serve_variants``: glm4-9b, deepseek-moe-16b, granite-moe-3b-a800m
+    and stablelm-12b (head_dim 160) at full width and depth (random bf16
+    weights from ``--seed``: 9.40 B / 16.88 B / 3.37 B / 12.14 B
+    parameters), one at a time, each freed before the
     next, served by ``ServeEngine`` as ``serve`` is (8 slots, ``max_len``
     2048, int8, ``kv_splits`` 4, the same 16-request trace): 16 of 16
     done, tok/s, TTFT, ITL, peak memory, and the launches counted exactly
@@ -199,16 +200,35 @@ JSON object per line:
     (8 requests resident): device ms a round by the MoE FFN's ranges
     (``moe.router``, ``moe.dispatch``, ``moe.experts``, ``moe.combine``,
     ``moe.shared``), the decode kernel and the GEMMs;
-24. ``train_variants``: the three archs at full width with depth cut
-    (``VARIANT_TRAIN_LAYERS``: 4, 2 and 8 layers), as ``train`` runs (f32
-    masters, bf16, remat every block, AdamW, batch 1 x 4096, 2 warm-up
-    and 5 timed steps, launches exact), with ``moe_aux`` from one more
-    forward, the peak, and the arithmetic that chose the depth (the
-    ``train`` phase's bytes per parameter times each cut model's
-    parameters);
-25. the ``{"kernels": [...]}`` summary (each row with its launches in
-    ``serve_variants`` and ``train_variants`` by arch beside), the
-    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+24. ``train_variants``: those four and minicpm3-4b at full width with
+    depth cut (``VARIANT_TRAIN_LAYERS``: 4, 2, 8, 4 and 24 layers), as
+    ``train`` runs (f32 masters, bf16, remat every block, AdamW, batch 1 x
+    4096, 2 warm-up and 5 timed steps, launches exact: none for MLA), with
+    ``moe_aux`` from one more forward, the peak, and the arithmetic that
+    chose the depth (the ``train`` phase's bytes per parameter times each
+    cut model's parameters);
+25. ``kernel`` lines at head_dim 160, stablelm-12b's heads (32 / 8, G=4):
+    the flash forward and backward (bf16, the tensor-core designs) at the
+    train shape B=1 x S=4096 with SDPA beside and ragged (S=100; S=1000,
+    kv_len 777), the FMA designs (f32, and bf16 residuals under f32
+    compute) at S=1024 and windowed, the decode kernel's lengths entry at
+    B=8, S=2048, ragged lengths, splits 4 and 1, and its dense-bias entry
+    on a band of 1024 at serve_ssm's decode shape; then
+    ``head160_kernels``, the seconds they took;
+26. ``head160_model`` and ``mla_model``: stablelm-12b and minicpm3-4b cut
+    to 2 layers at full width, policy full, card against CPU from one set
+    of weights: prefill logits and caches (int8 K/V; MLA's bf16 latents),
+    4 lockstep decode steps, the loss and every gradient, at the
+    ``model`` line's tolerances, the launches exact in each part (none
+    for MLA: no kernel lies on the reference's MLA path);
+27. ``serve_mla``: ``launch/serve.py``'s lockstep for minicpm3-4b at full
+    width and depth (batch 8, prompt 2048, 32 new tokens, bf16 latent
+    cache) after a one-step warm-up, no kernel launched, then
+    ``torch.profiler`` over its prefill and first 4 decode steps;
+28. the ``{"kernels": [...]}`` summary (each row with its launches in
+    ``serve_variants`` and ``train_variants`` by arch beside; the head_dim
+    160 rows apart, with stablelm-12b's launches), the ``nvidia-smi``
+    line, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises after the lines are printed, and the script exits
 non-zero without the final ``ok`` line.
@@ -285,12 +305,17 @@ FLEET_CRASH_AT = 200
 FLEET_EVICT_AFTER = 6
 FLEET_SIGKILL_STEP = 6
 FLEET_SLOTS, FLEET_LEN = 8, 2048
-# the MoE family and glm4-9b (GQA groups 16, 1 and 3) and the depth
-# train_variants cuts each to; the depths keep AdamW's peak near the train
-# phase's (the arithmetic: its bytes per parameter, printed by the phase,
-# times each cut model's parameters)
+# the MoE family, glm4-9b (GQA groups 16, 1 and 3), stablelm-12b and
+# minicpm3-4b and the depth train_variants cuts each to; the depths keep
+# AdamW's peak near the train phase's (the arithmetic: its bytes per
+# parameter, printed by the phase, times each cut model's parameters:
+# 48.6 GB at stablelm's 4 layers, 42.7 GB at minicpm3's 24)
 VARIANT_TRAIN_LAYERS = {"glm4-9b": 4, "deepseek-moe-16b": 2,
-                        "granite-moe-3b-a800m": 8}
+                        "granite-moe-3b-a800m": 8, "stablelm-12b": 4,
+                        "minicpm3-4b": 24}
+# head_dim 160 (stablelm-12b: 32 / 8 heads, G = 4) and MLA (minicpm3-4b)
+HEAD160, MLA_ARCH = "stablelm-12b", "minicpm3-4b"
+MLA_BATCH, MLA_PROMPT, MLA_GEN = 8, 2048, 32    # the serve_mla lockstep
 # the train phase's peak when that phase did not run in this process
 # (llama3-8b at 4 layers: 43.71 GB in every chip run since PR 12, NVIDIA
 # H100 80GB HBM3 at 700 W)
@@ -1489,24 +1514,17 @@ class Smoke:
         """``cfg`` through ``build_train_step`` as ``launch/train.py``
         drives it, without checkpoint I/O: random f32 master weights,
         policy bf16, remat on every block, the AdamW defaults, batch 1 x
-        TRAIN_SEQ; 2 warm-up steps, then 5 with the flash kernels' launch
-        counters zeroed before and read after.  Returns the run's
+        TRAIN_SEQ; 2 warm-up steps, then 5 with the attention kernels'
+        launch counters zeroed before and read after.  Returns the run's
         records, launches, peak and ``one_step`` (for a profile)."""
         torch = self.torch
         from repro_torch.core.checkpoint import CheckpointConfig
-        from repro_torch.kernels.flash import ops as flash_ops
         from repro_torch.launch.train import init_state, synthetic_lm_batches
         from repro_torch.optim import adamw
         from repro_torch.train.train_step import (TrainConfig,
                                                   build_train_step,
                                                   init_loss_scale)
-        kernels = {"flash_fwd": flash_ops.KERNEL,
-                   "flash_fwd_sm90": flash_ops.FWD_SM90,
-                   "flash_bwd_delta": flash_ops.BWD_DELTA,
-                   "flash_bwd_dq": flash_ops.BWD_DQ,
-                   "flash_bwd_dkv": flash_ops.BWD_DKV,
-                   "flash_bwd_dq_sm90": flash_ops.BWD_DQ_SM90,
-                   "flash_bwd_dkv_sm90": flash_ops.BWD_DKV_SM90}
+        kernels = self._launch_counters()
         gc.collect()                   # an earlier model is gone: free it
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(self.dev)
@@ -1553,11 +1571,17 @@ class Smoke:
         bf16 policy on the tensor-core designs only), the peak < 80 GB."""
         records, launches = run["records"], run["launches"]
         L, n = cfg.n_layers, len(records[2:7])
-        return {
+        finite = {
             "losses_finite": all(math.isfinite(r["loss"]) for r in records),
             "grad_norms_finite": all(math.isfinite(r["grad_norm"])
                                      for r in records),
             "grads_finite": all(r["grads_finite"] for r in records),
+            "fits": run["peak"] < 80e9}
+        if cfg.mla is not None:
+            # MLA's plain attention, as in the reference: no kernel at all
+            return {**finite, "no_launches": not any(launches.values())}
+        return {
+            **finite,
             # remat: every layer's forward runs twice (forward, recompute),
             # policy bf16: on the tensor-core forward only
             "flash_fwd_launches": launches["flash_fwd_sm90"] == 2 * L * n
@@ -1567,7 +1591,6 @@ class Smoke:
                                 ("flash_bwd_delta", "flash_bwd_dq_sm90",
                                  "flash_bwd_dkv_sm90"))
             and launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == 0,
-            "fits": run["peak"] < 80e9,
         }
 
     def _decode_window(self, engine, cfg, steps: int):
@@ -2245,16 +2268,18 @@ class Smoke:
             "bound_fma_ms": max(t_fma, t_bytes),
             "flops": flops, "bytes": nbytes})
 
-    def check_decode_hymba(self, splits: int, *, bias: bool) -> dict:
-        """The decode kernel at hymba's decode shape (B=8, Hkv=5, G=5,
-        D=64, the serve run's cache of SSM_PROMPT + SSM_GEN slots, its last
-        position): a window layer's dense band bias, or a global layer's
-        lengths."""
+    def check_decode_band(self, splits: int, *, bias: bool, hkv: int = 5,
+                          g: int = 5, d: int = 64,
+                          arch: str = "hymba-1.5b") -> dict:
+        """The decode kernel at the serve_ssm run's decode shape (B=8, the
+        cache of SSM_PROMPT + SSM_GEN slots, its last position), by
+        default at hymba's heads (Hkv=5, G=5, D=64): a window layer's dense
+        band bias (window 1024), or a global layer's lengths."""
         torch = self.torch
         from repro_torch.kernels import tiling
         from repro_torch.kernels.kvq import ops, ref
         from repro_torch.models import attention
-        b, hkv, g, d = SSM_BATCH, 5, 5, 64
+        b = SSM_BATCH
         s, window = SSM_PROMPT + SSM_GEN, 1024
         pos = torch.tensor(s - 2, dtype=torch.int32, device=self.dev)
         gen = torch.Generator(device=self.dev).manual_seed(splits + 50)
@@ -2302,9 +2327,10 @@ class Smoke:
         return self.record({
             "phase": "kernel",
             "name": "flash_decode_bias" if bias else "flash_decode",
-            "ok": ok, "shape": {"B": b, "Hkv": hkv, "G": g, "D": d, "S": s,
-                                "splits": twin["splits"], "pos": s - 2,
-                                "window": window if bias else 0},
+            "ok": ok, "arch": arch,
+            "shape": {"B": b, "Hkv": hkv, "G": g, "D": d, "S": s,
+                      "splits": twin["splits"], "pos": s - 2,
+                      "window": window if bias else 0},
             **self._rate(nbytes, ms, max(t_ops, t_bytes)),
             "max_abs_err": err, "tol": tol, "counts_ok": counts_ok,
             "tiles_visited": sum(map(sum, rows)) * hkv,
@@ -3198,11 +3224,15 @@ class Smoke:
             "seconds": time.time() - t_phase})
 
     def run_serve_variants(self) -> list:
-        """``serve_variants``: glm4-9b, deepseek-moe-16b and
-        granite-moe-3b-a800m at full width and depth, one at a time (see
-        the module docstring); a profiled window of decode rounds for the
-        two MoE archs."""
-        return [self._serve_variant(arch) for arch in VARIANT_TRAIN_LAYERS]
+        """``serve_variants``: glm4-9b, deepseek-moe-16b,
+        granite-moe-3b-a800m and stablelm-12b at full width and depth, one
+        at a time (see the module docstring); a profiled window of decode
+        rounds for the two MoE archs.  minicpm3-4b, which the engine
+        refuses (MLA's latent cache), serves in ``serve_mla``."""
+        from repro_torch import configs
+        from repro_torch.serve import supports
+        return [self._serve_variant(arch) for arch in VARIANT_TRAIN_LAYERS
+                if supports(configs.get_config(arch))]
 
     def _serve_variant(self, arch: str) -> dict:
         torch = self.torch
@@ -3246,7 +3276,7 @@ class Smoke:
             "decode_profile": profile, "seconds": time.time() - t_phase})
 
     def run_train_variants(self) -> list:
-        """``train_variants``: the three archs at full width, depth cut by
+        """``train_variants``: the five archs at full width, depth cut by
         VARIANT_TRAIN_LAYERS, through :meth:`_train_steps`."""
         return [self._train_variant(arch, layers)
                 for arch, layers in VARIANT_TRAIN_LAYERS.items()]
@@ -3307,6 +3337,222 @@ class Smoke:
             "max_memory_allocated_bytes": peak, "init_s": init_s,
             "seconds": time.time() - t_phase})
 
+
+    # -- head_dim 160 and MLA ----------------------------------------------
+    def _launch_counters(self) -> dict:
+        """Every attention kernel's launch counter, by name."""
+        from repro_torch.kernels.flash import ops as flash_ops
+        from repro_torch.kernels.kvq import ops as kvq_ops
+        return {"flash_fwd": flash_ops.KERNEL,
+                "flash_fwd_sm90": flash_ops.FWD_SM90,
+                "flash_bwd_delta": flash_ops.BWD_DELTA,
+                "flash_bwd_dq": flash_ops.BWD_DQ,
+                "flash_bwd_dkv": flash_ops.BWD_DKV,
+                "flash_bwd_dq_sm90": flash_ops.BWD_DQ_SM90,
+                "flash_bwd_dkv_sm90": flash_ops.BWD_DKV_SM90,
+                "flash_decode": kvq_ops.KERNEL,
+                "flash_decode_bias": kvq_ops.BIAS_KERNEL}
+
+    def check_model_vs_cpu(self, arch: str) -> dict:
+        """``head160_model`` (stablelm-12b) / ``mla_model`` (minicpm3-4b):
+        ``arch`` cut to 2 layers at full width, policy full, card against
+        CPU from one set of weights (``bridge``): prefill logits and
+        caches (int8 K/V, or MLA's bf16 latents), 4 lockstep decode steps,
+        the loss and every gradient (remat on every block), at the
+        ``model`` line's tolerances.  Every kernel's launches are counted
+        in each of the three parts against what the path must run: at
+        head_dim 160 the FMA forward (policy full) a layer in the prefill,
+        the decode kernel a layer a step, the forward twice a layer (remat)
+        and delta / dQ / dKV (FMA) once a layer in the training step; for
+        MLA nothing, as no kernel lies on the reference's MLA path."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.core.checkpoint import CheckpointConfig
+        from repro_torch.core.mixed_precision import Policy
+        from repro_torch.models import bridge, transformer as tf
+        t_phase = time.time()
+        cfg = dataclasses.replace(configs.get_config(arch), n_layers=2)
+        L, mla = cfg.n_layers, cfg.mla is not None
+        cpu = tf.init_params(cfg, self.args.seed, device="cpu")
+        gpu = bridge.load_jax_params(cfg, bridge.export_params(cpu),
+                                     device=self.dev)
+        rng = np.random.default_rng(self.args.seed)
+        tokens, labels = (torch.from_numpy(rng.integers(
+            0, cfg.vocab, (2, 100)).astype(np.int32)) for _ in range(2))
+        pol = Policy.full()
+        kernels = self._launch_counters()
+        launches = {}
+
+        def zero():
+            for k in kernels.values():
+                k.launches = 0
+
+        def read(part):
+            launches[part] = {n: k.launches for n, k in kernels.items()}
+
+        rel = lambda a, b: float(  # noqa: E731
+            (a.detach().float().cpu() - b.detach().float()).abs().max()
+            / max(float(b.detach().float().abs().max()), 1e-30))
+        live = slice(0, cfg.vocab)
+        with torch.no_grad():
+            want, aux_c = tf.forward(cpu, cfg, {"tokens": tokens},
+                                     policy=pol, build_cache=True)
+            zero()
+            got, aux_g = tf.forward(gpu, cfg, {"tokens": tokens.to(self.dev)},
+                                    policy=pol, build_cache=True)
+            self.sync()
+            read("prefill")
+            prefill_err = rel(got[..., live], want[..., live])
+            cc, cg = aux_c["cache"], aux_g["cache"]
+            if mla:
+                # bf16 latents rounded from f32 values that differ in the
+                # summation order: equal but at a rounding tie
+                cache_err = max(rel(cg[n], cc[n])
+                                for n in ("mla_lat", "mla_rope"))
+                cache_ok = cache_err <= 1e-2 and all(
+                    cg[n].dtype == torch.bfloat16
+                    for n in ("mla_lat", "mla_rope"))
+            else:
+                cache_err = sum(int((cg[n].cpu().int() - cc[n].int()).abs()
+                                    .gt(0).sum()) for n in ("k", "v")) \
+                    / (2 * cc["k"].numel())
+                cache_ok = cache_err <= 1e-3
+            cache_c = tf.grow_cache(cc, 1024)
+            cache_g = {n: t.to(self.dev) for n, t in cache_c.items()}
+            decode_err = 0.0
+            zero()
+            for _ in range(4):          # lockstep: one 0-d position
+                toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2,))
+                                        .astype(np.int32))
+                lw, cache_c = tf.decode_step(cpu, cfg, cache_c, toks,
+                                             policy=pol)
+                lg, cache_g = tf.decode_step(gpu, cfg, cache_g,
+                                             toks.to(self.dev), policy=pol,
+                                             kvq_splits=2)
+                decode_err = max(decode_err, rel(lg[:, live], lw[:, live]))
+            self.sync()
+            read("decode")
+        losses = {}
+        for name, model, dev in (("cpu", cpu, "cpu"), ("card", gpu, self.dev)):
+            model.requires_grad_()
+            zero()
+            loss, _ = tf.loss_fn(model, cfg, {"tokens": tokens.to(dev),
+                                              "labels": labels.to(dev)},
+                                 policy=pol, remat=CheckpointConfig())
+            loss.backward()
+            losses[name] = float(loss.detach())
+        self.sync()
+        read("train")
+        loss_err = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+        grads_c = dict(cpu.named_parameters())
+        grad_err = max(rel(p.grad, grads_c[n].grad)
+                       for n, p in gpu.named_parameters())
+        zeros = {n: 0 for n in kernels}
+        want_launches = {
+            "prefill": {**zeros, "flash_fwd": 0 if mla else L},
+            "decode": {**zeros, "flash_decode": 0 if mla else 4 * L},
+            "train": zeros if mla else {
+                **zeros, "flash_fwd": 2 * L, "flash_bwd_delta": L,
+                "flash_bwd_dq": L, "flash_bwd_dkv": L}}
+        checks = {"prefill": prefill_err <= 1e-4, "cache": cache_ok,
+                  "decode": decode_err <= 1e-3, "loss": loss_err <= 1e-5,
+                  "grads": grad_err <= 1e-3,
+                  "launches": launches == want_launches}
+        if not mla:                 # the FMA routes' main path at D = 160
+            self.head160_model_launches = {
+                n: sum(part[n] for part in launches.values())
+                for n in kernels}
+        del cpu, gpu
+        gc.collect()
+        torch.cuda.empty_cache()
+        return self.record({
+            "phase": "mla_model" if mla else "head160_model", "arch": arch,
+            "ok": all(checks.values()), "checks": checks,
+            "cfg": {"n_layers": L, "d_model": cfg.d_model,
+                    "n_heads": cfg.n_heads, "n_kv": cfg.n_kv,
+                    "head_dim": cfg.head_dim, "vocab": cfg.vocab,
+                    "mla": dataclasses.asdict(cfg.mla) if mla else None,
+                    "prompt": [2, 100]},
+            "prefill_logits_rel_err": prefill_err, "prefill_tol": 1e-4,
+            ("latent_cache_rel_err" if mla
+             else "int8_cache_off_by_one_frac"): cache_err,
+            "cache_tol": 1e-2 if mla else 1e-3,
+            "decode_logits_rel_err": decode_err, "decode_tol": 1e-3,
+            "loss": losses, "loss_rel_err": loss_err, "loss_tol": 1e-5,
+            "grad_rel_err_max": grad_err, "grad_tol": 1e-3,
+            "kernel_launches": launches, "expected_launches": want_launches,
+            "seconds": time.time() - t_phase})
+
+    def run_serve_mla(self) -> dict:
+        """``serve_mla``: ``launch/serve.py``'s lockstep for minicpm3-4b at
+        full width and depth, as ``python -m repro_torch.launch.serve
+        --arch minicpm3-4b --batch 8 --prompt-len 2048 --gen 32`` runs it
+        (random bf16 weights from ``--seed``, bf16 latent cache): a one-step
+        warm-up run, then the measured run with every kernel counter zeroed
+        just before it and read just after (all 0: MLA runs the plain
+        attention, as the reference does), then a profile of its prefill
+        and first 4 decode steps.  The prefill's one-shot attention holds
+        f32 scores of B x H x S^2 (5.4 GB at 8 x 40 x 2048^2) a layer while
+        it runs, as the reference's does: the peak says so."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.launch import serve
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_phase = time.time()
+        argv = ["--arch", MLA_ARCH, "--batch", str(MLA_BATCH),
+                "--prompt-len", str(MLA_PROMPT), "--gen", str(MLA_GEN),
+                "--policy", "bf16", "--seed", str(self.args.seed)]
+        args = serve.build_parser().parse_args(argv)
+        cfg = configs.get_config(MLA_ARCH)
+        t0 = time.time()
+        model = serve.build_model(args, cfg, self.dev)
+        self.sync()
+        init_s = time.time() - t0
+        t0 = time.time()
+        serve.lockstep(argparse.Namespace(**{**vars(args), "gen": 2}), cfg,
+                       model, self.dev)
+        warmup_s = time.time() - t0
+        kernels = self._launch_counters()
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        for k in kernels.values():
+            k.launches = 0
+        r = serve.lockstep(args, cfg, model, self.dev)
+        launches = {n: k.launches for n, k in kernels.items()}
+        peak = torch.cuda.max_memory_allocated(self.dev)
+        steps, toks = MLA_GEN - 1, r["tokens"]
+        checks = {"no_launches": not any(launches.values()),
+                  "tokens_shape": toks.shape == (MLA_BATCH, MLA_GEN),
+                  "tokens_in_vocab": bool(((toks >= 0)
+                                           & (toks < cfg.vocab)).all()),
+                  "fits": peak < 80e9}
+        prof = self._profile_lockstep(args, cfg, model, steps=4)
+        busy = prof["prefill"]["device_busy_s"] + prof["decode"][
+            "device_busy_s"] / prof["decode"]["steps"] * steps
+        wall = r["prefill_s"] + r["decode_s"]
+        n_params = sum(p.numel() for p in model.parameters())
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        return self.record({
+            "phase": "serve_mla", "arch": MLA_ARCH,
+            "ok": all(checks.values()), "checks": checks,
+            "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "n_heads": cfg.n_heads, "params": n_params,
+            "mla": dataclasses.asdict(cfg.mla),
+            "batch": MLA_BATCH, "prompt": MLA_PROMPT, "gen": MLA_GEN,
+            "policy": "bf16", "cache": "bf16 latents",
+            "prefill_ms": r["prefill_s"] * 1e3,
+            "decode_ms_per_token": r["decode_s"] / steps * 1e3,
+            "decode_tokens_per_s": MLA_BATCH * steps / r["decode_s"],
+            "max_memory_allocated_bytes": peak,
+            "one_shot_f32_scores_bytes_per_layer":
+                MLA_BATCH * cfg.n_heads * MLA_PROMPT ** 2 * 4,
+            "init_s": init_s, "warmup_s": warmup_s,
+            "kernel_launches": launches, "sample": toks[0][:8].tolist(),
+            "idle_share_run": 1 - busy / wall, "profile": prof,
+            "seconds": time.time() - t_phase})
 
 def nvidia_smi() -> str:
     out = subprocess.run(
@@ -3410,8 +3656,8 @@ def main(argv=None) -> int:
            smoke.check_ssd(192, 1, 128, 128, 64, 24)]     # a single chunk
     # the FMA route (head_p 16, on no main path) at mamba2's serve shape
     ssd_fma = [smoke.check_ssd(192, 16, 128, 128, 16, 24)]
-    dbias = [smoke.check_decode_hymba(sp, bias=True) for sp in (1, 4)]
-    decode.append(smoke.check_decode_hymba(1, bias=False))  # G = 5
+    dbias = [smoke.check_decode_band(sp, bias=True) for sp in (1, 4)]
+    decode.append(smoke.check_decode_band(1, bias=False))  # G = 5
     decode.append(smoke.check_decode_group(6, 64, 2))
     smoke.check_ssm_model()
     smoke.run_serve_ssm()
@@ -3433,6 +3679,8 @@ def main(argv=None) -> int:
     t0 = time.time()
     flash_var = []
     for arch in VARIANT_TRAIN_LAYERS:
+        if arch in (HEAD160, MLA_ARCH):       # head160_kernels; no kernel
+            continue
         cfg = configs.get_config(arch)
         heads = dict(h=cfg.n_heads, hkv=cfg.n_kv, d=cfg.head_dim, arch=arch)
         flash_var.append(smoke.check_flash(TRAIN_SEQ, bf16, **heads))
@@ -3444,6 +3692,28 @@ def main(argv=None) -> int:
     smoke.check_moe_model()
     smoke.run_serve_variants()
     smoke.run_train_variants()
+    # head_dim 160 at stablelm-12b's heads (32 / 8, G = 4): the forward and
+    # the backward (bf16, the tensor-core designs) at the train shape and
+    # ragged, the FMA designs (f32, and bf16 residuals) at S = 1024, the
+    # decode kernel's two entry points; then the two new archs
+    t0 = time.time()
+    h160 = dict(h=32, hkv=8, d=160, arch=HEAD160)
+    flash160 = [smoke.check_flash(TRAIN_SEQ, bf16, **h160),
+                smoke.check_flash(100, bf16, **h160)]
+    flash160_fma = [smoke.check_flash(1024, f32, **h160),
+                    smoke.check_flash(300, f32, window=100, **h160)]
+    bwd160 = [smoke.check_flash_bwd(TRAIN_SEQ, bf16, bf16, **h160),
+              smoke.check_flash_bwd(1000, bf16, bf16, kv_len=777, **h160),
+              smoke.check_flash_bwd(1024, f32, f32, **h160),
+              smoke.check_flash_bwd(1024, bf16, f32, **h160)]
+    decode160 = [smoke.check_decode(sp, hkv=8, g=4, d=160, arch=HEAD160)
+                 for sp in (4, 1)]
+    dbias160 = [smoke.check_decode_band(sp, bias=True, hkv=8, g=4, d=160,
+                                        arch=HEAD160) for sp in (4, 1)]
+    smoke.record({"phase": "head160_kernels", "seconds": time.time() - t0})
+    smoke.check_model_vs_cpu(HEAD160)
+    smoke.check_model_vs_cpu(MLA_ARCH)
+    smoke.run_serve_mla()
     smoke.sync()
 
     def summary_row(name, rows, main, route_src, tpu, launches=None):
@@ -3489,6 +3759,33 @@ def main(argv=None) -> int:
                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
                 "library_ms": None}
 
+    def row160(name, rows, src, tpu, part=None):
+        """A kernel at head_dim 160: its time at the first line's shape,
+        its launches on stablelm-12b's main path (the FMA designs': in
+        head160_model, policy full; the others': in train_variants'
+        5 timed steps, the decode's in serve_variants)."""
+        main = rows[0]
+        pick = (lambda r, k: r[k]) if part is None else \
+            (lambda r, k: r[k][part])
+        fma = name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+        runs = smoke.variant_launches.get(HEAD160, {})
+        launches = (smoke.head160_model_launches if fma else
+                    runs.get("serve" if "decode" in name else "train", {})
+                    ).get(name, 0)
+        errs = [r["max_abs_err"] if part is None else
+                max(r["max_abs_err"][g] for g in
+                    (("dk", "dv") if part == "dkv" else (part,)))
+                for r in rows]
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": tpu, "head_dim": 160, "arch": HEAD160,
+                "launches": launches, "max_abs_err": max(errs),
+                "ms": pick(main, "kernel_ms"),
+                "plain_ms": pick(main, "plain_ms"),
+                "bound_ms": pick(main, "bound_ms"),
+                "bound_by": pick(main, "bound_by"),
+                "library_ms": None if part == "delta"
+                else main["library_ms"]}
+
     def ssm_row(name, rows, route_src, tpu, launches=None):
         main = rows[0]                      # the serve / train shape
         return {"name": name, "route": "cuda", "source": route_src,
@@ -3526,7 +3823,20 @@ def main(argv=None) -> int:
         ssm_row("ssd_chunk_bwd_sm90", ssd_bwd, SSD_BWD_SM90_SRC, SSD_REF_JAX,
                 smoke.train_ssm_launches),
         ssm_row("ssd_chunk_bwd", ssd_bwd_fma, SSD_BWD_SRC, SSD_REF_JAX,
-                smoke.train_ssm_launches)]}
+                smoke.train_ssm_launches),
+        # head_dim 160 (stablelm-12b), each design at its own instantiation
+        row160("flash_fwd_sm90", flash160, FLASH_SM90_SRC, FLASH_TPU),
+        row160("flash_fwd", flash160_fma, FLASH_SRC, FLASH_TPU),
+        row160("flash_bwd_delta", bwd160, BWD_SRC, BWD_TPU["delta"],
+               "delta"),
+        row160("flash_bwd_dq_sm90", bwd160[:2], BWD_SM90_SRC, BWD_TPU["dq"],
+               "dq"),
+        row160("flash_bwd_dkv_sm90", bwd160[:2], BWD_SM90_SRC,
+               BWD_TPU["dkv"], "dkv"),
+        row160("flash_bwd_dq", bwd160[2:], BWD_SRC, BWD_TPU["dq"], "dq"),
+        row160("flash_bwd_dkv", bwd160[2:], BWD_SRC, BWD_TPU["dkv"], "dkv"),
+        row160("flash_decode", decode160, DECODE_SRC, DECODE_TPU),
+        row160("flash_decode_bias", dbias160, DECODE_SRC, DECODE_TPU)]}
     # the launches of train_ssm's 5 timed steps (both archs) beside, and
     # those of serve_variants and train_variants' 5 timed steps, by arch
     for row in kernels["kernels"]:

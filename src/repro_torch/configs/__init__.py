@@ -9,15 +9,14 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
-from repro_torch.models.config import ModelConfig, SSMConfig
+from repro_torch.models.config import MLAConfig, ModelConfig, SSMConfig
 
 ARCHS = ["llama3_8b", "mamba2_130m", "hymba_1_5b", "glm4_9b",
-         "deepseek_moe_16b", "granite_moe_3b_a800m"]
+         "deepseek_moe_16b", "granite_moe_3b_a800m", "stablelm_12b",
+         "minicpm3_4b"]
 
 #: architectures of the reference not yet ported -> the slice that brings them
 PENDING = {
-    "stablelm-12b": "slice F (head dims: head_dim 160)",
-    "minicpm3-4b": "slice F (head dims: MLA, q / k 96, v 64)",
     "whisper-base": "slice F (encoder)",
     "qwen2-vl-2b": "slice F (M-RoPE)",
 }
@@ -57,6 +56,10 @@ def smoke_config(arch_id: str) -> ModelConfig:
             cfg.moe, num_experts=8, top_k=2, d_expert=32,
             d_shared=64 if cfg.moe.num_shared else 0)
         kw["d_ff"] = 0
+    if cfg.mla is not None:
+        kw["mla"] = MLAConfig(q_lora_rank=32, kv_lora_rank=16, qk_nope_dim=8,
+                              qk_rope_dim=8, v_head_dim=8)
+        kw["head_dim"] = 16
     if cfg.ssm is not None:
         kw["ssm"] = SSMConfig(d_state=16, d_inner=64, head_p=16, chunk=32)
     return dataclasses.replace(cfg, **kw)

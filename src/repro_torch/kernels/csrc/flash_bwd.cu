@@ -33,15 +33,16 @@
 // score tile and a 4 x D/16 accumulator tile, as in flash_fwd.cu.  K^T,
 // V^T, Q^T and dO^T are stored transposed with a stride of 64 + 1, which
 // keeps both of their uses (score products and accumulation) free of bank
-// conflicts.  The staging takes up to 166 KB, so the kernels opt in to
-// more than 48 KB of dynamic shared memory.
+// conflicts.  The staging takes up to 166 KB at head_dim 128 (178 KB for
+// dQ and 195 KB for dKV at 160), so the kernels opt in to more than 48 KB
+// of dynamic shared memory.
 //
 // Which combinations run here (kernels/flash/ops.py bwd_route): delta
 // takes every supported one.  dQ and dKV take f32 and bf16 residuals under
-// f32 compute at head_dim 16 / 64 / 128 -- they are held to 1e-4 of the
+// f32 compute at head_dim 16 / 64 / 128 / 160 -- they are held to 1e-4 of the
 // f32 plain version, which bf16 tensor-core products cannot meet -- and
 // the all-bf16 combination at head_dim 16 only.  The all-bf16 combination
-// at head_dim 64 / 128 is flash_bwd_sm90.cu's (wgmma on TMA-fed rings);
+// at head_dim 64 / 128 / 160 is flash_bwd_sm90.cu's (wgmma on TMA-fed rings);
 // these entry points return cudaErrorInvalidValue for it.
 //
 // Ragged S: q rows at or past S load as zeros, are masked out of P and
@@ -480,7 +481,7 @@ cudaError_t launch_dkv(const Args& a) {
 // dtype codes: 0 = float32, 1 = bfloat16.  The (residual, dO, gradient)
 // combinations the policies produce: f32 (0,0,0), bf16 (1,1,1), and
 // bf16-saved residuals under f32 compute (1,0,0).  dQ / dKV take bf16
-// (1,1,1) at head_dim 16 only: at 64 and 128 it goes to
+// (1,1,1) at head_dim 16 only: at 64, 128 and 160 it goes to
 // flash_bwd_sm90.cu (kernels/flash/ops.py bwd_route).
 template <bool DKV, typename TR, typename TG, typename TO, int D>
 cudaError_t launch(const Args& a) {
@@ -492,13 +493,14 @@ cudaError_t launch(const Args& a) {
 
 template <bool DKV, typename TR, typename TG, typename TO>
 cudaError_t by_dim(const Args& a, int D) {
+  if (D == 160) return launch<DKV, TR, TG, TO, 160>(a);
   if (D == 128) return launch<DKV, TR, TG, TO, 128>(a);
   if (D == 64) return launch<DKV, TR, TG, TO, 64>(a);
   if (D == 16) return launch<DKV, TR, TG, TO, 16>(a);  // smoke configs
   return cudaErrorInvalidValue;
 }
 
-// The all-bf16 combination at head_dim 64 / 128 is flash_bwd_sm90.cu's;
+// The all-bf16 combination at head_dim 64 / 128 / 160 is flash_bwd_sm90.cu's;
 // here it is taken at head_dim 16 only (the smoke configurations).
 template <bool DKV>
 cudaError_t dispatch(const Args& a, int D, int rdt, int gdt, int odt) {

@@ -1,7 +1,7 @@
 // Causal / windowed GQA flash-attention backward on Hopper's tensor cores
 // (sm_90a): the dQ and dKV kernels for bf16 residuals, bf16 dO and bf16
-// gradients at head_dim 64 and 128, the combination of the bf16 training
-// policy.  kernels/flash/ops.py routes exactly that combination here
+// gradients at head_dim 64, 128 and 160, the combination of the bf16
+// training policy.  kernels/flash/ops.py routes exactly that combination here
 // (ops.bwd_route); every other one stays on flash_bwd.cu's FMA kernels,
 // which also keep the delta pre-pass.
 //
@@ -45,7 +45,17 @@
 //     (the transpose bit);
 //   * bf16 staging (~97 KB of shared memory at D = 128) lets two blocks
 //     share an SM, so one block's exponentials and waits overlap the
-//     other's products.
+//     other's products;
+//   * at D = 160 a tile is three panels (192 columns, the last 32 TMA's
+//     zeros past the tensor's edge): the K-major products take 10 k16
+//     steps, the MN-major ones are m64n160 products over the panels'
+//     first 160 columns, and ~145 KB (dQ) or ~161 KB (dKV) of staging
+//     leaves one block an SM.  dKV's two 64 x 160 f32 accumulators do not
+//     fit one warpgroup's registers beside S and dP, so at D = 160 it runs
+//     two consumer warpgroups (dkv_kernel_2wg): the first computes P^T
+//     and dV, the second dP^T, dS^T and dK, and P^T passes between them
+//     through shared memory in f32 (so dS^T rounds as it does in one
+//     warpgroup), behind a named barrier.
 //
 // Ragged S: the tensor maps are 3-D (D, S, heads), so rows past S load as
 // zeros within their own head; such rows are masked out of P and never
@@ -102,14 +112,32 @@ __device__ __forceinline__ void row_stats(const float* m, const float* l,
 
 // Blocks an SM must hold: as many as the shared memory allows, which caps
 // the registers (65,536 an SM) at 128 / 170 a thread for D = 64 and 255
-// for D = 128.
+// for D = 128; at D = 160 dQ's staging leaves one block an SM (dKV runs
+// dkv_kernel_2wg).
 template <int D>
 __host__ __device__ constexpr int dq_blocks_per_sm() {
-  return D == 64 ? 4 : 2;
+  return D == 64 ? 4 : D == 128 ? 2 : 1;
 }
 template <int D>
 __host__ __device__ constexpr int dkv_blocks_per_sm() {
   return D == 64 ? 3 : 2;
+}
+
+// dkv_kernel_2wg: two warpgroups; K, V; (Q, dO) ring; P^T in f32, one
+// 32-float fragment a thread of the first warpgroup
+constexpr int NT2 = 2 * NT;
+template <int D>
+__host__ __device__ constexpr int dkv2_smem_bytes() {
+  return dkv_smem_bytes<D>() + 32 * NT * 4;
+}
+
+// Named barrier 1 over both warpgroups: the first arrives once P^T is in
+// shared memory, the second waits for it.
+__device__ __forceinline__ void p_ready_arrive() {
+  asm volatile("bar.arrive 1, %0;\n" ::"n"(NT2) : "memory");
+}
+__device__ __forceinline__ void p_ready_wait() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NT2) : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -413,6 +441,173 @@ dkv_kernel(const __grid_constant__ CUtensorMap mq,
 }
 
 // ---------------------------------------------------------------------------
+// dK, dV at D = 160: dkv_kernel's work over two warpgroups.  Warpgroup 0
+// computes S^T = K Q^T, P^T (into shared memory) and dV += P^T dO;
+// warpgroup 1 computes dP^T = V dO^T, dS^T = P^T (dP^T - delta) and
+// dK += dS^T Q.  Each keeps one 64 x D accumulator.
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(NT2, 1)
+dkv_kernel_2wg(const __grid_constant__ CUtensorMap mq,
+               const __grid_constant__ CUtensorMap mk,
+               const __grid_constant__ CUtensorMap mv,
+               const __grid_constant__ CUtensorMap mdo,
+               const float* __restrict__ m, const float* __restrict__ l,
+               const float* __restrict__ delta, bf16* __restrict__ dk,
+               bf16* __restrict__ dv, int* __restrict__ counts, int S,
+               int group, int causal, int window, int kv_len,
+               float sm_scale) {
+  constexpr int TILE = tile_bytes<D>();
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_kv;
+  __shared__ __align__(8) uint64_t full[STAGES];
+  __shared__ __align__(16) float lse_s[BQ];
+  __shared__ __align__(16) float dl_s[BQ];
+  uint8_t* Ks = align_1024(smem_raw);
+  uint8_t* Vs = Ks + TILE;
+  uint8_t* ring = Vs + TILE;
+  float* Ps = reinterpret_cast<float*>(ring + STAGES * 2 * TILE);
+
+  const int n_q = (S + BQ - 1) / BQ;
+  const int n_k = (S + BK - 1) / BK;
+  const int bhkv = blockIdx.x;
+  const int kt = blockIdx.y;
+  const int tid = threadIdx.x, wg = tid / NT, t = tid % NT;
+  const int warp = t / 32, lane = t % 32;
+  const int r0 = 16 * warp + lane / 4;  // KV rows r0, r0 + 8
+  const int c0 = 2 * (lane % 4);        // q columns 8 j + c0 (+1)
+
+  const bool tile_live = kt * BK < kv_len;
+  int lo, hi;
+  q_bounds(kt, n_q, causal, window, kv_len, &lo, &hi);
+  const int n_qt = hi - lo + 1;
+  const int n_t = tile_live ? group * n_qt : 0;
+
+  if (tid == 0) {
+    mbar_init(&bar_kv, 1);
+    for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0 && n_t > 0) {
+    mbar_expect_tx(&bar_kv, 2 * TILE);
+    tma_load_tile<D>(Ks, &mk, &bar_kv, kt * BK, bhkv);
+    tma_load_tile<D>(Vs, &mv, &bar_kv, kt * BK, bhkv);
+    for (int j = 0; j < STAGES && j < n_t; ++j)
+      ring_load<D>(ring, full, &mq, &mdo, j, (lo + j % n_qt) * BQ,
+                   bhkv * group + j / n_qt);
+  }
+  float next_lse2 = 0.f, next_dlt = 0.f;
+  if (tid < BQ && n_t > 0)
+    row_stats(m, l, delta, bhkv * group, lo * BQ + tid, S, &next_lse2,
+              &next_dlt);
+  const float scale2 = sm_scale * LOG2E;
+  // warpgroup 0 multiplies K, warpgroup 1 V, against the stage's Q / dO
+  const uint32_t kv_addr = smem_addr(wg == 0 ? Ks : Vs);
+
+  float acc[D / 2], s[32];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+
+  if (n_t > 0) mbar_wait(&bar_kv, 0);
+  for (int j = 0; j < n_t; ++j) {
+    const int st = j % STAGES;
+    const int qt = lo + j % n_qt;
+    const uint32_t q_addr = smem_addr(ring + st * 2 * TILE);
+    const uint32_t do_addr = q_addr + TILE;
+    if (tid < BQ) {
+      lse_s[tid] = next_lse2;
+      dl_s[tid] = next_dlt;
+      const int jn = j + 1;
+      if (jn < n_t)
+        row_stats(m, l, delta, bhkv * group + jn / n_qt,
+                  (lo + jn % n_qt) * BQ + tid, S, &next_lse2, &next_dlt);
+    }
+    mbar_wait(&full[st], (j / STAGES) & 1);
+
+    // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (warpgroup 1)
+    const uint32_t b_addr = wg == 0 ? q_addr : do_addr;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k)
+      wgmma_ss_m64n64(s, desc_kmajor(kv_addr, k), desc_kmajor(b_addr, k),
+                      k > 0);
+    wgmma_commit();
+    __syncthreads();  // lse_s and dl_s of this step are in
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    if (wg == 0) {
+      const bool full_tile = tile_full(qt, kt, S, causal, window, kv_len);
+#pragma unroll
+      for (int jn = 0; jn < 8; ++jn) {
+        const int c = 8 * jn + c0;
+        const float2 lse = *reinterpret_cast<const float2*>(lse_s + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * jn + e;
+          float p = exp2f(s[i] * scale2 - (e % 2 ? lse.y : lse.x));
+          if (!full_tile && !live(qt * BQ + c + (e % 2),
+                                  kt * BK + r0 + 8 * (e / 2), S, causal,
+                                  window, kv_len))
+            p = 0.f;
+          s[i] = p;
+          Ps[i * NT + t] = p;
+        }
+      }
+      p_ready_arrive();
+    } else {
+      p_ready_wait();
+#pragma unroll
+      for (int jn = 0; jn < 8; ++jn) {
+        const float2 dl =
+            *reinterpret_cast<const float2*>(dl_s + 8 * jn + c0);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * jn + e;
+          s[i] = Ps[i * NT + t] * (s[i] - (e % 2 ? dl.y : dl.x));
+        }
+      }
+    }
+
+    // dV += P^T dO (warpgroup 0) or dK += dS^T Q (warpgroup 1): A from
+    // registers, B the stage's dO or Q tile read MN-major
+    uint32_t a[4][4];
+    acc_to_a(s, a);
+    const uint32_t mn_addr = wg == 0 ? do_addr : q_addr;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      wgmma_rs_tb<D>(acc, a[k], desc_mnmajor(mn_addr, k), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    __syncthreads();  // both warpgroups are done with this stage and Ps
+    const int jn = j + STAGES;
+    if (tid == 0 && jn < n_t)
+      ring_load<D>(ring, full, &mq, &mdo, jn, (lo + jn % n_qt) * BQ,
+                   bhkv * group + jn / n_qt);
+  }
+
+  bf16* out = wg == 0 ? dv : dk;
+  const float scale = wg == 0 ? 1.f : sm_scale;
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int row = kt * BK + r0 + 8 * ((i % 4) / 2);
+    if (row < S)
+      store_pair(out + ((size_t)bhkv * S + row) * D + 8 * (i / 4) + c0,
+                 acc[i] * scale, acc[i + 1] * scale);
+  }
+  if (counts != nullptr && tid == 0)
+    counts[(size_t)bhkv * n_k + kt] = n_t;
+}
+
+// ---------------------------------------------------------------------------
 // Launchers: tensor maps built on the host for every call (they hold the
 // base pointers), passed by value as __grid_constant__ parameters.
 // ---------------------------------------------------------------------------
@@ -441,6 +636,15 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// The dKV kernel of head dim D (only the chosen one is instantiated).
+template <int D>
+auto dkv_kernel_of() {
+  if constexpr (D == 160)
+    return dkv_kernel_2wg<D>;
+  else
+    return dkv_kernel<D>;
+}
+
 template <int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* m, const float* l,
@@ -453,13 +657,14 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
       !map_bf16_tiles(&mv, v, D, S, bhkv) ||
       !map_bf16_tiles(&mdo, dout, D, S, bh))
     return cudaErrorNotSupported;
-  constexpr int smem = dkv_smem_bytes<D>();
-  auto kern = dkv_kernel<D>;
+  constexpr bool two = D == 160;  // two warpgroups (dkv_kernel_2wg)
+  constexpr int smem = two ? dkv2_smem_bytes<D>() : dkv_smem_bytes<D>();
+  auto kern = dkv_kernel_of<D>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(bhkv, (S + BK - 1) / BK);
-  kern<<<grid, NT, smem, stream>>>(mq, mk, mv, mdo, m, l, delta,
+  kern<<<grid, two ? NT2 : NT, smem, stream>>>(mq, mk, mv, mdo, m, l, delta,
                                    static_cast<bf16*>(dk),
                                    static_cast<bf16*>(dv), counts, S,
                                    bh / bhkv, causal, window, kv_len,
@@ -467,13 +672,13 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// Only (bf16, bf16, bf16) at D 64 or 128, the shapes flash_bwd.cu takes,
-// and 16-byte aligned TMA operands and outputs.
-bool bad_args(int bh, int bhkv, int S, int D, int rdt, int gdt, int odt,
+// Only (bf16, bf16, bf16), and 16-byte aligned TMA operands and outputs;
+// the head dim is checked by the dispatch.
+bool bad_args(int bh, int bhkv, int S, int rdt, int gdt, int odt,
               int kv_len, std::initializer_list<const void*> ptrs) {
   if (bhkv <= 0 || bh % bhkv != 0 || S < 1 || kv_len < 0 || kv_len > S)
     return true;
-  if (rdt != 1 || gdt != 1 || odt != 1 || (D != 64 && D != 128)) return true;
+  if (rdt != 1 || gdt != 1 || odt != 1) return true;
   for (const void* p : ptrs)
     if (!aligned(p)) return true;
   return false;
@@ -492,18 +697,21 @@ extern "C" int flash_bwd_dq_sm90(const void* q, const void* k, const void* v,
                                  int rdt, int gdt, int odt, int causal,
                                  int window, int kv_len, float sm_scale,
                                  void* stream) {
-  if (bad_args(bh, bhkv, S, D, rdt, gdt, odt, kv_len,
-               {q, k, v, dout, dq}))
+  if (bad_args(bh, bhkv, S, rdt, gdt, odt, kv_len, {q, k, v, dout, dq}))
     return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
-  if (D == 128)
-    return (int)launch_dq<128>(q, k, v, dout, f(m), f(l), f(delta), dq,
-                               static_cast<int*>(counts), bh, bhkv, S, causal,
-                               window, kv_len, sm_scale, st);
-  return (int)launch_dq<64>(q, k, v, dout, f(m), f(l), f(delta), dq,
-                            static_cast<int*>(counts), bh, bhkv, S, causal,
-                            window, kv_len, sm_scale, st);
+  auto run = [&](auto launch) {
+    return (int)launch(q, k, v, dout, f(m), f(l), f(delta), dq,
+                       static_cast<int*>(counts), bh, bhkv, S, causal, window,
+                       kv_len, sm_scale, st);
+  };
+  switch (D) {  // every head dim by name: no other D reaches a kernel
+    case 64: return run(launch_dq<64>);
+    case 128: return run(launch_dq<128>);
+    case 160: return run(launch_dq<160>);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int flash_bwd_dkv_sm90(const void* q, const void* k, const void* v,
@@ -513,16 +721,19 @@ extern "C" int flash_bwd_dkv_sm90(const void* q, const void* k, const void* v,
                                   int S, int D, int rdt, int gdt, int odt,
                                   int causal, int window, int kv_len,
                                   float sm_scale, void* stream) {
-  if (bad_args(bh, bhkv, S, D, rdt, gdt, odt, kv_len,
-               {q, k, v, dout, dk, dv}))
+  if (bad_args(bh, bhkv, S, rdt, gdt, odt, kv_len, {q, k, v, dout, dk, dv}))
     return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
-  if (D == 128)
-    return (int)launch_dkv<128>(q, k, v, dout, f(m), f(l), f(delta), dk, dv,
-                                static_cast<int*>(counts), bh, bhkv, S,
-                                causal, window, kv_len, sm_scale, st);
-  return (int)launch_dkv<64>(q, k, v, dout, f(m), f(l), f(delta), dk, dv,
-                             static_cast<int*>(counts), bh, bhkv, S, causal,
-                             window, kv_len, sm_scale, st);
+  auto run = [&](auto launch) {
+    return (int)launch(q, k, v, dout, f(m), f(l), f(delta), dk, dv,
+                       static_cast<int*>(counts), bh, bhkv, S, causal, window,
+                       kv_len, sm_scale, st);
+  };
+  switch (D) {  // every head dim by name: no other D reaches a kernel
+    case 64: return run(launch_dkv<64>);
+    case 128: return run(launch_dkv<128>);
+    case 160: return run(launch_dkv<160>);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -38,7 +38,8 @@
 //  * Memory-level parallelism.  The span is cut into 32-token blocks (the
 //    kernel's own size, crossing bs tiles freely) and every warp owns a
 //    contiguous run of them (tiling.decode_warp_blocks), streamed through
-//    its own shared-memory ring (3 stages at D = 64, 2 at D = 128): lane 0
+//    its own shared-memory ring (3 stages at D = 64, 2 at D = 128 and
+//    160): lane 0
 //    issues one 1-D bulk copy of the block's live K rows and one of its V
 //    rows on the stage's mbarrier, and refills a stage as soon as the warp
 //    has read it.  Every warp's first block is requested before any warp's
@@ -53,11 +54,13 @@
 //    through shared memory; each CTA then stores its state into rank 0 of
 //    the cluster with st.async, counted on one mbarrier there, and rank 0
 //    merges the CTAs in rank order and writes the output.
-//  * Scores: K rows are read 16 bytes a lane (D / 16 lanes a row), each
-//    lane's partial dot products over D / 16 steps are reduce-scattered
-//    across the row's lanes, so each lane ends with the full scores of one
-//    token for all GH heads.  Values: 8 bytes a lane, p read back from a
-//    per-warp buffer as float4 broadcasts.
+//  * Scores: K rows are read 16 bytes a lane (D / 16 lanes a row; at
+//    D = 160, 20 bytes a lane, 8 lanes a row, so a row's lanes stay a power
+//    of two), each lane's partial dot products over the 32 / KR steps are
+//    reduce-scattered across the row's lanes, so each lane ends with the
+//    full scores of one token for all GH heads.  Values: 8 bytes a lane
+//    (10 at D = 160, 16 lanes a row), p read back from a per-warp buffer
+//    as float4 broadcasts.
 //  * int8 -> f32 without I2F (a quarter-rate instruction): the biased byte
 //    is permuted into the mantissa of 2^23 and one FADD removes 2^23 + 128.
 //  * One copy of the loop body (about 1,340 instructions at GH = 5,
@@ -105,7 +108,7 @@ struct Args {
 // Shared memory of one CTA, in bytes.
 template <int GH, int D>
 struct Smem {
-  static constexpr int NS = D == 128 ? 2 : 3;  // ring stages a warp
+  static constexpr int NS = D == 64 ? 3 : 2;   // ring stages a warp
   static constexpr int SLOT = 2 * TB * D;      // a stage: K rows, V rows
   static constexpr int ST = GH * D + 2 * GH;   // a state: acc, m, l floats
   static constexpr int STS = (ST + 3) / 4 * 4;  // its slot, 16-byte aligned
@@ -139,10 +142,12 @@ template <int GH, int D>
 __global__ void __launch_bounds__(NT, 2) decode_kernel(const Args a) {
   using L = Smem<GH, D>;
   constexpr int NS = L::NS, SLOT = L::SLOT, ST = L::ST;
-  constexpr int KL = D / 16, KR = 32 / KL;  // K: lanes a row, rows a step
+  static_assert(D == 64 || D == 128 || D == 160, "D is 64, 128 or 160");
+  // K: lanes a row, bytes a lane, rows a step; V likewise.  A row's lanes
+  // are a power of two (the reduce-scatter and the row sums step by xor).
+  constexpr int KL = D == 64 ? 4 : 8, KB = D / KL, KR = 32 / KL;
   constexpr int LOG_KL = KL == 8 ? 3 : 2;
-  static_assert(KL == 4 || KL == 8, "D is 64 or 128");
-  constexpr int VL = D / 8, VR = 32 / VL;   // V: lanes a row, rows a step
+  constexpr int VL = D == 64 ? 8 : 16, VB = D / VL, VR = 32 / VL;
   extern __shared__ __align__(128) uint8_t smem[];
   uint64_t* cbar = reinterpret_cast<uint64_t*>(smem + L::CBAR);
   float* slots = reinterpret_cast<float*>(smem + L::SLOTS);
@@ -220,22 +225,22 @@ __global__ void __launch_bounds__(NT, 2) decode_kernel(const Args a) {
   scales(0, sk, sv, sb);
   if (lane == 0)
     for (int i = 1; i < min(NS, nb); ++i) issue(i);
-  float m[GH], l[GH], acc[GH][8];
+  float m[GH], l[GH], acc[GH][VB];
 #pragma unroll
   for (int g = 0; g < GH; ++g) {
     m[g] = NEG_INF;
     l[g] = 0.f;
 #pragma unroll
-    for (int x = 0; x < 8; ++x) acc[g][x] = 0.f;
+    for (int x = 0; x < VB; ++x) acc[g][x] = 0.f;
   }
   if (nb > 0) sm90::mbar_wait(&bar[0], 0);
-  float qr[GH][16];  // my 16-dim slice of every head's query
+  float qr[GH][KB];  // my KB-dim slice of every head's query
 #pragma unroll
   for (int g = 0; g < GH; ++g)
 #pragma unroll
-    for (int x = 0; x < 16; x += 4) {
+    for (int x = 0; x < KB; x += 4) {
       const float4 v =
-          *reinterpret_cast<const float4*>(qw + g * D + 16 * ksub + x);
+          *reinterpret_cast<const float4*>(qw + g * D + KB * ksub + x);
       qr[g][x] = v.x;
       qr[g][x + 1] = v.y;
       qr[g][x + 2] = v.z;
@@ -251,22 +256,29 @@ __global__ void __launch_bounds__(NT, 2) decode_kernel(const Args a) {
     const uint8_t* kb = ring + (i % NS) * SLOT;
     const uint8_t* vb = kb + TB * D;
 
-    // partial scores: step j, rows j * KR + kgrp, my 16 dims of each
+    // partial scores: step j, rows j * KR + kgrp, my KB dims of each
     float part[KL][GH];
 #pragma unroll
     for (int j = 0; j < KL; ++j) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(
-          kb + (j * KR + kgrp) * D + 16 * ksub);
-      float kf[16];
-      i8x4_to_f32(raw.x, kf);
-      i8x4_to_f32(raw.y, kf + 4);
-      i8x4_to_f32(raw.z, kf + 8);
-      i8x4_to_f32(raw.w, kf + 12);
+      const uint8_t* krow = kb + (j * KR + kgrp) * D + KB * ksub;
+      float kf[KB];
+      if constexpr (KB == 16) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(krow);
+        i8x4_to_f32(raw.x, kf);
+        i8x4_to_f32(raw.y, kf + 4);
+        i8x4_to_f32(raw.z, kf + 8);
+        i8x4_to_f32(raw.w, kf + 12);
+      } else {  // 20 bytes: five 4-byte words
+#pragma unroll
+        for (int w4 = 0; w4 < KB / 4; ++w4)
+          i8x4_to_f32(reinterpret_cast<const uint32_t*>(krow)[w4],
+                      kf + 4 * w4);
+      }
 #pragma unroll
       for (int g = 0; g < GH; ++g) {
         float s = 0.f;
 #pragma unroll
-        for (int x = 0; x < 16; ++x) s = fmaf(qr[g][x], kf[x], s);
+        for (int x = 0; x < KB; ++x) s = fmaf(qr[g][x], kf[x], s);
         part[j][g] = s;
       }
     }
@@ -306,7 +318,7 @@ __global__ void __launch_bounds__(NT, 2) decode_kernel(const Args a) {
         const float alpha = sm90::ex2(m[g] - mn);
         l[g] *= alpha;
 #pragma unroll
-        for (int x = 0; x < 8; ++x) acc[g][x] *= alpha;
+        for (int x = 0; x < VB; ++x) acc[g][x] *= alpha;
         m[g] = mn;
       }
     }
@@ -318,7 +330,7 @@ __global__ void __launch_bounds__(NT, 2) decode_kernel(const Args a) {
     }
     __syncwarp();
 
-    // acc += (p * v_scale) v_int8: step r, rows r * VR + vgrp, my 8 dims
+    // acc += (p * v_scale) v_int8: step r, rows r * VR + vgrp, my VB dims
 #pragma unroll
     for (int r0 = 0; r0 < VL; r0 += 4) {
       float pv[GH][4];
@@ -333,15 +345,25 @@ __global__ void __launch_bounds__(NT, 2) decode_kernel(const Args a) {
       }
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        const uint2 raw = *reinterpret_cast<const uint2*>(
-            vb + ((r0 + r) * VR + vgrp) * D + 8 * vsub);
-        float vf[8];
-        i8x4_to_f32(raw.x, vf);
-        i8x4_to_f32(raw.y, vf + 4);
+        const uint8_t* vrow = vb + ((r0 + r) * VR + vgrp) * D + VB * vsub;
+        float vf[VB];
+        if constexpr (VB == 8) {
+          const uint2 raw = *reinterpret_cast<const uint2*>(vrow);
+          i8x4_to_f32(raw.x, vf);
+          i8x4_to_f32(raw.y, vf + 4);
+        } else {  // 10 bytes at a 2-byte offset: five 2-byte loads
+          const uint16_t* h = reinterpret_cast<const uint16_t*>(vrow);
+          float tail[4];
+          i8x4_to_f32(h[0] | (uint32_t)h[1] << 16, vf);
+          i8x4_to_f32(h[2] | (uint32_t)h[3] << 16, vf + 4);
+          i8x4_to_f32(h[4], tail);
+          vf[8] = tail[0];
+          vf[9] = tail[1];
+        }
 #pragma unroll
         for (int g = 0; g < GH; ++g)
 #pragma unroll
-          for (int x = 0; x < 8; ++x)
+          for (int x = 0; x < VB; ++x)
             acc[g][x] = fmaf(pv[g][r], vf[x], acc[g][x]);
       }
     }
@@ -365,16 +387,23 @@ __global__ void __launch_bounds__(NT, 2) decode_kernel(const Args a) {
 #pragma unroll
     for (int o = VL; o < 32; o <<= 1)
 #pragma unroll
-      for (int x = 0; x < 8; ++x)
+      for (int x = 0; x < VB; ++x)
         acc[g][x] += __shfl_xor_sync(FULL, acc[g][x], o);
   }
   float* ws = reinterpret_cast<float*>(ring);
   if (vgrp == 0)
 #pragma unroll
     for (int g = 0; g < GH; ++g) {
-      float4* dst = reinterpret_cast<float4*>(ws + g * D + 8 * vsub);
-      dst[0] = make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
-      dst[1] = make_float4(acc[g][4], acc[g][5], acc[g][6], acc[g][7]);
+      if constexpr (VB == 8) {
+        float4* dst = reinterpret_cast<float4*>(ws + g * D + 8 * vsub);
+        dst[0] = make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+        dst[1] = make_float4(acc[g][4], acc[g][5], acc[g][6], acc[g][7]);
+      } else {  // 10 floats at an 8-byte aligned offset
+        float2* dst = reinterpret_cast<float2*>(ws + g * D + VB * vsub);
+#pragma unroll
+        for (int x = 0; x < VB; x += 2)
+          dst[x / 2] = make_float2(acc[g][x], acc[g][x + 1]);
+      }
     }
   if (lane == 0)
 #pragma unroll
@@ -571,16 +600,19 @@ cudaError_t dispatch(const void* q, const void* kq, const void* ks,
   a.nsp = nsp;
   a.sm_scale = sm_scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 128) return dispatch_g<128>(a, st);
-  if (D == 64) return dispatch_g<64>(a, st);
-  return cudaErrorInvalidValue;
+  switch (D) {  // every head dim by name: no other D reaches a kernel
+    case 64: return dispatch_g<64>(a, st);
+    case 128: return dispatch_g<128>(a, st);
+    case 160: return dispatch_g<160>(a, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // Both return cudaGetLastError() after the launch (cudaErrorInvalidValue for
 // a shape they do not take: G not in {1, 2, 3, 4, 5, 6, 8, 16}, D not in
-// {64, 128}, a cache not 16-byte aligned).
+// {64, 128, 160}, a cache not 16-byte aligned).
 // The lengths path: lengths (B,) int32.
 extern "C" int flash_decode(const void* q, const void* kq, const void* ks,
                             const void* vq, const void* vs,

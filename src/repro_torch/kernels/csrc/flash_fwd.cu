@@ -1,9 +1,9 @@
 // Causal / windowed GQA flash-attention forward for Hopper (sm_90a), the
-// FMA design: f32 q, k, v at head_dim 16, 64 and 128, and bf16 at head_dim
-// 16 (the smoke configurations).  bf16 at head_dim 64 / 128, the bf16
-// policy's prefill and training forward, is flash_fwd_sm90.cu's (tensor
-// cores); kernels/flash/ops.py routes between the two (ops.fwd_route), and
-// this kernel refuses that combination.
+// FMA design: f32 q, k, v at head_dim 16, 64, 128 and 160, and bf16 at
+// head_dim 16 (the smoke configurations).  bf16 at head_dim 64 / 128 / 160,
+// the bf16 policy's prefill and training forward, is flash_fwd_sm90.cu's
+// (tensor cores); kernels/flash/ops.py routes between the two
+// (ops.fwd_route), and this kernel refuses that combination.
 //
 // Replaces the TPU kernel src/repro/kernels/flash/kernel.py
 // :: flash_attention_fwd_pallas (body _flash_kernel).  Same function, not
@@ -27,9 +27,10 @@
 // plain FMAs (each thread owns a 4 x 4 score tile and a 4 x D/16 output
 // tile).  K and V share one shared-memory buffer (K^T for the scores, then
 // V for the product), which keeps a block under 83 KB so two blocks fit on
-// an SM.  The late (most expensive) q tiles are scheduled first.  The
-// ragged tail (S not a multiple of 64) is masked in the kernel: rows past
-// S are never written, keys past kv_len are masked and loaded as zeros.
+// an SM (~97 KB at head_dim 160).  The late (most expensive) q tiles are
+// scheduled first.  The ragged tail (S not a multiple of 64) is masked in
+// the kernel: rows past S are never written, keys past kv_len are masked
+// and loaded as zeros.
 //
 // Inputs are row-major (B*H, S, D) for q and (B*Hkv, S, D) for k, v, in
 // bf16 or f32; o has the input dtype; m, l are (B*H, S) f32; counts, if
@@ -236,7 +237,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
 // launch (cudaErrorInvalidValue for a shape or dtype it does not take,
-// bf16 at head_dim 64 / 128 among them: flash_fwd_sm90.cu's).
+// bf16 at head_dim 64 / 128 / 160 among them: flash_fwd_sm90.cu's).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* o, void* m, void* l, void* counts, int bh,
                          int bhkv, int S, int D, int dtype, int causal,
@@ -250,7 +251,10 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   int* cnt = static_cast<int*>(counts);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0 && D == 128)
+  if (dtype == 0 && D == 160)
+    err = launch<float, 160>(q, k, v, o, mf, lf, cnt, bh, S, group, causal,
+                             window, kv_len, sm_scale, st);
+  else if (dtype == 0 && D == 128)
     err = launch<float, 128>(q, k, v, o, mf, lf, cnt, bh, S, group, causal,
                              window, kv_len, sm_scale, st);
   else if (dtype == 0 && D == 64)

@@ -1,5 +1,5 @@
 // Causal / windowed GQA flash-attention forward on Hopper's tensor cores
-// (sm_90a), for bf16 q, k, v at head_dim 64 and 128: the bf16 policy's
+// (sm_90a), for bf16 q, k, v at head_dim 64, 128 and 160: the bf16 policy's
 // prefill and training forward.  kernels/flash/ops.py routes exactly that
 // combination here (ops.fwd_route); f32, and bf16 at head_dim 16, stay on
 // flash_fwd.cu's FMA kernel.
@@ -37,6 +37,13 @@
 //     rounded to bf16 in registers, is the A operand of O += P V, whose B
 //     operand is the V tile read MN-major (the transpose bit).  P never
 //     touches shared memory;
+//   * at D = 160 a tile is three panels (192 columns, the last 32 zeros
+//     that TMA fills past the tensor's edge): S = Q K^T takes 10 k16 steps
+//     and never reads the zeros, O += P V is one m64n160 product over the
+//     panels' first 160 columns.  Q is staged once, through the ring's
+//     second stage, into registers (10 A fragments, 40 registers) and S
+//     is a register-A product: its 24 KB tile would have left one block
+//     an SM (121 KB); the ring alone (97 KB) leaves two;
 //   * bf16 staging (~81 KB of shared memory at D = 128, ~41 KB at D = 64)
 //     lets 2 (D = 128) or 4 (D = 64) blocks share an SM, so one block's
 //     exponentials and waits overlap another's products.  Each product is
@@ -66,16 +73,42 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;   // the running max before any live key
 
+// Q from registers (the A operand of S = Q K^T) instead of shared memory
 template <int D>
-__host__ __device__ constexpr int fwd_smem_bytes() {  // Q; (K, V) ring
-  return 1024 + tile_bytes<D>() + STAGES * 2 * tile_bytes<D>();
+__host__ __device__ constexpr bool q_in_regs() {
+  return D == 160;
+}
+
+template <int D>
+__host__ __device__ constexpr int fwd_smem_bytes() {  // [Q;] (K, V) ring
+  return 1024 + (q_in_regs<D>() ? 0 : tile_bytes<D>()) +
+         STAGES * 2 * tile_bytes<D>();
 }
 
 // Blocks an SM must hold: as many as the shared memory allows at D = 128
-// (2: 255 registers a thread); at D = 64, 4 (128 registers a thread).
+// and 160 (2: 255 registers a thread); at D = 64, 4 (128 registers a
+// thread).
 template <int D>
 __host__ __device__ constexpr int fwd_blocks_per_sm() {
   return D == 64 ? 4 : 2;
+}
+
+// Thread (warp, lane)'s A fragments of a 64 x D bf16 tile staged as
+// 128-byte-swizzled panels: step k covers columns 16 k .. 16 k + 15, in
+// acc_to_a's order (rows r0 / r0 + 8, column pairs c0 / c0 + 8).
+template <int D>
+__device__ __forceinline__ void tile_to_a(const uint8_t* tile, int r0, int c0,
+                                          uint32_t (&a)[D / 16][4]) {
+#pragma unroll
+  for (int k = 0; k < D / 16; ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = r0 + 8 * (i % 2), c = 16 * k + c0 + 8 * (i / 2);
+      const int cc = c % 64;
+      a[k][i] = *reinterpret_cast<const uint32_t*>(
+          tile + (c / 64) * PANEL_BYTES + r * 128 +
+          ((cc / 8) ^ (r % 8)) * 16 + (cc % 8) * 2);
+    }
 }
 
 template <int D>
@@ -90,8 +123,10 @@ fwd_kernel(const __grid_constant__ CUtensorMap mq,
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bar_q;
   __shared__ __align__(8) uint64_t full[STAGES];
+  constexpr bool QREG = q_in_regs<D>();
   uint8_t* Qs = align_1024(smem_raw);
-  uint8_t* ring = Qs + TILE;
+  uint8_t* ring = QREG ? Qs : Qs + TILE;
+  if constexpr (QREG) Qs = ring + 2 * TILE;  // stage 1's K slot, at first
 
   const int n_q = (S + BQ - 1) / BQ;
   const int bh = blockIdx.x;
@@ -114,7 +149,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap mq,
   if (tid == 0 && n_t > 0) {
     mbar_expect_tx(&bar_q, TILE);
     tma_load_tile<D>(Qs, &mq, &bar_q, qi * BQ, bh);
-    for (int j = 0; j < STAGES && j < n_t; ++j)
+    for (int j = 0; j < (QREG ? 1 : STAGES) && j < n_t; ++j)
       ring_load<D>(ring, full, &mk, &mv, j, (lo + j) * BK, bhkv);
   }
 
@@ -130,6 +165,16 @@ fwd_kernel(const __grid_constant__ CUtensorMap mq,
   for (int i = 0; i < 32; ++i) s[i] = 0.f;
 
   if (n_t > 0) mbar_wait(&bar_q, 0);
+  // QREG: Q's A fragments out of stage 1, which then takes its KV tile
+  uint32_t qa[QREG ? D / 16 : 1][4];
+  if constexpr (QREG) {
+    if (n_t > 0) tile_to_a<D>(Qs, r0, c0, qa);
+    __syncthreads();
+    if (tid == 0 && n_t > 1) {
+      fence_proxy_async();
+      ring_load<D>(ring, full, &mk, &mv, 1, (lo + 1) * BK, bhkv);
+    }
+  }
   for (int j = 0; j < n_t; ++j) {
     const int st = j % STAGES;
     const int kt = lo + j;
@@ -141,9 +186,13 @@ fwd_kernel(const __grid_constant__ CUtensorMap mq,
     fence_regs(s);
     wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < D / 16; ++k)
-      wgmma_ss_m64n64(s, desc_kmajor(q_addr, k), desc_kmajor(k_addr, k),
-                      k > 0);
+    for (int k = 0; k < D / 16; ++k) {
+      if constexpr (QREG)
+        wgmma_rs_m64n64(s, qa[k], desc_kmajor(k_addr, k), k > 0);
+      else
+        wgmma_ss_m64n64(s, desc_kmajor(q_addr, k), desc_kmajor(k_addr, k),
+                        k > 0);
+    }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -255,24 +304,27 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
 // The argument list of flash_fwd.cu's flash_fwd (dtype: 0 = float32,
 // 1 = bfloat16).  Returns cudaGetLastError() after the launch:
 // cudaErrorInvalidValue for a shape, dtype or alignment it does not take
-// (only bf16 at D 64 or 128), cudaErrorNotSupported if a tensor map cannot
-// be encoded.
+// (only bf16 at D 64, 128 or 160), cudaErrorNotSupported if a tensor map
+// cannot be encoded.
 extern "C" int flash_fwd_sm90(const void* q, const void* k, const void* v,
                               void* o, void* m, void* l, void* counts,
                               int bh, int bhkv, int S, int D, int dtype,
                               int causal, int window, int kv_len,
                               float sm_scale, void* stream) {
   if (bhkv <= 0 || bh % bhkv != 0 || S < 1 || kv_len < 0 || kv_len > S ||
-      dtype != 1 || (D != 64 && D != 128) || !aligned(q) || !aligned(k) ||
-      !aligned(v) || (reinterpret_cast<uintptr_t>(o) & 3) != 0)
+      dtype != 1 || !aligned(q) || !aligned(k) || !aligned(v) ||
+      (reinterpret_cast<uintptr_t>(o) & 3) != 0)
     return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   auto f = [](void* p) { return static_cast<float*>(p); };
-  if (D == 128)
-    return (int)launch_fwd<128>(q, k, v, o, f(m), f(l),
-                                static_cast<int*>(counts), bh, bhkv, S,
-                                causal, window, kv_len, sm_scale, st);
-  return (int)launch_fwd<64>(q, k, v, o, f(m), f(l),
-                             static_cast<int*>(counts), bh, bhkv, S, causal,
-                             window, kv_len, sm_scale, st);
+  auto run = [&](auto launch) {
+    return (int)launch(q, k, v, o, f(m), f(l), static_cast<int*>(counts), bh,
+                       bhkv, S, causal, window, kv_len, sm_scale, st);
+  };
+  switch (D) {  // every head dim by name: no other D reaches a kernel
+    case 64: return run(launch_fwd<64>);
+    case 128: return run(launch_fwd<128>);
+    case 160: return run(launch_fwd<160>);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,7 +1,8 @@
 // What the tensor-core flash kernels (flash_fwd_sm90.cu, flash_bwd_sm90.cu)
 // share beyond sm90.cuh: the 64 x 64 tiling, the mask predicate of
 // _position_mask, the KV-tile bounds of tiling.kv_tile_bounds, shared-
-// memory layout helpers and the bf16 pair store.  Header-only, in an
+// memory layout helpers (head dims 64, 128 and 160) and the bf16 pair
+// store.  Header-only, in an
 // anonymous namespace: each .cu that includes it is compiled on its own.
 #pragma once
 
@@ -65,10 +66,15 @@ __device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// Shared memory of one 64 x D bf16 tile.
+// Shared memory of one 64 x D bf16 tile: ceil(D / 64) panels, so 160
+// takes three (its last 32 columns TMA's zeros).  A K-major product over
+// D steps through the panels 16 values at a time and never reaches the
+// zeros; an MN-major product of width D reads the panels' first D
+// columns.
 template <int D>
 __host__ __device__ constexpr int tile_bytes() {
-  return D / 64 * PANEL_BYTES;
+  static_assert(D == 64 || D == 128 || D == 160, "head_dim 64, 128 or 160");
+  return (D + 63) / 64 * PANEL_BYTES;
 }
 
 // Stage j % STAGES of a ring whose stages hold two 64 x D tiles: rows

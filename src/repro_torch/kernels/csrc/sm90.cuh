@@ -6,10 +6,12 @@
 // each .cu that includes it is compiled on its own by kernels/build.py.
 //
 // Conventions.
-//  * A tile of 64 rows x D bf16 values (D a multiple of 64) lives in
-//    shared memory as D / 64 panels of 64 rows x 128 bytes, each panel
-//    1024-byte aligned and written by one TMA box with the 128-byte
-//    swizzle (16-byte chunk c of row r lands at chunk c ^ (r % 8)).
+//  * A tile of 64 rows x D bf16 values lives in shared memory as
+//    ceil(D / 64) panels of 64 rows x 128 bytes, each panel 1024-byte
+//    aligned and written by one TMA box with the 128-byte swizzle (16-byte
+//    chunk c of row r lands at chunk c ^ (r % 8)).  At D = 160 the third
+//    box reads columns 128..191 of a 160-wide tensor: TMA fills columns
+//    160..191, outside the tensor, with zeros.
 //  * The same panel serves wgmma as a K-major operand (rows = M or N, the
 //    128-byte row = 64 values of K) and as an MN-major operand (rows = K,
 //    the row = 64 values of N): the descriptor says which.
@@ -194,14 +196,14 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// A 64-row tile of D bf16 values (D / 64 panels) at rows [row, row + 64)
-// of slice `z`.
+// A 64-row tile of D bf16 values (ceil(D / 64) panels) at rows
+// [row, row + 64) of slice `z`.
 template <int D>
 __device__ __forceinline__ void tma_load_tile(uint8_t* dst,
                                               const CUtensorMap* map,
                                               uint64_t* bar, int row, int z) {
 #pragma unroll
-  for (int p = 0; p < D / 64; ++p)
+  for (int p = 0; p < (D + 63) / 64; ++p)
     tma_load_3d(dst + p * PANEL_BYTES, map, bar, 64 * p, row, z);
 }
 
@@ -287,6 +289,26 @@ __device__ __forceinline__ void wgmma_rs_m64n64_tb(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64]; A in registers, B in shared
+// memory, K-major.
+__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
 // D[64 x 128] (+)= A[64 x 16] B[16 x 128]; A in registers, B in shared
 // memory, MN-major (the transpose bit set).
 __device__ __forceinline__ void wgmma_rs_m64n128_tb(float (&d)[64],
@@ -314,14 +336,48 @@ __device__ __forceinline__ void wgmma_rs_m64n128_tb(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
+// D[64 x 160] (+)= A[64 x 16] B[16 x 160]; A in registers, B in shared
+// memory, MN-major (the transpose bit set).
+__device__ __forceinline__ void wgmma_rs_m64n160_tb(float (&d)[80],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+      "}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+
 template <int N>
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2],
                                             const uint32_t (&a)[4],
                                             uint64_t b, int scale_d) {
   if constexpr (N == 64)
     wgmma_rs_m64n64_tb(d, a, b, scale_d);
-  else
+  else if constexpr (N == 128)
     wgmma_rs_m64n128_tb(d, a, b, scale_d);
+  else
+    wgmma_rs_m64n160_tb(d, a, b, scale_d);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -4,7 +4,7 @@ The op dispatches on the device of its tensors: CPU tensors go to the
 plain versions in ``ref.py``; CUDA tensors go to hand-written kernels, or
 raise.  The forward and the backward's dQ and dKV each have two designs,
 chosen by dtype and head_dim (:func:`fwd_route`, :func:`bwd_route`): the
-bf16 policy at head_dim 64 / 128 goes to the tensor-core kernels of
+bf16 policy at head_dim 64 / 128 / 160 goes to the tensor-core kernels of
 ``kernels/csrc/flash_fwd_sm90.cu`` and ``flash_bwd_sm90.cu`` (wgmma on
 TMA-fed rings), every other supported combination to the FMA kernels of
 ``kernels/csrc/flash_fwd.cu`` and ``flash_bwd.cu``, which also runs the
@@ -25,7 +25,7 @@ from repro_torch.kernels import build, tiling
 from repro_torch.kernels.flash import ref
 
 BQ = BK = 64                       # the kernel's q and KV tile sizes
-SUPPORTED_HEAD_DIMS = (16, 64, 128)   # 16: the smoke configurations
+SUPPORTED_HEAD_DIMS = (16, 64, 128, 160)   # 16: the smoke configurations
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 KERNEL = build.Kernel("flash_fwd", "flash_fwd", [
@@ -52,15 +52,15 @@ BWD_DTYPES = ((torch.float32, torch.float32, torch.float32),
               (torch.bfloat16, torch.bfloat16, torch.bfloat16),
               (torch.bfloat16, torch.float32, torch.float32))
 SM90_DTYPES = (torch.bfloat16, torch.bfloat16, torch.bfloat16)
-SM90_HEAD_DIMS = (64, 128)
+SM90_HEAD_DIMS = (64, 128, 160)
 
 
 def fwd_route(dtype, d: int) -> str:
     """Which hand-written kernel takes a CUDA forward of ``dtype`` q, k, v
     at head_dim ``d``: ``"sm90"`` (``flash_fwd_sm90.cu``, tensor cores, P
-    rounded to bf16 before P V) for bf16 at head_dim 64 or 128; ``"fma"``
-    (``flash_fwd.cu``, f32 arithmetic) for f32 at every supported head_dim
-    -- held to 1e-4 of the f32 plain version, which bf16 products cannot
+    rounded to bf16 before P V) for bf16 at head_dim 64, 128 or 160;
+    ``"fma"`` (``flash_fwd.cu``, f32 arithmetic) for f32 at every supported
+    head_dim -- held to 1e-4 of the f32 plain version, which bf16 products cannot
     meet -- and for bf16 at head_dim 16, the only head_dim at which
     ``flash_fwd.cu`` takes bf16.  Raises for anything neither takes."""
     if dtype not in _DTYPES:
@@ -77,8 +77,8 @@ def bwd_route(q_dtype, do_dtype, grad_dtype, d: int) -> str:
     """Which hand-written dQ / dKV kernels take a CUDA backward with these
     (residual, dO, gradient) dtypes at head_dim ``d``: ``"sm90"`` (the
     tensor-core kernels, bf16 operands for P, dS and dO) for the all-bf16
-    combination at head_dim 64 or 128; ``"fma"`` (f32 arithmetic) for the
-    other supported ones -- f32 and bf16-residual gradients are held to
+    combination at head_dim 64, 128 or 160; ``"fma"`` (f32 arithmetic) for
+    the other supported ones -- f32 and bf16-residual gradients are held to
     1e-4 of the f32 plain version, which bf16 products cannot meet -- and
     for head_dim 16, the only head_dim at which ``flash_bwd.cu`` takes the
     all-bf16 combination.  Raises for anything neither takes."""

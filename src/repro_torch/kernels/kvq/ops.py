@@ -19,7 +19,7 @@ from repro_torch.kernels.kvq import ref
 from repro_torch.kernels.kvq.ref import (combine_splits,  # noqa: F401
                                          quantize_kv)
 
-SUPPORTED_HEAD_DIMS = (64, 128)
+SUPPORTED_HEAD_DIMS = (64, 128, 160)
 SUPPORTED_GROUPS = (1, 2, 3, 4, 5, 6, 8, 16)
 MAX_BLOCK_S = 512
 

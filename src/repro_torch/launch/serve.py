@@ -10,7 +10,8 @@ admission, mid-flight joins and retirements:
 
 The default (lockstep) mode prefills one fixed batch once and decodes
 ``--gen`` steps in unison; it serves every ported arch, the SSM family
-(mamba2-130m, hymba-1.5b) included, which the engine refuses:
+(mamba2-130m, hymba-1.5b) and MLA (minicpm3-4b, a bf16 latent cache)
+included, which the engine refuses:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
         --smoke --device cpu
@@ -63,7 +64,12 @@ from repro_torch.serve import sampling
 
 def _kv_banner(cfg, args, s_total: int) -> None:
     """Name what decode will run: the int8 split-K kernel only serves a GQA
-    cache (an SSM's state takes its own decode path)."""
+    cache (an SSM's state and MLA's latents take their own decode
+    paths)."""
+    if cfg.mla is not None:
+        print(f"kv decode: MLA latent attention (bf16 latent cache, plain "
+              f"PyTorch as in the reference), cache {s_total} slots")
+        return
     if cfg.mixer not in ("attn", "hybrid"):
         print(f"kv decode: n/a (no kvq-layout attention cache), "
               f"cache {s_total} slots")
@@ -312,8 +318,9 @@ def run_engine(args, cfg, model) -> int:
     from repro_torch.serve import supports
     if not supports(cfg):
         print(f"engine: {cfg.arch_id} is not engine-eligible (needs a "
-              f"uniform-window GQA attention cache; SSM and hybrid archs "
-              f"serve through the lockstep driver)")
+              f"uniform-window GQA int8 attention cache; MLA's latent "
+              f"cache, SSM and hybrid archs serve through the lockstep "
+              f"driver)")
         return 2
     _kv_banner(cfg, args, args.max_len)
     sink = _open_sink(args)

@@ -10,8 +10,14 @@ reads the cache through ``kernels/kvq.decode_attention`` (quantized) or
 the plain masked softmax (unquantized), masked by length for a full-causal
 layer and for a rolling window buffer (the two-tier cache,
 ``transformer.decode_step_two_tier``), and by a dense (B, S) bias for a
-window band over a full-length cache.  MLA, cross-attention and the
-sequence-sharded cache come with later slices.
+window band over a full-length cache.
+
+MLA (minicpm3) is the reference's: :func:`mla_block` runs the plain
+:func:`gqa_attention` (one-shot, or KV-chunked online softmax for long
+prompts), as ``repro.models.attention.mla_block`` does -- no kernel lies on
+MLA's path in the reference, so none lies on the port's -- and
+:func:`mla_decode` attends in the latent space over a bf16 latent cache.
+Cross-attention and the sequence-sharded cache come with later slices.
 """
 from __future__ import annotations
 
@@ -21,7 +27,77 @@ from repro_torch.kernels.flash import ops as flash_ops
 from repro_torch.kernels.kvq import ops as kvq_ops
 from repro_torch.kernels.kvq.ref import masked_decode_logits
 from repro_torch.kernels.tiling import NEG_INF
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_rope, rms_norm
+
+CHUNKED_THRESHOLD = 4096   # S*S f32 scores above this use the chunked path
+KV_CHUNK = 1024
+
+
+def _mask_bias(q_pos, k_pos, window: int):
+    """(..., Sq, Sk) f32 additive bias: causal plus an optional sliding
+    window (``window`` <= 0: full causal)."""
+    dist = q_pos[..., :, None] - k_pos[..., None, :]
+    ok = dist >= 0
+    if window > 0:
+        ok = ok & (dist < window)
+    return torch.where(ok, 0.0, NEG_INF).to(torch.float32)
+
+
+def gqa_attention(q, k, v, *, q_pos, k_pos, window: int = 0,
+                  causal: bool = True, sm_scale: float | None = None):
+    """q: (B, Sq, H, D); k: (B, Sk, Hkv, D); v: (B, Sk, Hkv, Dv) ->
+    (B, Sq, H, Dv) in q's dtype: the plain attention of
+    ``repro.models.attention.gqa_attention``, in f32.
+
+    One-shot softmax when ``Sq * Sk <= CHUNKED_THRESHOLD**2 // 4`` or
+    ``Sk <= KV_CHUNK``; otherwise a KV-chunked online softmax over chunks
+    of ``KV_CHUNK`` keys (the last zero-padded, its keys at position 2^30
+    so the causal mask drops them), which keeps O(Sq x chunk) scores
+    live.  Plain PyTorch on both devices: it is the reference's own path
+    for MLA, which reaches no Pallas kernel."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    g = h // hkv
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    qf = q.reshape(b, sq, hkv, g, d).float()
+
+    if sq * sk <= CHUNKED_THRESHOLD ** 2 // 4 or sk <= KV_CHUNK:
+        logits = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * scale
+        if causal:
+            logits = logits + _mask_bias(q_pos, k_pos, window)[:, None, None]
+        pr = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", pr, v.float())
+        return out.reshape(b, sq, h, dv).to(q.dtype)
+
+    nchunk = -(-sk // KV_CHUNK)
+    pad = nchunk * KV_CHUNK - sk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = torch.nn.functional.pad(k_pos, (0, pad), value=2 ** 30)
+    m = torch.full((b, hkv, g, sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, hkv, g, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hkv, g, sq, dv), dtype=torch.float32,
+                      device=q.device)
+    for c in range(nchunk):
+        sl = slice(c * KV_CHUNK, (c + 1) * KV_CHUNK)
+        logits = torch.einsum("bqhgd,bkhd->bhgqk", qf,
+                              k[:, sl].float()) * scale
+        if causal:
+            logits = logits + _mask_bias(q_pos, k_pos[:, sl],
+                                         window)[:, None, None]
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        pr = torch.exp(logits - m_new[..., None])
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgqk,bkhd->bhgqd", pr, v[:, sl].float())
+        l = l * alpha + pr.sum(dim=-1)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]        # (B,Hkv,G,Sq,Dv)
+    out = torch.movedim(out, 3, 1).reshape(b, sq, h, dv)
+    return out.to(q.dtype)
 
 
 def attn_block(p, x, cfg, *, positions, window: int = 0, resid_dtype=None):
@@ -142,3 +218,93 @@ def attn_decode(p, x_t, cfg, cache_k, cache_s_k, cache_v, cache_s_v, pos,
                            cache_v.float()).reshape(b, h, hd)
     out = out.reshape(b, h * hd).to(x_t.dtype)
     return out @ p.wo, (cache_k, cache_s_k, cache_v, cache_s_v)
+
+
+# ---------------------------------------------------------------------------
+# MLA (MiniCPM3 / DeepSeek-V2 style multi-head latent attention).
+# ---------------------------------------------------------------------------
+def mla_block(p, x, cfg, *, positions):
+    """Latent-compressed attention (``repro.models.attention.mla_block``):
+    x (B, S, D_model); p holds q_a, q_a_norm, q_b, kv_a, kv_a_norm, kv_b,
+    wo, cast to ``x.dtype`` here.  The query and the keys' no-rope part
+    come up from their latents (each ``rms_norm``-ed), RoPE turns only the
+    ``qk_rope_dim`` part, the one rope key is shared by every head, and
+    the scale is ``(qk_nope_dim + qk_rope_dim) ** -0.5``.  Returns
+    (out, (kv_latent (B, S, kv_lora), k_rope (B, S, 1, dr)))."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    dn, dr, dv = m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim
+    dt = x.dtype
+    eps, bf = cfg.norm_eps, cfg.norm_bf16_grad
+
+    q_lat = rms_norm(x @ p.q_a.to(dt), p.q_a_norm.to(dt), eps, bf16_grad=bf)
+    q = (q_lat @ p.q_b.to(dt)).reshape(b, s, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+
+    kv_all = x @ p.kv_a.to(dt)                          # (B, S, kv_lora + dr)
+    kv_lat = rms_norm(kv_all[..., :m.kv_lora_rank], p.kv_a_norm.to(dt), eps,
+                      bf16_grad=bf)
+    k_rope = kv_all[..., m.kv_lora_rank:].reshape(b, s, 1, dr)
+    kv = (kv_lat @ p.kv_b.to(dt)).reshape(b, s, h, dn + dv)
+    k_nope, v = kv[..., :dn], kv[..., dn:]
+
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    k_rope = apply_rope(k_rope, positions, cfg.rope_theta)
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    kf = torch.cat([k_nope, k_rope.expand(b, s, h, dr)], dim=-1)
+    out = gqa_attention(qf, kf, v, q_pos=positions, k_pos=positions,
+                        sm_scale=(dn + dr) ** -0.5)
+    return out.reshape(b, s, h * dv) @ p.wo.to(dt), (kv_lat, k_rope)
+
+
+def mla_decode(p, x_t, cfg, cache_lat, cache_rope, pos):
+    """One-token MLA decode with weight absorption
+    (``repro.models.attention.mla_decode``), in the latent space:
+
+      score = (q_nope @ Wk_b) . kv_lat + q_rope . k_rope
+      out   = (softmax . kv_lat) @ Wv_b
+
+    x_t: (B, D_model); cache_lat (B, S, kv_lora) and cache_rope (B, S, dr),
+    bf16 under every policy; pos: 0-d int32 (lockstep: every row at one
+    position).  The new token's latent and rope key are written into the
+    caches IN PLACE at ``pos`` (the reference returns updated copies), and
+    slots ``<= pos`` are attended.  Returns (out (B, D_model),
+    (cache_lat, cache_rope))."""
+    m = cfg.mla
+    b = x_t.shape[0]
+    h = cfg.n_heads
+    dn, dr, dv = m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim
+    s_max = cache_lat.shape[1]
+    eps, bf = cfg.norm_eps, cfg.norm_bf16_grad
+
+    q_lat = rms_norm(x_t @ p.q_a, p.q_a_norm, eps, bf16_grad=bf)
+    q = (q_lat @ p.q_b).reshape(b, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    pos_arr = pos.expand(b, 1)
+    q_rope = apply_rope(q_rope[:, None], pos_arr, cfg.rope_theta)[:, 0]
+
+    kv_all = x_t @ p.kv_a
+    lat_new = rms_norm(kv_all[..., :m.kv_lora_rank], p.kv_a_norm, eps,
+                       bf16_grad=bf)
+    kr_new = apply_rope(kv_all[..., m.kv_lora_rank:][:, None, None],
+                        pos_arr, cfg.rope_theta)[:, 0, 0]
+    at = pos.clamp(0, s_max - 1)          # as dynamic_update_slice clamps
+    cache_lat[:, at] = lat_new.to(cache_lat.dtype)
+    cache_rope[:, at] = kr_new.to(cache_rope.dtype)
+
+    kv_b = p.kv_b.reshape(m.kv_lora_rank, h, dn + dv)
+    wk_b, wv_b = kv_b[..., :dn].float(), kv_b[..., dn:].float()
+    q_abs = torch.einsum("bhd,lhd->bhl", q_nope.float(), wk_b)
+    cl = cache_lat.float()
+    scores = torch.einsum("bhl,bsl->bhs", q_abs, cl)
+    scores = scores + torch.einsum("bhd,bsd->bhs", q_rope.float(),
+                                   cache_rope.float())
+    scores = scores * (dn + dr) ** -0.5
+    valid = torch.arange(s_max, device=x_t.device)[None, :] <= pos
+    scores = torch.where(valid[:, None], scores, NEG_INF)
+    pr = torch.softmax(scores, dim=-1)
+    o_lat = torch.einsum("bhs,bsl->bhl", pr, cl)
+    out = torch.einsum("bhl,lhd->bhd", o_lat, wv_b)
+    out = out.reshape(b, h * dv).to(x_t.dtype)
+    return out @ p.wo, (cache_lat, cache_rope)

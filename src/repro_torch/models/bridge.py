@@ -22,8 +22,8 @@ import torch
 
 from repro_torch.core.mixed_precision import Policy
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import (SSM, Attention, Block, MoE,
-                                            SwiGLU, Transformer)
+from repro_torch.models.transformer import (MLA, SSM, Attention, Block,
+                                            MoE, SwiGLU, Transformer)
 from repro_torch.optim.adamw import AdamWState
 
 _ATTN = ("wq", "wk", "wv", "wo")
@@ -47,7 +47,9 @@ def load_jax_params(cfg: ModelConfig, tree: dict, *, device="cuda",
         # each sub-tree is present only where the family has it: pure-SSM
         # layers have no attn or ffn, only the hybrid has the mix norms
         kw = {}
-        if "attn" in bt:
+        if "attn" in bt and "q_a" in bt["attn"]:       # MLA's leaves
+            kw["attn_mod"] = MLA(*(t(bt["attn"][n][i]) for n in MLA.NAMES))
+        elif "attn" in bt:
             kw["attn_mod"] = Attention(*(t(bt["attn"][n][i]) for n in _ATTN))
         if "ssm" in bt:
             kw["ssm"] = SSM(*(t(bt["ssm"][n][i]) for n in SSM.NAMES))

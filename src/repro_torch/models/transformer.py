@@ -1,6 +1,8 @@
 """The decoder stack (counterpart of ``repro.models.transformer``): dense
-GQA (llama3, glm4), MoE (deepseek-moe, granite-moe: GQA attention, then
-``models/moe.py``'s routed experts in place of the SwiGLU), pure SSM
+GQA (llama3, glm4, stablelm), dense MLA (minicpm3: latent attention,
+``attention.mla_block``, with a latent cache), MoE (deepseek-moe,
+granite-moe: GQA attention, then ``models/moe.py``'s routed experts in
+place of the SwiGLU), pure SSM
 (mamba2: SSD blocks, no MLP) and hybrid (hymba: attention and SSM heads
 in parallel, each output normed, the two averaged, then a SwiGLU), with
 per-layer sliding windows and global layers.
@@ -49,13 +51,13 @@ from repro_torch.models.layers import dense_init, embed_init, rms_norm, swiglu
 
 #: cache leaves with a sequence axis, and which axis it is (the SSM's
 #: ``conv`` and ``ssm`` state have none)
-CACHE_SEQ_AXES = {"k": 3, "v": 3, "k_scale": 3, "v_scale": 3}
+CACHE_SEQ_AXES = {"k": 3, "v": 3, "k_scale": 3, "v_scale": 3,
+                  "mla_lat": 2, "mla_rope": 2}
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port does not build yet."""
     unsupported = [name for name, present in (
-        ("MLA", cfg.mla is not None),
         ("encoder", cfg.encoder is not None),
         ("M-RoPE", cfg.mrope_sections is not None),
         ("gelu MLP", cfg.mlp_kind != "swiglu"),
@@ -63,8 +65,8 @@ def check_supported(cfg: ModelConfig) -> None:
     if unsupported:
         raise NotImplementedError(
             f"{cfg.arch_id}: {', '.join(unsupported)} not ported yet (the "
-            f"port builds dense GQA, MoE, SSM and hybrid decoders; the "
-            f"other families come with slice F)")
+            f"port builds dense GQA and MLA, MoE, SSM and hybrid decoders; "
+            f"the other families come with slice F)")
 
 
 def layer_windows(cfg: ModelConfig) -> list[int]:
@@ -85,6 +87,20 @@ class Attention(nn.Module):
     def __init__(self, wq, wk, wv, wo):
         super().__init__()
         self.wq, self.wk, self.wv, self.wo = map(_frozen, (wq, wk, wv, wo))
+
+
+class MLA(nn.Module):
+    """Latent attention's weights (``attention.mla_block``), in the JAX
+    layout: ``q_a`` (D, q_lora), ``q_a_norm`` (q_lora,), ``q_b`` (q_lora,
+    H (dn + dr)), ``kv_a`` (D, kv_lora + dr), ``kv_a_norm`` (kv_lora,),
+    ``kv_b`` (kv_lora, H (dn + dv)), ``wo`` (H dv, D)."""
+
+    NAMES = ("q_a", "q_a_norm", "q_b", "kv_a", "kv_a_norm", "kv_b", "wo")
+
+    def __init__(self, *weights):
+        super().__init__()
+        for name, w in zip(self.NAMES, weights, strict=True):
+            setattr(self, name, _frozen(w))
 
 
 class SwiGLU(nn.Module):
@@ -143,7 +159,7 @@ class Block(nn.Module):
     averaged), then ``ffn`` when the model has one.  Every layer keeps
     ``ln2``, as the JAX tree does, even without an MLP."""
 
-    def __init__(self, ln1, ln2, attn_mod: Attention | None = None,
+    def __init__(self, ln1, ln2, attn_mod: Attention | MLA | None = None,
                  ffn: SwiGLU | MoE | None = None, *, ssm: SSM | None = None,
                  mix_norm_attn=None, mix_norm_ssm=None):
         super().__init__()
@@ -197,7 +213,19 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
     blocks = []
     for _ in range(cfg.n_layers):
         mix = {}
-        if cfg.mixer in ("attn", "hybrid"):
+        if cfg.mla is not None:
+            m = cfg.mla
+            mix["attn_mod"] = MLA(
+                dense_init(gen, (d, m.q_lora_rank), **kw),
+                ones(m.q_lora_rank),
+                dense_init(gen, (m.q_lora_rank,
+                                 h * (m.qk_nope_dim + m.qk_rope_dim)), **kw),
+                dense_init(gen, (d, m.kv_lora_rank + m.qk_rope_dim), **kw),
+                ones(m.kv_lora_rank),
+                dense_init(gen, (m.kv_lora_rank,
+                                 h * (m.qk_nope_dim + m.v_head_dim)), **kw),
+                dense_init(gen, (h * m.v_head_dim, d), **kw))
+        elif cfg.mixer in ("attn", "hybrid"):
             mix["attn_mod"] = Attention(
                 dense_init(gen, (d, h * hd), **kw),
                 dense_init(gen, (d, hkv * hd), **kw),
@@ -267,10 +295,14 @@ def _kv_entry(k, v, *, quantized: bool = True) -> dict:
 
 def _assemble_cache(entries: list, s: int, device) -> dict:
     """Per-layer prefill entries -> the ``init_cache`` layout, pos = S.  The
-    SSM state is kept in f32 and the conv tail in bf16 under every policy,
-    as the JAX package stores them (``transformer.py:407-409``)."""
+    MLA latents and the conv tail are kept in bf16 and the SSM state in
+    f32 under every policy, as the JAX package stores them
+    (``transformer.py:404-409``)."""
     cache = {name: torch.stack([e[name] for e in entries])
              for name in entries[0]}
+    for name in ("mla_lat", "mla_rope"):
+        if name in cache:
+            cache[name] = cache[name].to(torch.bfloat16)
     if "ssm" in cache:
         cache["ssm"] = cache["ssm"].float()
         cache["conv"] = cache["conv"].to(torch.bfloat16)
@@ -329,7 +361,12 @@ def forward(model: Transformer, cfg: ModelConfig, batch: dict, *,
         h = rms_norm(x, blk.ln1.to(dt), cfg.norm_eps,
                      bf16_grad=cfg.norm_bf16_grad)
         entry, a_out, s_out = {}, None, None
-        if blk.attn is not None:
+        if isinstance(blk.attn, MLA):
+            a_out, (lat, kr) = attn.mla_block(blk.attn, h, cfg,
+                                              positions=positions)
+            if build_cache:
+                entry.update(mla_lat=lat, mla_rope=kr[:, :, 0])
+        elif blk.attn is not None:
             a_out, (k, v) = attn.attn_block(
                 blk.attn, h, cfg, positions=positions, window=window,
                 resid_dtype=policy.flash_resid_dtype)
@@ -439,14 +476,20 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, *,
                quantized: bool = True, dtype=torch.bfloat16,
                device="cuda") -> dict:
     """A 0-d ``pos``; for attention, (L, B, Hkv, S, hd) int8 K/V
-    (``dtype`` when not quantized) plus (L, B, Hkv, S) f32 scales; for the
+    (``dtype`` when not quantized) plus (L, B, Hkv, S) f32 scales; for
+    MLA, the latents ``mla_lat`` (L, B, S, kv_lora) and ``mla_rope``
+    (L, B, S, dr) in ``dtype`` (``quantized`` does not apply); for the
     SSM, the conv tail (L, B, K-1, conv_dim) in ``dtype`` and the state
     (L, B, H, N, P) in f32."""
     check_supported(cfg)
     L = cfg.n_layers
     z = lambda shp, dt: torch.zeros(shp, dtype=dt, device=device)  # noqa
     cache = {"pos": z((), torch.int32)}
-    if cfg.mixer in ("attn", "hybrid"):
+    if cfg.mla is not None:
+        m = cfg.mla
+        cache.update(mla_lat=z((L, batch, s_max, m.kv_lora_rank), dtype),
+                     mla_rope=z((L, batch, s_max, m.qk_rope_dim), dtype))
+    elif cfg.mixer in ("attn", "hybrid"):
         shape = (L, batch, cfg.n_kv, s_max, cfg.head_dim)
         kv_dtype = torch.int8 if quantized else dtype
         cache.update(k=z(shape, kv_dtype), v=z(shape, kv_dtype),
@@ -486,8 +529,9 @@ def decode_step(model: Transformer, cfg: ModelConfig, cache: dict, tokens_t,
                 kvq_splits: int = 1, active=None):
     """tokens_t: (B,) int current token.  Returns (logits (B, V), cache).
 
-    The cache's leaves (K/V, conv tail, SSM state) are updated in place;
-    the returned dict holds the same buffers and the advanced ``pos``.
+    The cache's leaves (K/V, MLA latents, conv tail, SSM state) are
+    updated in place; the returned dict holds the same buffers and the
+    advanced ``pos``.
     Each attention layer masks by length (full causal) or by a window
     band's bias (:func:`attn.decode_mask`), built once a step for each
     distinct window and shared by its layers.  With a per-row (B,) ``pos``
@@ -497,11 +541,11 @@ def decode_step(model: Transformer, cfg: ModelConfig, cache: dict, tokens_t,
     never read."""
     pos = cache["pos"]
     per_slot = pos.ndim == 1
-    if per_slot and cfg.mixer != "attn":
+    if per_slot and (cfg.mixer != "attn" or cfg.mla is not None):
         raise NotImplementedError(
             "per-slot decode (vector cache['pos']) is only supported for "
-            "GQA attention caches (the kvq layout); SSM/hybrid archs serve "
-            "through the scalar-pos path")
+            "GQA attention caches (the kvq layout); MLA/SSM/hybrid archs "
+            "serve through the scalar-pos path")
     if active is not None and not per_slot:
         raise ValueError("decode_step: active mask requires a per-slot "
                          "(vector) cache['pos']")
@@ -509,6 +553,9 @@ def decode_step(model: Transformer, cfg: ModelConfig, cache: dict, tokens_t,
     masks = {}                                              # window -> mask
     for i, (blk, window) in enumerate(zip(model.blocks, layer_windows(cfg))):
         def attend(h, blk=blk, i=i, window=window):
+            if isinstance(blk.attn, MLA):
+                return attn.mla_decode(blk.attn, h, cfg, cache["mla_lat"][i],
+                                       cache["mla_rope"][i], pos)[0]
             if window not in masks:
                 masks[window] = attn.decode_mask(
                     pos, x.shape[0], cache["k"][i].shape[2], window)

@@ -149,31 +149,39 @@ def flash_training_eligible(cfg, s: int) -> bool:
     Mirrors the port's gates: ``models/attention.py`` ``attn_block`` always
     calls ``flash_ops.flash_attention`` (the kernels on the card, their
     plain versions on the CPU), for every layer, windowed and global
-    alike.  So every attention or hybrid arch is eligible at every S (MLA,
-    which has no flash path, is refused by ``transformer.check_supported``
-    before any profile is built).  The JAX package differs for
-    ``cfg.global_layers`` (hymba), whose scan takes its jnp path with
-    O(S^2) probabilities."""
+    alike, at every head dim the port runs (160 included).  So every
+    attention or hybrid arch but MLA is eligible at every S; MLA's
+    ``mla_block`` runs the plain ``gqa_attention``, as the reference's
+    does.  The JAX package differs for ``cfg.global_layers`` (hymba),
+    whose scan takes its jnp path with O(S^2) probabilities, and for head
+    dims its Pallas kernel refuses (160), which fall back to its plain
+    version."""
     del s                                   # the flash op takes any S
-    return cfg.mixer in ("attn", "hybrid")
+    return cfg.mixer in ("attn", "hybrid") and cfg.mla is None
 
 
 def attn_resid_bytes(cfg, b: int, s: int, dtype_bytes: int = 2,
-                     flash_resid_bytes: "int | None" = None) -> int:
-    """Backward-residual bytes of one attention layer under the flash op.
+                     flash_resid_bytes: "int | None" = None, *,
+                     ctx: "int | None" = None) -> int:
+    """Backward-residual bytes of one attention layer.
 
-    It keeps q / o per query head and k / v per KV head alive between
-    forward and backward, and the two f32 softmax stat rows (m, l) per
-    head; scores are recomputed tile by tile in the backward.  The JAX
-    package's ``ctx`` argument sizes the O(S^2) probabilities of its jnp
-    path, which the port never dispatches
-    (:func:`flash_training_eligible`), so there is none here.
-    ``flash_resid_bytes`` is the element width of the SAVED (q, k, v, o)
-    under a ``Policy.flash_resid_dtype`` (default: the compute dtype's);
-    (m, l) are f32 regardless, as the kernels' contract says."""
-    if not flash_training_eligible(cfg, s):
+    Under the flash op it keeps q / o per query head and k / v per KV
+    head alive between forward and backward, and the two f32 softmax stat
+    rows (m, l) per head; scores are recomputed tile by tile in the
+    backward.  ``flash_resid_bytes`` is the element width of the SAVED
+    (q, k, v, o) under a ``Policy.flash_resid_dtype`` (default: the
+    compute dtype's); (m, l) are f32 regardless, as the kernels' contract
+    says.  MLA, which the flash op does not take
+    (:func:`flash_training_eligible`), is budgeted as the JAX package
+    budgets its plain path: q / o and k / v at ``head_dim`` plus the f32
+    probabilities, ``ctx`` keys a query row (default S)."""
+    if cfg.mixer not in ("attn", "hybrid"):
         return 0
     heads = 2 * cfg.n_heads + 2 * cfg.n_kv
+    if not flash_training_eligible(cfg, s):
+        ctx = s if ctx is None else ctx
+        qo_kv = heads * b * s * cfg.head_dim * dtype_bytes
+        return qo_kv + 4 * b * cfg.n_heads * s * ctx       # f32 probs
     rb = dtype_bytes if flash_resid_bytes is None else flash_resid_bytes
     qo_kv = heads * b * s * cfg.head_dim * rb
     return qo_kv + 2 * 4 * b * cfg.n_heads * s             # f32 m, l rows
@@ -360,7 +368,8 @@ def profile_transformer(cfg, batch_sds, *, dtype_bytes: int = 2,
     FLOPs are 2 x tokens x block parameters (the products) plus the
     attention scores, at the visited-tile count of the flash grids
     (causal about half the dense rectangle, a window about W/S), the
-    source of heterogeneity for windowed / hybrid archs.
+    source of heterogeneity for windowed / hybrid archs; MLA's at the
+    dense (masked) score product its plain attention runs.
     ``resid_bytes`` carries the attention backward residuals
     (:func:`attn_resid_bytes`); ``flash_resid_bytes`` forwards a
     ``Policy.flash_resid_dtype`` width.  Block parameters are counted on
@@ -378,15 +387,19 @@ def profile_transformer(cfg, batch_sds, *, dtype_bytes: int = 2,
     tile_counts = _flash_tile_counts(cfg, s) if flash else None
     act, flops, labels, resid = [], [], [], []
     for i, w in enumerate(windows):
+        ctx = s if w == 0 else min(w, s)
         attn_flops = 0.0
         if flash:
             c = tile_counts[i]
             attn_flops = 4.0 * b * cfg.n_heads * cfg.head_dim \
                 * c["bq"] * c["bk"] * c["fwd"]
+        elif cfg.mixer in ("attn", "hybrid"):      # MLA's dense scores
+            attn_flops = 4.0 * b * s * ctx * cfg.n_heads * cfg.head_dim
         flops.append(2.0 * b * s * per_block_params + attn_flops)
         act.append(carry_bytes)
         resid.append(attn_resid_bytes(cfg, b, s, dtype_bytes,
-                                      flash_resid_bytes=flash_resid_bytes))
+                                      flash_resid_bytes=flash_resid_bytes,
+                                      ctx=ctx))
         labels.append(f"block{i}" + ("" if w == 0 else f"@w{w}"))
     return ChainProfile(tuple(act), tuple(flops), tuple(labels),
                         tuple(resid))

@@ -21,6 +21,8 @@ def scatter_request(pool_cache: dict, req_cache: dict, slot: int,
     grown to the pool's ``max_len``) into ``slot`` of the pool, in place,
     and stamp the slot's length.  Returns ``pool_cache``."""
     for name, ax in transformer.CACHE_SEQ_AXES.items():
+        if name not in pool_cache:      # the other layout's leaves
+            continue
         upd = req_cache[name]
         if upd.shape[ax] != pool_cache[name].shape[ax]:
             raise ValueError(

@@ -33,7 +33,7 @@ def dev():
 
 F32, BF = torch.float32, torch.bfloat16
 # (S, G, D, causal, window, kv_len, dtype): ragged S, GQA, windows,
-# kv_len < S, non-causal.  The bf16 rows at D 64 / 128 go to
+# kv_len < S, non-causal.  The bf16 rows at D 64 / 128 / 160 go to
 # flash_fwd_sm90.cu, the others to flash_fwd.cu.
 FWD_CASES = [
     (1, 4, 128, True, 0, None, F32), (63, 1, 64, True, 0, None, F32),
@@ -46,6 +46,10 @@ FWD_CASES = [
     (257, 4, 128, False, 0, None, BF), (1024, 4, 128, True, 0, None, BF),
     (1024, 8, 64, True, 1000, None, BF), (1024, 1, 128, False, 0, 700, BF),
     (40, 2, 16, True, 0, None, BF),
+    # head_dim 160 (stablelm-12b): three panels, Q in registers
+    (1, 4, 160, True, 0, None, BF), (100, 4, 160, True, 0, None, BF),
+    (257, 1, 160, True, 100, 200, BF), (1024, 4, 160, True, 0, None, BF),
+    (65, 2, 160, True, 16, None, F32), (257, 4, 160, False, 0, 200, F32),
 ]
 # launch counters of the two forward designs
 FWD_KERNELS = {"fma": flash_ops.KERNEL, "sm90": flash_ops.FWD_SM90}
@@ -76,7 +80,8 @@ def test_flash_kernel_matches_plain(dev, s, g, d, causal, window, kv_len,
     assert cnt.tolist() == [flash_ops.expected_counts(s, **kw)] * (hkv * g)
 
 
-@pytest.mark.parametrize("dtype,d", [(F32, 64), (BF, 64), (BF, 128)])
+@pytest.mark.parametrize("dtype,d", [(F32, 64), (BF, 64), (BF, 128),
+                                     (BF, 160), (F32, 160)])
 def test_flash_rows_with_no_live_key_write_zeros(dev, dtype, d):
     """kv_len = 0, non-causal: each design runs no KV tile and writes
     o = 0, m = -1e30, l = 0 (the plain version's softmax over an all-masked
@@ -104,7 +109,8 @@ def _close(got, want, rel, floor=1e-6):
 # (S, G, D, causal, window, kv_len, residual dtype, dO dtype): ragged S,
 # GQA, windows, kv_len < S, and the three dtype combinations of the
 # policies (f32; bf16; bf16 residuals under f32 compute).  The all-bf16
-# rows at D 64 / 128 go to flash_bwd_sm90.cu, the others to flash_bwd.cu.
+# rows at D 64 / 128 / 160 go to flash_bwd_sm90.cu, the others to
+# flash_bwd.cu.
 BWD_CASES = [
     (1, 4, 128, True, 0, None, torch.float32, torch.float32),
     (100, 4, 128, True, 0, None, torch.bfloat16, torch.bfloat16),
@@ -125,6 +131,15 @@ BWD_CASES = [
     (1024, 1, 128, False, 0, 700, BF, BF),
     (1024, 4, 64, True, 0, 1000, BF, BF),
     (70, 2, 16, True, 0, None, BF, BF),
+    # head_dim 160 (stablelm-12b): dQ one block an SM, dKV two warpgroups
+    # (S = 3, not 1: at S = 1 dQ is only the cancellation of dP - delta,
+    # whose rounding noise grows with D past the floor; D = 128 keeps S = 1)
+    (3, 4, 160, True, 0, None, BF, BF), (100, 4, 160, True, 0, None, BF, BF),
+    (257, 2, 160, True, 100, 200, BF, BF),
+    (1024, 4, 160, True, 0, None, BF, BF),
+    (257, 1, 160, False, 0, None, BF, BF),
+    (130, 4, 160, True, 0, None, torch.float32, torch.float32),
+    (192, 4, 160, True, 0, None, torch.bfloat16, torch.float32),
 ]
 # launch counters of the two dQ / dKV designs
 BWD_KERNELS = {"fma": (flash_ops.BWD_DQ, flash_ops.BWD_DKV),
@@ -246,6 +261,9 @@ DECODE_FILL_CASES = [
     (1, 1, 1, 64, 4096, [4096], 2), (2, 2, 3, 128, 512, [1, 300], 1),
     (2, 2, 6, 64, 512, [511, 33], 2), (1, 2, 16, 128, 1024, [1000], 1),
     (2, 2, 8, 64, 1024, [1024, 65], 3),
+    # head_dim 160: 8 lanes a K row at 20 bytes, 16 a V row at 10
+    (2, 2, 4, 160, 2048, [2048, 33], 1), (1, 8, 4, 160, 2048, [1500], 4),
+    (2, 1, 1, 160, 2080, [2079, 1], 2), (2, 1, 5, 160, 2080, [2079, 1], 1),
 ]
 
 
@@ -292,6 +310,28 @@ def test_decode_bias_band_leaves_dead_ctas(dev, window, pos, splits):
     torch.testing.assert_close(out, want, atol=1e-5, rtol=0)
     twin = tiling.decode_tile_step_counts(s, None, splits=splits)
     assert cnt.tolist() == [[twin["counts"][0]] * hkv]
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_decode_bias_band_at_head_dim_160(dev, seed):
+    """stablelm-12b's decode heads (8 KV heads, G=4, D=160) on a band of
+    1024 at the last slot of 2080, one split: whole warps see only
+    -1e30 while others move their max, so every accumulator column must
+    be rescaled."""
+    b, hkv, g, d, s = 8, 8, 4, 160, 2080
+    gen = torch.Generator(device=dev).manual_seed(51 + seed)
+    q = torch.randn((b, hkv * g, d), generator=gen, device=dev)
+    kq, ks = kvq_ref.quantize_kv(torch.randn((b, hkv, s, d), generator=gen,
+                                             device=dev))
+    vq, vs = kvq_ref.quantize_kv(torch.randn((b, hkv, s, d), generator=gen,
+                                             device=dev))
+    _, bias = attention.decode_mask(
+        torch.tensor(s - 2, dtype=torch.int32, device=dev), b, s, 1024)
+    out = kvq_ops.decode_attention(q, kq, ks, vq, vs, bias=bias)
+    want = kvq_ref.decode_attention_ref(
+        q.reshape(b, hkv, g, d), kq, ks, vq, vs, bias,
+        d ** -0.5).reshape(b, hkv * g, d)
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=0)
 
 
 def test_unsupported_shapes_raise(dev):

@@ -177,6 +177,9 @@ LENGTH_CASES = [
     (2080, 5, 64, 1, 5), (2080, 5, 64, 4, 2), (2080, 5, 128, 3, 8),
     (2080, 8, 64, 1, 3), (2080, 8, 128, 2, 4), (2080, 3, 64, 4, 7),
     (2080, 6, 128, 1, 1), (2080, 16, 128, 1, 8), (2080, 2, 64, 2, 4),
+    # head_dim 160 (stablelm-12b, G 4): 8 lanes a K row, 16 a V row
+    (2048, 4, 160, 4, 8), (2048, 4, 160, 1, 3), (2080, 4, 160, 2, 5),
+    (2080, 1, 160, 1, 8), (2048, 8, 160, 3, 2),
 ]
 
 
@@ -204,6 +207,7 @@ BIAS_CASES = [
     (2080, 1, 64, 3, 4, 300, 1500), (2048, 8, 128, 4, 2, 64, 1000),
     (2048, 4, 64, 1, 8, 200, 2047), (2048, 5, 128, 2, 3, 33, 512),
     (2080, 16, 64, 1, 8, 64, 700), (2080, 6, 128, 4, 1, 500, 2079),
+    (2080, 4, 160, 4, 2, 500, 2079), (2048, 4, 160, 1, 8, 64, 1000),
 ]
 
 

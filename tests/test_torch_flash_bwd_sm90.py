@@ -34,6 +34,8 @@ F32, BF, F16 = torch.float32, torch.bfloat16, torch.float16
     ((F32, F32, F32), 128, "fma"), ((F32, F32, F32), 64, "fma"),
     ((F32, F32, F32), 16, "fma"),
     ((BF, F32, F32), 128, "fma"), ((BF, F32, F32), 64, "fma"),
+    ((BF, BF, BF), 160, "sm90"), ((F32, F32, F32), 160, "fma"),
+    ((BF, F32, F32), 160, "fma"),
 ])
 def test_bwd_route(combo, d, route):
     assert ops.bwd_route(*combo, d) == route
@@ -42,7 +44,8 @@ def test_bwd_route(combo, d, route):
 @pytest.mark.parametrize("combo,d,exc", [
     ((F16, F16, F16), 128, TypeError), ((BF, BF, F32), 128, TypeError),
     ((F32, BF, BF), 64, TypeError), ((BF, BF, BF), 32, ValueError),
-    ((F32, F32, F32), 256, ValueError),
+    ((F32, F32, F32), 256, ValueError), ((BF, BF, BF), 96, ValueError),
+    ((F32, F32, F32), 96, ValueError), ((BF, BF, BF), 256, ValueError),
 ])
 def test_bwd_route_raises_for_what_no_kernel_takes(combo, d, exc):
     with pytest.raises(exc):
@@ -67,7 +70,18 @@ def _mask(s, causal, window, kv_len):
 
 
 def _emulate_sm90(q, k, v, o, m, l, do, *, causal, window, kv_len, scale):
-    """The sm90 kernels' arithmetic: inputs already bf16-valued f32."""
+    """The sm90 kernels' arithmetic: inputs already bf16-valued f32.  Tiles
+    are staged as 64-column panels, D rounded up to a whole panel with the
+    zeros TMA fills past the tensor's edge (columns 160..191 at D = 160);
+    the gradients keep D columns."""
+    d0 = q.shape[-1]
+    if d0 % 64:
+        pad = lambda x: np.pad(  # noqa: E731
+            x, ((0, 0), (0, 0), (0, -(-d0 // 64) * 64 - d0)))
+        got = _emulate_sm90(pad(q), pad(k), pad(v), pad(o), m, l, pad(do),
+                            causal=causal, window=window, kv_len=kv_len,
+                            scale=scale)
+        return tuple(x[..., :d0] for x in got)
     bh, s, d = q.shape
     g = bh // k.shape[0]
     ok = _mask(s, causal, window, kv_len)
@@ -90,12 +104,14 @@ def _emulate_sm90(q, k, v, o, m, l, do, *, causal, window, kv_len, scale):
     return _bf16(dq * scale), _bf16(dk * scale), _bf16(dv)
 
 
-# (S, G, D, causal, window, kv_len): S 256 and 512, D 64 and 128, causal,
-# windowed, kv_len < S, non-causal, GQA groups 1 and 4; one KV head
+# (S, G, D, causal, window, kv_len): S 256 and 512, D 64, 128 and 160,
+# causal, windowed, kv_len < S, non-causal, GQA groups 1 and 4; one KV head
 EMU_CASES = [(256, 1, 64, True, 0, None), (256, 4, 128, True, 100, None),
              (512, 4, 128, True, 0, None), (512, 1, 64, False, 0, 300),
              (256, 4, 64, True, 0, 200), (512, 1, 128, True, 200, None),
-             (256, 1, 128, False, 0, None), (512, 4, 64, True, 64, 400)]
+             (256, 1, 128, False, 0, None), (512, 4, 64, True, 64, 400),
+             (256, 4, 160, True, 0, None), (512, 1, 160, True, 100, 400),
+             (256, 4, 160, False, 0, 200)]
 
 
 @pytest.mark.parametrize("s,g,d,causal,window,kv_len", EMU_CASES)

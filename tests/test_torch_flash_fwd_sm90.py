@@ -35,14 +35,16 @@ NEG_INF = np.float32(-1e30)
 
 @pytest.mark.parametrize("dtype,d,route", [
     (BF, 128, "sm90"), (BF, 64, "sm90"), (BF, 16, "fma"),
-    (F32, 128, "fma"), (F32, 64, "fma"), (F32, 16, "fma")])
+    (F32, 128, "fma"), (F32, 64, "fma"), (F32, 16, "fma"),
+    (BF, 160, "sm90"), (F32, 160, "fma")])
 def test_fwd_route(dtype, d, route):
     assert ops.fwd_route(dtype, d) == route
 
 
 @pytest.mark.parametrize("dtype,d,exc", [
     (F16, 128, TypeError), (torch.int8, 64, TypeError),
-    (BF, 32, ValueError), (BF, 96, ValueError), (F32, 256, ValueError)])
+    (BF, 32, ValueError), (BF, 96, ValueError), (F32, 256, ValueError),
+    (F32, 96, ValueError), (BF, 256, ValueError)])
 def test_fwd_route_raises_for_what_no_kernel_takes(dtype, d, exc):
     with pytest.raises(exc):
         ops.fwd_route(dtype, d)
@@ -56,11 +58,14 @@ def _bf16(x):
 
 def _emulate_sm90(q, k, v, *, causal, window, kv_len, scale):
     """The sm90 kernel's arithmetic, tile by tile: inputs bf16-valued f32
-    (BH, S, D) / (BHkv, S, D) -> (o, m, l)."""
-    bh, s, d = q.shape
+    (BH, S, D) / (BHkv, S, D) -> (o, m, l).  Tiles are staged as 64-column
+    panels, D rounded up to a whole panel with the zeros TMA fills past
+    the tensor's edge (columns 160..191 at D = 160); o keeps D columns."""
+    bh, s, d0 = q.shape
     g = bh // k.shape[0]
     n = -(-s // 64) * 64
-    pad = lambda x: np.pad(x, ((0, 0), (0, n - s), (0, 0)))  # noqa: E731
+    d = -(-d0 // 64) * 64
+    pad = lambda x: np.pad(x, ((0, 0), (0, n - s), (0, d - d0)))  # noqa
     q, k, v = pad(q), pad(k), pad(v)
     scale2 = np.float32(scale) * LOG2E
     pos = np.arange(n)
@@ -97,7 +102,7 @@ def _emulate_sm90(q, k, v, *, causal, window, kv_len, scale):
             o[h, rows] = acc / np.maximum(lsum, np.float32(1e-30))[:, None]
             m[h, rows] = np.where(m2 == NEG_INF, NEG_INF, m2 / LOG2E)
             l[h, rows] = lsum
-    return _bf16(o[:, :s]), m[:, :s], l[:, :s]
+    return _bf16(o[:, :s, :d0]), m[:, :s], l[:, :s]
 
 
 def _pallas_fwd(q, k, v, *, causal, window, kv_len):
@@ -115,15 +120,18 @@ def _pallas_fwd(q, k, v, *, causal, window, kv_len):
             np.asarray(l)[:, :s])
 
 
-# (S, G, D, causal, window, kv_len): S 1, 63, 100 and 257; G 1 and 4; D 64
-# and 128; causal, windowed (the first tiles of a band start with dead
-# rows), kv_len < S, non-causal; one KV head
+# (S, G, D, causal, window, kv_len): S 1, 63, 100 and 257; G 1 and 4; D 64,
+# 128 and 160 (three panels, the last half zeros); causal, windowed (the
+# first tiles of a band start with dead rows), kv_len < S, non-causal; one
+# KV head
 EMU_CASES = [(1, 4, 128, True, 0, None), (1, 1, 64, False, 0, None),
              (63, 1, 64, True, 0, None), (63, 4, 128, False, 0, 40),
              (100, 4, 64, True, 0, None), (100, 1, 128, True, 16, None),
              (100, 4, 128, False, 0, 70), (257, 1, 64, True, 100, None),
              (257, 4, 128, True, 0, 200), (257, 1, 128, False, 0, None),
-             (257, 4, 64, True, 64, 250), (257, 1, 64, False, 0, 1)]
+             (257, 4, 64, True, 64, 250), (257, 1, 64, False, 0, 1),
+             (100, 4, 160, True, 0, None), (257, 1, 160, True, 100, 200),
+             (63, 4, 160, False, 0, 40)]
 
 
 @pytest.mark.parametrize("s,g,d,causal,window,kv_len", EMU_CASES)
@@ -171,7 +179,7 @@ def test_expected_counts_match_jax_tiling(s, g, causal, window, kv_len):
 
 
 @pytest.mark.parametrize("dtype,d", [(BF, 128), (BF, 64), (BF, 16),
-                                     (F32, 64)])
+                                     (F32, 64), (BF, 160), (F32, 160)])
 def test_cpu_forward_stays_plain_for_every_route(dtype, d):
     """On the CPU every route, the sm90 one included, is the plain
     version: no kernel counter moves."""
