@@ -31,7 +31,8 @@ JSON object per line:
    launched that design's kernels and not the other's.  The decode lines
    also report the rate their bytes moved at (``GBps``) and the share of
    the byte bound reached; GQA group 6 is checked at a small shape,
-   untimed (groups 16, 1 and 3 are timed at full size in item 21);
+   untimed (groups 16, 1 and 3 are timed at full size in item 21, 6 in
+   item 28);
 4. ``model``: a 2-layer model at head_dim 128 run through prefill and
    decode, and through ``loss_fn`` and its backward, on the card (kernels)
    and on the CPU (plain versions) from the same weights: logits, int8
@@ -225,10 +226,39 @@ JSON object per line:
     width and depth (batch 8, prompt 2048, 32 new tokens, bf16 latent
     cache) after a one-step warm-up, no kernel launched, then
     ``torch.profiler`` over its prefill and first 4 decode steps;
-28. the ``{"kernels": [...]}`` summary (each row with its launches in
-    ``serve_variants`` and ``train_variants`` by arch beside; the head_dim
-    160 rows apart, with stablelm-12b's launches), the ``nvidia-smi``
-    line, and last ``{"ok": true, "device": {...}}``.
+28. ``kernel`` lines for whisper-base and qwen2-vl-2b: the flash forward
+    and backward (bf16, the tensor-core designs) at whisper's decoder
+    heads (8 / 8 of 64, G = 1) at B=16 x S=448, its text context, with
+    SDPA beside; the decode kernel's lengths entry at whisper's G = 1,
+    D = 64 (B=16, 8 KV heads, S=512, ragged, splits 1 and 4) and at
+    qwen2-vl's G = 6, D = 128 (B=8, 2 KV heads, S=2048, ragged, splits 4
+    and 1); then ``encdec_vlm_kernels``, the seconds they took;
+29. ``whisper_model`` and ``qwen2vl_model``: each cut to 2 decoder layers
+    (whisper: 2 encoder layers too) at full width, policy full, card
+    against CPU from one set of weights, as ``head160_model``: whisper on
+    1500 frames a row, qwen2-vl with a 16-patch grid prefix and 3-stream
+    positions whose streams differ; the loss's gradients include the
+    encoder's and ``patch_proj``'s; launches exact (whisper: one flash
+    forward a decoder layer, none for the encoder or the cross-attention;
+    qwen2-vl: no flash kernel, one decode a layer a step);
+30. ``serve_encdec``: ``launch/serve.py``'s lockstep for whisper-base at
+    full depth (batch 16, 1500 frames of seeded normal values, prompt 64,
+    192 new tokens, int8, bf16) after a one-step warm-up: prefill ms with
+    the encoder, ms/token, tok/s, peak, launches exact (6 flash forwards,
+    6 x 191 decodes), then ``torch.profiler`` over the prefill and 4
+    decode steps: device ms of the encoder, the cross-attention, the
+    decode kernel and the GEMMs, the idle share;
+31. ``serve_variants`` for qwen2-vl-2b (the serve cell's engine and trace:
+    16 of 16, no flash launch, one decode a layer a round) and
+    ``train_variants`` for qwen2-vl-2b at its 28 layers (batch 1 x 4096:
+    a 32 x 32 patch prefix and 3-stream positions; no kernel) and
+    whisper-base at 6 + 6 layers (batch 16 x 448, 1500 frames a row;
+    the decoder's flash kernels only);
+32. the ``{"kernels": [...]}`` summary (each row with its launches in
+    ``serve_variants`` and ``train_variants`` by arch and in
+    ``serve_encdec`` beside; the head_dim 160 rows apart, with
+    stablelm-12b's launches), the ``nvidia-smi`` line, and last
+    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises after the lines are printed, and the script exits
 non-zero without the final ``ok`` line.
@@ -316,6 +346,17 @@ VARIANT_TRAIN_LAYERS = {"glm4-9b": 4, "deepseek-moe-16b": 2,
 # head_dim 160 (stablelm-12b: 32 / 8 heads, G = 4) and MLA (minicpm3-4b)
 HEAD160, MLA_ARCH = "stablelm-12b", "minicpm3-4b"
 MLA_BATCH, MLA_PROMPT, MLA_GEN = 8, 2048, 32    # the serve_mla lockstep
+# whisper-base and qwen2-vl-2b: whisper's lockstep (batch, prompt, new
+# tokens: 256 of its 448-token text context) and its train batch (16 x the
+# 448-token context, 1500 frames a row); qwen2-vl's train sequence opens
+# with a 32 x 32 patch grid (Sp = min(1024, S / 4), the reference's
+# input_specs), and its model phase with a 4 x 4 one
+WHISPER, QWEN = "whisper-base", "qwen2-vl-2b"
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_GEN = 16, 64, 192
+WHISPER_CTX = 448
+QWEN_GRID = 32
+MODEL_PHASE = {HEAD160: "head160_model", MLA_ARCH: "mla_model",
+               WHISPER: "whisper_model", QWEN: "qwen2vl_model"}
 # the train phase's peak when that phase did not run in this process
 # (llama3-8b at 4 layers: 43.71 GB in every chip run since PR 12, NVIDIA
 # H100 80GB HBM3 at 700 W)
@@ -385,6 +426,20 @@ def hold_to(ref: dict, recs: dict, got: dict, got_recs=None):
     return counts, firsts, {"n": len(drift),
                             "n_nonzero": sum(d > 0 for d in drift),
                             "max": max(drift, default=None)}
+
+
+def grid_positions(b: int, s: int, rows: int, cols: int):
+    """(3, B, S) int32 M-RoPE positions: a rows x cols patch prefix (t = 0,
+    h = row, w = col), then text on all three streams from the grid's
+    largest position + 1.  The streams differ, so a wrong section order or
+    stream would show."""
+    import torch
+    sp = rows * cols
+    i = torch.arange(sp)
+    grid = torch.stack([torch.zeros_like(i), i // cols, i % cols])
+    text = (max(rows, cols) + torch.arange(s - sp)).expand(3, s - sp)
+    return torch.cat([grid, text], dim=1)[:, None].expand(3, b, s) \
+        .to(torch.int32).contiguous()
 
 
 def live_pairs(s: int, *, causal: bool = True, window: int = 0,
@@ -656,15 +711,17 @@ class Smoke:
             out, (q4, k4, v4), do4, retain_graph=True))
 
     def check_decode(self, splits: int, *, hkv: int = 8, g: int = 4,
-                     d: int = 128, arch: str = "llama3-8b") -> dict:
+                     d: int = 128, arch: str = "llama3-8b", b: int = 8,
+                     s: int = 2048, lengths_list=None) -> dict:
         """The lengths entry point against its plain version at B=8,
-        S=2048, ragged lengths; by default at llama3-8b's heads (8 KV heads,
+        S=2048, ragged lengths (or ``b`` rows of ``s`` slots with
+        ``lengths_list``); by default at llama3-8b's heads (8 KV heads,
         G=4, D=128)."""
         torch = self.torch
         from repro_torch.kernels import tiling
         from repro_torch.kernels.kvq import ops, ref
-        b, s = 8, 2048
-        lengths_list = [1, 2048, 513, 512, 7, 1500, 1024, 64]
+        if lengths_list is None:
+            lengths_list = [1, 2048, 513, 512, 7, 1500, 1024, 64]
         gen = torch.Generator(device=self.dev).manual_seed(splits + 100 * g)
         q = torch.randn((b, hkv * g, d), generator=gen, device=self.dev)
         kq, ks = ref.quantize_kv(torch.randn((b, hkv, s, d), generator=gen,
@@ -877,6 +934,9 @@ class Smoke:
         diag = summary["diagnostics"]
         tokens = [t for r in engine._requests_done for t in r.tokens]
         L = cfg.n_layers
+        # M-RoPE (qwen2-vl): the prefill takes the plain attention, as the
+        # reference's does, so no flash forward
+        flash = cfg.mrope_sections is None
         checks = {
             "n_done": summary["n_done"] == len(trace),
             "no_faults": summary["n_faults"] == 0,
@@ -885,7 +945,8 @@ class Smoke:
             # round, on the tensor-core forward (policy bf16 at head_dim
             # 64 / 128) and the lengths entry only
             "flash_launches": launches["flash_fwd_sm90"]
-            == L * diag["prefills"] > 0 and launches["flash_fwd"] == 0,
+            == L * diag["prefills"] * flash and diag["prefills"] > 0
+            and launches["flash_fwd"] == 0,
             "decode_launches": launches["flash_decode"]
             == L * diag["decode_rounds"] > 0
             and launches["flash_decode_bias"] == 0,
@@ -1442,9 +1503,9 @@ class Smoke:
 
     def _profile(self, fn):
         """``torch.profiler`` over ``fn()``: (wall s, device busy s, rows of
-        (device us, kernel name, launches)), busiest first.  The SSD op's
-        and the MoE FFN's ranges go to ``last_scopes`` instead of the
-        rows."""
+        (device us, kernel name, launches)), busiest first.  The SSD op's,
+        the MoE FFN's and the encoder-decoder's ranges go to
+        ``last_scopes`` instead of the rows."""
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1456,7 +1517,7 @@ class Smoke:
         self.last_scopes = {}
         for ev in prof.key_averages():
             on_host = "CUDA" not in str(getattr(ev, "device_type", ""))
-            if ev.key.startswith(("ssd.", "moe.")):
+            if ev.key.startswith(("ssd.", "moe.", "encdec.")):
                 # the SSD op's and the MoE FFN's profiler ranges
                 # (kernels/ssd/ops.py ssd, models/moe.py), apart from the
                 # rows (they would count their kernels twice): on the host
@@ -1510,13 +1571,17 @@ class Smoke:
                 [name[:80], round(us / 1e3, 3), n]
                 for us, name, n in d_rows[:8]]})
 
-    def _train_steps(self, cfg) -> dict:
+    def _train_steps(self, cfg, batch: int = 1, seq: int = TRAIN_SEQ,
+                     extras=None) -> dict:
         """``cfg`` through ``build_train_step`` as ``launch/train.py``
         drives it, without checkpoint I/O: random f32 master weights,
-        policy bf16, remat on every block, the AdamW defaults, batch 1 x
-        TRAIN_SEQ; 2 warm-up steps, then 5 with the attention kernels'
-        launch counters zeroed before and read after.  Returns the run's
-        records, launches, peak and ``one_step`` (for a profile)."""
+        policy bf16, remat on every block, the AdamW defaults, batch
+        ``batch`` x ``seq`` (1 x TRAIN_SEQ) of the trainer's synthetic
+        stream, each batch updated with ``extras(batch)`` (an encoder's
+        frames, a VLM's patches and positions); 2 warm-up steps, then 5
+        with the attention kernels' launch counters zeroed before and read
+        after.  Returns the run's records, launches, peak and ``one_step``
+        (for a profile)."""
         torch = self.torch
         from repro_torch.core.checkpoint import CheckpointConfig
         from repro_torch.launch.train import init_state, synthetic_lm_batches
@@ -1535,8 +1600,10 @@ class Smoke:
         model, opt = init_state(cfg, self.args.seed, self.dev)
         ls = init_loss_scale(tc, self.dev)
         step = build_train_step(cfg, tc)
-        data = synthetic_lm_batches(cfg, 1, TRAIN_SEQ, seed=self.args.seed,
-                                    device=self.dev)
+        stream = synthetic_lm_batches(cfg, batch, seq, seed=self.args.seed,
+                                      device=self.dev)
+        data = stream if extras is None else (
+            (i, {**bt, **extras(bt)}) for i, bt in stream)
         n_params = sum(p.numel() for p in model.parameters())
         self.sync()
         init_s = time.time() - t0
@@ -1577,8 +1644,9 @@ class Smoke:
                                      for r in records),
             "grads_finite": all(r["grads_finite"] for r in records),
             "fits": run["peak"] < 80e9}
-        if cfg.mla is not None:
-            # MLA's plain attention, as in the reference: no kernel at all
+        if cfg.mla is not None or cfg.mrope_sections is not None:
+            # MLA's and M-RoPE's plain attention, as in the reference: no
+            # kernel at all
             return {**finite, "no_launches": not any(launches.values())}
         return {
             **finite,
@@ -2472,12 +2540,18 @@ class Smoke:
             "prompt": [2, prompt], "decode_steps": steps, "tol": tol,
             "models": out})
 
-    def _profile_lockstep(self, args, cfg, model, steps: int) -> dict:
+    def _profile_lockstep(self, args, cfg, model, steps: int,
+                          frames=None) -> dict:
         """``torch.profiler`` over lockstep's prefill, then over its first
         ``steps`` decode steps, at the measured run's shapes: the same
-        prompts, the cache grown to prompt + gen slots (so the decode
-        kernel walks the same tiles), the same sampler.  A few steps keep
-        the trace small: its processing, not the run, is what costs."""
+        prompts (and ``frames``: the encoder runs in the prefill, and the
+        decode steps attend over its output), the cache grown to prompt +
+        gen slots (so the decode kernel walks the same tiles), the same
+        sampler.  A few steps keep the trace small: its processing, not
+        the run, is what costs.  Each part reports the decode kernel's and
+        the GEMMs' device ms, and its profiler ranges (the SSD op's
+        ``ssd.*`` in ``ssd_op_ms``, the encoder-decoder's ``encdec.*`` in
+        ``encdec_ms``)."""
         import numpy as np
         torch = self.torch
         from repro_torch.core.mixed_precision import get_policy
@@ -2491,37 +2565,48 @@ class Smoke:
         prompts = torch.from_numpy(rng.integers(
             0, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int32)
         ).to(self.dev)
+        batch = {"tokens": prompts}
+        if frames is not None:
+            batch["frames"] = frames
 
         def prefill():
             logits, aux = transformer.forward(
-                model, cfg, {"tokens": prompts}, policy=policy,
+                model, cfg, batch, policy=policy,
                 build_cache=True, cache_quantized=quant)
             cache = transformer.grow_cache(aux["cache"],
                                            args.prompt_len + args.gen)
             tok = sampler(logits[:, -1], gen)
             tok.cpu()
-            return cache, tok
+            return cache, tok, aux.get("enc_out")
 
-        def decode(cache, tok):
+        def decode(cache, tok, enc_out):
             for _ in range(steps):
                 logits, cache = transformer.decode_step(
                     model, cfg, cache, tok, policy=policy, quantized=quant,
-                    kvq_splits=args.kv_splits)
+                    kvq_splits=args.kv_splits, enc_out=enc_out)
                 tok = sampler(logits, gen)
                 tok.cpu()
 
         def part(wall, busy_s, rows):
+            scopes = sorted(self.last_scopes.items())
             return {"wall_s": wall, "device_busy_s": busy_s,
                     "idle_share": 1 - busy_s / wall if wall > 0 else None,
+                    "decode_kernel_ms": sum(
+                        us for us, name, _ in rows
+                        if "decode_kernel" in name) / 1e3,
+                    "gemm_ms": sum(us for us, name, _ in rows
+                                   if GEMM_NAME.search(name)) / 1e3,
+                    "ssd_op_ms": {k: v for k, v in scopes
+                                  if k.startswith("ssd.")},
+                    "encdec_ms": {k: v for k, v in scopes
+                                  if k.startswith("encdec.")},
                     "top_kernels_ms": [[name[:80], round(us / 1e3, 3), c]
                                        for us, name, c in rows[:12]]}
 
-        (cache, tok), *pre = self._profile(prefill)
-        # the SSD op's parts over the prefill's layers
-        ssd_parts = dict(sorted(self.last_scopes.items()))
-        _, *dec = self._profile(lambda: decode(cache, tok))
-        out = {"prefill": {**part(*pre), "ssd_op_ms": ssd_parts},
-               "decode": part(*dec)}
+        (cache, tok, enc_out), *pre = self._profile(prefill)
+        out = {"prefill": part(*pre)}
+        _, *dec = self._profile(lambda: decode(cache, tok, enc_out))
+        out["decode"] = part(*dec)
         out["decode"]["steps"] = steps
         return out
 
@@ -3281,7 +3366,22 @@ class Smoke:
         return [self._train_variant(arch, layers)
                 for arch, layers in VARIANT_TRAIN_LAYERS.items()]
 
-    def _train_variant(self, arch: str, layers: int) -> dict:
+    @staticmethod
+    def _held_params(cfg) -> int:
+        """The parameters the port's model holds: ``param_count`` and the
+        padded vocab rows (once if tied), the GELU MLPs' biases and the
+        patch projection, which the analytic count leaves out."""
+        n = cfg.param_count() + (1 if cfg.tie_embeddings else 2) \
+            * (cfg.padded_vocab - cfg.vocab) * cfg.d_model
+        if cfg.mlp_kind == "gelu":
+            n += (cfg.n_layers + (cfg.encoder.n_layers if cfg.encoder
+                                  else 0)) * (cfg.d_ff + cfg.d_model)
+        if cfg.family == "vlm":
+            n += cfg.d_model ** 2
+        return n
+
+    def _train_variant(self, arch: str, layers: int, batch: int = 1,
+                       seq: int = TRAIN_SEQ, extras=None) -> dict:
         torch = self.torch
         from repro_torch import configs
         from repro_torch.core.mixed_precision import Policy
@@ -3296,10 +3396,9 @@ class Smoke:
             llama = dataclasses.replace(configs.get_config("llama3-8b"),
                                         n_layers=TRAIN_LAYERS)
             bpp = TRAIN_PEAK_FALLBACK / llama.param_count()
-        n_params = cfg.param_count() + 2 * (cfg.padded_vocab - cfg.vocab) \
-            * cfg.d_model
+        n_params = self._held_params(cfg)
         predicted = bpp * n_params
-        run = self._train_steps(cfg)
+        run = self._train_steps(cfg, batch, seq, extras)
         records, launches = run["records"], run["launches"]
         with torch.no_grad():
             _, aux = tf.forward(run["model"](), cfg, run["batch"](),
@@ -3322,8 +3421,8 @@ class Smoke:
             "n_layers": layers, "d_model": cfg.d_model,
             "n_heads": cfg.n_heads, "n_kv": cfg.n_kv,
             "head_dim": cfg.head_dim, "params": n_params,
-            "policy": "bf16", "remat": "per block, full", "batch": 1,
-            "seq": TRAIN_SEQ,
+            "policy": "bf16", "remat": "per block, full", "batch": batch,
+            "seq": seq,
             "arithmetic": {"bytes_per_param": bpp,
                            "from": "train" if getattr(
                                self, "train_bytes_per_param", None)
@@ -3332,7 +3431,7 @@ class Smoke:
             "losses": [r["loss"] for r in records],
             "grad_norms": [r["grad_norm"] for r in records],
             "moe_aux": moe_aux, "step_s": [r["step_s"] for r in records],
-            "median_step_s": step_s, "tokens_per_s": TRAIN_SEQ / step_s,
+            "median_step_s": step_s, "tokens_per_s": batch * seq / step_s,
             "kernel_launches_5_steps": launches,
             "max_memory_allocated_bytes": peak, "init_s": init_s,
             "seconds": time.time() - t_phase})
@@ -3354,17 +3453,25 @@ class Smoke:
                 "flash_decode_bias": kvq_ops.BIAS_KERNEL}
 
     def check_model_vs_cpu(self, arch: str) -> dict:
-        """``head160_model`` (stablelm-12b) / ``mla_model`` (minicpm3-4b):
-        ``arch`` cut to 2 layers at full width, policy full, card against
-        CPU from one set of weights (``bridge``): prefill logits and
-        caches (int8 K/V, or MLA's bf16 latents), 4 lockstep decode steps,
-        the loss and every gradient (remat on every block), at the
-        ``model`` line's tolerances.  Every kernel's launches are counted
-        in each of the three parts against what the path must run: at
-        head_dim 160 the FMA forward (policy full) a layer in the prefill,
-        the decode kernel a layer a step, the forward twice a layer (remat)
-        and delta / dQ / dKV (FMA) once a layer in the training step; for
-        MLA nothing, as no kernel lies on the reference's MLA path."""
+        """``head160_model`` (stablelm-12b) / ``mla_model`` (minicpm3-4b) /
+        ``whisper_model`` / ``qwen2vl_model``: ``arch`` cut to 2 layers
+        (whisper: 2 encoder layers too) at full width, policy full, card
+        against CPU from one set of weights (``bridge``): prefill logits
+        and caches (int8 K/V, or MLA's bf16 latents), 4 lockstep decode
+        steps (whisper's over the prefill's ``enc_out``), the loss and
+        every gradient (remat on every block; the encoder's and
+        ``patch_proj``'s leaves included), at the ``model`` line's
+        tolerances.  Whisper's batch carries 1500 frames of seeded normal
+        values a row, qwen2-vl's a 16-patch prefix (a 4 x 4 grid) and
+        3-stream positions (:func:`grid_positions`).  Every kernel's
+        launches are counted in each of the three parts against what the
+        path must run: the flash forward (FMA: policy full) a layer in the
+        prefill, the decode kernel a layer a step, the forward twice a
+        layer (remat) and delta / dQ / dKV (FMA) once a layer in the
+        training step; none for the encoder and the cross-attention; for
+        MLA and qwen2-vl's M-RoPE no flash kernel at all, as none lies on
+        the reference's path there (qwen2-vl still decodes through the
+        decode kernel)."""
         import numpy as np
         torch = self.torch
         from repro_torch import configs
@@ -3373,13 +3480,28 @@ class Smoke:
         from repro_torch.models import bridge, transformer as tf
         t_phase = time.time()
         cfg = dataclasses.replace(configs.get_config(arch), n_layers=2)
+        if cfg.encoder is not None:
+            cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+                cfg.encoder, n_layers=2))
         L, mla = cfg.n_layers, cfg.mla is not None
+        no_flash = mla or cfg.mrope_sections is not None
         cpu = tf.init_params(cfg, self.args.seed, device="cpu")
         gpu = bridge.load_jax_params(cfg, bridge.export_params(cpu),
                                      device=self.dev)
         rng = np.random.default_rng(self.args.seed)
         tokens, labels = (torch.from_numpy(rng.integers(
             0, cfg.vocab, (2, 100)).astype(np.int32)) for _ in range(2))
+        extra = {}
+        if cfg.encoder is not None:
+            extra["frames"] = torch.from_numpy(rng.standard_normal(
+                (2, cfg.encoder.n_frames, cfg.d_model)).astype(np.float32))
+        if cfg.family == "vlm":
+            extra["patches"] = torch.from_numpy(rng.standard_normal(
+                (2, 16, cfg.d_model)).astype(np.float32))
+            extra["positions"] = grid_positions(2, 100, 4, 4)
+
+        def on(dev):
+            return {n: t.to(dev) for n, t in extra.items()}
         pol = Policy.full()
         kernels = self._launch_counters()
         launches = {}
@@ -3396,10 +3518,11 @@ class Smoke:
             / max(float(b.detach().float().abs().max()), 1e-30))
         live = slice(0, cfg.vocab)
         with torch.no_grad():
-            want, aux_c = tf.forward(cpu, cfg, {"tokens": tokens},
+            want, aux_c = tf.forward(cpu, cfg, {"tokens": tokens, **extra},
                                      policy=pol, build_cache=True)
             zero()
-            got, aux_g = tf.forward(gpu, cfg, {"tokens": tokens.to(self.dev)},
+            got, aux_g = tf.forward(gpu, cfg, {"tokens": tokens.to(self.dev),
+                                               **on(self.dev)},
                                     policy=pol, build_cache=True)
             self.sync()
             read("prefill")
@@ -3426,10 +3549,12 @@ class Smoke:
                 toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2,))
                                         .astype(np.int32))
                 lw, cache_c = tf.decode_step(cpu, cfg, cache_c, toks,
-                                             policy=pol)
+                                             policy=pol,
+                                             enc_out=aux_c.get("enc_out"))
                 lg, cache_g = tf.decode_step(gpu, cfg, cache_g,
                                              toks.to(self.dev), policy=pol,
-                                             kvq_splits=2)
+                                             kvq_splits=2,
+                                             enc_out=aux_g.get("enc_out"))
                 decode_err = max(decode_err, rel(lg[:, live], lw[:, live]))
             self.sync()
             read("decode")
@@ -3438,7 +3563,8 @@ class Smoke:
             model.requires_grad_()
             zero()
             loss, _ = tf.loss_fn(model, cfg, {"tokens": tokens.to(dev),
-                                              "labels": labels.to(dev)},
+                                              "labels": labels.to(dev),
+                                              **on(dev)},
                                  policy=pol, remat=CheckpointConfig())
             loss.backward()
             losses[name] = float(loss.detach())
@@ -3446,20 +3572,29 @@ class Smoke:
         read("train")
         loss_err = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
         grads_c = dict(cpu.named_parameters())
-        grad_err = max(rel(p.grad, grads_c[n].grad)
-                       for n, p in gpu.named_parameters())
+        grad_errs = {n: rel(p.grad, grads_c[n].grad)
+                     for n, p in gpu.named_parameters()}
+        grad_err = max(grad_errs.values())
+        # the largest error among the leaves each new part holds
+        part_errs = {part: max(e for n, e in grad_errs.items()
+                               if n.startswith(part))
+                     for part in ("enc_blocks", "enc_norm", "patch_proj",
+                                  "embed")
+                     if any(n.startswith(part) for n in grad_errs)}
         zeros = {n: 0 for n in kernels}
         want_launches = {
-            "prefill": {**zeros, "flash_fwd": 0 if mla else L},
+            "prefill": {**zeros, "flash_fwd": 0 if no_flash else L},
             "decode": {**zeros, "flash_decode": 0 if mla else 4 * L},
-            "train": zeros if mla else {
+            "train": zeros if no_flash else {
                 **zeros, "flash_fwd": 2 * L, "flash_bwd_delta": L,
                 "flash_bwd_dq": L, "flash_bwd_dkv": L}}
         checks = {"prefill": prefill_err <= 1e-4, "cache": cache_ok,
                   "decode": decode_err <= 1e-3, "loss": loss_err <= 1e-5,
                   "grads": grad_err <= 1e-3,
+                  "every_leaf_has_a_gradient": all(
+                      p.grad is not None for p in gpu.parameters()),
                   "launches": launches == want_launches}
-        if not mla:                 # the FMA routes' main path at D = 160
+        if arch == HEAD160:         # the FMA routes' main path at D = 160
             self.head160_model_launches = {
                 n: sum(part[n] for part in launches.values())
                 for n in kernels}
@@ -3467,12 +3602,17 @@ class Smoke:
         gc.collect()
         torch.cuda.empty_cache()
         return self.record({
-            "phase": "mla_model" if mla else "head160_model", "arch": arch,
+            "phase": MODEL_PHASE[arch], "arch": arch,
             "ok": all(checks.values()), "checks": checks,
             "cfg": {"n_layers": L, "d_model": cfg.d_model,
                     "n_heads": cfg.n_heads, "n_kv": cfg.n_kv,
                     "head_dim": cfg.head_dim, "vocab": cfg.vocab,
                     "mla": dataclasses.asdict(cfg.mla) if mla else None,
+                    "encoder": dataclasses.asdict(cfg.encoder)
+                    if cfg.encoder is not None else None,
+                    "mrope_sections": cfg.mrope_sections,
+                    "tied": cfg.tie_embeddings,
+                    "inputs": sorted(["tokens", "labels", *extra]),
                     "prompt": [2, 100]},
             "prefill_logits_rel_err": prefill_err, "prefill_tol": 1e-4,
             ("latent_cache_rel_err" if mla
@@ -3481,6 +3621,7 @@ class Smoke:
             "decode_logits_rel_err": decode_err, "decode_tol": 1e-3,
             "loss": losses, "loss_rel_err": loss_err, "loss_tol": 1e-5,
             "grad_rel_err_max": grad_err, "grad_tol": 1e-3,
+            "grad_rel_err_by_part": part_errs,
             "kernel_launches": launches, "expected_launches": want_launches,
             "seconds": time.time() - t_phase})
 
@@ -3553,6 +3694,130 @@ class Smoke:
             "kernel_launches": launches, "sample": toks[0][:8].tolist(),
             "idle_share_run": 1 - busy / wall, "profile": prof,
             "seconds": time.time() - t_phase})
+
+    # -- whisper-base and qwen2-vl-2b ----------------------------------------
+    def _train_extras(self, cfg, batch: int, seq: int):
+        """What a train batch of ``cfg`` carries beside its tokens: an
+        encoder's frames (seeded normal, anew each batch), a VLM's patch
+        prefix (a QWEN_GRID x QWEN_GRID grid of seeded normal embeddings)
+        and its 3-stream positions; None for a text-only arch."""
+        gen = self.torch.Generator(device=self.dev).manual_seed(
+            self.args.seed + 1)
+        if cfg.encoder is not None:
+            shape = (batch, cfg.encoder.n_frames, cfg.d_model)
+            return lambda _: {"frames": self.torch.randn(
+                shape, generator=gen, device=self.dev)}
+        if cfg.family == "vlm":
+            assert QWEN_GRID ** 2 == min(1024, seq // 4)
+            pos = grid_positions(batch, seq, QWEN_GRID, QWEN_GRID).to(
+                self.dev)
+            shape = (batch, QWEN_GRID ** 2, cfg.d_model)
+            return lambda _: {"patches": self.torch.randn(
+                shape, generator=gen, device=self.dev), "positions": pos}
+        return None
+
+    def run_serve_encdec(self) -> dict:
+        """``serve_encdec``: ``launch/serve.py``'s lockstep for whisper-base
+        at full width and depth, as ``python -m repro_torch.launch.serve
+        --arch whisper-base --batch 16 --prompt-len 64 --gen 192`` runs it
+        but on 1500 frames a row of seeded normal values (``lockstep``'s
+        ``frames``; the CLI feeds zeros, as the reference's): random bf16
+        weights from ``--seed``, int8 cache.  A one-step warm-up run, then
+        the measured run with every kernel counter zeroed just before it
+        and read just after: the flash forward once a decoder layer (the
+        tensor-core design at G = 1, D = 64), the decode kernel once a
+        layer a step, nothing for the encoder or the cross-attention.
+        Then a profile of the prefill and the first 4 decode steps: device
+        ms of the encoder and the cross-attention (their ``encdec.*``
+        ranges), the decode kernel and the GEMMs, and the idle share."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.launch import serve
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_phase = time.time()
+        argv = ["--arch", WHISPER, "--batch", str(WHISPER_BATCH),
+                "--prompt-len", str(WHISPER_PROMPT), "--gen",
+                str(WHISPER_GEN), "--policy", "bf16", "--seed",
+                str(self.args.seed)]
+        args = serve.build_parser().parse_args(argv)
+        cfg = configs.get_config(WHISPER)
+        L = cfg.n_layers
+        t0 = time.time()
+        model = serve.build_model(args, cfg, self.dev)
+        gen = torch.Generator(device=self.dev).manual_seed(self.args.seed)
+        frames = torch.randn((WHISPER_BATCH, cfg.encoder.n_frames,
+                              cfg.d_model), generator=gen, device=self.dev)
+        self.sync()
+        init_s = time.time() - t0
+        t0 = time.time()
+        serve.lockstep(argparse.Namespace(**{**vars(args), "gen": 2}), cfg,
+                       model, self.dev, frames=frames)
+        warmup_s = time.time() - t0
+        kernels = self._launch_counters()
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        for k in kernels.values():
+            k.launches = 0
+        r = serve.lockstep(args, cfg, model, self.dev, frames=frames)
+        launches = {n: k.launches for n, k in kernels.items()}
+        self.encdec_launches = launches
+        peak = torch.cuda.max_memory_allocated(self.dev)
+        steps, toks = WHISPER_GEN - 1, r["tokens"]
+        want = {n: 0 for n in kernels}
+        want.update(flash_fwd_sm90=L, flash_decode=L * steps)
+        checks = {"launches": launches == want,
+                  "tokens_shape": toks.shape == (WHISPER_BATCH, WHISPER_GEN),
+                  "tokens_in_vocab": bool(((toks >= 0)
+                                           & (toks < cfg.vocab)).all()),
+                  "fits": peak < 80e9}
+        prof = self._profile_lockstep(args, cfg, model, steps=4,
+                                      frames=frames)
+        pre, dec = prof["prefill"], prof["decode"]
+        busy = pre["device_busy_s"] + dec["device_busy_s"] / dec["steps"] \
+            * steps
+        wall = r["prefill_s"] + r["decode_s"]
+        n_params = sum(p.numel() for p in model.parameters())
+        checks["params_as_counted"] = n_params == self._held_params(cfg)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        return self.record({
+            "phase": "serve_encdec", "arch": WHISPER,
+            "ok": all(checks.values()), "checks": checks,
+            "n_layers": L, "encoder_layers": cfg.encoder.n_layers,
+            "frames": cfg.encoder.n_frames, "d_model": cfg.d_model,
+            "n_heads": cfg.n_heads, "params": n_params,
+            "batch": WHISPER_BATCH, "prompt": WHISPER_PROMPT,
+            "gen": WHISPER_GEN, "policy": "bf16", "cache": "int8",
+            "prefill_ms_with_encoder": r["prefill_s"] * 1e3,
+            "decode_ms_per_token": r["decode_s"] / steps * 1e3,
+            "decode_tokens_per_s": WHISPER_BATCH * steps / r["decode_s"],
+            "max_memory_allocated_bytes": peak,
+            "encoder_f32_scores_bytes_per_layer":
+                WHISPER_BATCH * cfg.n_heads * cfg.encoder.n_frames ** 2 * 4,
+            "init_s": init_s, "warmup_s": warmup_s,
+            "kernel_launches": launches, "expected_launches": want,
+            "sample": toks[0][:8].tolist(),
+            "device_ms": {
+                "prefill_encoder": pre["encdec_ms"].get(
+                    "encdec.encoder", {}).get("kernels_ms"),
+                "prefill_cross_attn": pre["encdec_ms"].get(
+                    "encdec.cross_attn", {}).get("kernels_ms"),
+                "prefill_gemm": pre["gemm_ms"],
+                "prefill_busy": pre["device_busy_s"] * 1e3,
+                "decode_step_cross_attn": dec["encdec_ms"].get(
+                    "encdec.cross_attn", {}).get("kernels_ms", 0)
+                / dec["steps"],
+                "decode_step_decode_kernel": dec["decode_kernel_ms"]
+                / dec["steps"],
+                "decode_step_gemm": dec["gemm_ms"] / dec["steps"],
+                "decode_step_busy": dec["device_busy_s"] * 1e3
+                / dec["steps"]},
+            "idle_share_prefill": pre["idle_share"],
+            "idle_share_decode": dec["idle_share"],
+            "idle_share_run": 1 - busy / wall, "profile": prof,
+            "seconds": time.time() - t_phase})
+
 
 def nvidia_smi() -> str:
     out = subprocess.run(
@@ -3714,6 +3979,31 @@ def main(argv=None) -> int:
     smoke.check_model_vs_cpu(HEAD160)
     smoke.check_model_vs_cpu(MLA_ARCH)
     smoke.run_serve_mla()
+    # whisper-base (8 / 8 heads of 64: G = 1) and qwen2-vl-2b (12 / 2 of
+    # 128: G = 6): the kernels at their shapes, the two models card
+    # against CPU, whisper's lockstep, qwen2-vl in the engine, both trained
+    # at full depth
+    t0 = time.time()
+    wh = dict(b=WHISPER_BATCH, h=8, hkv=8, d=64, arch=WHISPER)
+    flash_ed = [smoke.check_flash(WHISPER_CTX, bf16, **wh)]
+    bwd.append(smoke.check_flash_bwd(WHISPER_CTX, bf16, bf16, **wh))
+    lengths = [1, 512, 300, 64, 257, 448, 2, 511, 100, 33, 65, 128, 255,
+               384, 7, 480]
+    decode += [smoke.check_decode(sp, b=WHISPER_BATCH, s=512,
+                                  lengths_list=lengths, hkv=8, g=1, d=64,
+                                  arch=WHISPER) for sp in (1, 4)]
+    decode += [smoke.check_decode(sp, hkv=2, g=6, d=128, arch=QWEN)
+               for sp in (4, 1)]
+    smoke.record({"phase": "encdec_vlm_kernels", "seconds": time.time() - t0})
+    smoke.check_model_vs_cpu(WHISPER)
+    smoke.check_model_vs_cpu(QWEN)
+    smoke.run_serve_encdec()
+    smoke._serve_variant(QWEN)
+    for arch, batch, seq in ((QWEN, 1, TRAIN_SEQ),
+                             (WHISPER, WHISPER_BATCH, WHISPER_CTX)):
+        cfg = configs.get_config(arch)
+        smoke._train_variant(arch, cfg.n_layers, batch, seq,
+                             smoke._train_extras(cfg, batch, seq))
     smoke.sync()
 
     def summary_row(name, rows, main, route_src, tpu, launches=None):
@@ -3799,7 +4089,8 @@ def main(argv=None) -> int:
     kernels = {"kernels": [
         # launches in the 5 timed train steps, time at the train shape; the
         # fleet phase's launches beside (its sub-phases (a)-(d) and (f))
-        dict(summary_row("flash_fwd_sm90", flash + flash_ssm + flash_var,
+        dict(summary_row("flash_fwd_sm90",
+                         flash + flash_ssm + flash_var + flash_ed,
                          flash[-1], FLASH_SM90_SRC, FLASH_TPU,
                          smoke.train_launches),
              fleet_launches=smoke.fleet_launches["flash_fwd_sm90"]),
@@ -3842,6 +4133,8 @@ def main(argv=None) -> int:
     for row in kernels["kernels"]:
         row.setdefault("train_ssm_launches",
                        smoke.train_ssm_launches.get(row["name"], 0))
+        row["serve_encdec_launches"] = smoke.encdec_launches.get(
+            row["name"], 0)
         for part in ("serve", "train"):
             row[f"{part}_variants_launches"] = {
                 arch: runs[part].get(row["name"], 0)

@@ -1,25 +1,18 @@
 """Architecture registry: ``get_config(arch_id)`` and the reduced
-``smoke_config`` (counterparts of ``repro.configs``).
-
-Only the architectures the port can already build are registered; asking
-for another one raises and names the slice that will port it.
+``smoke_config`` (counterparts of ``repro.configs``), for every
+architecture of the JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 
-from repro_torch.models.config import MLAConfig, ModelConfig, SSMConfig
+from repro_torch.models.config import (EncoderConfig, MLAConfig,
+                                       ModelConfig, SSMConfig)
 
 ARCHS = ["llama3_8b", "mamba2_130m", "hymba_1_5b", "glm4_9b",
          "deepseek_moe_16b", "granite_moe_3b_a800m", "stablelm_12b",
-         "minicpm3_4b"]
-
-#: architectures of the reference not yet ported -> the slice that brings them
-PENDING = {
-    "whisper-base": "slice F (encoder)",
-    "qwen2-vl-2b": "slice F (M-RoPE)",
-}
+         "minicpm3_4b", "whisper_base", "qwen2_vl_2b"]
 
 
 def _mod(arch_id: str) -> str:
@@ -32,12 +25,7 @@ def list_archs() -> list[str]:
 
 def get_config(arch_id: str) -> ModelConfig:
     if _mod(arch_id) not in ARCHS:
-        slice_name = PENDING.get(arch_id.replace("_", "-"))
-        if slice_name is not None:
-            raise NotImplementedError(
-                f"arch {arch_id!r} is not ported yet; it comes with "
-                f"{slice_name}")
-        raise ValueError(f"unknown arch {arch_id!r} (ported: {list_archs()})")
+        raise ValueError(f"unknown arch {arch_id!r} (known: {list_archs()})")
     mod = importlib.import_module(f"repro_torch.configs.{_mod(arch_id)}")
     return mod.get_config()
 
@@ -62,4 +50,8 @@ def smoke_config(arch_id: str) -> ModelConfig:
         kw["head_dim"] = 16
     if cfg.ssm is not None:
         kw["ssm"] = SSMConfig(d_state=16, d_inner=64, head_p=16, chunk=32)
+    if cfg.encoder is not None:
+        kw["encoder"] = EncoderConfig(n_layers=2, n_frames=32)
+    if cfg.mrope_sections is not None:
+        kw["mrope_sections"] = (4, 2, 2)
     return dataclasses.replace(cfg, **kw)

@@ -9,9 +9,11 @@ admission, mid-flight joins and retirements:
         --smoke --engine --device cpu
 
 The default (lockstep) mode prefills one fixed batch once and decodes
-``--gen`` steps in unison; it serves every ported arch, the SSM family
-(mamba2-130m, hymba-1.5b) and MLA (minicpm3-4b, a bf16 latent cache)
-included, which the engine refuses:
+``--gen`` steps in unison; it serves every arch, the SSM family
+(mamba2-130m, hymba-1.5b), MLA (minicpm3-4b, a bf16 latent cache) and the
+encoder-decoder (whisper-base: the encoder runs once in the prefill on
+zero frames, as the reference CLI's, and every decode step attends over
+its output) included, which the engine refuses:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
         --smoke --device cpu
@@ -319,8 +321,8 @@ def run_engine(args, cfg, model) -> int:
     if not supports(cfg):
         print(f"engine: {cfg.arch_id} is not engine-eligible (needs a "
               f"uniform-window GQA int8 attention cache; MLA's latent "
-              f"cache, SSM and hybrid archs serve through the lockstep "
-              f"driver)")
+              f"cache, SSM and hybrid archs and the encoder-decoder serve "
+              f"in lockstep mode)")
         return 2
     _kv_banner(cfg, args, args.max_len)
     sink = _open_sink(args)
@@ -395,27 +397,37 @@ def _serve_engine(args, cfg, model, sink) -> int:
 
 
 @torch.no_grad()
-def lockstep(args, cfg, model, device) -> dict:
+def lockstep(args, cfg, model, device, frames=None) -> dict:
     """Prefill one seeded (batch, prompt_len) batch, then decode ``gen - 1``
     steps in unison.  Returns the host-clock times (each ends in a copy of
     the sampled tokens to the host, so the device work is done) and the
-    (batch, gen) generated tokens."""
+    (batch, gen) generated tokens.
+
+    An encoder arch's encoder runs once, in the prefill (its time
+    included), on ``frames`` (batch, n_frames, d_model; default zeros, as
+    the reference CLI feeds), and every decode step takes its output as
+    ``enc_out``.  The reference CLI hands the raw frames to the decode
+    steps instead, which is the encoder's output only for zero frames."""
     quant = not args.no_quantize
     policy = get_policy(args.policy)
     rng = np.random.default_rng(args.seed)
     prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int32)
     ).to(device)
+    batch = {"tokens": prompts}
+    if cfg.encoder is not None:
+        batch["frames"] = frames if frames is not None else torch.zeros(
+            (args.batch, cfg.encoder.n_frames, cfg.d_model), device=device)
     s_total = args.prompt_len + args.gen
     sampler = sampling.make_sampler(temperature=args.temperature,
                                     top_k=args.top_k)
     gen = torch.Generator(device=device).manual_seed(args.seed)
 
     t0 = time.time()
-    logits, aux = transformer.forward(model, cfg, {"tokens": prompts},
-                                      policy=policy, build_cache=True,
-                                      cache_quantized=quant)
+    logits, aux = transformer.forward(model, cfg, batch, policy=policy,
+                                      build_cache=True, cache_quantized=quant)
     cache = transformer.grow_cache(aux["cache"], s_total)
+    enc_out = aux.get("enc_out")
     tok = sampler(logits[:, -1], gen)
     del logits, aux
     out_tokens = [tok.cpu().numpy()]
@@ -425,7 +437,7 @@ def lockstep(args, cfg, model, device) -> dict:
     for _ in range(args.gen - 1):
         logits, cache = transformer.decode_step(
             model, cfg, cache, tok, policy=policy, quantized=quant,
-            kvq_splits=args.kv_splits)
+            kvq_splits=args.kv_splits, enc_out=enc_out)
         tok = sampler(logits, gen)
         out_tokens.append(tok.cpu().numpy())
     t_decode = time.time() - t0
@@ -435,6 +447,10 @@ def lockstep(args, cfg, model, device) -> dict:
 
 def run_lockstep(args, cfg, model, device) -> int:
     _kv_banner(cfg, args, args.prompt_len + args.gen)
+    if cfg.encoder is not None:
+        print(f"encoder: {cfg.encoder.n_layers} layers over "
+              f"{cfg.encoder.n_frames} zero frames, once in the prefill; "
+              f"cross-attention K/V projected from its output every step")
     r = lockstep(args, cfg, model, device)
     t_decode, gen_toks = r["decode_s"], r["tokens"]
     print(f"prefill {args.batch}x{args.prompt_len}: "

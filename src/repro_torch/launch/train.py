@@ -36,6 +36,11 @@ the plain versions:
       --remat auto --mem-budget-mb 64 --events ev.jsonl --trace \\
       --metrics-every 10
 
+qwen2-vl-2b trains here as in the reference: text-only batches, the
+positions broadcast over M-RoPE's three streams.  An encoder-decoder
+(whisper-base) is refused, since the synthetic stream has no frames (the
+reference's trainer fails on them later, in the forward).
+
 Not ported yet: the mesh flags (``--max-model``; the distributed slice)
 and ``--attn-backend`` (the port dispatches on the device).
 """
@@ -47,6 +52,7 @@ import math
 import os
 import signal
 import statistics
+import sys
 import tempfile
 import threading
 import time
@@ -192,9 +198,18 @@ def load_state(cfg, state: dict, device):
 
 
 def run(args) -> int:
-    device = resolve_device(args.device)
     cfg = configs.smoke_config(args.arch) if args.smoke \
         else configs.get_config(args.arch)
+    if cfg.encoder is not None:
+        # the reference's trainer feeds the same text-only batches and its
+        # forward then fails on the missing frames (a KeyError); refuse
+        # before building anything
+        print(f"{cfg.arch_id}: an encoder-decoder trains on (tokens, "
+              f"frames) batches, and this trainer's synthetic stream has "
+              f"no frames: not trainable through this CLI (train it with "
+              f"train_step on batches that carry 'frames')", file=sys.stderr)
+        return 2
+    device = resolve_device(args.device)
     print(f"device: {device}"
           + (f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else ""))

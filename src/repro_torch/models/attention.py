@@ -1,23 +1,30 @@
-"""GQA attention for prefill and cached decode (counterpart of
-``repro.models.attention``, dense branch).
+"""GQA attention for prefill and cached decode, cross-attention, and MLA
+(counterpart of ``repro.models.attention``).
 
-Prefill and training always go through the flash op (``kernels/flash``):
-the CUDA kernels on the card, their plain versions on the CPU; it is
-differentiable, so ``loss.backward()`` runs the flash backward.  Each layer
-gets its window as a Python int, so windowed and global layers both reach
-the flash kernel.  Decode writes the new token into the cache in place and
-reads the cache through ``kernels/kvq.decode_attention`` (quantized) or
-the plain masked softmax (unquantized), masked by length for a full-causal
-layer and for a rolling window buffer (the two-tier cache,
+Prefill and training go through the flash op (``kernels/flash``) where
+the reference's ``attn_block`` takes its Pallas kernel: causal attention
+over 1-D positions.  The op runs the CUDA kernels on the card and their
+plain versions on the CPU; it is differentiable, so ``loss.backward()``
+runs the flash backward.  Each layer gets its window as a Python int, so
+windowed and global layers both reach the flash kernel.  Every other call
+runs the plain :func:`gqa_attention`, as the reference runs its jnp path
+there: whisper's bidirectional encoder (``causal=False``) and qwen2-vl's
+M-RoPE prefill (positions (3, B, S)).  :func:`cross_attn_block`,
+whisper's decoder attending over every encoder frame, is the reference's
+plain f32 einsums.  Decode writes the new token into the cache in place
+and reads the cache through ``kernels/kvq.decode_attention`` (quantized)
+or the plain masked softmax (unquantized), masked by length for a
+full-causal layer and for a rolling window buffer (the two-tier cache,
 ``transformer.decode_step_two_tier``), and by a dense (B, S) bias for a
-window band over a full-length cache.
+window band over a full-length cache; under M-RoPE the decode position
+turns all three streams, as in the reference.
 
 MLA (minicpm3) is the reference's: :func:`mla_block` runs the plain
 :func:`gqa_attention` (one-shot, or KV-chunked online softmax for long
 prompts), as ``repro.models.attention.mla_block`` does -- no kernel lies on
 MLA's path in the reference, so none lies on the port's -- and
 :func:`mla_decode` attends in the latent space over a bf16 latent cache.
-Cross-attention and the sequence-sharded cache come with later slices.
+The sequence-sharded cache comes with a later slice.
 """
 from __future__ import annotations
 
@@ -100,24 +107,53 @@ def gqa_attention(q, k, v, *, q_pos, k_pos, window: int = 0,
     return out.to(q.dtype)
 
 
-def attn_block(p, x, cfg, *, positions, window: int = 0, resid_dtype=None):
+def attn_block(p, x, cfg, *, positions, window: int = 0,
+               causal: bool = True, resid_dtype=None):
     """x: (B, S, D_model); p holds wq/wk/wv/wo, cast to ``x.dtype`` here.
-    Returns (out, (k, v)) with k, v (B, S, Hkv, hd) after RoPE.
-    ``resid_dtype`` is the storage dtype of the flash op's saved (q, k, v,
-    o) under autograd (``Policy.flash_resid_dtype``)."""
+    ``positions``: (B, S), or (3, B, S) under M-RoPE.  Returns (out,
+    (k, v)) with k, v (B, S, Hkv, hd) after RoPE.  The flash op takes the
+    call where the reference's Pallas kernel does (``attention.py:122-124``:
+    causal, 1-D positions); otherwise :func:`gqa_attention`, masked by the
+    first stream's positions.  ``resid_dtype`` is the storage dtype of the
+    flash op's saved (q, k, v, o) under autograd
+    (``Policy.flash_resid_dtype``)."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     dt = x.dtype
     q = (x @ p.wq.to(dt)).reshape(b, s, h, hd)
     k = (x @ p.wk.to(dt)).reshape(b, s, hkv, hd)
     v = (x @ p.wv.to(dt)).reshape(b, s, hkv, hd)
-    q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
-    k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
-    out = flash_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                    v.transpose(1, 2), causal=True,
-                                    window=window, resid_dtype=resid_dtype)
-    out = out.transpose(1, 2).reshape(b, s, h * hd)
-    return out @ p.wo.to(dt), (k, v)
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction,
+                   cfg.mrope_sections)
+    k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction,
+                   cfg.mrope_sections)
+    if causal and positions.ndim < 3:
+        out = flash_ops.flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=True, window=window, resid_dtype=resid_dtype)
+        out = out.transpose(1, 2)
+    else:
+        pos1d = positions[0] if positions.ndim == 3 else positions
+        out = gqa_attention(q, k, v, q_pos=pos1d, k_pos=pos1d, window=window,
+                            causal=causal)
+    return out.reshape(b, s, h * hd) @ p.wo.to(dt), (k, v)
+
+
+def cross_attn_block(p, x, enc_kv, cfg):
+    """Whisper's decoder cross-attention (``repro.models.attention``
+    ``cross_attn_block``): x (B, S, D_model) attends over every encoder
+    frame of ``enc_kv`` = (k, v), each (B, Se, Hkv, hd), projected from the
+    encoder's output by the caller; no RoPE, no mask, f32 scores.  p holds
+    wq / wo (its wk / wv are the caller's), cast to ``x.dtype`` here."""
+    b, s, _ = x.shape
+    h, hkv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    dt = x.dtype
+    k, v = enc_kv
+    qg = (x @ p.wq.to(dt)).reshape(b, s, hkv, h // hkv, hd).float()
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * hd ** -0.5
+    pr = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", pr, v.float())
+    return out.reshape(b, s, h * hd).to(dt) @ p.wo.to(dt)
 
 
 def _write_token(cache, new, at):
@@ -187,8 +223,12 @@ def attn_decode(p, x_t, cfg, cache_k, cache_s_k, cache_v, cache_s_v, pos,
     k_t = (x_t @ p.wk).reshape(b, 1, hkv, hd)
     v_t = (x_t @ p.wv).reshape(b, 1, hkv, hd)
     pos_arr = (pos[:, None] if per_row else pos).expand(b, 1)
-    q = apply_rope(q, pos_arr, cfg.rope_theta, cfg.rope_fraction)[:, 0]
-    k_new = apply_rope(k_t, pos_arr, cfg.rope_theta, cfg.rope_fraction)[:, 0]
+    if cfg.mrope_sections is not None:       # the position on all 3 streams
+        pos_arr = pos_arr.expand(3, b, 1)
+    q = apply_rope(q, pos_arr, cfg.rope_theta, cfg.rope_fraction,
+                   cfg.mrope_sections)[:, 0]
+    k_new = apply_rope(k_t, pos_arr, cfg.rope_theta, cfg.rope_fraction,
+                       cfg.mrope_sections)[:, 0]
     v_new = v_t[:, 0]
     s_max = cache_k.shape[2]
     if mask is None:

@@ -3,8 +3,10 @@
 The JAX side hands over its trees as numpy arrays
 (``jax.tree.map(np.asarray, tree)``); nothing here imports JAX.  In the
 JAX layout the per-layer leaves are stacked along a leading layer axis
-under ``"blocks"``; the port holds one module per layer, whose parameters
-are named ``blocks.<i>.<path>``.  The padded-vocab rows are kept, and
+under ``"blocks"`` (and an encoder's under ``"enc_blocks"``); the port
+holds one module per layer, whose parameters are named
+``blocks.<i>.<path>`` (``enc_blocks.<i>.<path>``).  A tied arch has no
+``lm_head`` on either side.  The padded-vocab rows are kept, and
 weights keep their ``(d_in, d_out)`` orientation, so every leaf is a
 plain copy.  The same layout carries the AdamW moments, so a training
 checkpoint of either package restores into the other.
@@ -23,11 +25,14 @@ import torch
 from repro_torch.core.mixed_precision import Policy
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (MLA, SSM, Attention, Block,
-                                            MoE, SwiGLU, Transformer)
+                                            EncBlock, GeluMLP, MoE, SwiGLU,
+                                            Transformer)
 from repro_torch.optim.adamw import AdamWState
 
 _ATTN = ("wq", "wk", "wv", "wo")
 _FFN = ("w_gate", "w_up", "w_down")     # the dense SwiGLU's leaves
+#: the JAX tree's keys whose leaves are stacked along a layer axis
+STACKED = ("blocks", "enc_blocks")
 
 
 def _to_tensor(x, device):
@@ -40,6 +45,11 @@ def load_jax_params(cfg: ModelConfig, tree: dict, *, device="cuda",
     cast once to ``policy.compute_dtype`` when a policy is given."""
     def t(x):
         return _to_tensor(x, device)
+
+    def dense_ffn(ft, i):
+        if "w1" in ft:                             # whisper's GELU MLP
+            return GeluMLP(*(t(ft[n][i]) for n in GeluMLP.NAMES))
+        return SwiGLU(*(t(ft[n][i]) for n in _FFN))
 
     bt = tree["blocks"]
     blocks = []
@@ -59,39 +69,51 @@ def load_jax_params(cfg: ModelConfig, tree: dict, *, device="cuda",
                               for n in MoE.NAMES + MoE.SHARED
                               if n in bt["ffn"]))
         elif "ffn" in bt:
-            kw["ffn"] = SwiGLU(*(t(bt["ffn"][n][i]) for n in _FFN))
+            kw["ffn"] = dense_ffn(bt["ffn"], i)
+        if "xattn" in bt:
+            kw["xattn"] = Attention(*(t(bt["xattn"][n][i]) for n in _ATTN))
+            kw["ln_x"] = t(bt["ln_x"][i])
         for n in ("mix_norm_attn", "mix_norm_ssm"):
             if n in bt:
                 kw[n] = t(bt[n][i])
         blocks.append(Block(t(bt["ln1"][i]), t(bt["ln2"][i]), **kw))
+    extra = {}
+    if "enc_blocks" in tree:
+        et = tree["enc_blocks"]
+        extra["enc_blocks"] = [
+            EncBlock(t(et["ln1"][i]), t(et["ln2"][i]),
+                     Attention(*(t(et["attn"][n][i]) for n in _ATTN)),
+                     dense_ffn(et["ffn"], i))
+            for i in range(cfg.encoder.n_layers)]
+        extra["enc_norm"] = t(tree["enc_norm"])
+    if "patch_proj" in tree:
+        extra["patch_proj"] = t(tree["patch_proj"])
     model = Transformer(cfg, t(tree["embed"]), blocks, t(tree["final_norm"]),
-                        None if cfg.tie_embeddings else t(tree["lm_head"]))
+                        None if cfg.tie_embeddings else t(tree["lm_head"]),
+                        **extra)
     return model if policy is None else model.cast_to_compute(policy)
 
 
 def to_jax_tree(named: dict) -> dict:
     """{port parameter name: tensor or array} -> a JAX-layout tree of numpy
-    arrays, the ``blocks.<i>.*`` leaves stacked along a leading layer
-    axis."""
+    arrays, the ``blocks.<i>.*`` and ``enc_blocks.<i>.*`` leaves stacked
+    along a leading layer axis."""
     tree: dict = {}
     layers: dict = {}
     for name, x in named.items():
         arr = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
             else np.asarray(x)
         parts = name.split(".")
-        if parts[0] == "blocks":
-            layers.setdefault(tuple(parts[2:]), {})[int(parts[1])] = arr
+        if parts[0] in STACKED:
+            layers.setdefault((parts[0], *parts[2:]), {})[int(parts[1])] = arr
         else:
             tree[name] = arr
-    blocks: dict = {}
     for path, per_layer in layers.items():
-        node = blocks
+        node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = np.stack([per_layer[i]
                                    for i in range(len(per_layer))])
-    if blocks:
-        tree["blocks"] = blocks
     return tree
 
 
@@ -109,9 +131,9 @@ def from_jax_tree(tree: dict) -> dict:
     walk(tree, ())
     named = {}
     for path, arr in out.items():
-        if path[0] == "blocks":
+        if path[0] in STACKED:
             for i in range(arr.shape[0]):
-                named[".".join(("blocks", str(i)) + path[1:])] = arr[i]
+                named[".".join((path[0], str(i)) + path[1:])] = arr[i]
         else:
             named[".".join(path)] = arr
     return named

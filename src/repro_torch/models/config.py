@@ -1,10 +1,8 @@
 """Model configuration dataclasses (counterpart of ``repro.models.config``).
 
 The port dispatches attention on the tensor's device, not on a backend
-name, so ``ModelConfig`` has no ``attn_backend`` field.  The MLA and
-encoder sub-configs are kept as plain fields so later slices fit;
-``models.transformer`` rejects them at build time for now.
-``param_count`` / ``active_param_count`` are the reference's analytic
+name, so ``ModelConfig`` has no ``attn_backend`` field; every other
+field is the reference's.  ``param_count`` / ``active_param_count`` are the reference's analytic
 counts, for every family (the MLA and encoder terms included).
 """
 from __future__ import annotations

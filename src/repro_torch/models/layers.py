@@ -1,6 +1,6 @@
-"""Shared building blocks: RMSNorm, mamba2's gated RMSNorm, SwiGLU, rotary
-embeddings, initializers (counterpart of ``repro.models.layers``).  M-RoPE
-waits for qwen2-vl and ``gelu_mlp`` for the architectures that use it."""
+"""Shared building blocks: RMSNorm, mamba2's gated RMSNorm, SwiGLU,
+whisper's GELU MLP, rotary embeddings (standard, fractional and qwen2-vl's
+M-RoPE), initializers (counterpart of ``repro.models.layers``)."""
 from __future__ import annotations
 
 import torch
@@ -60,6 +60,12 @@ def swiglu(x, w_gate, w_up, w_down):
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
+def gelu_mlp(x, w1, b1, w2, b2):
+    """The two-layer MLP with biases and the tanh-approximated GELU (the
+    reference's ``jax.nn.gelu(approximate=True)``)."""
+    return F.gelu(x @ w1 + b1, approximate="tanh") @ w2 + b2
+
+
 def rope_freqs(head_dim: int, theta: float, fraction: float = 1.0,
                device=None):
     """Inverse frequencies for the rotated sub-dimension."""
@@ -69,11 +75,23 @@ def rope_freqs(head_dim: int, theta: float, fraction: float = 1.0,
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
-               fraction: float = 1.0):
-    """x: (..., S, H, D); positions: (..., S) int."""
+               fraction: float = 1.0, mrope_sections=None):
+    """x: (..., S, H, D); positions: (..., S) int, or (3, ..., S) for
+    M-RoPE: the temporal, height and width streams, and rotary frequency
+    ``f`` turns by the stream its section names (the first
+    ``mrope_sections[0]`` frequencies by stream 0, and so on)."""
     d = x.shape[-1]
     inv, rot = rope_freqs(d, theta, fraction, device=x.device)
-    ang = positions.float()[..., None] * inv            # (..., S, rot/2)
+    if mrope_sections is not None:
+        assert sum(mrope_sections) == rot // 2, (mrope_sections, rot)
+        stream = torch.repeat_interleave(
+            torch.arange(3, device=x.device),
+            torch.tensor(mrope_sections, device=x.device))  # (rot/2,)
+        # (..., S, 3) -> each frequency's stream: the reference's one-hot
+        # einsum, exactly (a product by 1.0 and sums of zeros)
+        ang = positions.float().movedim(0, -1)[..., stream] * inv
+    else:
+        ang = positions.float()[..., None] * inv        # (..., S, rot/2)
     cos = torch.cos(ang)[..., None, :].to(x.dtype)      # broadcast over heads
     sin = torch.sin(ang)[..., None, :].to(x.dtype)
     x1, x2 = x[..., : rot // 2], x[..., rot // 2: rot]

@@ -29,8 +29,10 @@ from repro_torch.models.layers import swiglu
 def _part(name: str):
     """A profiler range over one part of the capacity FFN (``moe.router``,
     ``moe.dispatch``, ``moe.experts``, ``moe.combine``, ``moe.shared``),
-    opened only while a profiler records: a serve round's device time by
-    part, read by chip_smoke.py's ``serve_variants`` profile."""
+    or of an encoder-decoder (``encdec.encoder``, ``encdec.cross_attn``,
+    ``models/transformer.py``), opened only while a profiler records: a
+    serve round's device time by part, read by chip_smoke.py's
+    ``serve_variants`` and ``serve_encdec`` profiles."""
     if torch.autograd._profiler_enabled():
         return record_function(name)
     return contextlib.nullcontext()

@@ -5,7 +5,11 @@ granite-moe: GQA attention, then ``models/moe.py``'s routed experts in
 place of the SwiGLU), pure SSM
 (mamba2: SSD blocks, no MLP) and hybrid (hymba: attention and SSM heads
 in parallel, each output normed, the two averaged, then a SwiGLU), with
-per-layer sliding windows and global layers.
+per-layer sliding windows and global layers; encoder-decoder (whisper: a
+bidirectional encoder over stub frame embeddings, then decoder layers
+with a cross-attention after the self-attention and a GELU MLP) and VLM
+(qwen2-vl: M-RoPE over (3, B, S) positions, stub patch embeddings
+projected into the prompt's prefix, the head tied to the embedding).
 
 The JAX package keeps per-layer parameters stacked along a layer axis and
 scans over them; the port holds one ``Block`` module per layer in an
@@ -22,9 +26,16 @@ casts each weight to ``policy.compute_dtype`` where it is used -- an
 autograd op, so the gradients reach the masters in f32.  For a model
 already in the compute dtype that cast is a no-op.
 
+The encoder runs once a forward, outside the decoder's ``remat_scan``
+(sequential checkpointing segments the decoder stack only, as in the
+reference); each decoder layer projects its cross-attention K / V from the
+encoder's output, in the forward and again at every decode step
+(``enc_out``), as the reference does.
+
 Public entry points:
   init_params(cfg, seed, ...)          -> Transformer
   forward(model, cfg, batch, ...)      -> (logits (B, S, V), aux)
+  run_encoder(model, cfg, frames, ...) -> encoder output (B, Se, D)
   loss_fn(model, cfg, batch, ...)      -> (loss, aux)
   init_cache(cfg, batch, s_max, ...)   -> decode cache dict
   decode_step(model, cfg, cache, ...)  -> (logits (B, V), cache)
@@ -47,26 +58,13 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import dense_init, embed_init, rms_norm, swiglu
+from repro_torch.models.layers import (dense_init, embed_init, gelu_mlp,
+                                      rms_norm, swiglu)
 
 #: cache leaves with a sequence axis, and which axis it is (the SSM's
 #: ``conv`` and ``ssm`` state have none)
 CACHE_SEQ_AXES = {"k": 3, "v": 3, "k_scale": 3, "v_scale": 3,
                   "mla_lat": 2, "mla_rope": 2}
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not build yet."""
-    unsupported = [name for name, present in (
-        ("encoder", cfg.encoder is not None),
-        ("M-RoPE", cfg.mrope_sections is not None),
-        ("gelu MLP", cfg.mlp_kind != "swiglu"),
-        ("vision patches", cfg.family == "vlm")) if present]
-    if unsupported:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: {', '.join(unsupported)} not ported yet (the "
-            f"port builds dense GQA and MLA, MoE, SSM and hybrid decoders; "
-            f"the other families come with slice F)")
 
 
 def layer_windows(cfg: ModelConfig) -> list[int]:
@@ -110,6 +108,18 @@ class SwiGLU(nn.Module):
                                                   (w_gate, w_up, w_down))
 
 
+class GeluMLP(nn.Module):
+    """Whisper's MLP (``layers.gelu_mlp``): ``w1`` (D, F), ``b1`` (F,),
+    ``w2`` (F, D), ``b2`` (D,)."""
+
+    NAMES = ("w1", "b1", "w2", "b2")
+
+    def __init__(self, *weights):
+        super().__init__()
+        for name, w in zip(self.NAMES, weights, strict=True):
+            setattr(self, name, _frozen(w))
+
+
 class MoE(nn.Module):
     """Routed experts (``models/moe.py``): ``router`` (D, E), ``w_gate`` /
     ``w_up`` (E, D, F), ``w_down`` (E, F, D), and the shared experts'
@@ -131,12 +141,15 @@ class MoE(nn.Module):
 
 
 def ffn_apply(ffn, h, cfg, dtype=None):
-    """The block's MLP on ``h`` (..., D) -> (out, aux): the SwiGLU (aux
-    0.0) or the MoE (``moe.moe_ffn`` over a (B, S, D) view), its weights
-    cast to ``dtype`` where they are used."""
+    """The block's MLP on ``h`` (..., D) -> (out, aux): the SwiGLU or the
+    GELU MLP (aux 0.0), or the MoE (``moe.moe_ffn`` over a (B, S, D)
+    view), its weights cast to ``dtype`` where they are used."""
     if isinstance(ffn, MoE):
         return moe_mod.moe_ffn(ffn.weights(dtype), h, cfg)
     cast = (lambda w: w) if dtype is None else (lambda w: w.to(dtype))
+    if isinstance(ffn, GeluMLP):
+        return gelu_mlp(h, *(cast(getattr(ffn, n))
+                             for n in GeluMLP.NAMES)), 0.0
     return swiglu(h, cast(ffn.w_gate), cast(ffn.w_up),
                   cast(ffn.w_down)), 0.0
 
@@ -156,12 +169,15 @@ class SSM(nn.Module):
 class Block(nn.Module):
     """One layer: ``attn`` and/or ``ssm`` mixers (both: the hybrid, whose
     outputs are normed by ``mix_norm_attn`` / ``mix_norm_ssm`` and
-    averaged), then ``ffn`` when the model has one.  Every layer keeps
-    ``ln2``, as the JAX tree does, even without an MLP."""
+    averaged), then, in an encoder-decoder, ``xattn`` over the encoder's
+    output under ``ln_x``, then ``ffn`` when the model has one.  Every
+    layer keeps ``ln2``, as the JAX tree does, even without an MLP."""
 
     def __init__(self, ln1, ln2, attn_mod: Attention | MLA | None = None,
-                 ffn: SwiGLU | MoE | None = None, *, ssm: SSM | None = None,
-                 mix_norm_attn=None, mix_norm_ssm=None):
+                 ffn: SwiGLU | GeluMLP | MoE | None = None, *,
+                 ssm: SSM | None = None, mix_norm_attn=None,
+                 mix_norm_ssm=None, xattn: Attention | None = None,
+                 ln_x=None):
         super().__init__()
         self.ln1, self.ln2 = _frozen(ln1), _frozen(ln2)
         self.attn = attn_mod
@@ -171,18 +187,41 @@ class Block(nn.Module):
             else _frozen(mix_norm_attn)
         self.mix_norm_ssm = None if mix_norm_ssm is None \
             else _frozen(mix_norm_ssm)
+        self.xattn = xattn
+        self.ln_x = None if ln_x is None else _frozen(ln_x)
+
+
+class EncBlock(nn.Module):
+    """One encoder layer: ``ln1``, bidirectional ``attn``, ``ln2``, the
+    ``ffn`` (whisper's GELU MLP)."""
+
+    def __init__(self, ln1, ln2, attn_mod: Attention,
+                 ffn: SwiGLU | GeluMLP):
+        super().__init__()
+        self.ln1, self.ln2 = _frozen(ln1), _frozen(ln2)
+        self.attn = attn_mod
+        self.ffn = ffn
 
 
 class Transformer(nn.Module):
+    """The decoder (``embed``, ``blocks``, ``final_norm``, ``lm_head``
+    unless tied), and, where the arch has them, the encoder
+    (``enc_blocks``, ``enc_norm``) and the patch projection
+    (``patch_proj``)."""
+
     def __init__(self, cfg: ModelConfig, embed, blocks, final_norm,
-                 lm_head=None):
+                 lm_head=None, *, enc_blocks=None, enc_norm=None,
+                 patch_proj=None):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         self.embed = _frozen(embed)
         self.blocks = nn.ModuleList(blocks)
         self.final_norm = _frozen(final_norm)
         self.lm_head = None if lm_head is None else _frozen(lm_head)
+        self.enc_blocks = None if enc_blocks is None \
+            else nn.ModuleList(enc_blocks)
+        self.enc_norm = None if enc_norm is None else _frozen(enc_norm)
+        self.patch_proj = None if patch_proj is None else _frozen(patch_proj)
 
     @property
     def head(self) -> torch.Tensor:
@@ -203,13 +242,28 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
     Same distributions as the JAX init; not the same numbers.  On
     ``device="meta"`` only the shapes and dtypes exist (the planner counts
     them)."""
-    check_supported(cfg)
     gen = None if torch.device(device).type == "meta" else \
         torch.Generator(device=device).manual_seed(seed)
     d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
     kw = dict(dtype=dtype, device=device)
     ones = lambda n: torch.ones(n, **kw)  # noqa: E731
     zeros = lambda n: torch.zeros(n, **kw)  # noqa: E731
+
+    def attention():
+        return Attention(dense_init(gen, (d, h * hd), **kw),
+                         dense_init(gen, (d, hkv * hd), **kw),
+                         dense_init(gen, (d, hkv * hd), **kw),
+                         dense_init(gen, (h * hd, d), **kw))
+
+    def dense_ffn():              # the biases start at zero, as in JAX
+        if cfg.mlp_kind == "gelu":
+            return GeluMLP(dense_init(gen, (d, cfg.d_ff), **kw),
+                           zeros(cfg.d_ff),
+                           dense_init(gen, (cfg.d_ff, d), **kw), zeros(d))
+        return SwiGLU(dense_init(gen, (d, cfg.d_ff), **kw),
+                      dense_init(gen, (d, cfg.d_ff), **kw),
+                      dense_init(gen, (cfg.d_ff, d), **kw))
+
     blocks = []
     for _ in range(cfg.n_layers):
         mix = {}
@@ -226,11 +280,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
                                  h * (m.qk_nope_dim + m.v_head_dim)), **kw),
                 dense_init(gen, (h * m.v_head_dim, d), **kw))
         elif cfg.mixer in ("attn", "hybrid"):
-            mix["attn_mod"] = Attention(
-                dense_init(gen, (d, h * hd), **kw),
-                dense_init(gen, (d, hkv * hd), **kw),
-                dense_init(gen, (d, hkv * hd), **kw),
-                dense_init(gen, (h * hd, d), **kw))
+            mix["attn_mod"] = attention()
         if cfg.mixer in ("ssm", "hybrid"):
             s = cfg.ssm
             mix["ssm"] = SSM(
@@ -256,14 +306,21 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
                             dense_init(gen, (m.d_shared, d), **kw)]
             mix["ffn"] = MoE(*experts)
         elif cfg.d_ff:
-            mix["ffn"] = SwiGLU(dense_init(gen, (d, cfg.d_ff), **kw),
-                                dense_init(gen, (d, cfg.d_ff), **kw),
-                                dense_init(gen, (cfg.d_ff, d), **kw))
+            mix["ffn"] = dense_ffn()
+        if cfg.encoder is not None:           # the decoder's cross-attention
+            mix.update(xattn=attention(), ln_x=ones(d))
         blocks.append(Block(ones(d), ones(d), **mix))
     embed = embed_init(gen, (cfg.padded_vocab, d), **kw)
     lm_head = None if cfg.tie_embeddings else \
         dense_init(gen, (d, cfg.padded_vocab), **kw)
-    return Transformer(cfg, embed, blocks, ones(d), lm_head)
+    extra = {}
+    if cfg.encoder is not None:
+        extra.update(enc_blocks=[
+            EncBlock(ones(d), ones(d), attention(), dense_ffn())
+            for _ in range(cfg.encoder.n_layers)], enc_norm=ones(d))
+    if cfg.family == "vlm":
+        extra["patch_proj"] = dense_init(gen, (d, d), **kw)
+    return Transformer(cfg, embed, blocks, ones(d), lm_head, **extra)
 
 
 def _mask_padded_vocab(logits, cfg: ModelConfig):
@@ -324,12 +381,55 @@ def _mix(blk, cfg, a_out, s_out):
                              bf16_grad=cfg.norm_bf16_grad))
 
 
+def run_encoder(model: Transformer, cfg: ModelConfig, frames,
+                policy: Policy = Policy.full()):
+    """Whisper's encoder over stub frame embeddings (B, Se, D) -> (B, Se,
+    D) in the compute dtype (``repro.models.transformer._run_encoder``):
+    a plain loop over ``enc_blocks`` -- bidirectional attention (the plain
+    ``gqa_attention``, as the reference's jnp path) with RoPE at positions
+    0..Se-1, then the MLP -- and ``enc_norm``.  Never under remat."""
+    dt = policy.compute_dtype
+    eps, bf = cfg.norm_eps, cfg.norm_bf16_grad
+    with moe_mod._part("encdec.encoder"):
+        x = frames.to(dt)
+        b, se, _ = x.shape
+        pos = torch.arange(se, device=x.device).expand(b, se)
+        for blk in model.enc_blocks:
+            h = rms_norm(x, blk.ln1.to(dt), eps, bf16_grad=bf)
+            x = x + attn.attn_block(blk.attn, h, cfg, positions=pos,
+                                    causal=False)[0]
+            h2 = rms_norm(x, blk.ln2.to(dt), eps, bf16_grad=bf)
+            x = x + ffn_apply(blk.ffn, h2, cfg, dt)[0]
+        return rms_norm(x, model.enc_norm.to(dt), eps, bf16_grad=bf)
+
+
+def _cross_attend(blk, cfg, hx, enc_out):
+    """The layer's cross-attention over the encoder's output: K / V
+    projected from ``enc_out`` (cast to ``hx.dtype``) with the layer's
+    ``xattn`` weights, then ``attention.cross_attn_block``."""
+    dt = hx.dtype
+    with moe_mod._part("encdec.cross_attn"):
+        e = enc_out.to(dt)
+        b, se, _ = e.shape
+        k = (e @ blk.xattn.wk.to(dt)).reshape(b, se, cfg.n_kv, cfg.head_dim)
+        v = (e @ blk.xattn.wv.to(dt)).reshape(b, se, cfg.n_kv, cfg.head_dim)
+        return attn.cross_attn_block(blk.xattn, hx, (k, v), cfg)
+
+
 def forward(model: Transformer, cfg: ModelConfig, batch: dict, *,
             policy: Policy = Policy.full(),
             remat: CheckpointConfig = CheckpointConfig(),
             build_cache: bool = False, cache_quantized: bool = True,
             return_hidden: bool = False):
-    """batch: {tokens (B, S)[, positions (B, S)]}.
+    """batch: {tokens (B, S)[, positions (B, S), or (3, B, S) under
+    M-RoPE][, frames (B, Se, D) for an encoder][, patches (B, Sp, D) for
+    a VLM]}.
+
+    The patches, projected by ``patch_proj``, replace the first Sp token
+    embeddings (they are not prepended); the default positions are
+    0..S-1, on all three streams under M-RoPE.  An encoder arch runs
+    :func:`run_encoder` on the frames once, and aux["enc_out"] holds its
+    output (what :func:`decode_step` takes as ``enc_out``).
 
     Returns (logits (B, S, V) in ``policy.output_dtype``, aux).  Weights
     are cast to ``policy.compute_dtype`` where they are used.  ``remat``
@@ -344,9 +444,17 @@ def forward(model: Transformer, cfg: ModelConfig, batch: dict, *,
     b, s = tokens.shape
     dt = policy.compute_dtype
     x = model.embed[tokens].to(dt)                          # (B, S, D)
+    if cfg.family == "vlm" and "patches" in batch:
+        patches = batch["patches"].to(dt) @ model.patch_proj.to(dt)
+        x = torch.cat([patches, x[:, patches.shape[1]:]], dim=1)
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
+        if cfg.mrope_sections is not None:
+            positions = positions.expand(3, b, s)
+    enc_out = None
+    if cfg.encoder is not None:
+        enc_out = run_encoder(model, cfg, batch["frames"], policy)
     entries = []
     # a tag is a copy: only where a save_names policy will keep it
     tags = remat.tags if torch.is_grad_enabled() and not build_cache \
@@ -380,6 +488,10 @@ def forward(model: Transformer, cfg: ModelConfig, batch: dict, *,
         if build_cache:
             entries.append(entry)
         x = x + tag(_mix(blk, cfg, a_out, s_out), "attn_out")
+        if blk.xattn is not None:
+            hx = rms_norm(x, blk.ln_x.to(dt), cfg.norm_eps,
+                          bf16_grad=cfg.norm_bf16_grad)
+            x = x + _cross_attend(blk, cfg, hx, enc_out)
         if blk.ffn is None:                  # pure-SSM blocks have no MLP
             return x, aux_sum
         h2 = rms_norm(x, blk.ln2.to(dt), cfg.norm_eps,
@@ -404,6 +516,8 @@ def forward(model: Transformer, cfg: ModelConfig, batch: dict, *,
            else 0.0}
     if build_cache:
         aux["cache"] = _assemble_cache(entries, s, tokens.device)
+    if enc_out is not None:
+        aux["enc_out"] = enc_out
     if return_hidden:
         return x, aux
     logits = _mask_padded_vocab(
@@ -480,8 +594,9 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, *,
     MLA, the latents ``mla_lat`` (L, B, S, kv_lora) and ``mla_rope``
     (L, B, S, dr) in ``dtype`` (``quantized`` does not apply); for the
     SSM, the conv tail (L, B, K-1, conv_dim) in ``dtype`` and the state
-    (L, B, H, N, P) in f32."""
-    check_supported(cfg)
+    (L, B, H, N, P) in f32.  An encoder-decoder caches only its
+    self-attention: the cross-attention's K / V are projected from
+    ``enc_out`` at every step, as in the reference."""
     L = cfg.n_layers
     z = lambda shp, dt: torch.zeros(shp, dtype=dt, device=device)  # noqa
     cache = {"pos": z((), torch.int32)}
@@ -526,8 +641,10 @@ def grow_cache(cache: dict, s_max: int) -> dict:
 
 def decode_step(model: Transformer, cfg: ModelConfig, cache: dict, tokens_t,
                 *, policy: Policy = Policy.full(), quantized: bool = True,
-                kvq_splits: int = 1, active=None):
+                kvq_splits: int = 1, active=None, enc_out=None):
     """tokens_t: (B,) int current token.  Returns (logits (B, V), cache).
+    ``enc_out`` (B, Se, D): the encoder's output (``forward``'s
+    aux["enc_out"]), which an encoder arch's layers attend over.
 
     The cache's leaves (K/V, MLA latents, conv tail, SSM state) are
     updated in place; the returned dict holds the same buffers and the
@@ -549,6 +666,9 @@ def decode_step(model: Transformer, cfg: ModelConfig, cache: dict, tokens_t,
     if active is not None and not per_slot:
         raise ValueError("decode_step: active mask requires a per-slot "
                          "(vector) cache['pos']")
+    if (cfg.encoder is not None) != (enc_out is not None):
+        raise ValueError(f"decode_step: {cfg.arch_id} takes enc_out only "
+                         f"with an encoder, and always then")
     x = model.embed[tokens_t]                               # (B, D)
     masks = {}                                              # window -> mask
     for i, (blk, window) in enumerate(zip(model.blocks, layer_windows(cfg))):
@@ -564,17 +684,18 @@ def decode_step(model: Transformer, cfg: ModelConfig, cache: dict, tokens_t,
                 cache["v"][i], cache["v_scale"][i], pos, window=window,
                 mask=masks[window], quantized=quantized, splits=kvq_splits)[0]
 
-        x = _decode_block(blk, cfg, x, cache, i, attend)
+        x = _decode_block(blk, cfg, x, cache, i, attend, enc_out)
     new_cache = dict(cache)
     new_cache["pos"] = pos + (active.to(torch.int32) if active is not None
                               else 1)
     return _decode_logits(model, cfg, x, policy), new_cache
 
 
-def _decode_block(blk, cfg, x, cache, i, attend):
+def _decode_block(blk, cfg, x, cache, i, attend, enc_out=None):
     """One layer of a decode step: ``attend(h)`` the layer's attention over
     its cache, the SSM's step on ``cache["conv"][i]`` / ``["ssm"][i]``
-    (updated in place), the mix and the MLP."""
+    (updated in place), the mix, the cross-attention over ``enc_out``
+    (encoder archs) and the MLP."""
     h = rms_norm(x[:, None], blk.ln1, cfg.norm_eps)[:, 0]
     a_out = attend(h) if blk.attn is not None else None
     s_out = None
@@ -584,6 +705,9 @@ def _decode_block(blk, cfg, x, cache, i, attend):
         cache["conv"][i] = conv
         cache["ssm"][i] = state
     x = x + _mix(blk, cfg, a_out, s_out)
+    if blk.xattn is not None:
+        hx = rms_norm(x[:, None], blk.ln_x, cfg.norm_eps)
+        x = x + _cross_attend(blk, cfg, hx, enc_out)[:, 0]
     if blk.ffn is not None:
         # the MoE routes the (B, 1, D) step as B tokens, every row of the
         # batch (a free slot too) taking capacity, as in the JAX package
@@ -640,7 +764,6 @@ def init_cache_two_tier(cfg: ModelConfig, batch: int, s_max: int, *,
             and cfg.mixer in ("attn", "hybrid")):
         raise ValueError(f"{cfg.arch_id}: the two-tier cache needs a "
                          f"windowed attention arch with global layers")
-    check_supported(cfg)
     L = cfg.n_layers
     n_g = len([g for g in cfg.global_layers if g < L])
     z = lambda shp, dt: torch.zeros(shp, dtype=dt, device=device)  # noqa

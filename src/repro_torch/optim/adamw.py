@@ -61,16 +61,17 @@ def init(params: dict) -> AdamWState:
 def jax_layout_decay_mask(params: dict) -> dict:
     """{parameter name: takes weight decay}, by the rank the leaf has in the
     JAX layout.  The JAX package decays every leaf of rank >= 2
-    (``adamw.py:77``); there the per-layer weights under ``blocks.`` are
-    stacked, so the (D,) norm weights become (L, D) and ARE decayed while
-    ``final_norm`` (D,) is not.  The port's per-layer tensors must follow
-    that rank, not their own.
+    (``adamw.py:77``); there the per-layer weights under ``blocks.`` (and
+    an encoder's under ``enc_blocks.``) are stacked, so the (D,) norm
+    weights and biases become (L, D) and ARE decayed while ``final_norm``
+    and ``enc_norm`` (D,) are not.  The port's per-layer tensors must
+    follow that rank, not their own.
 
     For the transformer only: the JAX CNN keeps ``blocks`` as a list of
     unstacked per-block dicts (``repro/models/cnn.py``), so its GroupNorm
     (C,) scales are rank 1 and NOT decayed.  The CNN path passes no mask,
     and ``update`` applies each leaf's own rank."""
-    return {n: p.ndim + (1 if n.startswith("blocks.") else 0) >= 2
+    return {n: p.ndim + n.startswith(("blocks.", "enc_blocks.")) >= 2
             for n, p in params.items()}
 
 

@@ -146,18 +146,22 @@ def profile_resnet(params, cfg, image) -> ChainProfile:
 def flash_training_eligible(cfg, s: int) -> bool:
     """Does the training forward dispatch attention to the flash op?
 
-    Mirrors the port's gates: ``models/attention.py`` ``attn_block`` always
-    calls ``flash_ops.flash_attention`` (the kernels on the card, their
-    plain versions on the CPU), for every layer, windowed and global
-    alike, at every head dim the port runs (160 included).  So every
-    attention or hybrid arch but MLA is eligible at every S; MLA's
-    ``mla_block`` runs the plain ``gqa_attention``, as the reference's
-    does.  The JAX package differs for ``cfg.global_layers`` (hymba),
-    whose scan takes its jnp path with O(S^2) probabilities, and for head
-    dims its Pallas kernel refuses (160), which fall back to its plain
-    version."""
+    Mirrors the port's gates: ``models/attention.py`` ``attn_block`` calls
+    ``flash_ops.flash_attention`` (the kernels on the card, their plain
+    versions on the CPU) for causal attention over 1-D positions, in every
+    layer, windowed and global alike, at every head dim the port runs (160
+    included).  So every attention or hybrid arch is eligible at every S
+    but MLA, whose ``mla_block`` runs the plain ``gqa_attention``, and
+    M-RoPE (qwen2-vl), whose (3, B, S) positions send ``attn_block`` to
+    it: both as the reference's do (``repro/plan/profile.py:150``).  The
+    JAX package also differs for ``cfg.global_layers`` (hymba), whose scan
+    takes its jnp path with O(S^2) probabilities, and for head dims its
+    Pallas kernel refuses (160), which fall back to its plain version.
+    Whisper's encoder is outside the planner's chain, as in the
+    reference."""
     del s                                   # the flash op takes any S
-    return cfg.mixer in ("attn", "hybrid") and cfg.mla is None
+    return (cfg.mixer in ("attn", "hybrid") and cfg.mla is None
+            and cfg.mrope_sections is None)
 
 
 def attn_resid_bytes(cfg, b: int, s: int, dtype_bytes: int = 2,
@@ -171,8 +175,8 @@ def attn_resid_bytes(cfg, b: int, s: int, dtype_bytes: int = 2,
     backward.  ``flash_resid_bytes`` is the element width of the SAVED
     (q, k, v, o) under a ``Policy.flash_resid_dtype`` (default: the
     compute dtype's); (m, l) are f32 regardless, as the kernels' contract
-    says.  MLA, which the flash op does not take
-    (:func:`flash_training_eligible`), is budgeted as the JAX package
+    says.  MLA and M-RoPE, which the flash op does not take
+    (:func:`flash_training_eligible`), are budgeted as the JAX package
     budgets its plain path: q / o and k / v at ``head_dim`` plus the f32
     probabilities, ``ctx`` keys a query row (default S)."""
     if cfg.mixer not in ("attn", "hybrid"):
@@ -368,8 +372,9 @@ def profile_transformer(cfg, batch_sds, *, dtype_bytes: int = 2,
     FLOPs are 2 x tokens x block parameters (the products) plus the
     attention scores, at the visited-tile count of the flash grids
     (causal about half the dense rectangle, a window about W/S), the
-    source of heterogeneity for windowed / hybrid archs; MLA's at the
-    dense (masked) score product its plain attention runs.
+    source of heterogeneity for windowed / hybrid archs; MLA's and
+    M-RoPE's at the dense (masked) score product their plain attention
+    runs.
     ``resid_bytes`` carries the attention backward residuals
     (:func:`attn_resid_bytes`); ``flash_resid_bytes`` forwards a
     ``Policy.flash_resid_dtype`` width.  Block parameters are counted on
@@ -393,7 +398,7 @@ def profile_transformer(cfg, batch_sds, *, dtype_bytes: int = 2,
             c = tile_counts[i]
             attn_flops = 4.0 * b * cfg.n_heads * cfg.head_dim \
                 * c["bq"] * c["bk"] * c["fwd"]
-        elif cfg.mixer in ("attn", "hybrid"):      # MLA's dense scores
+        elif cfg.mixer in ("attn", "hybrid"):   # the plain path's scores
             attn_flops = 4.0 * b * s * ctx * cfg.n_heads * cfg.head_dim
         flops.append(2.0 * b * s * per_block_params + attn_flops)
         act.append(carry_bytes)

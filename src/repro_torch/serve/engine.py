@@ -9,7 +9,8 @@ round:
   suffix never touches the prefix, so the cache rows and the last valid
   logit equal an unpadded prefill's), are copied into the slot, and sample
   their first token (TTFT).  On the card the prefill runs the flash
-  kernel once per layer;
+  kernel once per layer (under M-RoPE, qwen2-vl, the plain attention, as
+  in the reference);
 * decode: one step over the whole pool at ``(max_slots, max_len)``;
   occupancy lives in the per-slot ``pos`` lengths and the active mask, and
   on the card every layer runs the split-K int8 decode kernel, whose
@@ -83,7 +84,10 @@ def default_buckets(max_len: int, lo: int = 16) -> tuple[int, ...]:
 def supports(cfg: ModelConfig) -> bool:
     """Engine eligibility: the slot-pooled per-row decode path needs the
     GQA int8 cache layout and a uniform window schedule (no per-layer
-    overrides)."""
+    overrides), and no encoder, as in the JAX package.  qwen2-vl is
+    eligible: its prefill takes ``forward``'s default (3, B, S) positions
+    (the plain attention, as the reference's M-RoPE path) and each slot's
+    decode turns its one position on all three M-RoPE streams."""
     return (cfg.mixer == "attn" and cfg.mla is None and cfg.encoder is None
             and not cfg.global_layers)
 

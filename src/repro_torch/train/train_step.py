@@ -123,7 +123,11 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig):
         mb_size = b // tc.accum
         loss_acc = grads_acc = finite_acc = None
         for i in range(tc.accum):
-            mb = {k: v[i * mb_size:(i + 1) * mb_size]
+            # along the batch axis: axis 1 of M-RoPE's (3, B, S) positions,
+            # axis 0 of the tokens, labels, frames and patches
+            mb = {k: v[:, i * mb_size:(i + 1) * mb_size]
+                  if k == "positions" and v.ndim == 3
+                  else v[i * mb_size:(i + 1) * mb_size]
                   for k, v in batch.items()}
             (loss, _aux), grads, finite = vg(model, mb)
             if grads_acc is None:

@@ -50,6 +50,9 @@ FWD_CASES = [
     (1, 4, 160, True, 0, None, BF), (100, 4, 160, True, 0, None, BF),
     (257, 1, 160, True, 100, 200, BF), (1024, 4, 160, True, 0, None, BF),
     (65, 2, 160, True, 16, None, F32), (257, 4, 160, False, 0, 200, F32),
+    # whisper-base's decoder: G = 1 at head_dim 64, its 448-token context
+    # (7 query tiles of 64, the last 128-row block ragged)
+    (448, 1, 64, True, 0, None, BF), (448, 1, 64, True, 0, 300, BF),
 ]
 # launch counters of the two forward designs
 FWD_KERNELS = {"fma": flash_ops.KERNEL, "sm90": flash_ops.FWD_SM90}
@@ -140,6 +143,9 @@ BWD_CASES = [
     (257, 1, 160, False, 0, None, BF, BF),
     (130, 4, 160, True, 0, None, torch.float32, torch.float32),
     (192, 4, 160, True, 0, None, torch.bfloat16, torch.float32),
+    # whisper-base's decoder: G = 1 at head_dim 64, S 448
+    (448, 1, 64, True, 0, None, BF, BF),
+    (448, 1, 64, True, 0, None, torch.float32, torch.float32),
 ]
 # launch counters of the two dQ / dKV designs
 BWD_KERNELS = {"fma": (flash_ops.BWD_DQ, flash_ops.BWD_DKV),
@@ -285,6 +291,27 @@ def test_decode_kernel_fills_card(dev, b, hkv, g, d, s, lens, splits):
     torch.testing.assert_close(out, want, atol=1e-5, rtol=0)
     twin = tiling.decode_tile_step_counts(s, lens, splits=splits)
     assert cnt.tolist() == [[row] * hkv for row in twin["counts"]]
+
+
+# whisper-base's decode (G = 1, D = 64: launch<1, 64>) and qwen2-vl-2b's
+# (G = 6, D = 128: launch<3, 128>, two head groups of CTAs)
+ENCDEC_VLM_DECODE = [
+    (4, 8, 1, 64, 512, [1, 512, 300, 64], 1),
+    (4, 8, 1, 64, 512, [1, 512, 300, 64], 4),
+    (3, 2, 6, 128, 2048, [2048, 1, 1500], 4),
+    (3, 2, 6, 128, 2048, [2048, 1, 1500], 1),
+]
+
+
+@pytest.mark.parametrize("b,hkv,g,d,s,lens,splits", ENCDEC_VLM_DECODE)
+def test_decode_kernel_at_encdec_vlm_groups(dev, b, hkv, g, d, s, lens,
+                                            splits):
+    """The lengths entry at the two archs' groups against its plain
+    version; one launch of it and none of the dense-bias entry."""
+    before = (kvq_ops.KERNEL.launches, kvq_ops.BIAS_KERNEL.launches)
+    test_decode_kernel_fills_card(dev, b, hkv, g, d, s, lens, splits)
+    assert (kvq_ops.KERNEL.launches - before[0],
+            kvq_ops.BIAS_KERNEL.launches - before[1]) == (1, 0)
 
 
 @pytest.mark.parametrize("window,pos,splits", [

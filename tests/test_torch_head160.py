@@ -58,8 +58,8 @@ def test_full_config_is_head_dim_160():
     assert cfg.n_layers == 40 and cfg.d_model == 5120
     assert abs(cfg.param_count() - 12.14e9) < 0.01e9
     assert D in flash_ops.SM90_HEAD_DIMS and D in kvq_ops.SUPPORTED_HEAD_DIMS
-    assert ARCH not in configs.PENDING and "minicpm3-4b" not in \
-        configs.PENDING
+    assert ARCH in configs.list_archs() and "minicpm3-4b" in \
+        configs.list_archs()
 
 
 # --------------------------------------------------------------------------

@@ -6,7 +6,6 @@ llama3-8b and glm4-9b (2 KV heads, half-dim rotary)."""
 from __future__ import annotations
 
 import dataclasses
-import re
 
 import jax
 import jax.numpy as jnp
@@ -146,23 +145,29 @@ def test_bf16_policy_logits(pair):
                     np.asarray(want)[..., live]) <= BF16_TOL
 
 
-def test_unported_families_raise():
-    jcfg = jconfigs.smoke_config("whisper-base")
-    assert jcfg.encoder is not None
-    with pytest.raises(NotImplementedError, match="slice F"):
-        configs.get_config("whisper-base")
-    cfg = dataclasses.replace(configs.smoke_config("llama3-8b"),
-                              mlp_kind="gelu")
-    with pytest.raises(NotImplementedError, match="gelu"):
-        tf.init_params(cfg, device="cpu")
-
-
-@pytest.mark.parametrize("arch", sorted(configs.PENDING))
-def test_pending_archs_name_their_slice(arch):
-    assert arch in jconfigs.list_archs()
-    with pytest.raises(NotImplementedError,
-                       match=re.escape(configs.PENDING[arch])):
-        configs.get_config(arch)
+@pytest.mark.parametrize("arch", jconfigs.list_archs())
+def test_config_equals_jax_field_by_field(arch):
+    """Every arch of the JAX package is registered, with the JAX config's
+    fields (the port has no ``attn_backend``: it dispatches on the
+    device) and its parameter counts."""
+    assert sorted(configs.list_archs()) == sorted(jconfigs.list_archs())
+    cfg, jcfg = configs.get_config(arch), jconfigs.get_config(arch)
+    ported = {f.name for f in dataclasses.fields(cfg)}
+    assert {f.name for f in dataclasses.fields(jcfg)} - ported == \
+        {"attn_backend"}
+    for name in sorted(ported):
+        got, want = getattr(cfg, name), getattr(jcfg, name)
+        if dataclasses.is_dataclass(want):
+            got, want = dataclasses.asdict(got), dataclasses.asdict(want)
+        assert got == want, name
+    assert cfg.param_count() == jcfg.param_count()
+    assert cfg.active_param_count() == jcfg.active_param_count()
+    assert cfg.padded_vocab == jcfg.padded_vocab
+    smoke, jsmoke = configs.smoke_config(arch), jconfigs.smoke_config(arch)
+    assert smoke.param_count() == jsmoke.param_count()
+    assert smoke.encoder == (None if jsmoke.encoder is None else type(
+        smoke.encoder)(**dataclasses.asdict(jsmoke.encoder)))
+    assert smoke.mrope_sections == jsmoke.mrope_sections
 
 
 def test_scalar_pos_decode_and_unquantized_cache(pair):
