@@ -81,6 +81,22 @@ JSON object per line:
    then 5 timed steps with the launch counters zeroed before and read
    after (the forward and the backward's dQ / dKV on the tensor-core
    kernels only), then ``torch.profiler`` over one more step;
+7b. ``train_dp``: data-parallel training (``train_step`` with a
+   ``launch/mesh.py`` ``Mesh``): (a) the ``train`` cell through
+   ``make_train_step(mesh=Mesh(data=1, model=1))`` in a world-1 NCCL
+   group (``file://`` rendezvous in a temporary directory), its gradients,
+   loss and finite flag through NCCL's all-reduce: losses and grad norms
+   bit-equal to ``train``'s, or within what a second meshless run differs
+   by (the line says which), and the same launches; (b) two ranks on this
+   card, processes spawned from this script (``--dp-child``; gloo, since
+   NCCL takes one rank a device), smoke-width llama3-8b, batch 2 x 1024,
+   bf16, 5 steps: losses within 1e-3 rel of a 1-rank run at the global
+   batch here, each rank's launches what ``flash/ops.py``'s routes give
+   at head_dim 16, and ``compressed_psum_grads`` on each rank's CUDA
+   gradients (the mean within the int8 step, the payload a quarter of the
+   f32 bytes plus the scales).  The ranks only load the libraries the
+   ``build`` line built; each is joined with a timeout and killed if it
+   fails;
 8. ``train_plan``: the ``train`` configuration from the same weights and
    batch under eight remat settings: (a) off, (b) ``full`` on every block,
    (c) the trainer's ``--remat auto`` without a budget (its
@@ -255,9 +271,9 @@ JSON object per line:
     whisper-base at 6 + 6 layers (batch 16 x 448, 1500 frames a row;
     the decoder's flash kernels only);
 32. the ``{"kernels": [...]}`` summary (each row with its launches in
-    ``serve_variants`` and ``train_variants`` by arch and in
-    ``serve_encdec`` beside; the head_dim 160 rows apart, with
-    stablelm-12b's launches), the ``nvidia-smi`` line, and last
+    ``serve_variants`` and ``train_variants`` by arch, in
+    ``serve_encdec`` and in ``train_dp`` (a) and each rank of (b)
+    beside; the head_dim 160 rows apart, with stablelm-12b's launches), the ``nvidia-smi`` line, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failed check raises after the lines are printed, and the script exits
@@ -361,6 +377,8 @@ MODEL_PHASE = {HEAD160: "head160_model", MLA_ARCH: "mla_model",
 # (llama3-8b at 4 layers: 43.71 GB in every chip run since PR 12, NVIDIA
 # H100 80GB HBM3 at 700 W)
 TRAIN_PEAK_FALLBACK = 43.71e9
+DP_BATCH, DP_SEQ, DP_STEPS = 2, 1024, 5   # train_dp (b): 2 ranks, one card
+DP_JOIN_S = 300
 TOP_N = 4                       # best scores the fleet records per draw
 # the reference for the baseline's accuracy: examples/cifar_optorch.py's
 # train("baseline", *make_cifar_like(n=2048, seed=0), 200), the JAX
@@ -1572,7 +1590,7 @@ class Smoke:
                 for us, name, n in d_rows[:8]]})
 
     def _train_steps(self, cfg, batch: int = 1, seq: int = TRAIN_SEQ,
-                     extras=None) -> dict:
+                     extras=None, mesh=None) -> dict:
         """``cfg`` through ``build_train_step`` as ``launch/train.py``
         drives it, without checkpoint I/O: random f32 master weights,
         policy bf16, remat on every block, the AdamW defaults, batch
@@ -1580,15 +1598,17 @@ class Smoke:
         stream, each batch updated with ``extras(batch)`` (an encoder's
         frames, a VLM's patches and positions); 2 warm-up steps, then 5
         with the attention kernels' launch counters zeroed before and read
-        after.  Returns the run's records, launches, peak and ``one_step``
-        (for a profile)."""
+        after.  With ``mesh`` the step is ``make_train_step(mesh=mesh)``'s
+        (data parallel over the process group that exists).  Returns the
+        run's records, launches, peak and ``one_step`` (for a profile)."""
         torch = self.torch
         from repro_torch.core.checkpoint import CheckpointConfig
         from repro_torch.launch.train import init_state, synthetic_lm_batches
         from repro_torch.optim import adamw
         from repro_torch.train.train_step import (TrainConfig,
                                                   build_train_step,
-                                                  init_loss_scale)
+                                                  init_loss_scale,
+                                                  make_train_step)
         kernels = self._launch_counters()
         gc.collect()                   # an earlier model is gone: free it
         torch.cuda.empty_cache()
@@ -1599,7 +1619,11 @@ class Smoke:
         t0 = time.time()
         model, opt = init_state(cfg, self.args.seed, self.dev)
         ls = init_loss_scale(tc, self.dev)
-        step = build_train_step(cfg, tc)
+        if mesh is None:
+            step = build_train_step(cfg, tc)
+        else:
+            step, tc = make_train_step(cfg, tc, {"tokens": torch.empty(
+                (batch, seq), dtype=torch.int32, device="meta")}, mesh=mesh)
         stream = synthetic_lm_batches(cfg, batch, seq, seed=self.args.seed,
                                       device=self.dev)
         data = stream if extras is None else (
@@ -1693,11 +1717,13 @@ class Smoke:
         records, launches = run["records"], run["launches"]
         n_params, peak, init_s = run["n_params"], run["peak"], run["init_s"]
         self.train_launches = launches
+        self.train_records = list(records[:7])  # warm-up and timed steps
         self.train_bytes_per_param = peak / n_params
         _, wall, busy_s, rows = self._profile(run["one_step"])
         peak = run["peak"] = self.torch.cuda.max_memory_allocated(self.dev)
         timed = records[2:7]
         step_s = statistics.median(r["step_s"] for r in timed)
+        self.train_step_s = step_s
         L = cfg.n_layers
         checks = self._train_checks(cfg, run)
         return self.record({
@@ -1717,6 +1743,167 @@ class Smoke:
                         else None,
                         "top_kernels_ms": [[name[:80], round(us / 1e3, 3), c]
                                            for us, name, c in rows[:40]]}})
+
+    def run_train_dp(self) -> dict:
+        """Data-parallel training (``train/train_step.py`` with a mesh):
+        (a) the ``train`` cell (full width, 4 layers, 1 x 4096) through
+        ``make_train_step(mesh=Mesh(data=1, model=1))`` in a world-1 NCCL
+        group, whose gradients, loss and finite flag go through NCCL's
+        all-reduce: losses, grad norms and launches against the meshless
+        ``train`` phase's; (b) two ranks on this card (processes spawned
+        from this script, gloo: NCCL takes one rank a device), smoke-width
+        llama3-8b, batch DP_BATCH x DP_SEQ, bf16, DP_STEPS steps, against
+        a 1-rank run at the global batch here, and
+        ``compressed_psum_grads`` across the two on CUDA gradients."""
+        import torch.distributed as dist
+        from repro_torch import configs
+        from repro_torch.launch.mesh import Mesh
+        t0 = time.time()
+        cfg = dataclasses.replace(configs.get_config("llama3-8b"),
+                                  n_layers=TRAIN_LAYERS)
+        rdv = tempfile.mkdtemp(prefix="train_dp_")
+        try:
+            dist.init_process_group(
+                "nccl", init_method=f"file://{rdv}/a", rank=0, world_size=1,
+                device_id=self.dev)
+            try:
+                run = self._train_steps(cfg, mesh=Mesh(data=1, model=1))
+                backend = dist.get_backend()
+            finally:
+                dist.destroy_process_group()
+            n = len(self.train_records)
+            got = [(r["loss"], r["grad_norm"]) for r in run["records"][:n]]
+            want = [(r["loss"], r["grad_norm"])
+                    for r in self.train_records]
+            diff = max(max(abs(a - c), abs(b - d))
+                       for (a, b), (c, d) in zip(got, want))
+            rerun_diff = None
+            if diff:
+                # not bit-equal: hold it to what two meshless runs differ by
+                again = self._train_steps(cfg)
+                rerun_diff = max(
+                    max(abs(r["loss"] - w["loss"]),
+                        abs(r["grad_norm"] - w["grad_norm"]))
+                    for r, w in zip(again["records"], self.train_records))
+            timed = run["records"][2:7]
+            step_s = statistics.median(r["step_s"] for r in timed)
+            checks_a = {
+                "backend_nccl": backend == "nccl",
+                "losses_and_grad_norms": diff == 0 or (
+                    rerun_diff is not None and diff <= rerun_diff),
+                "launches_equal_train": run["launches"]
+                == self.train_launches,
+                **self._train_checks(cfg, run)}
+            part_a = {
+                "agreement": "bit_equal" if diff == 0 else
+                "within_meshless_rerun" if checks_a["losses_and_grad_norms"]
+                else "differs",
+                "max_diff": diff, "meshless_rerun_max_diff": rerun_diff,
+                "losses": [g[0] for g in got],
+                "grad_norms": [g[1] for g in got],
+                "median_step_s": step_s,
+                "train_median_step_s": self.train_step_s,
+                "step_ratio": step_s / self.train_step_s,
+                "kernel_launches_5_steps": run["launches"],
+                "max_memory_allocated_bytes": run["peak"]}
+            del run
+            part_b = self._train_dp_ranks(rdv)
+        finally:
+            shutil.rmtree(rdv, ignore_errors=True)
+        self.train_dp_launches = {
+            "a": part_a["kernel_launches_5_steps"],
+            **{f"b_rank{r}": rk["launches"]
+               for r, rk in enumerate(part_b["ranks"])}}
+        checks = {**{f"a_{k}": v for k, v in checks_a.items()},
+                  **{f"b_{k}": v for k, v in part_b.pop("checks").items()}}
+        return self.record({
+            "phase": "train_dp", "ok": all(checks.values()),
+            "checks": checks, "a": part_a, "b": part_b,
+            "seconds": time.time() - t0})
+
+    def _train_dp_ranks(self, rdv: str) -> dict:
+        """``run_train_dp``'s part (b): the 1-rank reference here, then
+        the two ranks (``dp_child``), each joined with a timeout and
+        killed if it fails."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.core.checkpoint import CheckpointConfig
+        from repro_torch.kernels.flash import ops as flash_ops
+        from repro_torch.launch.train import init_state, synthetic_lm_batches
+        from repro_torch.optim import adamw
+        from repro_torch.train.train_step import (TrainConfig,
+                                                  build_train_step,
+                                                  init_loss_scale)
+        cfg = configs.smoke_config("llama3-8b")
+        tc = TrainConfig(policy="bf16", remat=CheckpointConfig(
+            enabled=True, policy="full", segment_size=1))
+        model, opt = init_state(cfg, self.args.seed, self.dev)
+        ls, step = init_loss_scale(tc, self.dev), build_train_step(cfg, tc)
+        data = synthetic_lm_batches(cfg, DP_BATCH, DP_SEQ,
+                                    seed=self.args.seed, device=self.dev)
+        ref = []
+        for _ in range(DP_STEPS):
+            model, opt, ls, m = step(model, opt, ls, next(data)[1])
+            ref.append(float(m["loss"]))
+        del model, opt
+        # the route at this width: head_dim 16 takes the FMA designs
+        d = cfg.head_dim
+        fwd = flash_ops.fwd_route(torch.bfloat16, d)
+        want = {k: 0 for k in self._launch_counters()}
+        L, n = cfg.n_layers, DP_STEPS
+        want["flash_fwd_sm90" if fwd == "sm90" else "flash_fwd"] = 2 * L * n
+        bwd = flash_ops.bwd_route(torch.bfloat16, torch.bfloat16,
+                                  torch.bfloat16, d)
+        sfx = "_sm90" if bwd == "sm90" else ""
+        want.update({"flash_bwd_delta": L * n, f"flash_bwd_dq{sfx}": L * n,
+                     f"flash_bwd_dkv{sfx}": L * n})
+        procs, outs = [], []
+        t0 = time.time()
+        try:
+            for r in range(2):
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(pathlib.Path(__file__).resolve()),
+                     "--dp-child",
+                     f"{r},2,{rdv}/b,{rdv}/rank{r}.json,{self.dev}",
+                     "--seed", str(self.args.seed)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True))
+            for p in procs:
+                out, _ = p.communicate(timeout=DP_JOIN_S)
+                outs.append(out)
+                if p.returncode != 0:
+                    raise RuntimeError(f"train_dp rank exited "
+                                       f"{p.returncode}:\n{out[-4000:]}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        spawn_s = time.time() - t0
+        ranks = [json.loads(pathlib.Path(f"{rdv}/rank{r}.json").read_text())
+                 for r in range(2)]
+        rel = max(abs(a - b) / abs(b) for rk in ranks
+                  for a, b in zip(rk["losses"], ref))
+        checks = {
+            "losses_within_1e-3": rel <= 1e-3,
+            "ranks_agree": ranks[0]["losses"] == ranks[1]["losses"]
+            and ranks[0]["grad_norms"] == ranks[1]["grad_norms"],
+            "launches_follow_route": all(rk["launches"] == want
+                                         for rk in ranks),
+            "finite": all(math.isfinite(x) for rk in ranks
+                          for x in rk["losses"] + rk["grad_norms"]),
+            "compressed_mean_within_int8_step": all(
+                rk["psum"]["within_step"] for rk in ranks),
+            "compressed_ranks_agree": ranks[0]["psum"]["mean_digest"]
+            == ranks[1]["psum"]["mean_digest"],
+            "payload_quarter_plus_scales": all(
+                rk["psum"]["payload_bytes"] == rk["psum"]["f32_bytes"] // 4
+                + 4 * rk["psum"]["leaves"] for rk in ranks)}
+        return {"arch": cfg.arch_id, "width": "smoke", "batch": DP_BATCH,
+                "seq": DP_SEQ, "steps": DP_STEPS, "ref_losses": ref,
+                "max_rel_loss_diff": rel, "routes": {"fwd": fwd, "bwd": bwd},
+                "expected_launches": want, "spawn_to_join_s": spawn_s,
+                "ranks": ranks, "checks": checks}
 
     def run_train_plan(self) -> dict:
         """The ``train`` configuration under eight remat settings, from the
@@ -3438,7 +3625,8 @@ class Smoke:
 
 
     # -- head_dim 160 and MLA ----------------------------------------------
-    def _launch_counters(self) -> dict:
+    @staticmethod
+    def _launch_counters() -> dict:
         """Every attention kernel's launch counter, by name."""
         from repro_torch.kernels.flash import ops as flash_ops
         from repro_torch.kernels.kvq import ops as kvq_ops
@@ -3819,6 +4007,96 @@ class Smoke:
             "seconds": time.time() - t_phase})
 
 
+def dp_child(spec: str, seed: int) -> int:
+    """One rank of ``train_dp`` (b), run as ``chip_smoke.py --dp-child
+    rank,world,rendezvous,out,device``: gloo over the parent's card, the
+    kernels loaded
+    from the libraries the parent built (never built here: two ranks
+    building at once would race on ``build/kernels/``), DP_STEPS steps
+    of smoke-width llama3-8b at the global batch DP_BATCH x DP_SEQ
+    through ``make_train_step(mesh=Mesh(data=world, model=1))`` with the
+    launch counters zeroed before and read after, then
+    ``compressed_psum_grads`` on this rank's CUDA gradients."""
+    rank, world, rdv, out, device = spec.split(",")
+    rank, world = int(rank), int(world)
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.core.checkpoint import CheckpointConfig
+    from repro_torch.core.mixed_precision import scaled_value_and_grad
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.train import init_state, synthetic_lm_batches
+    from repro_torch.models import transformer
+    from repro_torch.optim import compression
+    from repro_torch.train.train_step import (TrainConfig, init_loss_scale,
+                                              local_batch, make_train_step)
+    torch.set_num_threads(1)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        for lib in ("flash_fwd", "flash_fwd_sm90", "flash_bwd",
+                    "flash_bwd_sm90"):
+            if not build.library_path(lib).exists():
+                raise RuntimeError(f"dp_child: {lib}.cu is not built")
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{rdv}", rank=rank,
+                            world_size=world)
+    try:
+        cfg = configs.smoke_config("llama3-8b")
+        mesh = Mesh(data=world, model=1)
+        tc = TrainConfig(policy="bf16", remat=CheckpointConfig(
+            enabled=True, policy="full", segment_size=1))
+        model, opt = init_state(cfg, seed, dev)
+        step, tc = make_train_step(cfg, tc, {"tokens": torch.empty(
+            (DP_BATCH, DP_SEQ), dtype=torch.int32, device="meta")}, mesh=mesh)
+        ls = init_loss_scale(tc, dev)
+        data = synthetic_lm_batches(cfg, DP_BATCH, DP_SEQ, seed=seed,
+                                    device=dev)
+        kernels = Smoke._launch_counters()
+        for k in kernels.values():
+            k.launches = 0
+        losses, norms, times = [], [], []
+        for _ in range(DP_STEPS):
+            t = time.time()
+            model, opt, ls, m = step(model, opt, ls, next(data)[1])
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            times.append(time.time() - t)
+        launches = {n: k.launches for n, k in kernels.items()}
+        # compressed_psum_grads on this rank's gradients of its own rows
+        batch = local_batch(cfg, next(data)[1], mesh, rank)
+        _, grads, _ = scaled_value_and_grad(
+            lambda mdl, b: transformer.loss_fn(mdl, cfg, b))(model, batch)
+        mean = collectives.compressed_psum_grads(grads, seed=seed)
+        plain = {k: g.clone() for k, g in grads.items()}
+        for g in plain.values():
+            dist.all_reduce(g)
+            g /= world
+        payload = collectives.rank_payload(grads, seed, rank)
+        scales = torch.zeros(world, len(grads), device=dev)
+        scales[rank] = torch.stack([payload[k][1] for k in sorted(grads)])
+        dist.all_reduce(scales)
+        step_ = dict(zip(sorted(grads), scales.mean(0).tolist()))
+        within = all(float((mean[k] - plain[k]).abs().max()) < step_[k]
+                     for k in grads)
+        digest = float(sum(mean[k].double().sum() for k in sorted(mean)))
+        pathlib.Path(out).write_text(json.dumps({
+            "rank": rank, "losses": losses, "grad_norms": norms,
+            "step_s": times, "launches": launches,
+            "psum": {"within_step": within, "mean_digest": digest,
+                     "payload_bytes": compression.payload_bytes(payload),
+                     "f32_bytes": sum(g.numel() * 4 for g in grads.values()),
+                     "leaves": len(grads),
+                     "max_err_over_step": max(
+                         float((mean[k] - plain[k]).abs().max()) / step_[k]
+                         for k in grads)}}))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3832,7 +4110,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="",
                     help="also write every result line to this JSON file")
+    ap.add_argument("--dp-child", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.dp_child:
+        return dp_child(args.dp_child, args.seed)
 
     import torch
     if not torch.cuda.is_available():
@@ -3903,6 +4184,7 @@ def main(argv=None) -> int:
     smoke.check_model()
     smoke.run_serve()
     smoke.run_train()
+    smoke.run_train_dp()
     smoke.run_train_plan()
     smoke.run_train_cli()
     pack = [smoke.check_pack(8, 32),                     # the CIFAR batch
@@ -4135,6 +4417,11 @@ def main(argv=None) -> int:
                        smoke.train_ssm_launches.get(row["name"], 0))
         row["serve_encdec_launches"] = smoke.encdec_launches.get(
             row["name"], 0)
+        # train_dp: (a) the train cell on a (1, 1) mesh, NCCL; (b) each of
+        # the two smoke-width ranks
+        row["train_dp_launches"] = {
+            part: counts.get(row["name"], 0)
+            for part, counts in smoke.train_dp_launches.items()}
         for part in ("serve", "train"):
             row[f"{part}_variants_launches"] = {
                 arch: runs[part].get(row["name"], 0)

@@ -1,4 +1,5 @@
-"""Training driver on one device (counterpart of ``repro.launch.train``).
+"""Trainer, on one device or data-parallel over ranks
+(counterpart of ``repro.launch.train``).
 
 Fault-tolerance features wired here:
   * resume from the latest intact atomic checkpoint (params + AdamW state
@@ -12,7 +13,25 @@ Fault-tolerance features wired here:
   * ``--guard``: NaN/Inf-grad steps apply no update (skipped on the
     device via ``TrainConfig.skip_nonfinite``) and a rolling-median
     loss-spike detector (``train/guards.py``) escalates consecutive bad
-    steps to a rollback to the last good checkpoint.
+    steps to a rollback to the last good checkpoint;
+  * elastic restarts: the mesh is built from however many ranks there
+    are (``launch/mesh.py`` ``make_mesh_for``), and a checkpoint written
+    at one data width restores at another (every rank holds the whole
+    state).
+
+Data parallelism: under ``torchrun``'s environment (``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` / ``MASTER_PORT`` for
+``env://``) the trainer joins a process group, NCCL on the card (rank r
+on ``cuda:LOCAL_RANK``) and gloo with ``--device cpu``, and trains on the
+mesh ``make_mesh_for(world, max_model=--max-model)``.  Every rank draws
+the same global batch; the train step takes each rank's rows and
+all-reduces the gradients (``train/train_step.py``).  Rank 0 alone
+prints the step lines, writes ``--events`` and saves checkpoints; every
+rank waits at a barrier after a save, and every rank restores.  A model
+axis > 1 (tensor parallelism) is not ported yet and exits 2: two ranks
+need ``--max-model 1``, since ``make_mesh_for(2)`` is (data 1, model
+2).  Without that environment the trainer runs one rank, as the mesh
+(data 1, model 1).
 
 Memory-budgeted training: ``--remat auto`` solves a ``RematPlan`` from
 the transformer profile (``repro_torch.plan``): with ``--mem-budget-mb
@@ -36,13 +55,16 @@ the plain versions:
       --remat auto --mem-budget-mb 64 --events ev.jsonl --trace \\
       --metrics-every 10
 
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \\
+      -m repro_torch.launch.train --device cpu --smoke --max-model 1 \\
+      --steps 10 --batch 4 --seq 64
+
 qwen2-vl-2b trains here as in the reference: text-only batches, the
 positions broadcast over M-RoPE's three streams.  An encoder-decoder
 (whisper-base) is refused, since the synthetic stream has no frames (the
 reference's trainer fails on them later, in the forward).
 
-Not ported yet: the mesh flags (``--max-model``; the distributed slice)
-and ``--attn-backend`` (the port dispatches on the device).
+Not ported: ``--attn-backend`` (the port dispatches on the device).
 """
 from __future__ import annotations
 
@@ -59,6 +81,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs
 from repro_torch.checkpointing.ckpt import CheckpointManager
@@ -66,6 +89,7 @@ from repro_torch.core.checkpoint import POLICIES, CheckpointConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.data.synthetic import token_stream
 from repro_torch.events import EventSink
+from repro_torch.launch.mesh import describe, make_mesh_for
 from repro_torch.models import bridge, transformer
 from repro_torch.obs import MemStat, MetricsRegistry, Tracer, maybe_span
 from repro_torch.optim import adamw
@@ -151,7 +175,11 @@ def synthetic_lm_batches(cfg, batch: int, seq: int, *, seed=0, state=None,
         i += 1
 
 
-def _auto_remat(cfg, args, batch_sds):
+def _quiet(*_args, **_kwargs):
+    """``print`` on the ranks other than 0."""
+
+
+def _auto_remat(cfg, args, batch_sds, mesh=None, log=print):
     """Planner-driven remat: budget-constrained with ``--mem-budget-mb``
     (through ``train_step.resolve_remat``, the path
     ``TrainConfig.mem_budget_mb`` takes), else sqrt(L) checkpoints at the
@@ -162,19 +190,19 @@ def _auto_remat(cfg, args, batch_sds):
     base = CheckpointConfig(enabled=True, policy=args.remat_policy)
     tc0 = TrainConfig(policy=args.policy, remat=base, accum=args.accum,
                       mem_budget_mb=args.mem_budget_mb)
-    prof = plan_profile(cfg, tc0, batch_sds)
+    prof = plan_profile(cfg, tc0, batch_sds, mesh=mesh)
     if args.mem_budget_mb > 0:
-        remat = resolve_remat(cfg, tc0, batch_sds).remat
+        remat = resolve_remat(cfg, tc0, batch_sds, mesh=mesh).remat
     else:
         rp = plan_mod.plan_min_peak(prof, math.isqrt(cfg.n_layers) or 1,
                                     policy=args.remat_policy)
         remat = dataclasses.replace(base, plan=rp)
     rep = plan_mod.plan_report(prof, remat.plan)
-    print(f"remat plan [{remat.plan.source}]: "
-          f"segments {remat.plan.segment_sizes()} "
-          f"peak {rep['peak_bytes']/2**20:.1f} MiB/device "
-          f"(no-remat {rep['no_remat_bytes']/2**20:.1f} MiB, "
-          f"recompute >= {rep['recompute_frac']*100:.0f}% of fwd FLOPs)")
+    log(f"remat plan [{remat.plan.source}]: "
+        f"segments {remat.plan.segment_sizes()} "
+        f"peak {rep['peak_bytes']/2**20:.1f} MiB/device "
+        f"(no-remat {rep['no_remat_bytes']/2**20:.1f} MiB, "
+        f"recompute >= {rep['recompute_frac']*100:.0f}% of fwd FLOPs)")
     return remat, int(rep["peak_bytes"])
 
 
@@ -197,6 +225,26 @@ def load_state(cfg, state: dict, device):
     return model, bridge.load_opt_state(state["opt"], device=device)
 
 
+def init_distributed(device_name: str):
+    """-> (rank, world, device).  Under ``torchrun``'s environment, join
+    the process group: NCCL on the card (this rank on ``cuda:LOCAL_RANK``),
+    gloo on the CPU; nothing falls back to another backend.  Without it,
+    one rank and no group."""
+    device = resolve_device(device_name)
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        return 0, 1, device
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    kw = {}
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+        kw["device_id"] = device
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method="env://", world_size=world,
+                            rank=rank, **kw)
+    return rank, world, device
+
+
 def run(args) -> int:
     cfg = configs.smoke_config(args.arch) if args.smoke \
         else configs.get_config(args.arch)
@@ -209,31 +257,51 @@ def run(args) -> int:
               f"no frames: not trainable through this CLI (train it with "
               f"train_step on batches that carry 'frames')", file=sys.stderr)
         return 2
-    device = resolve_device(args.device)
-    print(f"device: {device}"
-          + (f" ({torch.cuda.get_device_name(device)})"
-             if device.type == "cuda" else ""))
+    rank, world, device = init_distributed(args.device)
+    try:
+        mesh = make_mesh_for(world, max_model=args.max_model)
+        if mesh.shape["model"] > 1:
+            if rank == 0:
+                print(f"mesh: {describe(mesh)}: a model axis > 1 is "
+                      f"tensor-parallel training, not ported yet; pass "
+                      f"--max-model 1 for a (data, 1) mesh",
+                      file=sys.stderr)
+            return 2
+        return _train(args, cfg, mesh, rank, world, device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args, cfg, mesh, rank: int, world: int, device) -> int:
+    log = print if rank == 0 else _quiet
+    log(f"mesh: {describe(mesh)} ({mesh.size} devices)")
+    log(f"device: {device}"
+        + (f" ({torch.cuda.get_device_name(device)})"
+           if device.type == "cuda" else ""))
     from repro_torch.plan import flash_attn_flop_report
     rep = flash_attn_flop_report(cfg, args.batch, args.seq)
     if rep["eligible"]:
-        print(f"attention: flash op (O(S*D) residuals); sparse grids skip "
-              f"{rep['skip_frac']*100:.0f}% of KV tile-steps "
-              f"({rep['visited_flops']/1e9:.1f} GFLOPs visited vs "
-              f"{rep['dense_flops']/1e9:.1f} dense per step)")
+        log(f"attention: flash op (O(S*D) residuals); sparse grids skip "
+            f"{rep['skip_frac']*100:.0f}% of KV tile-steps "
+            f"({rep['visited_flops']/1e9:.1f} GFLOPs visited vs "
+            f"{rep['dense_flops']/1e9:.1f} dense per step)")
     if args.mem_budget_mb > 0:
-        print(f"mem budget: {args.mem_budget_mb} MiB (microbatch = batch / "
-              f"{args.accum} accum)")
+        from repro_torch.distributed import sharding as shd
+        log(f"mem budget: {args.mem_budget_mb} MiB PER DEVICE "
+            f"(microbatch = batch / {shd.dp_size(mesh)} dp shards; "
+            f"attention residuals / {mesh.shape['model']} model shards)")
     batch_sds = {"tokens": torch.empty((args.batch, args.seq),
                                        dtype=torch.int32, device="meta")}
     if args.no_remat:                     # the JAX trainer's alias
         args.remat = "off"
     if args.remat == "off" and args.mem_budget_mb > 0:
-        print("[warn] --mem-budget-mb ignored with remat off")
+        log("[warn] --mem-budget-mb ignored with remat off")
     plan_bytes = None                     # activation budget (MemStat score)
     if args.remat == "auto" or (args.remat == "on"
                                 and args.mem_budget_mb > 0):
         # a budget implies the planner even without an explicit --remat auto
-        remat, plan_bytes = _auto_remat(cfg, args, batch_sds)
+        remat, plan_bytes = _auto_remat(cfg, args, batch_sds, mesh, log)
     else:
         remat = CheckpointConfig(enabled=args.remat == "on",
                                  policy=args.remat_policy)
@@ -242,13 +310,13 @@ def run(args) -> int:
         use_loss_scale=(args.policy == "fp16"), skip_nonfinite=args.guard,
         opt=adamw.AdamWConfig(lr=args.lr, total_steps=args.steps,
                               warmup_steps=min(100, args.steps // 10 + 1)))
-    step_fn, tc = make_train_step(cfg, tc, batch_sds)
-    print(f"policy {args.policy}, remat {args.remat} "
-          f"({args.remat_policy}), accum {args.accum}, "
-          f"batch {args.batch} x seq {args.seq}")
+    step_fn, tc = make_train_step(cfg, tc, batch_sds, mesh=mesh)
+    log(f"policy {args.policy}, remat {args.remat} "
+        f"({args.remat_policy}), accum {args.accum}, "
+        f"batch {args.batch} x seq {args.seq}")
 
     mgr = CheckpointManager(args.ckpt_dir, keep_last=args.keep_last)
-    if tc.remat.plan is not None:
+    if tc.remat.plan is not None and rank == 0:
         os.makedirs(args.ckpt_dir, exist_ok=True)
         tc.remat.plan.save(os.path.join(args.ckpt_dir, "remat_plan.json"))
     model, opt = init_state(cfg, args.seed, device)
@@ -264,7 +332,7 @@ def run(args) -> int:
         data_state = extra.get("data_state", 0)
         if tc.use_loss_scale and "loss_scale" in extra:
             ls.scale.fill_(extra["loss_scale"])
-        print(f"resumed from step {start_step} (data batch {data_state})")
+        log(f"resumed from step {start_step} (data batch {data_state})")
 
     stop = {"now": False}
 
@@ -276,17 +344,30 @@ def run(args) -> int:
                                                      signal.SIGINT)]
 
     def save(step):
-        # ``step`` = completed steps; a resume continues there
-        with maybe_span(tracer, "checkpoint", step=step, op="save"):
-            mgr.save(step, train_state(model, opt),
-                     extra={"step": step, "data_state": data_state,
-                            "loss_scale": float(ls.scale),
-                            "arch": cfg.arch_id},
-                     config=cfg.arch_id)
+        # ``step`` = completed steps; a resume continues there.  Every
+        # rank holds the same state: rank 0 writes it, the others wait
+        if rank == 0:
+            with maybe_span(tracer, "checkpoint", step=step, op="save"):
+                mgr.save(step, train_state(model, opt),
+                         extra={"step": step, "data_state": data_state,
+                                "loss_scale": float(ls.scale),
+                                "arch": cfg.arch_id},
+                         config=cfg.arch_id)
+        if world > 1:
+            dist.barrier()
 
-    sink = EventSink(args.events) if args.events else None
-    if args.trace and sink is None:
-        print("[warn] --trace requires --events; tracing disabled")
+    def agreed(flag: bool) -> bool:
+        """``flag`` on any rank (MAX over the group): a preemption notice
+        one rank saw stops every rank at the same step."""
+        if world == 1:
+            return flag
+        t = torch.tensor([int(flag)], device=device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return bool(t.item())
+
+    sink = EventSink(args.events) if args.events and rank == 0 else None
+    if args.trace and sink is None and rank == 0:
+        log("[warn] --trace requires --events; tracing disabled")
     registry = MetricsRegistry()
     tracer = Tracer(sink, pid="train") if args.trace and sink is not None \
         else None
@@ -298,10 +379,10 @@ def run(args) -> int:
             window=args.guard_window, spike_factor=args.guard_spike_factor,
             rollback_after=args.guard_rollback_after), sink=sink,
             registry=registry)
-        print(f"guard: skip non-finite steps on the device; loss spike > "
-              f"{args.guard_spike_factor}x rolling median; "
-              f"{args.guard_rollback_after} consecutive bad steps -> "
-              f"rollback (costs one loss sync per step)")
+        log(f"guard: skip non-finite steps on the device; loss spike > "
+            f"{args.guard_spike_factor}x rolling median; "
+            f"{args.guard_rollback_after} consecutive bad steps -> "
+            f"rollback (costs one loss sync per step)")
     wd = Watchdog(sink=sink)
     data = synthetic_lm_batches(cfg, args.batch, args.seq, seed=args.seed,
                                 state=data_state, device=device)
@@ -326,16 +407,16 @@ def run(args) -> int:
             if verdict == TrainGuard.ROLLBACK:
                 wd.step_end()
                 if guard.rollbacks > args.guard_max_rollbacks:
-                    print(f"[guard] {guard.rollbacks} rollbacks exceed "
-                          f"--guard-max-rollbacks="
-                          f"{args.guard_max_rollbacks} — persistent "
-                          f"fault, aborting ({guard.counters()})")
+                    log(f"[guard] {guard.rollbacks} rollbacks exceed "
+                        f"--guard-max-rollbacks="
+                        f"{args.guard_max_rollbacks} — persistent "
+                        f"fault, aborting ({guard.counters()})")
                     return 1
                 # never roll back onto a torn or corrupt checkpoint
                 latest = mgr.latest_intact_step()
                 if latest is None:
-                    print("[guard] rollback with no checkpoint on disk — "
-                          "restarting from init")
+                    log("[guard] rollback with no checkpoint on disk — "
+                        "restarting from init")
                     model, opt = init_state(cfg, args.seed, device)
                     step, data_state = 0, 0
                 else:
@@ -353,20 +434,20 @@ def run(args) -> int:
                 data = synthetic_lm_batches(cfg, args.batch, args.seq,
                                             seed=args.seed, state=data_state,
                                             device=device)
-                print(f"[guard] rolled back to step {step} "
-                      f"(data batch {data_state}; {guard.counters()})")
+                log(f"[guard] rolled back to step {step} "
+                    f"(data batch {data_state}; {guard.counters()})")
                 continue
             if verdict == TrainGuard.SKIP:
                 applied = bool(metrics["grads_finite"])
-                print(f"[guard] step {step}: bad step ({guard.counters()}) "
-                      f"— update "
-                      f"{'applied; loss quarantined' if applied else 'skipped on the device'}")
+                log(f"[guard] step {step}: bad step ({guard.counters()}) "
+                    f"— update "
+                    f"{'applied; loss quarantined' if applied else 'skipped on the device'}")
             if step % args.log_every == 0 or step == args.steps - 1:
                 loss = float(metrics["loss"])  # sync point
-                print(f"step {step:5d} loss {loss:.4f} "
-                      f"lr {float(metrics['lr']):.2e} "
-                      f"gnorm {float(metrics['grad_norm']):.2f} "
-                      f"({(time.time()-t0):.1f}s)")
+                log(f"step {step:5d} loss {loss:.4f} "
+                    f"lr {float(metrics['lr']):.2e} "
+                    f"gnorm {float(metrics['grad_norm']):.2f} "
+                    f"({(time.time()-t0):.1f}s)")
             wd.step_end()
             data_state += 1
             step += 1
@@ -380,7 +461,7 @@ def run(args) -> int:
                 # never checkpoint mid-bad-streak: the rollback target
                 # must be a good state
                 save(step)
-            if stop["now"]:
+            if agreed(stop["now"]):
                 if healthy:
                     save(step)
                 return 0
@@ -392,10 +473,10 @@ def run(args) -> int:
         for s, h in zip((signal.SIGTERM, signal.SIGINT), old_handlers):
             signal.signal(s, h)
     if guard is not None:
-        print(f"guard: {guard.counters()}")
+        log(f"guard: {guard.counters()}")
     if memstat.samples:
-        print(memstat.banner())
-    print("done")
+        log(memstat.banner())
+    log("done")
     return 0
 
 
@@ -411,6 +492,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--max-model", type=int, default=16,
+                    help="largest model (tensor-parallel) axis of the mesh "
+                         "make_mesh_for builds from the world size; only a "
+                         "(data, 1) mesh trains here, and two ranks give "
+                         "model 2 under the default: pass --max-model 1 "
+                         "for data parallelism (a model axis > 1 exits 2)")
     ap.add_argument("--policy", default="bf16",
                     choices=["full", "bf16", "fp16", "bf16_params",
                              "resid_bf16"],

@@ -13,7 +13,9 @@ experts, ``shared_gate`` / ``shared_up`` (D, Fs), ``shared_down`` (Fs, D).
 Every token of the call takes capacity, padding included: the serve
 engine's bucket-padded prefill and its free decode slots are routed as
 the reference routes them, so the same tokens overflow.  The mesh paths
-(TP-experts under ``shard_map``, expert parallelism) come with slice G.
+(TP-experts under ``shard_map``, expert parallelism) are not ported yet:
+they come with slice G's MoE TP / EP part.  Data
+parallelism needs none of them: each rank runs this FFN on its own rows.
 """
 from __future__ import annotations
 
@@ -165,8 +167,9 @@ def moe_ffn(weights: dict, x: torch.Tensor, cfg, mesh=None):
     dropless."""
     if mesh is not None or cfg.moe.expert_mode == "ep":
         raise NotImplementedError(
-            "moe_ffn: the mesh paths (TP-experts, expert_mode='ep') come "
-            "with slice G (distributed)")
+            "moe_ffn: the mesh paths (TP-experts, expert_mode='ep') are "
+            "not ported yet; they come with slice G's MoE TP / EP part "
+            "(data parallelism runs this FFN per rank)")
     if cfg.moe.capacity_factor > 0:
         return moe_capacity(weights, x, cfg)
     return moe_dropless(weights, x, cfg)

@@ -35,9 +35,15 @@ JAX geometry (tile 128, S a multiple of 128) and equals the port's kernel
 counters (``ops.expected_counts`` / ``expected_bwd_counts``) at its own.
 Byte counts that need shapes (``serve_capacity_report``,
 ``profile_transformer``) come from ``device="meta"`` tensors, where the
-JAX package uses ``jax.eval_shape``.  The mesh arguments of the JAX
-module, and the mesh fields of its capacity report (``devices``,
-``model_shards``, ``kv_shard``), come with the distributed slice.
+JAX package uses ``jax.eval_shape``.
+
+Per-device budgets (the reference's contract, ``--mem-budget-mb`` means
+bytes per device): ``profile_transformer(model_shards=)`` and
+``attn_resid_bytes(model_shards=)`` divide the attention residuals by the
+head shards each device holds (the planner's microbatch is already
+divided by DP, ``train_step.microbatch_specs``), and
+``serve_capacity_report(mesh=)`` divides the K / V leaves by the shard
+factor ``sharding.serve_kv_shard`` applies.
 """
 from __future__ import annotations
 
@@ -166,7 +172,8 @@ def flash_training_eligible(cfg, s: int) -> bool:
 
 def attn_resid_bytes(cfg, b: int, s: int, dtype_bytes: int = 2,
                      flash_resid_bytes: "int | None" = None, *,
-                     ctx: "int | None" = None) -> int:
+                     ctx: "int | None" = None,
+                     model_shards: int = 1) -> int:
     """Backward-residual bytes of one attention layer.
 
     Under the flash op it keeps q / o per query head and k / v per KV
@@ -178,17 +185,25 @@ def attn_resid_bytes(cfg, b: int, s: int, dtype_bytes: int = 2,
     says.  MLA and M-RoPE, which the flash op does not take
     (:func:`flash_training_eligible`), are budgeted as the JAX package
     budgets its plain path: q / o and k / v at ``head_dim`` plus the f32
-    probabilities, ``ctx`` keys a query row (default S)."""
+    probabilities, ``ctx`` keys a query row (default S).
+
+    ``model_shards`` divides every per-head term when heads shard over
+    the mesh's model axis: both head counts must divide it, the gate
+    ``sharding.flash_shard_specs`` applies; otherwise the residuals stay
+    whole, as the replicated fallback keeps them."""
     if cfg.mixer not in ("attn", "hybrid"):
         return 0
+    ms = model_shards if (model_shards > 1
+                          and cfg.n_heads % model_shards == 0
+                          and cfg.n_kv % model_shards == 0) else 1
     heads = 2 * cfg.n_heads + 2 * cfg.n_kv
     if not flash_training_eligible(cfg, s):
         ctx = s if ctx is None else ctx
         qo_kv = heads * b * s * cfg.head_dim * dtype_bytes
-        return qo_kv + 4 * b * cfg.n_heads * s * ctx       # f32 probs
+        return (qo_kv + 4 * b * cfg.n_heads * s * ctx) // ms   # f32 probs
     rb = dtype_bytes if flash_resid_bytes is None else flash_resid_bytes
     qo_kv = heads * b * s * cfg.head_dim * rb
-    return qo_kv + 2 * 4 * b * cfg.n_heads * s             # f32 m, l rows
+    return (qo_kv + 2 * 4 * b * cfg.n_heads * s) // ms     # f32 m, l rows
 
 
 def _flash_tile_counts(cfg, s: int) -> "list[dict]":
@@ -330,39 +345,58 @@ def kv_cache_report(cfg, b: int, s: int) -> dict:
 
 def serve_capacity_report(cfg, s_max: int, budget_bytes: int, *,
                           quantized: bool = True,
-                          params_bytes: int = 0) -> dict:
+                          params_bytes: int = 0, mesh=None) -> dict:
     """Max resident request slots a serve-memory budget admits.
 
     The slot pool (``repro_torch.serve``) preallocates its decode cache at
     ``(max_slots, s_max)``, so capacity is ``(budget - params) //
     bytes_per_slot``.  ``bytes_per_slot`` is exact: every leaf
     ``transformer.init_cache`` makes at batch 1 (on ``device="meta"``)
-    but ``pos``, i.e. what the pool allocates per slot.  Without a mesh
-    ``bytes_per_slot_per_device`` equals it; ``kv_int8_bytes_per_slot``
-    cross-references :func:`kv_cache_report`."""
+    but ``pos``, i.e. what the pool allocates per slot;
+    ``kv_int8_bytes_per_slot`` cross-references :func:`kv_cache_report`.
+
+    With ``mesh`` (``launch/mesh.py`` ``Mesh``), ``budget_bytes`` means
+    bytes per device: each K / V leaf divides by the shard factor
+    ``sharding.serve_kv_shard`` applies on that mesh, giving
+    ``bytes_per_slot_per_device``, and ``max_slots`` is what one device's
+    budget admits (every device holds its slice of every slot).  Without
+    a mesh ``bytes_per_slot_per_device`` equals ``bytes_per_slot``."""
     from repro_torch.models import transformer
     cache = transformer.init_cache(cfg, 1, s_max, quantized=quantized,
                                    device="meta")
-    bytes_per_slot = sum(x.numel() * x.element_size()
-                         for k, x in cache.items() if k != "pos")
+    sizes = {k: x.numel() * x.element_size() for k, x in cache.items()
+             if k != "pos"}
+    bytes_per_slot = sum(sizes.values())
+    shard, kv_mode, devices = 1, "none", 1
+    if mesh is not None:
+        from repro_torch.distributed import sharding
+        devices = mesh.size
+        kv_mode = sharding.serve_kv_shard(mesh, cfg.n_kv, s_max)
+        if kv_mode != "none":
+            shard = mesh.shape["model"]
+    per_dev = sum(n // (shard if k in ("k", "v", "k_scale", "v_scale")
+                        else 1) for k, n in sizes.items())
     kv_rep = kv_cache_report(cfg, 1, s_max)
     usable = max(0, int(budget_bytes) - int(params_bytes))
     return {
         "eligible": bytes_per_slot > 0,
         "bytes_per_slot": int(bytes_per_slot),
-        "bytes_per_slot_per_device": int(bytes_per_slot),
+        "bytes_per_slot_per_device": int(per_dev),
         "kv_int8_bytes_per_slot": int(kv_rep["int8_bytes"]),
         "budget_bytes": int(budget_bytes),
         "params_bytes": int(params_bytes),
-        "max_slots": (usable // bytes_per_slot) if bytes_per_slot else 0,
+        "max_slots": (usable // per_dev) if per_dev else 0,
+        "devices": int(devices),
+        "model_shards": int(shard),
+        "kv_shard": kv_mode,
         "s_max": int(s_max),
         "quantized": bool(quantized),
     }
 
 
 def profile_transformer(cfg, batch_sds, *, dtype_bytes: int = 2,
-                        flash_resid_bytes: "int | None" = None
-                        ) -> ChainProfile:
+                        flash_resid_bytes: "int | None" = None,
+                        model_shards: int = 1) -> ChainProfile:
     """Profile the block stack: carry bytes and window-aware analytic
     FLOPs.
 
@@ -379,7 +413,13 @@ def profile_transformer(cfg, batch_sds, *, dtype_bytes: int = 2,
     (:func:`attn_resid_bytes`); ``flash_resid_bytes`` forwards a
     ``Policy.flash_resid_dtype`` width.  Block parameters are counted on
     a ``device="meta"`` model: an MoE block's are every expert's, as the
-    JAX planner counts them (not the top-k a token reaches)."""
+    JAX planner counts them (not the top-k a token reaches).
+
+    ``model_shards`` (the mesh's TP width) makes the profile per device:
+    ``batch_sds`` is already the per-device microbatch, the (B, S, D)
+    carry is replicated over the model axis and stays whole, and the
+    attention residuals divide by the head shards each device holds
+    (:func:`attn_resid_bytes`)."""
     from repro_torch.models import transformer
     b, s = batch_sds["tokens"].shape
     carry_bytes = b * s * cfg.d_model * dtype_bytes
@@ -404,7 +444,7 @@ def profile_transformer(cfg, batch_sds, *, dtype_bytes: int = 2,
         act.append(carry_bytes)
         resid.append(attn_resid_bytes(cfg, b, s, dtype_bytes,
                                       flash_resid_bytes=flash_resid_bytes,
-                                      ctx=ctx))
+                                      ctx=ctx, model_shards=model_shards))
         labels.append(f"block{i}" + ("" if w == 0 else f"@w{w}"))
     return ChainProfile(tuple(act), tuple(flops), tuple(labels),
                         tuple(resid))

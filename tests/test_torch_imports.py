@@ -67,3 +67,27 @@ def test_torch_example_imports_no_jax_or_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip() == ""
+
+
+@pytest.mark.parametrize("pkg", ["core", "data", "optim", "distributed"])
+def test_packages_export_what_the_reference_exports(pkg):
+    """``repro_torch.<pkg>`` exports every name ``repro.<pkg>`` does (its
+    ``__all__``, or the submodules its ``__init__`` imports), as the
+    same kind of object (module or not)."""
+    import importlib
+    import types
+    ref = importlib.import_module(f"repro.{pkg}")
+    port = importlib.import_module(f"repro_torch.{pkg}")
+
+    def public(mod):
+        names = getattr(mod, "__all__", None)
+        if names is None:
+            names = [n for n, v in vars(mod).items()
+                     if isinstance(v, types.ModuleType)
+                     and v.__name__.startswith(mod.__name__ + ".")]
+        return sorted(names)
+
+    assert public(port) == public(ref)
+    for name in public(ref):
+        assert isinstance(getattr(port, name), types.ModuleType) == \
+            isinstance(getattr(ref, name), types.ModuleType), name

@@ -189,16 +189,16 @@ def _cfgs(**kw):
     return jcfg, dataclasses.replace(configs.smoke_config("llama3-8b"), **kw)
 
 
-#: the JAX capacity report's mesh fields, which the port leaves to the
-#: distributed slice; with no mesh they hold these constants
+#: the capacity report's mesh fields with no mesh
 MESH_FIELDS = {"devices": 1, "model_shards": 1, "kv_shard": "none"}
 
 
 def _jax_capacity(*args, **kw):
-    """The JAX package's serve_capacity_report without its mesh fields,
-    which must hold their no-mesh constants."""
+    """The JAX package's serve_capacity_report, whole; with no mesh its
+    mesh fields hold their no-mesh constants (``tests/test_torch_mesh.py``
+    holds the report on meshes)."""
     rep = jplan.serve_capacity_report(*args, **kw)
-    assert {k: rep.pop(k) for k in MESH_FIELDS} == MESH_FIELDS
+    assert {k: rep[k] for k in MESH_FIELDS} == MESH_FIELDS
     return rep
 
 
