@@ -41,10 +41,11 @@ JSON object per line:
    ``--seed``) served by ``ServeEngine`` over a 16-request synthetic trace;
    the kernels' launch counters are zeroed just before the run and read
    just after it;
-6. ``profile``: ``torch.profiler`` over a short serve run after that one,
-   device time by kernel and the card's idle share, and over 8 engine
-   steps that only decode (8 requests resident): the device time of one
-   decode round; then ``serve_budget``:
+6. ``profile``: ``torch.profiler`` over a short serve run after that one
+   (``PROFILE_REQUESTS`` requests), device time by kernel and the card's
+   idle share, and over ``PROFILE_WINDOW`` engine steps that only decode
+   (8 requests resident): the device time of one decode round; then
+   ``serve_budget``:
    an engine with ``mem_budget_bytes`` of 5.5 slots at ``max_len`` 2048
    and 8 slots asked for must clamp to 5 (``capacity_report``), a pool of
    5 slots must allocate exactly 5 x ``bytes_per_slot`` on the card (its
@@ -75,6 +76,37 @@ JSON object per line:
    drift over every draw both runs recorded).  The launch counters are
    zeroed before each of (a)-(c), (d)'s migrated run and (f), and read
    after: one launch a layer for each prefill and each decode round;
+6c. ``serve_tp``: serving over a (data, model) mesh, after the fleet:
+   (a) ``kernel`` lines ``flash_decode_partials`` /
+   ``flash_decode_bias_partials``: the decode kernel's partials form on
+   each of n sequence shards of one cache (llama3-8b's decode shape in 2
+   shards, glm4-9b's (2 KV heads, G 16) in 4, hymba's band in 2), the
+   shards merged in process by ``collectives.merge_partials``, against
+   the unsharded kernel (1e-5) and the plain version (1e-3), a shard past
+   a row's length exactly 0, shard 0's call timed; (b)-(d) ranks spawned
+   from this script (``--tp-child``; gloo on this card, since NCCL takes
+   one rank a device and gloo stages every reduction through the host:
+   the times are a correctness run's), each building its block of the
+   weights from ``--seed``: (b) llama3-8b at 4 layers, f32, on (1, 2),
+   teacher-forced serve steps (``train/serve_step.py``; prefill 4 x 128,
+   16 decode steps fed the unsharded run's greedy tokens) against the
+   unsharded run here: the prefill's logits within ``TP_B_PREFILL`` and
+   every decode step's within ``TP_B_DECODE`` (from the rank's own cache
+   and from its block of the unsharded run's), each rank's int8 prefill
+   cache within one rounding step of its block of the unsharded one,
+   greedy equal at every step; (c) llama3-8b at full depth, bf16, on
+   (1, 2) (heads mode) and (d) glm4-9b at 8 of its 40 layers on (1, 4)
+   (sequence mode): the serve cell's engine on the serve trace (16 of 16,
+   no fault, the pool audit clean, every rank's streams equal, launches
+   exactly one flash forward a layer an admission and one decode a layer
+   a round) and the teacher-forced logits, prefill and decode steps,
+   within ``TP_BOUND_C`` / ``_D``, (c)'s two ranks and (d)'s four at
+   once, the bf16 control (the unsharded run's logits against the same
+   weights at f32) reported beside; each teacher-forced run is read again
+   under the planted faults (``TP_FAULTS``), and each must break its
+   bounds; per rank the launches, the peak memory and the host time of a
+   decode round beside the unsharded run's, the streams equal to the
+   unsharded run's reported;
 7. ``train``: llama3-8b at full width and 4 layers (random f32 master
    weights from ``--seed``), policy bf16, remat on every block, AdamW,
    batch 1 x 4096 tokens, through ``build_train_step``: 2 warm-up steps,
@@ -120,6 +152,7 @@ JSON object per line:
    mamba2-130m --smoke`` for 4 steps and again to 6, which must resume,
    mamba2 for 2 steps under ``--no-remat``, and ``--arch hymba-1.5b``
    for 2 under ``--remat auto --mem-budget-mb 1 --policy full --guard``;
+   the five independent chains of runs at once;
 10. ``kernel`` lines for the E-D codec's decode and encode kernels against
    their plain versions, for equality, at the CIFAR batch (8 containers of
    32x32x3) and the memory shape (4 containers of 512x512x3);
@@ -130,7 +163,7 @@ JSON object per line:
     the paper's four pipelines (baseline, ED, ED+SC, ED+SC+MP), ResNet-18
     at full width, 200 steps each, the launch counters zeroed before each
     and read after it; accuracy parity, step time, images/s, peak memory,
-    and ``torch.profiler`` over 30 steps of ED+SC+MP;
+    and ``torch.profiler`` over ``CIFAR_PROFILE_STEPS`` steps of ED+SC+MP;
 13. ``cifar_memory``: the paper's memory experiment at the repo's fig8
     shape (ResNet-18, ``stem_stride=2``, 16 x 512x512x3): one forward and
     backward for each of B, ED, SC, ED+SC, ED+SC+MP, peak device memory
@@ -213,8 +246,9 @@ JSON object per line:
     2048, int8, ``kv_splits`` 4, the same 16-request trace): 16 of 16
     done, tok/s, TTFT, ITL, peak memory, and the launches counted exactly
     (one flash forward a layer an admission, one decode a layer a round);
-    for the two MoE archs ``torch.profiler`` over 4 decode-only rounds
-    (8 requests resident): device ms a round by the MoE FFN's ranges
+    for the two MoE archs ``torch.profiler`` over ``MOE_PROFILE_ROUNDS``
+    decode-only rounds (8 requests resident): device ms a round by the
+    MoE FFN's ranges
     (``moe.router``, ``moe.dispatch``, ``moe.experts``, ``moe.combine``,
     ``moe.shared``), the decode kernel and the GEMMs;
 24. ``train_variants``: those four and minicpm3-4b at full width with
@@ -272,8 +306,10 @@ JSON object per line:
     the decoder's flash kernels only);
 32. the ``{"kernels": [...]}`` summary (each row with its launches in
     ``serve_variants`` and ``train_variants`` by arch, in
-    ``serve_encdec`` and in ``train_dp`` (a) and each rank of (b)
-    beside; the head_dim 160 rows apart, with stablelm-12b's launches), the ``nvidia-smi`` line, and last
+    ``serve_encdec``, in ``train_dp`` (a) and each rank of (b) and in
+    ``serve_tp`` (b)-(d), rank 0's, beside; the decode rows with
+    ``serve_tp`` (a)'s partials times; the head_dim 160 rows apart, with
+    stablelm-12b's launches), the ``nvidia-smi`` line, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failed check raises after the lines are printed, and the script exits
@@ -283,6 +319,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import functools
 import gc
@@ -297,6 +334,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -380,6 +418,35 @@ TRAIN_PEAK_FALLBACK = 43.71e9
 DP_BATCH, DP_SEQ, DP_STEPS = 2, 1024, 5   # train_dp (b): 2 ranks, one card
 DP_JOIN_S = 300
 TOP_N = 4                       # best scores the fleet records per draw
+# profile: the profiled serve run (requests of 256 prompt tokens, new
+# tokens each) and the decode-only window (engine steps, 8 resident);
+# 8 / 16 / 8 until the whole run needed room for serve_tp
+PROFILE_REQUESTS, PROFILE_NEW, PROFILE_WINDOW = 4, 8, 4
+# cifar_train's profiled ED+SC+MP steps (30 before) and the decode-only
+# rounds serve_variants profiles for an MoE arch (4 before)
+CIFAR_PROFILE_STEPS, MOE_PROFILE_ROUNDS = 15, 2
+# serve_tp: the teacher-forced runs (batch, prompt, decode steps), the
+# decode kernel's splits (the serve cell's), (a)'s ragged lengths (rows
+# 1 and 7 live in the first shard only), (b)'s depth, (d)'s depth cut
+TP_BATCH, TP_PROMPT, TP_STEPS = 4, 128, 16
+TP_SPLITS = 4
+TP_LENGTHS = [1, 2048, 513, 1024, 7, 1500, 1025, 64]
+TP_B_LAYERS, GLM_TP_LAYERS = 4, 8
+TP_JOIN_S = 420
+# the bounds of the teacher-forced logits (max |diff| over the unsharded
+# run's max |logit|, the prefill's and every decode step's, from the
+# rank's own cache and from its block of the unsharded run's): (b) f32,
+# its prefill 1e-4 and its decode steps TP_B_DECODE (readings on one
+# H100: 3.13e-6, and 1.74e-4 / 3.67e-4, an f32 reorder turned into whole
+# int8 steps by the cache); (c) / (d) bf16, 3x the largest sound reading
+# (0.02063 / 0.01117), which the bf16 control (the unsharded run against
+# the same weights at f32) and the planted faults bracket (PERF.md)
+TP_B_PREFILL, TP_B_DECODE = 1e-4, 1e-3
+TP_BOUND_C, TP_BOUND_D = 3 * 0.02063, 3 * 0.01117
+# the planted faults each sharded run is read again under: the last
+# rank's w_down partial dropped in the middle layer or in every layer,
+# and (sequence mode) shard 0's softmax partials dropped from the merge
+TP_FAULTS = ("w_down_mid", "w_down_all", "merge_drop0")
 # the reference for the baseline's accuracy: examples/cifar_optorch.py's
 # train("baseline", *make_cifar_like(n=2048, seed=0), 200), the JAX
 # package on the CPU: mean accuracy of its last 20 steps
@@ -980,6 +1047,7 @@ class Smoke:
             "kv_splits": 4, "n_requests": len(trace),
             "n_done": summary["n_done"], "n_faults": summary["n_faults"],
             "total_tokens": summary["total_tokens"],
+            "n_steps": summary["n_steps"],
             "prefills": diag["prefills"],
             "decode_rounds": diag["decode_rounds"],
             "kernel_launches": launches, "wall_s": wall,
@@ -997,6 +1065,8 @@ class Smoke:
         cfg = configs.get_config("llama3-8b")
         model, engine, trace, launches, fields = self._serve_trace(cfg)
         self.serve_launches = launches
+        self.serve_streams = {str(r.rid): list(r.tokens)
+                              for r in engine._requests_done}
         rec = self.record({
             "phase": "serve", **fields,
             "kv_pool_bytes": engine.pool.bytes_per_slot() * 8})
@@ -1010,7 +1080,404 @@ class Smoke:
         self.run_fleet(model, cfg, trace, dict(
             arch=cfg.arch_id, smoke=False, init_seed=self.args.seed,
             device="cuda"))
+        self.run_serve_tp(model, cfg, trace, rec)
         return rec
+
+    # -- serving over a model axis (serve_tp) ------------------------------
+    def check_decode_partials(self, n: int, *, hkv: int, g: int, d: int,
+                              arch: str, bias: bool = False) -> dict:
+        """The decode kernel's partials form (``decode_attention(
+        partials=True)``) over ``n`` sequence shards of one cache, each
+        shard's (o, m, l) merged in process by ``collectives
+        .merge_partials`` (the collective's merge), against the unsharded
+        kernel and the plain version.  Lengths: B 8, S 2048, ragged (rows
+        1 and 7 live in shard 0 only), ``TP_SPLITS`` splits resolved on
+        each shard's S / n; bias: hymba's row-5b shape (B 8, S 2080,
+        window 1024 at the last slot: shard 0 lies outside every band).
+        The kernel line times shard 0's call."""
+        torch = self.torch
+        from repro_torch.distributed.collectives import merge_partials
+        from repro_torch.kernels import tiling
+        from repro_torch.kernels.kvq import ops, ref
+        from repro_torch.models import attention
+        b = 8
+        s = SSM_PROMPT + SSM_GEN if bias else 2048
+        s_l = s // n
+        gen = torch.Generator(device=self.dev).manual_seed(n + 7 * g)
+        q = torch.randn((b, hkv * g, d), generator=gen, device=self.dev)
+        kq, ks = ref.quantize_kv(torch.randn((b, hkv, s, d), generator=gen,
+                                             device=self.dev))
+        vq, vs = ref.quantize_kv(torch.randn((b, hkv, s, d), generator=gen,
+                                             device=self.dev))
+        if bias:
+            _, mask = attention.decode_mask(
+                torch.tensor(s - 2, dtype=torch.int32, device=self.dev), b,
+                s, 1024)
+            lens = [s] * b                  # every slot is read
+            whole = dict(bias=mask)
+            local = [dict(bias=mask[:, r * s_l:(r + 1) * s_l].contiguous())
+                     for r in range(n)]
+        else:
+            lens = TP_LENGTHS
+            lengths = torch.tensor(lens, dtype=torch.int32, device=self.dev)
+            whole = dict(lengths=lengths)
+            local = [dict(lengths=torch.clamp(lengths - r * s_l, 0, s_l)
+                          .to(torch.int32)) for r in range(n)]
+        shards = [[c[:, :, r * s_l:(r + 1) * s_l].contiguous()
+                   for c in (kq, ks, vq, vs)] for r in range(n)]
+        parts = [ops.decode_attention(q, *shards[r], splits=TP_SPLITS,
+                                      partials=True, **local[r])
+                 for r in range(n)]
+        o, m, l = (torch.stack(t) for t in zip(*parts))
+        got = merge_partials(o, m, l)
+        unsharded = ops.decode_attention(q, kq, ks, vq, vs,
+                                         splits=TP_SPLITS, **whole)
+        qg = q.reshape(b, hkv, g, d)
+        sm = d ** -0.5
+        plain = ref.decode_attention_ref(
+            qg, kq, ks, vq, vs, whole.get("bias"), sm,
+            lengths=whole.get("lengths")).reshape(b, hkv * g, d)
+        self.sync()
+        err_whole = float((got - unsharded).abs().max())
+        err_plain = float((got - plain).abs().max())
+        # a shard past a row's length reads nothing and gives (0, NEG_INF,
+        # 0); dropping it from the merge changes no bit
+        dead_exact = True
+        if not bias:
+            for r in range(n):
+                dead = (torch.tensor(lens, device=self.dev) <= r * s_l)
+                if dead.any():
+                    dead_exact &= bool(
+                        (m[r][dead] == tiling.NEG_INF).all()
+                        and (l[r][dead] == 0).all()
+                        and (o[r][dead] == 0).all())
+            for row in range(b):
+                k = -(-lens[row] // s_l)
+                dead_exact &= bool(torch.equal(
+                    merge_partials(o[:k, row], m[:k, row], l[:k, row]),
+                    got[row]))
+        tol_whole, tol_plain = 1e-5, 1e-3
+        ok = (err_whole <= tol_whole and err_plain <= tol_plain
+              and dead_exact and bool(torch.isfinite(got).all()))
+        ms = self.time_ms(lambda: ops.decode_attention(
+            q, *shards[0], splits=TP_SPLITS, partials=True, **local[0]))
+        plain_ms = self.time_ms(lambda: ref.decode_partials_ref(
+            qg, *shards[0], local[0].get("bias"), sm,
+            lengths=local[0].get("lengths")), n=20)
+        merge_ms = self.time_ms(lambda: merge_partials(o, m, l))
+        # shard 0's call: its live slots (every slot under a bias) of K
+        # and V with their scales, q, the (o, m, l) it writes
+        live = b * s_l if bias else sum(min(x, s_l) for x in lens)
+        nbytes = hkv * live * (2 * d + 8) + q.numel() * 4 * 2 \
+            + 2 * b * hkv * g * 4 + (b * s_l * 4 if bias else b * 4)
+        flops = 4 * hkv * g * d * live
+        t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        return self.record({
+            "phase": "kernel", "ok": ok, "arch": arch,
+            "name": "flash_decode_bias_partials" if bias
+            else "flash_decode_partials",
+            "shape": {"B": b, "Hkv": hkv, "G": g, "D": d, "S": s,
+                      "shards": n, "S_shard": s_l,
+                      "splits": tiling.resolve_decode_grid(
+                          s_l, splits=TP_SPLITS)[2],
+                      "lengths": None if bias else lens,
+                      "window": 1024 if bias else 0},
+            "max_abs_err": err_plain, "tol": tol_plain,
+            "err_vs_unsharded": err_whole, "tol_unsharded": tol_whole,
+            "dead_shards_exact": dead_exact,
+            "kernel_ms": ms, "plain_ms": plain_ms,
+            "merge_in_process_ms": merge_ms, "library_ms": None,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            **self._rate(nbytes, ms, max(t_ops, t_bytes)),
+            "flops": flops, "bytes": nbytes})
+
+    def _spawn_tp(self, specs: list, tmp: str) -> list:
+        """For each (spec, world) of ``specs``, ``world`` ``--tp-child``
+        ranks on this card over gloo (NCCL takes one rank a device), all
+        started together, each joined with a timeout and all killed if
+        one fails; -> each spec's list of its ranks' result dicts."""
+        groups = []
+        try:
+            for spec, world in specs:
+                path = os.path.join(tmp, f"{spec['part']}.json")
+                spec = dict(spec, world=world, rdv=os.path.join(
+                    tmp, f"{spec['part']}.rdv"), out=os.path.join(
+                    tmp, f"{spec['part']}.out"), seed=self.args.seed,
+                    device=str(self.dev),
+                    cfg=dataclasses.asdict(spec["cfg"]))
+                pathlib.Path(path).write_text(json.dumps(spec))
+                groups.append((spec, [subprocess.Popen(
+                    [sys.executable, str(pathlib.Path(__file__).resolve()),
+                     "--tp-child", f"{path},{r}"], stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True)
+                    for r in range(world)]))
+            for spec, procs in groups:
+                for r, p in enumerate(procs):
+                    out, _ = p.communicate(timeout=TP_JOIN_S)
+                    if p.returncode != 0:
+                        raise RuntimeError(
+                            f"serve_tp ({spec['part']}) rank {r} exited "
+                            f"{p.returncode}:\n{out[-4000:]}")
+        finally:
+            for _, procs in groups:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.communicate()
+        return [[json.loads(pathlib.Path(f"{spec['out']}.{r}").read_text())
+                 for r in range(spec["world"])] for spec, _ in groups]
+
+    def _tp_reference(self, model, cfg, policy: str, tmp: str,
+                      part: str) -> tuple[str, dict | None]:
+        """The unsharded teacher-forced run in this process (its own
+        greedy tokens), saved for the ranks; in bf16 also the bf16
+        control: the same weights at f32 (policy ``full``) fed the same
+        tokens, the bf16 run's logits against its.  -> (the file, the
+        control's ``_tf_compare`` or None)."""
+        torch = self.torch
+        gen = torch.Generator(device=self.dev).manual_seed(self.args.seed)
+        prompts = torch.randint(0, cfg.vocab, (TP_BATCH, TP_PROMPT),
+                                generator=gen, device=self.dev,
+                                dtype=torch.int32)
+        logits, tokens, cache = tp_forced(model, cfg, policy, prompts)
+        path = os.path.join(tmp, f"{part}.ref.pt")
+        torch.save({"prompts": prompts.cpu(), "tokens": tokens,
+                    "logits": logits, "cache": cache}, path)
+        control = None
+        if policy == "bf16":
+            m32 = copy.deepcopy(model).float()
+            logits32, _, _ = tp_forced(m32, cfg, "full", prompts,
+                                       forced=tokens)
+            del m32
+            gc.collect()
+            torch.cuda.empty_cache()
+            control = {k: v for k, v in _tf_compare(logits, logits32).items()
+                       if k in ("prefill_rel", "decode_rel", "max_rel")}
+        return path, control
+
+    @staticmethod
+    def _unsharded(fields: dict, streams: dict) -> dict:
+        """What ``serve_tp`` holds a sharded engine run against: the
+        unsharded run's streams and host times (``_serve_trace``'s
+        fields)."""
+        return {"streams": streams, "itl_mean_s": fields["itl_mean_s"],
+                "tokens_per_s": fields["tokens_per_s"],
+                "round_host_ms": fields["wall_s"]
+                / max(1, fields["n_steps"]) * 1e3}
+
+    def run_serve_tp(self, model, cfg, trace, serve_rec: dict) -> dict:
+        """Serving over a (data, model) mesh (see the module docstring,
+        item 6c): (a) the decode kernel's partials form over sequence
+        shards; (b) heads mode at f32 on (1, 2), llama3-8b at
+        ``TP_B_LAYERS`` layers, teacher-forced; (c) heads mode, llama3-8b
+        at full depth in bf16 on (1, 2): the serve cell's engine and trace
+        and the teacher-forced logits; (d) sequence mode, glm4-9b at
+        ``GLM_TP_LAYERS`` layers on (1, 4), likewise, (c)'s ranks and
+        (d)'s at once.  The ranks are ``--tp-child`` processes on this
+        card over gloo, which stages every reduction through the host: the
+        times are a correctness run's, not tensor parallelism's speed."""
+        torch = self.torch
+        from repro_torch import configs
+        t0 = time.time()
+        llama = configs.get_config("llama3-8b")
+        glm = configs.get_config("glm4-9b")
+        part_a = [self.check_decode_partials(
+                      2, hkv=llama.n_kv, g=llama.n_heads // llama.n_kv,
+                      d=llama.head_dim, arch=llama.arch_id),
+                  self.check_decode_partials(
+                      4, hkv=glm.n_kv, g=glm.n_heads // glm.n_kv,
+                      d=glm.head_dim, arch=glm.arch_id),
+                  self.check_decode_partials(
+                      2, hkv=5, g=5, d=64, arch="hymba-1.5b", bias=True)]
+        self.tp_partials = part_a
+        secs = {"a": time.time() - t0}
+        tmp = tempfile.mkdtemp(prefix="serve_tp_")
+        parts, checks = {}, {}
+        try:
+            # (c)'s reference first, while the serve model is here
+            tc = time.time()
+            ref_c, control_c = self._tp_reference(model, cfg, "bf16", tmp,
+                                                  "c")
+            unsharded_c = self._unsharded(serve_rec, self.serve_streams)
+            secs["c_ref"] = time.time() - tc
+            tb = time.time()
+            parts["b"] = self.serve_tp_b(cfg, tmp)
+            secs["b"] = time.time() - tb
+            # (d)'s unsharded run: glm4-9b cut to GLM_TP_LAYERS
+            td = time.time()
+            cfg_d = dataclasses.replace(glm, n_layers=GLM_TP_LAYERS)
+            m_d, engine, trace_d, _, fields = self._serve_trace(cfg_d)
+            unsharded_d = self._unsharded(fields, {
+                str(r.rid): list(r.tokens) for r in engine._requests_done})
+            del engine
+            ref_d, control_d = self._tp_reference(m_d, cfg_d, "bf16", tmp,
+                                                  "d")
+            del m_d
+            gc.collect()
+            torch.cuda.empty_cache()
+            secs["d_ref"] = time.time() - td
+            # (c)'s two ranks (heads mode) and (d)'s four (sequence mode)
+            # at once: six processes share the card and the host
+            tcd = time.time()
+            ranks_c, ranks_d = self._spawn_tp([
+                (dict(part="c", cfg=cfg, policy="bf16", ref=ref_c,
+                      engine=True), 2),
+                (dict(part="d", cfg=cfg_d, policy="bf16", ref=ref_d,
+                      engine=True), 4)], tmp)
+            parts["c"] = self._tp_part(
+                ranks_c, cfg, "bf16", engine=unsharded_c, n_req=len(trace),
+                bounds={"prefill": TP_BOUND_C, "decode": TP_BOUND_C},
+                control=control_c)
+            parts["d"] = self._tp_part(
+                ranks_d, cfg_d, "bf16", engine=unsharded_d,
+                n_req=len(trace_d),
+                bounds={"prefill": TP_BOUND_D, "decode": TP_BOUND_D},
+                control=control_d)
+            secs["c_d_ranks"] = time.time() - tcd
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        checks["a"] = all(r["ok"] for r in part_a)
+        # (b) f32: besides the logits' bounds (_tp_part), each rank's int8
+        # prefill cache its block of the unsharded one up to single
+        # rounding steps, and the greedy tokens equal at every step
+        tf_b = parts["b"]["tf"]
+        checks["b_cache_within_one_step"] = all(
+            c["k_int8_max_steps"] <= 1 and c["v_int8_max_steps"] <= 1
+            for c in tf_b["cache_vs_unsharded"])
+        checks["b_greedy_equal"] = tf_b["greedy_equal_steps"] \
+            == TP_STEPS + 1
+        for p in parts:
+            for k, v in parts[p].pop("checks").items():
+                checks[f"{p}_{k}"] = v
+        self.tp_launches = {p: parts[p]["launches_rank0"] for p in parts}
+        return self.record({
+            "phase": "serve_tp", "ok": all(checks.values()),
+            "checks": checks, "partials": [
+                {k: r[k] for k in ("name", "arch", "shape", "max_abs_err",
+                                   "err_vs_unsharded", "dead_shards_exact",
+                                   "kernel_ms", "plain_ms", "bound_ms")}
+                for r in part_a],
+            "b": parts["b"], "c": parts["c"], "d": parts["d"],
+            "gloo_note": "gloo stages every reduction through the host",
+            "phase_seconds": secs, "seconds": time.time() - t0})
+
+    def serve_tp_b(self, cfg, tmp: str) -> dict:
+        """``serve_tp`` (b): ``cfg`` at ``TP_B_LAYERS`` layers, f32, on
+        (1, 2): the unsharded teacher-forced run here, then the two
+        ranks."""
+        torch = self.torch
+        from repro_torch.models import transformer
+        cfg_b = dataclasses.replace(cfg, n_layers=TP_B_LAYERS)
+        m_b = transformer.init_params(cfg_b, self.args.seed, device=self.dev,
+                                      dtype=torch.float32)
+        ref_b, _ = self._tp_reference(m_b, cfg_b, "full", tmp, "b")
+        del m_b
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranks, = self._spawn_tp([(dict(part="b", cfg=cfg_b, policy="full",
+                                       ref=ref_b, engine=False), 2)], tmp)
+        return self._tp_part(ranks, cfg_b, "full", engine=None,
+                             bounds={"prefill": TP_B_PREFILL,
+                                     "decode": TP_B_DECODE})
+
+    def _tp_part(self, ranks: list, cfg, policy: str, engine: dict | None,
+                 n_req: int = 0, *, bounds: dict, control=None) -> dict:
+        """One sub-phase's ranks against the unsharded run: launches,
+        memory, streams, host times, teacher-forced logits (``bounds``:
+        the prefill's and the decode steps' limits), the planted faults
+        (each beyond the decode bound or the prefill's), the bf16
+        control beside."""
+        from repro_torch.kernels.flash import ops as flash_ops
+        L = cfg.n_layers
+        fwd = "flash_fwd_sm90" if flash_ops.fwd_route(
+            self.torch.bfloat16 if policy == "bf16" else self.torch.float32,
+            cfg.head_dim) == "sm90" else "flash_fwd"
+        out = {"arch": cfg.arch_id, "layers": L, "policy": policy,
+               "world": len(ranks), "mode": ranks[0]["mode"],
+               "max_memory_allocated_bytes": [r["peak"] for r in ranks],
+               "launches_rank0": (ranks[0].get("engine")
+                                  or ranks[0]["tf"])["launches"]}
+        checks = {}
+        tf = [r["tf"] for r in ranks if r.get("tf")]
+        if tf:
+            out["tf"] = {
+                # the prefill's logits (no cache read), the decode steps'
+                # from the unsharded run's prefill cache, and the decode
+                # steps' from this rank's own cache
+                "prefill_rel": max(t["prefill_rel"] for t in tf),
+                "decode_rel_ref_cache": max(t["from_ref_cache"]["decode_rel"]
+                                            for t in tf),
+                "decode_rel_own_cache": max(t["decode_rel"] for t in tf),
+                "max_abs": max(t["max_abs"] for t in tf),
+                "greedy_equal_steps": min(t["greedy_equal"] for t in tf),
+                "greedy_equal_steps_ref_cache": min(
+                    t["from_ref_cache"]["greedy_equal"] for t in tf),
+                "first_diff_top2_gap": tf[0]["first_diff_gap"],
+                "cache_vs_unsharded": [t["cache"] for t in tf],
+                "launches": [t["launches"] for t in tf],
+                "ranks_agree": all(t["digest"] == tf[0]["digest"]
+                                   for t in tf)}
+            want = {k: 0 for k in tf[0]["launches"]}
+            want[fwd] = L
+            want["flash_decode"] = L * TP_STEPS
+            checks["launches"] = all(t["launches"] == want for t in tf)
+            checks["tf_ranks_agree"] = out["tf"]["ranks_agree"]
+            # the logits gates: the prefill's, and the decode steps' from
+            # the rank's own cache and from the unsharded run's
+            t = out["tf"]
+            checks["prefill_within_bound"] = \
+                t["prefill_rel"] <= bounds["prefill"]
+            checks["decode_within_bound"] = max(
+                t["decode_rel_own_cache"], t["decode_rel_ref_cache"]) \
+                <= bounds["decode"]
+            out["bounds"] = bounds
+            out["bf16_control"] = control
+            faults = [r["faults"] for r in ranks]
+            out["faults"] = faults[0]
+            for f in faults[0]:
+                # a fault the gates refuse: some step beyond its bound
+                checks[f"fault_{f}_refused"] = all(
+                    x[f]["prefill_rel"] > bounds["prefill"]
+                    or x[f]["decode_rel"] > bounds["decode"]
+                    for x in faults)
+        if engine is not None:
+            e0 = ranks[0]["engine"]
+            want = {k: 0 for k in e0["launches"]}
+            want[fwd] = L * e0["prefills"]
+            want["flash_decode"] = L * e0["decode_rounds"]
+            same = sum(e0["streams"].get(k) == v
+                       for k, v in engine["streams"].items())
+            out["engine"] = {
+                "n_done": [r["engine"]["n_done"] for r in ranks],
+                "n_faults": [r["engine"]["n_faults"] for r in ranks],
+                "prefills": e0["prefills"],
+                "decode_rounds": e0["decode_rounds"],
+                "launches": [r["engine"]["launches"] for r in ranks],
+                "wall_s": [r["engine"]["wall_s"] for r in ranks],
+                "tokens_per_s": e0["tokens_per_s"],
+                "itl_mean_s": e0["itl_mean_s"],
+                "round_host_ms": e0["round_host_ms"],
+                "unsharded": {k: engine[k] for k in
+                              ("tokens_per_s", "itl_mean_s",
+                               "round_host_ms")},
+                "streams_equal_unsharded": same,
+                "n_streams": len(engine["streams"])}
+            checks.update({
+                "all_done": all(r["engine"]["n_done"] == n_req
+                                for r in ranks),
+                "no_faults": all(r["engine"]["n_faults"] == 0
+                                 for r in ranks),
+                "pool_audit_clean": all(r["engine"]["audit_clean"]
+                                        for r in ranks),
+                "ranks_same_streams": all(r["engine"]["streams"]
+                                          == e0["streams"] for r in ranks),
+                "engine_launches": all(r["engine"]["launches"] == want
+                                       for r in ranks),
+                "fits": max(r["peak"] for r in ranks) < 80e9})
+        out["checks"] = checks
+        return out
 
     def check_serve_budget(self, model, cfg, trace, bytes_per_slot) -> dict:
         """``ServeEngine(mem_budget_bytes=)`` at 5.5 slots of llama3-8b's
@@ -1560,18 +2027,21 @@ class Smoke:
 
     def profile_serve(self, engine, cfg) -> dict:
         """Where a serving step's device time goes: ``torch.profiler`` over
-        8 requests (prompt 256, 16 new tokens) served after the measured
-        run, device time summed by kernel name; then 8 engine steps that
+        ``PROFILE_REQUESTS`` requests (prompt 256, ``PROFILE_NEW`` new
+        tokens) served after the measured run, device time summed by
+        kernel name; then ``PROFILE_WINDOW`` engine steps that
         only decode (8 requests resident, nothing to admit), profiled
         alone: the device time of one decode round."""
         import numpy as np
         from repro_torch.serve.trace import TraceRequest
         rng = np.random.default_rng(1)
         trace = [TraceRequest(0, rng.integers(0, cfg.vocab, 256)
-                              .astype(np.int32), 16) for _ in range(8)]
+                              .astype(np.int32), PROFILE_NEW)
+                 for _ in range(PROFILE_REQUESTS)]
         engine.reset()
         summary, wall, busy_s, rows = self._profile(lambda: engine.run(trace))
-        rounds, d_wall, d_busy, d_rows = self._decode_window(engine, cfg, 8)
+        rounds, d_wall, d_busy, d_rows = self._decode_window(
+            engine, cfg, PROFILE_WINDOW)
         self.decode_round_device_ms = d_busy / rounds * 1e3
         return self.record({
             "phase": "profile", "wall_s": wall, "device_busy_s": busy_s,
@@ -2106,33 +2576,38 @@ class Smoke:
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
         cmd = [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
                "--ckpt-every", "2", "--log-every", "1"]
+        runs_args = [["--steps", "4", "--fresh", "--ckpt-dir", ckpt],
+                     ["--steps", "6", "--ckpt-dir", ckpt],
+                     ["--steps", "2", "--fresh", "--ckpt-dir", plan_dir,
+                      "--remat", "auto", "--mem-budget-mb", "1", "--events",
+                      events, "--trace", "--metrics-every", "1"],
+                     # the SSM family: the chunk's backward
+                     ["--arch", "mamba2-130m", "--steps", "4", "--fresh",
+                      "--ckpt-dir", mamba],
+                     ["--arch", "mamba2-130m", "--steps", "6",
+                      "--ckpt-dir", mamba],
+                     # the other remat modes, f32, the guard
+                     ["--arch", "mamba2-130m", "--steps", "2", "--fresh",
+                      "--ckpt-dir", os.path.join(ckpt, "mamba2_off"),
+                      "--no-remat"],
+                     ["--arch", "hymba-1.5b", "--steps", "2", "--fresh",
+                      "--ckpt-dir", os.path.join(ckpt, "hymba"), "--remat",
+                      "auto", "--mem-budget-mb", "1", "--policy", "full",
+                      "--guard"]]
+        # five independent chains at once (a resume waits for its first
+        # run): the runs share nothing but the card
+        chains = [(0, 1), (2,), (3, 4), (5,), (6,)]
+        runs = [None] * len(runs_args)
+
+        def chain(ids):
+            for i in ids:
+                runs[i] = subprocess.run(cmd + runs_args[i], cwd=ROOT,
+                                         env=env, capture_output=True,
+                                         text=True, timeout=300)
+        t0 = time.time()
         try:
-            runs = [subprocess.run(cmd + extra, cwd=ROOT, env=env,
-                                   capture_output=True, text=True,
-                                   timeout=300)
-                    for extra in (["--steps", "4", "--fresh",
-                                   "--ckpt-dir", ckpt],
-                                  ["--steps", "6", "--ckpt-dir", ckpt],
-                                  ["--steps", "2", "--fresh",
-                                   "--ckpt-dir", plan_dir, "--remat", "auto",
-                                   "--mem-budget-mb", "1", "--events",
-                                   events, "--trace", "--metrics-every",
-                                   "1"],
-                                  # the SSM family: the chunk's backward
-                                  ["--arch", "mamba2-130m", "--steps", "4",
-                                   "--fresh", "--ckpt-dir", mamba],
-                                  ["--arch", "mamba2-130m", "--steps", "6",
-                                   "--ckpt-dir", mamba],
-                                  # the other remat modes, f32, the guard
-                                  ["--arch", "mamba2-130m", "--steps", "2",
-                                   "--fresh", "--ckpt-dir",
-                                   os.path.join(ckpt, "mamba2_off"),
-                                   "--no-remat"],
-                                  ["--arch", "hymba-1.5b", "--steps", "2",
-                                   "--fresh", "--ckpt-dir",
-                                   os.path.join(ckpt, "hymba"), "--remat",
-                                   "auto", "--mem-budget-mb", "1",
-                                   "--policy", "full", "--guard"])]
+            with ThreadPoolExecutor(len(chains)) as pool:
+                list(pool.map(chain, chains))
             plan_path = os.path.join(plan_dir, "remat_plan.json")
             plan_text = pathlib.Path(plan_path).read_text() \
                 if os.path.exists(plan_path) else ""
@@ -2171,7 +2646,8 @@ class Smoke:
         }
         return self.record({
             "phase": "train_cli", "ok": all(checks.values()),
-            "checks": checks, "remat_plan": plan_text,
+            "checks": checks, "runs_seconds": time.time() - t0,
+            "remat_plan": plan_text,
             "mem_samples": samples,
             "stdout": [r.stdout[-1500:] for r in runs],
             "stderr": [r.stderr[-1500:] for r in runs if r.returncode]})
@@ -2342,7 +2818,7 @@ class Smoke:
         }
         params = cnn.init_params(cnn.resnet18(), self.args.seed,
                                  device=self.dev)
-        prof_steps = 30
+        prof_steps = CIFAR_PROFILE_STEPS
         r, wall, busy_s, rows = self._profile(lambda: ex.train(
             "ED+SC+MP", imgs, labels, prof_steps, seed=self.args.seed,
             device=self.dev, params=params, log_every=0))
@@ -3520,7 +3996,8 @@ class Smoke:
             # where a decode round's device time goes: the MoE FFN by its
             # profiler ranges, the decode kernel, the GEMMs (the experts'
             # among them), per round
-            rounds, p_wall, p_busy, rows = self._decode_window(engine, cfg, 4)
+            rounds, p_wall, p_busy, rows = self._decode_window(
+                engine, cfg, MOE_PROFILE_ROUNDS)
             per = lambda ms: ms / rounds  # noqa: E731
             profile = {
                 "rounds": rounds, "wall_ms_per_round": per(p_wall * 1e3),
@@ -4097,6 +4574,247 @@ def dp_child(spec: str, seed: int) -> int:
     return 0
 
 
+def tp_forced(model, cfg, policy: str, prompts, mesh=None, forced=None,
+              cache=None):
+    """Teacher-forced serve steps (``train/serve_step.py``): the prefill
+    of ``prompts`` (B, P) grown to P + TP_STEPS slots, then TP_STEPS decode
+    steps (``TP_SPLITS`` splits), each fed ``forced[:, t]`` or, without
+    it, the greedy token of the step before.  ``cache`` (this rank's
+    layout) replaces the prefill's own cache before the decode steps.
+    -> (logits (TP_STEPS + 1, B, V) f32 on the host, the fed tokens (B,
+    TP_STEPS), the prefill's cache on the host)."""
+    import torch
+    from repro_torch.train import serve_step
+    p = prompts.shape[1]
+    prefill = serve_step.build_prefill_step(
+        cfg, policy_name=policy, s_max=p + TP_STEPS, mesh=mesh)
+    decode = serve_step.build_decode_step(
+        cfg, policy_name=policy, kvq_splits=TP_SPLITS, mesh=mesh)
+    with torch.no_grad():
+        logits, own = prefill(model, {"tokens": prompts})
+        kept = {k: v.cpu() for k, v in own.items()}
+        if cache is not None:
+            own = {k: v.to(prompts.device) for k, v in cache.items()}
+        out, fed = [logits.float().cpu()], []
+        for t in range(TP_STEPS):
+            tok = (logits.argmax(-1) if forced is None
+                   else forced[:, t].to(prompts.device)).to(torch.int32)
+            fed.append(tok.cpu())
+            logits, own = decode(model, own, tok)
+            out.append(logits.float().cpu())
+    return torch.stack(out), torch.stack(fed, 1), kept
+
+
+def _tf_compare(got, ref) -> dict:
+    """A rank's teacher-forced logits against the unsharded run's: the
+    largest difference over the largest |logit|, all steps, the
+    prefill's (step 0) and the decode steps' apart; the steps whose
+    greedy tokens all agree, and the unsharded top-2 gap at the first
+    that does not."""
+    diff = (got - ref).abs().amax(dim=(1, 2))
+    top = float(ref.abs().max())
+    g, r = got.argmax(-1), ref.argmax(-1)
+    gap = None
+    bad = (g != r).nonzero()
+    if len(bad):
+        step, row = (int(x) for x in bad[0])
+        two = ref[step, row].topk(2).values
+        gap = {"step": step, "row": row, "gap": float(two[0] - two[1]),
+               "gap_bf16_ulps": float(two[0] - two[1])
+               / bf16_ulp(float(two[0]))}
+    return {"max_abs": float(diff.max()), "max_rel": float(diff.max()) / top,
+            "prefill_rel": float(diff[0]) / top,
+            "decode_rel": float(diff[1:].max()) / top,
+            "greedy_equal": int((g == r).all(-1).sum()),
+            "first_diff_gap": gap, "digest": float(got.double().sum())}
+
+
+def _cache_diff(own: dict, ref: dict) -> dict:
+    """This rank's prefill cache against its block of the unsharded
+    run's: int8 entries that differ (and by how many steps), and the
+    largest relative difference of the f32 scales."""
+    out = {}
+    for name in ("k", "v"):
+        d = (own[name].int() - ref[name].int()).abs()
+        out[f"{name}_int8_differ"] = int((d > 0).sum())
+        out[f"{name}_int8_max_steps"] = int(d.max())
+    for name in ("k_scale", "v_scale"):
+        filled = ref[name] > 0                 # the prompt's slots
+        out[f"{name}_max_rel"] = float(
+            ((own[name] - ref[name]).abs()[filled]
+             / ref[name][filled]).max())
+    return out
+
+
+@contextlib.contextmanager
+def _planted(fault: str, model, mesh, rank: int):
+    """A fault planted in one rank's sharded run, undone after:
+    ``w_down_mid`` / ``w_down_all``, the last rank of the model axis
+    drops its ``w_down`` partial (its block zeroed) in the middle layer /
+    in every layer; ``merge_drop0``, every rank merges the sequence
+    partials as if shard 0 had no live position (a merge that is wrong
+    the same way on every rank)."""
+    import torch
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import tiling
+    from repro_torch.launch.mesh import coords
+    r, n = coords(mesh, rank)["model"], mesh.shape["model"]
+    saved, merge = [], collectives._group_merge
+    if fault.startswith("w_down") and r == n - 1:
+        blocks = model.blocks if fault == "w_down_all" \
+            else [model.blocks[len(model.blocks) // 2]]
+        for blk in blocks:
+            w = blk.ffn.w_down
+            saved.append((w, w.detach().clone()))
+            w.data.zero_()
+    elif fault == "merge_drop0":
+        def dropped(o, m, l, group):
+            if r == 0:
+                o, l = torch.zeros_like(o), torch.zeros_like(l)
+                m = torch.full_like(m, tiling.NEG_INF)
+            return merge(o, m, l, group)
+        collectives._group_merge = dropped
+    elif not fault.startswith("w_down"):
+        raise ValueError(f"unknown fault {fault!r}")
+    try:
+        yield
+    finally:
+        collectives._group_merge = merge
+        for w, v in saved:
+            w.data.copy_(v)
+
+
+def tp_child(arg: str) -> int:
+    """One rank of ``serve_tp`` (b)-(d), run as ``chip_smoke.py --tp-child
+    spec.json,rank``: gloo over the parent's card, the kernels loaded
+    from the libraries the parent built; this rank's block of the model
+    (``init_params(mesh=)`` from ``--seed``), then the teacher-forced
+    serve steps against the parent's saved run, then the serve cell's
+    engine over the serve trace with the launch counters zeroed before
+    and read after."""
+    path, rank = arg.rsplit(",", 1)
+    rank = int(rank)
+    spec = json.loads(pathlib.Path(path).read_text())
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import Mesh, coords
+    from repro_torch.models import transformer
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.serve import ServeEngine, synthetic_trace
+    torch.set_num_threads(1)
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        for lib in ("flash_fwd", "flash_fwd_sm90", "flash_decode"):
+            if not build.library_path(lib).exists():
+                raise RuntimeError(f"tp_child: {lib}.cu is not built")
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    world = spec["world"]
+    dist.init_process_group("gloo", init_method=f"file://{spec['rdv']}",
+                            rank=rank, world_size=world)
+    try:
+        # the parent's config, field for field (tuples travel as lists)
+        cfg = ModelConfig(**{k: tuple(v) if isinstance(v, list) else v
+                             for k, v in spec["cfg"].items()})
+        mesh = Mesh(data=1, model=world)
+        dtype = torch.bfloat16 if spec["policy"] == "bf16" \
+            else torch.float32
+        model = transformer.init_params(cfg, spec["seed"], device=dev,
+                                        dtype=dtype, mesh=mesh)
+        kernels = Smoke._launch_counters()
+        out = {"rank": rank,
+               "mode": shd.serve_kv_shard(mesh, cfg.n_kv, 2048)}
+
+        def zero():
+            for k in kernels.values():
+                k.launches = 0
+
+        def read():
+            return {n: k.launches for n, k in kernels.items()}
+
+        def sync():
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+        if spec["ref"]:
+            ref = torch.load(spec["ref"])
+            zero()
+            logits, _, own = tp_forced(model, cfg, spec["policy"],
+                                       ref["prompts"].to(dev), mesh=mesh,
+                                       forced=ref["tokens"])
+            out["tf"] = {**_tf_compare(logits, ref["logits"]),
+                         "launches": read()}
+            # the decode steps again from this rank's block of the
+            # unsharded run's prefill cache: the decode path's own
+            # arithmetic, without the caches' rounding of the prefill
+            where = coords(mesh, rank)
+            block = {k: v if k == "pos" else shd.shard_leaf(
+                         v, shd.serve_cache_specs(cfg, {k: v.shape},
+                                                  mesh)[k], mesh, where)
+                     for k, v in ref["cache"].items()}
+            out["tf"]["cache"] = _cache_diff(own, block)
+            logits, _, _ = tp_forced(model, cfg, spec["policy"],
+                                     ref["prompts"].to(dev), mesh=mesh,
+                                     forced=ref["tokens"], cache=block)
+            out["tf"]["from_ref_cache"] = _tf_compare(logits, ref["logits"])
+            del ref, logits
+        if spec["engine"]:
+            trace = synthetic_trace(16, seed=0, vocab=cfg.vocab,
+                                    mean_prompt=256, max_prompt=1024,
+                                    mean_gen=32, max_gen=64)
+            engine = ServeEngine(model, cfg, max_slots=8, max_len=2048,
+                                 policy_name="bf16", quantized=True,
+                                 kv_splits=TP_SPLITS, mesh=mesh)
+            engine.warmup()
+            sync()
+            zero()
+            t0 = time.time()
+            summary = engine.run(trace)
+            sync()
+            wall = time.time() - t0
+            diag = summary["diagnostics"]
+            audit = engine.pool.audit()
+            out["engine"] = {
+                "streams": {str(r.rid): list(r.tokens)
+                            for r in engine._requests_done},
+                "n_done": summary["n_done"], "n_faults": summary["n_faults"],
+                "audit_clean": audit["allocs"] == audit["frees"]
+                and engine.pool.occupancy == 0,
+                "launches": read(), "prefills": diag["prefills"],
+                "decode_rounds": diag["decode_rounds"], "wall_s": wall,
+                "tokens_per_s": summary["tokens_per_s"],
+                "itl_mean_s": summary["itl_mean_s"],
+                "round_host_ms": wall / max(1, summary["n_steps"]) * 1e3,
+                "bytes_per_slot_per_device":
+                    engine.pool.bytes_per_slot_per_device()}
+        # the serving peak, before the faults' copies of w_down
+        out["peak"] = torch.cuda.max_memory_allocated(dev) \
+            if dev.type == "cuda" else 0
+        if spec["ref"]:
+            # the same teacher-forced run under each planted fault: what
+            # the gates must refuse
+            ref = torch.load(spec["ref"])
+            out["faults"] = {}
+            for fault in TP_FAULTS:
+                if fault == "merge_drop0" and out["mode"] != "seq":
+                    continue
+                with _planted(fault, model, mesh, rank):
+                    logits, _, _ = tp_forced(
+                        model, cfg, spec["policy"], ref["prompts"].to(dev),
+                        mesh=mesh, forced=ref["tokens"])
+                out["faults"][fault] = {
+                    k: v for k, v in _tf_compare(logits, ref["logits"])
+                    .items() if k in ("prefill_rel", "decode_rel",
+                                      "max_rel")}
+            del ref
+        pathlib.Path(f"{spec['out']}.{rank}").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4111,9 +4829,12 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="",
                     help="also write every result line to this JSON file")
     ap.add_argument("--dp-child", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--tp-child", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.dp_child:
         return dp_child(args.dp_child, args.seed)
+    if args.tp_child:
+        return tp_child(args.tp_child)
 
     import torch
     if not torch.cuda.is_available():
@@ -4427,6 +5148,23 @@ def main(argv=None) -> int:
                 arch: runs[part].get(row["name"], 0)
                 for arch, runs in smoke.variant_launches.items()
                 if part in runs}
+        # serve_tp: rank 0's launches in (b)'s teacher-forced steps and in
+        # (c)'s and (d)'s engine runs (every rank's are in its line)
+        row["serve_tp_launches"] = {
+            part: counts.get(row["name"], 0)
+            for part, counts in smoke.tp_launches.items()}
+    # the decode kernel's partials form (serve_tp (a)): shard 0's call at
+    # llama3-8b's and glm4-9b's decode shapes, the bias entry at hymba's
+    for row in kernels["kernels"]:
+        if row.get("head_dim") is None and row["name"] in (
+                "flash_decode", "flash_decode_bias"):
+            row["partials"] = [
+                {k: r[k] for k in ("arch", "shape", "kernel_ms", "plain_ms",
+                                   "bound_ms", "bound_by", "max_abs_err",
+                                   "err_vs_unsharded")}
+                for r in smoke.tp_partials
+                if (r["name"] == "flash_decode_bias_partials")
+                == (row["name"] == "flash_decode_bias")]
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -230,6 +230,49 @@ def cache_specs(cfg, cache: Mapping, mesh: Mesh) -> dict:
     return {n: spec_for(n, leaf) for n, leaf in cache.items()}
 
 
+def _block(mesh: Mesh, entry, where: Mapping[str, int]) -> tuple[int, int]:
+    """(index, count) of the block a spec entry gives the rank at
+    ``where`` (its coordinates, ``launch/mesh.py`` ``coords``): the axes of
+    a tuple entry split the dim in order, the first outermost."""
+    idx, n = 0, 1
+    for ax in (() if entry is None else
+               (entry,) if isinstance(entry, str) else entry):
+        idx = idx * mesh.shape[ax] + where[ax]
+        n *= mesh.shape[ax]
+    return idx, n
+
+
+def local_shape(shape, spec: Spec, mesh: Mesh) -> tuple[int, ...]:
+    """The shape of one rank's block of a ``shape`` tensor under
+    ``spec``; every split dim must divide."""
+    out = []
+    for d, size in enumerate(_shape(shape)):
+        n = _block(mesh, spec[d] if d < len(spec) else None,
+                   {a: 0 for a in mesh.axis_names})[1]
+        if size % n:
+            raise ValueError(f"spec {spec} splits dim {d} of {size} "
+                             f"{n} ways")
+        out.append(size // n)
+    return tuple(out)
+
+
+def shard_leaf(x, spec: Spec, mesh: Mesh, where: Mapping[str, int]):
+    """The block of ``x`` (a tensor or a numpy array) that the rank at
+    ``where`` holds under ``spec``, contiguous blocks in rank order (the
+    ``Shard(d)`` placement of :func:`to_placements`).  A tensor's block is
+    a copy, so the whole leaf can be freed; a replicated leaf is returned
+    as it is."""
+    idx = []
+    for d, size in enumerate(local_shape(x.shape, spec, mesh)):
+        i, _ = _block(mesh, spec[d] if d < len(spec) else None, where)
+        idx.append(slice(i * size, (i + 1) * size))
+    if all(sl.start == 0 and sl.stop == n
+           for sl, n in zip(idx, x.shape)):
+        return x
+    block = x[tuple(idx)]
+    return block.clone() if hasattr(block, "clone") else block.copy()
+
+
 def to_placements(device_mesh, spec: Spec) -> tuple:
     """DTensor placements of ``spec`` over ``device_mesh`` (whose
     ``mesh_dim_names`` are the spec's axis names): ``Shard(d)`` on each

@@ -11,8 +11,10 @@
 // of entries that are all -1e30 (finite) gets m = -1e30 and drops out with
 // weight exp(-1e30 - m) = 0 against any live max, never as NaN.  The KV
 // axis is cut into tiles of bs tokens and the tiles into `nsp` splits of
-// `spt` tiles each (tiling.resolve_decode_grid).  With one split the
-// kernel normalises and writes (B, Hkv, G, D); otherwise it writes
+// `spt` tiles each (tiling.resolve_decode_grid).  Given no m / l buffers
+// (one split) the kernel normalises and writes (B, Hkv, G, D); given them
+// (always with several splits, and at one split for the partials form
+// that a sequence-sharded decode merges across devices) it writes
 // unnormalised partials acc (B, Hkv, nsp, G, D), m, l (B, Hkv, nsp, G)
 // that kvq/ops.py::combine_splits merges.  counts[b, h, split] is the
 // number of bs tiles of the split whose start lies below the row's length
@@ -472,9 +474,10 @@ __global__ void __launch_bounds__(NT, 2) decode_kernel(const Args a) {
       ll += st[GH * D + GH + g] * wgt;
     }
     if (x < GH * D) {
-      a.out[head0 * D + x] = a.nsp == 1 ? s / fmaxf(ll, 1e-30f) : s;
-    } else if (a.nsp > 1) {
-      a.m_p[head0 + g] = mx * LN2;  // natural units for combine_splits
+      a.out[head0 * D + x] = a.m_p == nullptr ? s / fmaxf(ll, 1e-30f) : s;
+    } else if (a.m_p != nullptr) {
+      // natural units for combine_splits; a dead state keeps the sentinel
+      a.m_p[head0 + g] = mx == NEG_INF ? NEG_INF : mx * LN2;
       a.l_p[head0 + g] = ll;
     }
   }
@@ -576,7 +579,8 @@ cudaError_t dispatch(const void* q, const void* kq, const void* ks,
   if (B < 1 || Hkv < 1 || bs < 1 || bs > 512 || ns * bs != S || nsp < 1 ||
       spt < 1 || reinterpret_cast<uintptr_t>(q) % 16 ||
       reinterpret_cast<uintptr_t>(kq) % 16 ||
-      reinterpret_cast<uintptr_t>(vq) % 16)
+      reinterpret_cast<uintptr_t>(vq) % 16 ||
+      (m_p == nullptr) != (l_p == nullptr) || (nsp > 1 && m_p == nullptr))
     return cudaErrorInvalidValue;
   Args a;
   a.q = static_cast<const float*>(q);
@@ -612,7 +616,9 @@ cudaError_t dispatch(const void* q, const void* kq, const void* ks,
 
 // Both return cudaGetLastError() after the launch (cudaErrorInvalidValue for
 // a shape they do not take: G not in {1, 2, 3, 4, 5, 6, 8, 16}, D not in
-// {64, 128, 160}, a cache not 16-byte aligned).
+// {64, 128, 160}, a cache not 16-byte aligned, several splits without m / l
+// buffers).  Given m_p and l_p they write unnormalised partials at any
+// split count; without them (one split only) the normalised output.
 // The lengths path: lengths (B,) int32.
 extern "C" int flash_decode(const void* q, const void* kq, const void* ks,
                             const void* vq, const void* vs,

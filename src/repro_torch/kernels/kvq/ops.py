@@ -9,6 +9,9 @@ masks by position on both, and on the card it also keeps every KV tile
 past a row's length from being loaded.  A dense (B, S) ``bias`` (a window
 band over a non-rolling cache) goes to the kernel's own bias entry point,
 ``BIAS_KERNEL``, which visits every tile; its launches are counted apart.
+``partials=True`` returns the unnormalised (o, m, l) of the call instead,
+what a sequence-sharded decode merges across devices
+(``distributed/collectives.py`` ``sp_decode_attention_int8``).
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import torch
 from repro_torch.kernels import build, tiling
 from repro_torch.kernels.kvq import ref
 from repro_torch.kernels.kvq.ref import (combine_splits,  # noqa: F401
-                                         quantize_kv)
+                                         merge_splits, quantize_kv)
 
 SUPPORTED_HEAD_DIMS = (64, 128, 160)
 SUPPORTED_GROUPS = (1, 2, 3, 4, 5, 6, 8, 16)
@@ -76,7 +79,8 @@ def _check_cuda(qg, k_q, k_s, v_q, v_s, mask, block_s):
 
 def decode_attention(q, k_q, k_s, v_q, v_s, *, lengths=None, bias=None,
                      sm_scale: float | None = None, splits: int = 1,
-                     block_s: int | None = None, counts: bool = False):
+                     block_s: int | None = None, counts: bool = False,
+                     partials: bool = False):
     """q: (B, H, D); cache (B, Hkv, S, D) int8 with (B, Hkv, S) f32 scales.
 
     ``lengths`` (B,) int32: valid cache lengths.  ``bias`` (B, S) f32: a
@@ -84,7 +88,15 @@ def decode_attention(q, k_q, k_s, v_q, v_s, *, lengths=None, bias=None,
     ``splits`` fans the KV axis over the kernel's split-K grid.  Returns
     (B, H, D) f32, plus with ``counts`` (CUDA only) the (B, Hkv, splits)
     tiles each split executed -- the measured twin of
-    ``tiling.decode_tile_step_counts`` (with ``lengths=None`` for a bias)."""
+    ``tiling.decode_tile_step_counts`` (with ``lengths=None`` for a bias).
+
+    With ``partials`` it returns (o (B, H, D), m (B, H), l (B, H)) f32
+    instead: the accumulator left unnormalised, the running max in
+    natural-log units and the softmax denominator, the call's splits
+    merged by ``merge_splits`` without dividing by l.  On the card the
+    kernel writes its m / l at every split count, one split included; a
+    row with no live position here (length 0) reads no tile and gives
+    (0, NEG_INF, 0)."""
     if lengths is not None and bias is not None:
         raise ValueError("decode_attention: lengths and bias are exclusive")
     b, h, d = q.shape
@@ -99,6 +111,10 @@ def decode_attention(q, k_q, k_s, v_q, v_s, *, lengths=None, bias=None,
         if counts:
             raise ValueError("decode_attention: counts come from the CUDA "
                              "kernel; the plain version runs no tiles")
+        if partials:
+            o, m, l = ref.decode_partials_ref(qg, k_q, k_s, v_q, v_s, bias,
+                                              sm, lengths=lengths)
+            return o.reshape(b, h, d), m.reshape(b, h), l.reshape(b, h)
         out = ref.decode_attention_ref(qg, k_q, k_s, v_q, v_s, bias, sm,
                                        lengths=lengths)
         return out.reshape(b, h, d)
@@ -114,7 +130,7 @@ def decode_attention(q, k_q, k_s, v_q, v_s, *, lengths=None, bias=None,
     bs, ns, n_sp, spt = tiling.resolve_decode_grid(s, block_s=block_s,
                                                    splits=splits)
     dev = q.device
-    if n_sp == 1:
+    if n_sp == 1 and not partials:
         out = torch.empty((b, hkv, g, d), dtype=torch.float32, device=dev)
         m_p = l_p = None
     else:
@@ -129,6 +145,10 @@ def decode_attention(q, k_q, k_s, v_q, v_s, *, lengths=None, bias=None,
            v_s.data_ptr(), mask.data_ptr(), out.data_ptr(), ptr(m_p),
            ptr(l_p), ptr(cnt), b, hkv, g, s, d, bs, ns, spt, n_sp, sm,
            torch.cuda.current_stream(dev).cuda_stream)
+    if partials:
+        o, m, l = merge_splits(out, m_p, l_p)
+        out = (o.reshape(b, h, d), m.reshape(b, h), l.reshape(b, h))
+        return (out, cnt) if counts else out
     if n_sp > 1:
         out = combine_splits(out, m_p, l_p, torch.float32)
     out = out.reshape(b, h, d)

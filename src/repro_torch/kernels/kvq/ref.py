@@ -6,6 +6,9 @@
 * :func:`decode_attention_splitk_ref` -- per-split masked-softmax partials
   merged by :func:`combine_splits`, the plain twin of the kernel's split-K
   arithmetic.
+* :func:`decode_partials_ref` -- the unnormalised (o, m, l) of one shard of
+  the cache, which a sequence-sharded decode merges across devices
+  (``distributed/collectives.py``).
 """
 from __future__ import annotations
 
@@ -60,17 +63,49 @@ def decode_attention_ref(q, k_q, k_s, v_q, v_s, bias, sm_scale: float,
     return torch.einsum("bhgs,bhsd->bhgd", p, v)
 
 
-def combine_splits(o_p, m_p, l_p, dtype):
-    """Online-softmax merge of split-K partials.
+def merge_splits(o_p, m_p, l_p):
+    """The splits of one call merged WITHOUT dividing by l: (acc (B, Hkv,
+    G, D), m (B, Hkv, G), l (B, Hkv, G)) in natural-log units.
 
     o_p (B, Hkv, splits, G, D) unnormalised accumulators; m_p, l_p
     (B, Hkv, splits, G).  Dead splits carry (0, NEG_INF, 0) and drop out
-    (their weight underflows to 0 against any live max)."""
+    (their weight underflows to 0 against any live max); when every split
+    is dead the result is (0, NEG_INF, 0)."""
     m_max = m_p.amax(dim=2)                                    # (B, Hkv, G)
     alpha = torch.exp(m_p - m_max[:, :, None])
     l_tot = (l_p * alpha).sum(dim=2)
     acc = (o_p * alpha[..., None]).sum(dim=2)
+    return acc, m_max, l_tot
+
+
+def combine_splits(o_p, m_p, l_p, dtype):
+    """Online-softmax merge of split-K partials (:func:`merge_splits`),
+    normalised."""
+    acc, _, l_tot = merge_splits(o_p, m_p, l_p)
     return (acc / torch.clamp(l_tot, min=1e-30)[..., None]).to(dtype)
+
+
+def decode_partials_ref(q, k_q, k_s, v_q, v_s, bias, sm_scale: float,
+                        lengths=None):
+    """The unnormalised softmax partials of one cache shard: q (B, Hkv, G,
+    D) f32 against k_q, v_q (B, Hkv, S, D) int8 with (B, Hkv, S) f32
+    scales, masked by ``lengths`` (B,) or ``bias`` (B, S) -> (o (B, Hkv, G,
+    D), m (B, Hkv, G), l (B, Hkv, G)) f32, natural-log units.  A row with
+    no live position here gives (0, NEG_INF, 0) (the reference's
+    ``collectives.py:158-162``)."""
+    if bias is not None and lengths is not None:
+        raise ValueError("decode_partials_ref: bias and lengths are "
+                         "exclusive")
+    logits = masked_decode_logits(q, dequantize_kv(k_q, k_s), sm_scale,
+                                  bias, lengths)
+    ok = logits > NEG_INF / 2
+    m = torch.where(ok.any(-1), logits.amax(-1),
+                    torch.full(logits.shape[:-1], NEG_INF,
+                               device=logits.device))
+    p = torch.where(ok, torch.exp(logits - m[..., None]),
+                    torch.zeros_like(logits))
+    o = torch.einsum("bhgs,bhsd->bhgd", p, dequantize_kv(v_q, v_s))
+    return o, m, p.sum(-1)
 
 
 def decode_attention_splitk_ref(q, k_q, k_s, v_q, v_s, sm_scale: float, *,

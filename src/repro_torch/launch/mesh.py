@@ -13,12 +13,22 @@ model 16), with a leading "pod" axis for cross-pod DP.  ``make_mesh_for``
 supports elastic restarts: given however many ranks there are, it picks
 the largest (data, model) grid with model <= ``max_model``, with the
 reference's arithmetic, and a checkpoint restores into it.
+
+Ranks lie on a mesh in row-major order, as ``init_device_mesh`` lays them
+out: on (data, model) a model group is ``model`` contiguous ranks.
+:func:`coords` is a rank's place on the mesh and :func:`axis_group` the
+process group of this rank along one axis; a world of one rank with no
+process group is the meshless path (no group, every coordinate 0).
+:func:`init_distributed` joins the group torchrun's environment names.
 """
 from __future__ import annotations
 
 import math
+import os
 
 import torch
+
+from repro_torch.core.device import resolve_device
 
 
 class Mesh:
@@ -103,3 +113,85 @@ def device_mesh(mesh: Mesh, device_type: str):
             f"{mesh.size} ranks (world size {world_size()})")
     return init_device_mesh(device_type, mesh.sizes,
                             mesh_dim_names=mesh.axis_names)
+
+
+def rank() -> int:
+    """This process's rank in the default process group; 0 without one."""
+    dist = torch.distributed
+    return dist.get_rank() if dist.is_available() \
+        and dist.is_initialized() else 0
+
+
+def coords(mesh: Mesh, of_rank: int | None = None) -> dict[str, int]:
+    """``{axis: index}`` of ``of_rank`` (default: this process) on
+    ``mesh``, ranks laid out row-major over the axes in order."""
+    r = rank() if of_rank is None else of_rank
+    if not 0 <= r < mesh.size:
+        raise ValueError(f"rank {r} is not on {mesh}")
+    out = {}
+    for a, n in reversed(mesh._axes):
+        out[a] = r % n
+        r //= n
+    return {a: out[a] for a in mesh.axis_names}
+
+
+def axis_ranks(mesh: Mesh, axis: str) -> list[list[int]]:
+    """Every group of ranks that differ only in their ``axis`` coordinate,
+    in rank order: on (data 2, model 2), "model" gives [[0, 1], [2, 3]]
+    and "data" [[0, 2], [1, 3]]."""
+    groups: dict[tuple, list[int]] = {}
+    for r in range(mesh.size):
+        c = coords(mesh, r)
+        key = tuple(c[a] for a in mesh.axis_names if a != axis)
+        groups.setdefault(key, []).append(r)
+    return [groups[k] for k in sorted(groups)]
+
+
+_GROUPS: dict = {}
+
+
+def axis_group(mesh: Mesh, axis: str):
+    """The process group of this rank along ``axis`` of ``mesh``, or None
+    where the axis has size 1 (nothing to communicate).  Every rank of the
+    world must make the same calls in the same order the first time (it is
+    collective: each group of the axis is created on every rank); the
+    groups are kept for the process group's lifetime."""
+    if mesh.shape.get(axis, 1) == 1:
+        return None
+    dist = torch.distributed
+    if not (dist.is_available() and dist.is_initialized()) \
+            or dist.get_world_size() != mesh.size:
+        raise RuntimeError(
+            f"axis_group: {mesh} needs an initialized process group of "
+            f"{mesh.size} ranks (world size {world_size()})")
+    key = (id(dist.group.WORLD), mesh, axis)
+    if key not in _GROUPS:
+        mine = None
+        for ranks in axis_ranks(mesh, axis):
+            g = dist.group.WORLD if len(ranks) == mesh.size \
+                else dist.new_group(ranks)
+            if rank() in ranks:
+                mine = g
+        _GROUPS[key] = mine
+    return _GROUPS[key]
+
+
+def init_distributed(device_name: str):
+    """-> (rank, world, device).  Under ``torchrun``'s environment, join
+    the process group: NCCL on the card (this rank on ``cuda:LOCAL_RANK``),
+    gloo on the CPU; nothing falls back to another backend.  Without it,
+    one rank and no group."""
+    dist = torch.distributed
+    device = resolve_device(device_name)
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        return 0, 1, device
+    r, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    kw = {}
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+        kw["device_id"] = device
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method="env://", world_size=world,
+                            rank=r, **kw)
+    return r, world, device

@@ -46,19 +46,41 @@ hand-written kernels; without a card it exits with an error unless
 ``--device cpu`` asks for the plain versions.  ``--mem-budget-mb``
 clamps the engine's slots to what that many MB of KV cache admit (the
 ``capacity:`` line).
+
+Serving over a mesh: under ``torchrun``'s environment the ranks join a
+process group (NCCL on ``cuda:LOCAL_RANK``, gloo with ``--device cpu``)
+and form the mesh ``make_mesh_for(world, max_model=--max-model)``
+(banner ``mesh: data=1 x model=2 (2 devices)``).  On a model axis > 1
+the engine serves with each rank holding its block of the weights and of
+the slot pool, the KV heads or the cache's sequence split over the axis
+(``kv cache sharded over '<mode>'``, the budget per device); a data
+axis > 1 serves the whole trace in each model group.  Rank 0 alone prints
+and writes events:
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --device cpu \
+        --smoke --engine --max-model 2
+
+A model axis > 1 serves through the engine only: lockstep mode, the
+fleet (``--replicas`` > 1, ``--workers``, ``--journal``), an MoE arch and
+a mesh whose axis splits neither the KV heads nor ``--max-len`` exit 2.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
+import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs
-from repro_torch.core.device import resolve_device
 from repro_torch.core.mixed_precision import get_policy
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.kvq import ops as kvq_ops
+from repro_torch.launch.mesh import describe, init_distributed, make_mesh_for
 from repro_torch.models import transformer
 from repro_torch.obs import MemStat, Tracer
 from repro_torch.serve import sampling
@@ -85,10 +107,11 @@ def _kv_banner(cfg, args, s_total: int) -> None:
           f"{args.kv_splits}, cache {s_total} slots)")
 
 
-def build_model(args, cfg, device):
+def build_model(args, cfg, device, mesh=None):
+    """The weights from ``--seed``; with ``mesh``, this rank's block."""
     policy = get_policy(args.policy)
     return transformer.init_params(cfg, args.seed, device=device,
-                                   dtype=policy.compute_dtype)
+                                   dtype=policy.compute_dtype, mesh=mesh)
 
 
 def _fleet_buckets(max_len: int) -> tuple:
@@ -120,9 +143,9 @@ def _engine_kwargs(args, *, sampler_keys: str, replay_buckets: bool) -> dict:
 
 
 def _build_engine(args, cfg, model, *, sink=None, sampler_keys: str = "step",
-                  replay_buckets: bool = False):
+                  replay_buckets: bool = False, mesh=None):
     from repro_torch.serve import ServeEngine
-    return ServeEngine(model, cfg, sink=sink,
+    return ServeEngine(model, cfg, sink=sink, mesh=mesh,
                        **_engine_kwargs(args, sampler_keys=sampler_keys,
                                         replay_buckets=replay_buckets))
 
@@ -316,7 +339,7 @@ def _serve_fleet(args, cfg, engines, journal, sink) -> int:
     return 0
 
 
-def run_engine(args, cfg, model) -> int:
+def run_engine(args, cfg, model, mesh=None) -> int:
     from repro_torch.serve import supports
     if not supports(cfg):
         print(f"engine: {cfg.arch_id} is not engine-eligible (needs a "
@@ -327,19 +350,25 @@ def run_engine(args, cfg, model) -> int:
     _kv_banner(cfg, args, args.max_len)
     sink = _open_sink(args)
     try:
-        return _serve_engine(args, cfg, model, sink)
+        return _serve_engine(args, cfg, model, sink, mesh)
     finally:
         if sink is not None:
             sink.close()
 
 
-def _serve_engine(args, cfg, model, sink) -> int:
+def _serve_engine(args, cfg, model, sink, mesh=None) -> int:
     budget = (int(args.mem_budget_mb * 2**20)
               if args.mem_budget_mb else None)
-    engine = _build_engine(args, cfg, model, sink=sink)
-    print(f"capacity: {engine.pool.bytes_per_slot_per_device()/2**20:.2f} "
-          f"MB/slot at max_len={args.max_len}"
-          + (f" -> budget {args.mem_budget_mb} MB admits "
+    engine = _build_engine(args, cfg, model, sink=sink, mesh=mesh)
+    per = engine.pool.bytes_per_slot_per_device() / 2**20
+    if mesh is not None:
+        print(f"mesh: {describe(mesh)}, kv cache sharded over "
+              f"'{shd.serve_kv_shard(mesh, cfg.n_kv, args.max_len)}', "
+              f"{per:.2f} MB/slot PER DEVICE")
+    dev = "/device" if mesh is not None else ""
+    print(f"capacity: {per:.2f} MB/slot{dev} at max_len={args.max_len}"
+          + (f" -> budget {args.mem_budget_mb} MB"
+             f"{' per device' if mesh is not None else ''} admits "
              f"{engine.pool.max_slots} of {args.max_slots} requested slots"
              if budget else f", {engine.pool.max_slots} slots"))
     t0 = time.time()
@@ -464,13 +493,58 @@ def run_lockstep(args, cfg, model, device) -> int:
     return 0
 
 
+def _mesh_refusal(args, cfg, mesh) -> str | None:
+    """Why this slice does not serve ``args`` on a model axis > 1, or
+    None."""
+    n = mesh.shape["model"]
+    if args.engine and (args.replicas > 1 or args.workers or args.journal):
+        return (f"mesh: {describe(mesh)}: the serving fleet (--replicas, "
+                f"--workers, --journal) over a model axis is later work "
+                f"(ROADMAP.md section 1); pass --max-model 1")
+    if cfg.moe is not None:
+        return (f"mesh: {describe(mesh)}: {cfg.arch_id}'s MoE FFN over a "
+                f"model axis is the MoE TP / EP item of ROADMAP.md section "
+                f"1, not ported; pass --max-model 1")
+    if not args.engine:
+        return (f"mesh: {describe(mesh)}: a model axis serves through the "
+                f"engine (--engine); lockstep runs on one device, pass "
+                f"--max-model 1")
+    from repro_torch.serve import supports
+    if supports(cfg) and shd.serve_kv_shard(mesh, cfg.n_kv,
+                                            args.max_len) == "none":
+        return (f"mesh: {describe(mesh)}: neither {cfg.n_kv} KV heads nor "
+                f"--max-len {args.max_len} split over a model axis of {n}")
+    return None
+
+
 def run(args) -> int:
-    device = resolve_device(args.device)
+    rank, world, device = init_distributed(args.device)
+    try:
+        if rank == 0:
+            return _run(args, world, device)
+        # rank 0 alone prints and writes events
+        args.events = ""
+        with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+            return _run(args, world, device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(args, world: int, device) -> int:
+    mesh = make_mesh_for(world, max_model=args.max_model)
+    print(f"mesh: {describe(mesh)} ({mesh.size} devices)")
     cfg = configs.smoke_config(args.arch) if args.smoke \
         else configs.get_config(args.arch)
+    tp = mesh.shape["model"] > 1
+    if tp:
+        why = _mesh_refusal(args, cfg, mesh)
+        if why is not None:
+            print(why, file=sys.stderr)
+            return 2
     # subprocess workers make their own weights; the parent holds none
     model = None if args.engine and args.workers else \
-        build_model(args, cfg, device)
+        build_model(args, cfg, device, mesh if tp else None)
     print(f"device: {device}"
           + (f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else ""))
@@ -479,7 +553,8 @@ def run(args) -> int:
             # journal and worker modes always go through the router: a
             # single replica is a fleet of one
             return run_fleet(args, cfg, model)
-        return run_engine(args, cfg, model)
+        return run_engine(args, cfg, model,
+                          mesh if mesh.size > 1 else None)
     return run_lockstep(args, cfg, model, device)
 
 
@@ -503,6 +578,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--top-k", type=int, default=0,
                     help="restrict sampling to the top-k logits (0 = all)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--max-model", type=int, default=16,
+                    help="largest model axis of the mesh over torchrun's "
+                         "ranks (launch/mesh.py make_mesh_for)")
     # -- continuous-batching engine mode ----------------------------------
     ap.add_argument("--engine", action="store_true",
                     help="serve a synthetic request trace through the "

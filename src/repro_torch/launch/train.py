@@ -86,10 +86,10 @@ import torch.distributed as dist
 from repro_torch import configs
 from repro_torch.checkpointing.ckpt import CheckpointManager
 from repro_torch.core.checkpoint import POLICIES, CheckpointConfig
-from repro_torch.core.device import resolve_device
 from repro_torch.data.synthetic import token_stream
 from repro_torch.events import EventSink
-from repro_torch.launch.mesh import describe, make_mesh_for
+from repro_torch.launch.mesh import (describe, init_distributed,
+                                     make_mesh_for)
 from repro_torch.models import bridge, transformer
 from repro_torch.obs import MemStat, MetricsRegistry, Tracer, maybe_span
 from repro_torch.optim import adamw
@@ -223,26 +223,6 @@ def load_state(cfg, state: dict, device):
     model = bridge.load_jax_params(cfg, state["params"],
                                    device=device).requires_grad_()
     return model, bridge.load_opt_state(state["opt"], device=device)
-
-
-def init_distributed(device_name: str):
-    """-> (rank, world, device).  Under ``torchrun``'s environment, join
-    the process group: NCCL on the card (this rank on ``cuda:LOCAL_RANK``),
-    gloo on the CPU; nothing falls back to another backend.  Without it,
-    one rank and no group."""
-    device = resolve_device(device_name)
-    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
-        return 0, 1, device
-    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
-    kw = {}
-    if device.type == "cuda":
-        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
-        torch.cuda.set_device(device)
-        kw["device_id"] = device
-    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
-                            init_method="env://", world_size=world,
-                            rank=rank, **kw)
-    return rank, world, device
 
 
 def run(args) -> int:

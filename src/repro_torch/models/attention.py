@@ -24,12 +24,24 @@ MLA (minicpm3) is the reference's: :func:`mla_block` runs the plain
 prompts), as ``repro.models.attention.mla_block`` does -- no kernel lies on
 MLA's path in the reference, so none lies on the port's -- and
 :func:`mla_decode` attends in the latent space over a bf16 latent cache.
-The sequence-sharded cache comes with a later slice.
+
+Over a mesh's model axis (serving, ``transformer.forward(mesh=)``) a layer
+holds this rank's block of its weights, and the head counts come from the
+weights' shapes.  Heads mode: ``wq`` / ``wk`` / ``wv`` hold this rank's
+contiguous H / n query and Hkv / n KV heads (whole GQA groups), the flash
+and decode kernels run unchanged on them, and ``wo`` is row-parallel: its
+partial products are summed over the model axis
+(``collectives.model_all_reduce``).  Sequence mode (the heads do not
+divide the axis): the projections are whole on every rank, the prefill
+attends over the whole prompt, and :func:`attn_decode` (``kv_shard=
+"seq"``) reads this rank's slice of the cache's sequence through
+``collectives.sp_decode_attention_int8``.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import collectives
 from repro_torch.kernels.flash import ops as flash_ops
 from repro_torch.kernels.kvq import ops as kvq_ops
 from repro_torch.kernels.kvq.ref import masked_decode_logits
@@ -107,8 +119,17 @@ def gqa_attention(q, k, v, *, q_pos, k_pos, window: int = 0,
     return out.to(q.dtype)
 
 
+def _row_parallel(out, wo, cfg, mesh):
+    """``out @ wo``, summed over the model axis when ``wo`` holds only this
+    rank's rows (heads mode)."""
+    y = out @ wo
+    if wo.shape[0] != cfg.n_heads * cfg.head_dim:
+        y = collectives.model_all_reduce(y, mesh)
+    return y
+
+
 def attn_block(p, x, cfg, *, positions, window: int = 0,
-               causal: bool = True, resid_dtype=None):
+               causal: bool = True, resid_dtype=None, mesh=None):
     """x: (B, S, D_model); p holds wq/wk/wv/wo, cast to ``x.dtype`` here.
     ``positions``: (B, S), or (3, B, S) under M-RoPE.  Returns (out,
     (k, v)) with k, v (B, S, Hkv, hd) after RoPE.  The flash op takes the
@@ -116,9 +137,13 @@ def attn_block(p, x, cfg, *, positions, window: int = 0,
     causal, 1-D positions); otherwise :func:`gqa_attention`, masked by the
     first stream's positions.  ``resid_dtype`` is the storage dtype of the
     flash op's saved (q, k, v, o) under autograd
-    (``Policy.flash_resid_dtype``)."""
+    (``Policy.flash_resid_dtype``).  The head counts are the weights':
+    this rank's heads on a mesh's model axis in heads mode (``wo``'s
+    partial products then summed over ``mesh``'s model axis), all of them
+    otherwise."""
     b, s, _ = x.shape
-    h, hkv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    hd = cfg.head_dim
+    h, hkv = p.wq.shape[1] // hd, p.wk.shape[1] // hd
     dt = x.dtype
     q = (x @ p.wq.to(dt)).reshape(b, s, h, hd)
     k = (x @ p.wk.to(dt)).reshape(b, s, hkv, hd)
@@ -136,7 +161,8 @@ def attn_block(p, x, cfg, *, positions, window: int = 0,
         pos1d = positions[0] if positions.ndim == 3 else positions
         out = gqa_attention(q, k, v, q_pos=pos1d, k_pos=pos1d, window=window,
                             causal=causal)
-    return out.reshape(b, s, h * hd) @ p.wo.to(dt), (k, v)
+    return _row_parallel(out.reshape(b, s, h * hd), p.wo.to(dt), cfg,
+                         mesh), (k, v)
 
 
 def cross_attn_block(p, x, enc_kv, cfg):
@@ -200,7 +226,8 @@ def rolling_mask(pos, b: int, s_max: int):
 
 def attn_decode(p, x_t, cfg, cache_k, cache_s_k, cache_v, cache_s_v, pos,
                 *, window: int = 0, mask=None, quantized: bool = True,
-                splits: int = 1, rolling: bool = False):
+                splits: int = 1, rolling: bool = False, mesh=None,
+                kv_shard: str = "none"):
     """One-token GQA decode against a per-layer cache.
 
     x_t: (B, D_model); cache_k/v (B, Hkv, S, hd) int8 (or the compute dtype
@@ -214,10 +241,20 @@ def attn_decode(p, x_t, cfg, cache_k, cache_s_k, cache_v, cache_s_v, pos,
     ``mask`` is that (lengths, bias) pair when the caller already built it
     for this window and position (a decode step builds one for all the
     layers that share a window).  The cache leaves are updated in place
-    and returned.  Returns (attn_out (B, D_model), (k, k_scale, v,
-    v_scale))."""
+    and returned.  ``kv_shard`` (``sharding.serve_kv_shard`` on ``mesh``)
+    names the cache's layout on a mesh's model axis: "heads", this rank's
+    KV heads (the weights hold the same heads; ``wo`` is row-parallel);
+    "seq", this rank's slice of the sequence (S_l of the mask's S slots),
+    read and written by ``collectives.sp_decode_attention_int8`` (a
+    quantized, non-rolling cache only); "none", the whole cache.
+    Returns (attn_out (B, D_model), (k, k_scale, v, v_scale))."""
     b, _ = x_t.shape
-    h, hkv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    hd = cfg.head_dim
+    h, hkv = p.wq.shape[1] // hd, p.wk.shape[1] // hd
+    seq = kv_shard == "seq"
+    if seq and (rolling or not quantized):
+        raise ValueError("attn_decode: a sequence-sharded cache is the "
+                         "serve pool's int8 layout, never rolling")
     per_row = pos.ndim == 1
     q = (x_t @ p.wq).reshape(b, 1, h, hd)
     k_t = (x_t @ p.wk).reshape(b, 1, hkv, hd)
@@ -231,13 +268,21 @@ def attn_decode(p, x_t, cfg, cache_k, cache_s_k, cache_v, cache_s_v, pos,
                        cfg.mrope_sections)[:, 0]
     v_new = v_t[:, 0]
     s_max = cache_k.shape[2]
+    if seq:
+        s_max *= mesh.shape["model"]           # the whole sequence's slots
     if mask is None:
         mask = rolling_mask(pos, b, s_max) if rolling else decode_mask(
             pos, b, s_max, window)
     lengths, bias = mask
     at = pos % s_max if rolling else pos
 
-    if quantized:
+    if seq:
+        write = (*kvq_ops.quantize_kv(k_new), *kvq_ops.quantize_kv(v_new))
+        out = collectives.sp_decode_attention_int8(
+            q, cache_k, cache_s_k, cache_v, cache_s_v, write, at.expand(b),
+            mesh, sm_scale=hd ** -0.5, lengths=lengths, bias=bias,
+            splits=splits)[0]
+    elif quantized:
         kq_new, ks_new = kvq_ops.quantize_kv(k_new)
         vq_new, vs_new = kvq_ops.quantize_kv(v_new)
         _write_token(cache_k, kq_new, at)
@@ -257,7 +302,8 @@ def attn_decode(p, x_t, cfg, cache_k, cache_s_k, cache_v, cache_s_v, pos,
         out = torch.einsum("bhgs,bhsd->bhgd", pr,
                            cache_v.float()).reshape(b, h, hd)
     out = out.reshape(b, h * hd).to(x_t.dtype)
-    return out @ p.wo, (cache_k, cache_s_k, cache_v, cache_s_v)
+    return (_row_parallel(out, p.wo, cfg, mesh),
+            (cache_k, cache_s_k, cache_v, cache_s_v))
 
 
 # ---------------------------------------------------------------------------

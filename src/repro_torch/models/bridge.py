@@ -26,7 +26,7 @@ from repro_torch.core.mixed_precision import Policy
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (MLA, SSM, Attention, Block,
                                             EncBlock, GeluMLP, MoE, SwiGLU,
-                                            Transformer)
+                                            Transformer, shard_fn)
 from repro_torch.optim.adamw import AdamWState
 
 _ATTN = ("wq", "wk", "wv", "wo")
@@ -40,57 +40,73 @@ def _to_tensor(x, device):
 
 
 def load_jax_params(cfg: ModelConfig, tree: dict, *, device="cuda",
-                    policy: Policy | None = None) -> Transformer:
+                    policy: Policy | None = None, mesh=None,
+                    rank: int | None = None) -> Transformer:
     """JAX param tree of numpy arrays -> :class:`Transformer` on ``device``,
-    cast once to ``policy.compute_dtype`` when a policy is given."""
-    def t(x):
-        return _to_tensor(x, device)
+    cast once to ``policy.compute_dtype`` when a policy is given.  With
+    ``mesh`` (a model axis > 1) only this rank's block of each leaf
+    (``transformer.shard_fn``; ``rank`` defaults to this process's) is
+    copied to the device."""
+    cut = shard_fn(cfg, mesh, rank)
 
-    def dense_ffn(ft, i):
+    def t(name, x):
+        return _to_tensor(cut(name, np.asarray(x)), device)
+
+    def leaves(pre, sub, names, i):
+        return (t(f"{pre}.{n}", sub[n][i]) for n in names if n in sub)
+
+    def dense_ffn(pre, ft, i):
         if "w1" in ft:                             # whisper's GELU MLP
-            return GeluMLP(*(t(ft[n][i]) for n in GeluMLP.NAMES))
-        return SwiGLU(*(t(ft[n][i]) for n in _FFN))
+            return GeluMLP(*leaves(pre, ft, GeluMLP.NAMES, i))
+        return SwiGLU(*leaves(pre, ft, _FFN, i))
 
     bt = tree["blocks"]
     blocks = []
     for i in range(cfg.n_layers):
         # each sub-tree is present only where the family has it: pure-SSM
         # layers have no attn or ffn, only the hybrid has the mix norms
+        pre = f"blocks.{i}"
         kw = {}
         if "attn" in bt and "q_a" in bt["attn"]:       # MLA's leaves
-            kw["attn_mod"] = MLA(*(t(bt["attn"][n][i]) for n in MLA.NAMES))
+            kw["attn_mod"] = MLA(*leaves(f"{pre}.attn", bt["attn"],
+                                         MLA.NAMES, i))
         elif "attn" in bt:
-            kw["attn_mod"] = Attention(*(t(bt["attn"][n][i]) for n in _ATTN))
+            kw["attn_mod"] = Attention(*leaves(f"{pre}.attn", bt["attn"],
+                                               _ATTN, i))
         if "ssm" in bt:
-            kw["ssm"] = SSM(*(t(bt["ssm"][n][i]) for n in SSM.NAMES))
+            kw["ssm"] = SSM(*leaves(f"{pre}.ssm", bt["ssm"], SSM.NAMES, i))
         if "ffn" in bt and "router" in bt["ffn"]:
             # stacked (L, E, D, F) as the JAX tree keeps them
-            kw["ffn"] = MoE(*(t(bt["ffn"][n][i])
-                              for n in MoE.NAMES + MoE.SHARED
-                              if n in bt["ffn"]))
+            kw["ffn"] = MoE(*leaves(f"{pre}.ffn", bt["ffn"],
+                                    MoE.NAMES + MoE.SHARED, i))
         elif "ffn" in bt:
-            kw["ffn"] = dense_ffn(bt["ffn"], i)
+            kw["ffn"] = dense_ffn(f"{pre}.ffn", bt["ffn"], i)
         if "xattn" in bt:
-            kw["xattn"] = Attention(*(t(bt["xattn"][n][i]) for n in _ATTN))
-            kw["ln_x"] = t(bt["ln_x"][i])
+            kw["xattn"] = Attention(*leaves(f"{pre}.xattn", bt["xattn"],
+                                            _ATTN, i))
+            kw["ln_x"] = t(f"{pre}.ln_x", bt["ln_x"][i])
         for n in ("mix_norm_attn", "mix_norm_ssm"):
             if n in bt:
-                kw[n] = t(bt[n][i])
-        blocks.append(Block(t(bt["ln1"][i]), t(bt["ln2"][i]), **kw))
+                kw[n] = t(f"{pre}.{n}", bt[n][i])
+        blocks.append(Block(t(f"{pre}.ln1", bt["ln1"][i]),
+                            t(f"{pre}.ln2", bt["ln2"][i]), **kw))
     extra = {}
     if "enc_blocks" in tree:
         et = tree["enc_blocks"]
         extra["enc_blocks"] = [
-            EncBlock(t(et["ln1"][i]), t(et["ln2"][i]),
-                     Attention(*(t(et["attn"][n][i]) for n in _ATTN)),
-                     dense_ffn(et["ffn"], i))
+            EncBlock(t(f"enc_blocks.{i}.ln1", et["ln1"][i]),
+                     t(f"enc_blocks.{i}.ln2", et["ln2"][i]),
+                     Attention(*leaves(f"enc_blocks.{i}.attn", et["attn"],
+                                       _ATTN, i)),
+                     dense_ffn(f"enc_blocks.{i}.ffn", et["ffn"], i))
             for i in range(cfg.encoder.n_layers)]
-        extra["enc_norm"] = t(tree["enc_norm"])
+        extra["enc_norm"] = t("enc_norm", tree["enc_norm"])
     if "patch_proj" in tree:
-        extra["patch_proj"] = t(tree["patch_proj"])
-    model = Transformer(cfg, t(tree["embed"]), blocks, t(tree["final_norm"]),
-                        None if cfg.tie_embeddings else t(tree["lm_head"]),
-                        **extra)
+        extra["patch_proj"] = t("patch_proj", tree["patch_proj"])
+    model = Transformer(cfg, t("embed", tree["embed"]), blocks,
+                        t("final_norm", tree["final_norm"]),
+                        None if cfg.tie_embeddings
+                        else t("lm_head", tree["lm_head"]), **extra)
     return model if policy is None else model.cast_to_compute(policy)
 
 

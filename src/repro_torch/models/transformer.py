@@ -32,6 +32,19 @@ reference); each decoder layer projects its cross-attention K / V from the
 encoder's output, in the forward and again at every decode step
 (``enc_out``), as the reference does.
 
+Serving over a mesh's model axis (``mesh=``, a ``launch/mesh.py`` ``Mesh``
+whose model axis is > 1, the ranks joined in a process group): each rank
+holds its block of the weights (:func:`init_params` / ``bridge``
+``load_jax_params`` with ``mesh=``, placed by :func:`param_shard_specs`)
+and of the cache (:func:`init_cache`).  The embedding is vocab-parallel (a
+masked lookup of this rank's rows, summed over the axis), the SwiGLU's
+``w_gate`` / ``w_up`` column-parallel and ``w_down`` row-parallel (one
+sum), attention by heads or by the cache's sequence
+(``attention.py``), and the head's vocab-sharded logits are gathered
+whole (:func:`head_logits`), so every rank holds the same logits before
+any host decision.  The dense GQA archs only: MoE, MLA, SSM and the
+encoder raise.
+
 Public entry points:
   init_params(cfg, seed, ...)          -> Transformer
   forward(model, cfg, batch, ...)      -> (logits (B, S, V), aux)
@@ -53,7 +66,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.checkpoint import (CheckpointConfig, checkpoint_name,
                                          remat_scan)
 from repro_torch.core.mixed_precision import Policy
+from repro_torch.distributed import collectives
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.kvq import ops as kvq_ops
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -140,18 +156,24 @@ class MoE(nn.Module):
                 else getattr(self, n).to(dtype) for n in self.names}
 
 
-def ffn_apply(ffn, h, cfg, dtype=None):
+def ffn_apply(ffn, h, cfg, dtype=None, mesh=None):
     """The block's MLP on ``h`` (..., D) -> (out, aux): the SwiGLU or the
     GELU MLP (aux 0.0), or the MoE (``moe.moe_ffn`` over a (B, S, D)
-    view), its weights cast to ``dtype`` where they are used."""
+    view), its weights cast to ``dtype`` where they are used.  A SwiGLU
+    holding this rank's columns of ``w_gate`` / ``w_up`` and rows of
+    ``w_down`` sums its output over ``mesh``'s model axis; the MoE refuses
+    a model axis > 1."""
     if isinstance(ffn, MoE):
-        return moe_mod.moe_ffn(ffn.weights(dtype), h, cfg)
+        return moe_mod.moe_ffn(ffn.weights(dtype), h, cfg,
+                               mesh=mesh if _model_n(mesh) > 1 else None)
     cast = (lambda w: w) if dtype is None else (lambda w: w.to(dtype))
     if isinstance(ffn, GeluMLP):
         return gelu_mlp(h, *(cast(getattr(ffn, n))
                              for n in GeluMLP.NAMES)), 0.0
-    return swiglu(h, cast(ffn.w_gate), cast(ffn.w_up),
-                  cast(ffn.w_down)), 0.0
+    out = swiglu(h, cast(ffn.w_gate), cast(ffn.w_up), cast(ffn.w_down))
+    if ffn.w_down.shape[0] != cfg.d_ff:              # row-parallel
+        out = collectives.model_all_reduce(out, mesh)
+    return out, 0.0
 
 
 class SSM(nn.Module):
@@ -233,102 +255,214 @@ class Transformer(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# Initialization.
+# Initialization, and each rank's block on a mesh.
 # ---------------------------------------------------------------------------
+def _model_n(mesh) -> int:
+    return 1 if mesh is None else mesh.shape.get("model", 1)
+
+
+def check_mesh(cfg: ModelConfig, mesh) -> None:
+    """Raise unless ``cfg`` runs over ``mesh``'s model axis: a model axis
+    of 1 runs every arch; a larger one the dense GQA archs (the MoE
+    refuses it in ``moe.moe_ffn``)."""
+    if _model_n(mesh) == 1:
+        return
+    if cfg.mla is not None or cfg.mixer != "attn" or cfg.encoder is not None:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: a model axis > 1 runs the GQA attention "
+            f"archs; MLA, the SSM mixers and the encoder are not sharded")
+
+
+def param_shard_specs(cfg: ModelConfig, shapes, mesh) -> dict:
+    """``{name: spec}`` of this slice's parameter placement on ``mesh``:
+    ``sharding.param_specs`` (a dim that does not divide stays whole), with
+    the attention projections whole where the heads do not divide the
+    model axis (``sharding.flash_shard_specs`` splits no heads): sequence
+    mode, where each rank attends over the whole prompt and its slice of
+    the cache.  The reference leaves that layout to XLA
+    (``repro/models/attention.py:111-116``)."""
+    specs = shd.param_specs(cfg, shapes, mesh)
+    split = shd.flash_shard_specs(mesh, 1, cfg.n_heads, cfg.n_kv)
+    if split is None or split[1] is None:
+        for name in specs:
+            parts = name.split(".")
+            if len(parts) > 1 and parts[-2] == "attn":
+                specs[name] = ()
+    return specs
+
+
+def shard_fn(cfg: ModelConfig, mesh, rank: int | None = None):
+    """``cut(name, leaf) -> this rank's block of the leaf`` under
+    :func:`param_shard_specs` (``rank`` defaults to this process's);
+    the identity without a model axis."""
+    if _model_n(mesh) == 1:
+        return lambda name, x: x
+    where = mesh_mod.coords(mesh, rank)
+
+    def cut(name, x):
+        spec = param_shard_specs(cfg, {name: tuple(x.shape)}, mesh)[name]
+        return shd.shard_leaf(x, spec, mesh, where)
+    return cut
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
-                dtype=torch.float32) -> Transformer:
+                dtype=torch.float32, mesh=None,
+                rank: int | None = None) -> Transformer:
     """Random weights drawn from a ``torch.Generator`` seeded with ``seed``,
     straight in ``dtype`` on ``device`` (no host copy of a full-size model).
     Same distributions as the JAX init; not the same numbers.  On
     ``device="meta"`` only the shapes and dtypes exist (the planner counts
-    them)."""
+    them).
+
+    With ``mesh`` (a model axis > 1) the model is this rank's block
+    (``rank`` defaults to this process's): every leaf is drawn whole, in
+    the meshless order, and cut at once (:func:`shard_fn`), so the blocks
+    equal the same slices of the meshless model from the same seed, and a
+    full-width model is never whole in memory."""
     gen = None if torch.device(device).type == "meta" else \
         torch.Generator(device=device).manual_seed(seed)
     d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
     kw = dict(dtype=dtype, device=device)
-    ones = lambda n: torch.ones(n, **kw)  # noqa: E731
-    zeros = lambda n: torch.zeros(n, **kw)  # noqa: E731
+    cut = shard_fn(cfg, mesh, rank)
 
-    def attention():
-        return Attention(dense_init(gen, (d, h * hd), **kw),
-                         dense_init(gen, (d, hkv * hd), **kw),
-                         dense_init(gen, (d, hkv * hd), **kw),
-                         dense_init(gen, (h * hd, d), **kw))
+    def dense(name, shape, in_axis: int = 0):
+        return cut(name, dense_init(gen, shape, in_axis=in_axis, **kw))
 
-    def dense_ffn():              # the biases start at zero, as in JAX
+    def ones(name, n):
+        return cut(name, torch.ones(n, **kw))
+
+    def zeros(name, n):
+        return cut(name, torch.zeros(n, **kw))
+
+    def attention(pre):
+        return Attention(dense(f"{pre}.wq", (d, h * hd)),
+                         dense(f"{pre}.wk", (d, hkv * hd)),
+                         dense(f"{pre}.wv", (d, hkv * hd)),
+                         dense(f"{pre}.wo", (h * hd, d)))
+
+    def dense_ffn(pre):           # the biases start at zero, as in JAX
         if cfg.mlp_kind == "gelu":
-            return GeluMLP(dense_init(gen, (d, cfg.d_ff), **kw),
-                           zeros(cfg.d_ff),
-                           dense_init(gen, (cfg.d_ff, d), **kw), zeros(d))
-        return SwiGLU(dense_init(gen, (d, cfg.d_ff), **kw),
-                      dense_init(gen, (d, cfg.d_ff), **kw),
-                      dense_init(gen, (cfg.d_ff, d), **kw))
+            return GeluMLP(dense(f"{pre}.w1", (d, cfg.d_ff)),
+                           zeros(f"{pre}.b1", cfg.d_ff),
+                           dense(f"{pre}.w2", (cfg.d_ff, d)),
+                           zeros(f"{pre}.b2", d))
+        return SwiGLU(dense(f"{pre}.w_gate", (d, cfg.d_ff)),
+                      dense(f"{pre}.w_up", (d, cfg.d_ff)),
+                      dense(f"{pre}.w_down", (cfg.d_ff, d)))
 
     blocks = []
-    for _ in range(cfg.n_layers):
+    for i in range(cfg.n_layers):
+        pre = f"blocks.{i}"
         mix = {}
         if cfg.mla is not None:
             m = cfg.mla
+            a = f"{pre}.attn"
             mix["attn_mod"] = MLA(
-                dense_init(gen, (d, m.q_lora_rank), **kw),
-                ones(m.q_lora_rank),
-                dense_init(gen, (m.q_lora_rank,
-                                 h * (m.qk_nope_dim + m.qk_rope_dim)), **kw),
-                dense_init(gen, (d, m.kv_lora_rank + m.qk_rope_dim), **kw),
-                ones(m.kv_lora_rank),
-                dense_init(gen, (m.kv_lora_rank,
-                                 h * (m.qk_nope_dim + m.v_head_dim)), **kw),
-                dense_init(gen, (h * m.v_head_dim, d), **kw))
+                dense(f"{a}.q_a", (d, m.q_lora_rank)),
+                ones(f"{a}.q_a_norm", m.q_lora_rank),
+                dense(f"{a}.q_b", (m.q_lora_rank,
+                                   h * (m.qk_nope_dim + m.qk_rope_dim))),
+                dense(f"{a}.kv_a", (d, m.kv_lora_rank + m.qk_rope_dim)),
+                ones(f"{a}.kv_a_norm", m.kv_lora_rank),
+                dense(f"{a}.kv_b", (m.kv_lora_rank,
+                                    h * (m.qk_nope_dim + m.v_head_dim))),
+                dense(f"{a}.wo", (h * m.v_head_dim, d)))
         elif cfg.mixer in ("attn", "hybrid"):
-            mix["attn_mod"] = attention()
+            mix["attn_mod"] = attention(f"{pre}.attn")
         if cfg.mixer in ("ssm", "hybrid"):
             s = cfg.ssm
+            a = f"{pre}.ssm"
             mix["ssm"] = SSM(
-                dense_init(gen, (d, 2 * s.d_inner + 2 * s.d_state + s.heads),
-                           **kw),
-                dense_init(gen, (s.conv_kernel, s.d_inner + 2 * s.d_state),
-                           **kw),
-                zeros(s.heads), zeros(s.heads),       # dt_bias; A = -exp(0)
-                ones(s.heads), ones(s.d_inner),
-                dense_init(gen, (s.d_inner, d), **kw))
+                dense(f"{a}.in_proj",
+                      (d, 2 * s.d_inner + 2 * s.d_state + s.heads)),
+                dense(f"{a}.conv_w",
+                      (s.conv_kernel, s.d_inner + 2 * s.d_state)),
+                zeros(f"{a}.dt_bias", s.heads),
+                zeros(f"{a}.a_log", s.heads),          # A = -exp(0)
+                ones(f"{a}.d_skip", s.heads), ones(f"{a}.norm_w", s.d_inner),
+                dense(f"{a}.out_proj", (s.d_inner, d)))
         if cfg.mixer == "hybrid":
-            mix.update(mix_norm_attn=ones(d), mix_norm_ssm=ones(d))
+            mix.update(mix_norm_attn=ones(f"{pre}.mix_norm_attn", d),
+                       mix_norm_ssm=ones(f"{pre}.mix_norm_ssm", d))
         if cfg.moe is not None:
             m = cfg.moe
             e, f = m.num_experts, m.d_expert
-            experts = [dense_init(gen, (d, e), **kw),
-                       dense_init(gen, (e, d, f), in_axis=1, **kw),
-                       dense_init(gen, (e, d, f), in_axis=1, **kw),
-                       dense_init(gen, (e, f, d), in_axis=1, **kw)]
+            a = f"{pre}.ffn"
+            experts = [dense(f"{a}.router", (d, e)),
+                       dense(f"{a}.w_gate", (e, d, f), in_axis=1),
+                       dense(f"{a}.w_up", (e, d, f), in_axis=1),
+                       dense(f"{a}.w_down", (e, f, d), in_axis=1)]
             if m.num_shared:
-                experts += [dense_init(gen, (d, m.d_shared), **kw),
-                            dense_init(gen, (d, m.d_shared), **kw),
-                            dense_init(gen, (m.d_shared, d), **kw)]
+                experts += [dense(f"{a}.shared_gate", (d, m.d_shared)),
+                            dense(f"{a}.shared_up", (d, m.d_shared)),
+                            dense(f"{a}.shared_down", (m.d_shared, d))]
             mix["ffn"] = MoE(*experts)
         elif cfg.d_ff:
-            mix["ffn"] = dense_ffn()
+            mix["ffn"] = dense_ffn(f"{pre}.ffn")
         if cfg.encoder is not None:           # the decoder's cross-attention
-            mix.update(xattn=attention(), ln_x=ones(d))
-        blocks.append(Block(ones(d), ones(d), **mix))
-    embed = embed_init(gen, (cfg.padded_vocab, d), **kw)
+            mix.update(xattn=attention(f"{pre}.xattn"),
+                       ln_x=ones(f"{pre}.ln_x", d))
+        blocks.append(Block(ones(f"{pre}.ln1", d), ones(f"{pre}.ln2", d),
+                            **mix))
+    embed = cut("embed", embed_init(gen, (cfg.padded_vocab, d), **kw))
     lm_head = None if cfg.tie_embeddings else \
-        dense_init(gen, (d, cfg.padded_vocab), **kw)
+        dense("lm_head", (d, cfg.padded_vocab))
     extra = {}
     if cfg.encoder is not None:
         extra.update(enc_blocks=[
-            EncBlock(ones(d), ones(d), attention(), dense_ffn())
-            for _ in range(cfg.encoder.n_layers)], enc_norm=ones(d))
+            EncBlock(ones(f"enc_blocks.{i}.ln1", d),
+                     ones(f"enc_blocks.{i}.ln2", d),
+                     attention(f"enc_blocks.{i}.attn"),
+                     dense_ffn(f"enc_blocks.{i}.ffn"))
+            for i in range(cfg.encoder.n_layers)],
+            enc_norm=ones("enc_norm", d))
     if cfg.family == "vlm":
-        extra["patch_proj"] = dense_init(gen, (d, d), **kw)
-    return Transformer(cfg, embed, blocks, ones(d), lm_head, **extra)
+        extra["patch_proj"] = dense("patch_proj", (d, d))
+    return Transformer(cfg, embed, blocks, ones("final_norm", d), lm_head,
+                       **extra)
 
 
-def _mask_padded_vocab(logits, cfg: ModelConfig):
-    """-1e30 the dead padded-vocab tail."""
+def _mask_padded_vocab(logits, cfg: ModelConfig, offset: int = 0):
+    """-1e30 the dead padded-vocab tail; ``logits`` may be a block of the
+    vocab starting at global index ``offset``."""
     if cfg.padded_vocab == cfg.vocab:
         return logits
-    dead = torch.arange(logits.shape[-1], device=logits.device) >= cfg.vocab
+    dead = torch.arange(offset, offset + logits.shape[-1],
+                        device=logits.device) >= cfg.vocab
     return logits.masked_fill(dead, -1e30)
+
+
+def _embed(model: Transformer, cfg: ModelConfig, tokens, mesh=None):
+    """The embedding rows of ``tokens``; vocab-parallel when ``embed``
+    holds this rank's block of rows: each rank looks up the tokens in its
+    block (zeros elsewhere) and the rows are summed over the model axis
+    (exact: one non-zero term)."""
+    e = model.embed
+    if e.shape[0] == cfg.padded_vocab:
+        return e[tokens]
+    _, _, r = collectives.model_axis(mesh)
+    v_l = e.shape[0]
+    local = tokens.long() - r * v_l
+    mine = (local >= 0) & (local < v_l)
+    x = e[local.clamp(0, v_l - 1)]
+    x = torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device))
+    return collectives.model_all_reduce(x, mesh)
+
+
+def head_logits(model: Transformer, cfg: ModelConfig, x, policy: Policy,
+                mesh=None):
+    """x (..., D) in the compute dtype -> logits (..., V) in
+    ``policy.output_dtype``, the padded tail masked.  A head holding this
+    rank's block of the vocab masks its block by global index and the
+    blocks are gathered whole (the same logits on every rank)."""
+    head = model.head.to(x.dtype)
+    logits = (x @ head).to(policy.output_dtype)
+    if head.shape[-1] == cfg.padded_vocab:
+        return _mask_padded_vocab(logits, cfg)
+    _, _, r = collectives.model_axis(mesh)
+    logits = _mask_padded_vocab(logits, cfg, offset=r * head.shape[-1])
+    return collectives.model_all_gather(logits, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -420,7 +554,7 @@ def forward(model: Transformer, cfg: ModelConfig, batch: dict, *,
             policy: Policy = Policy.full(),
             remat: CheckpointConfig = CheckpointConfig(),
             build_cache: bool = False, cache_quantized: bool = True,
-            return_hidden: bool = False):
+            return_hidden: bool = False, mesh=None):
     """batch: {tokens (B, S)[, positions (B, S), or (3, B, S) under
     M-RoPE][, frames (B, Se, D) for an encoder][, patches (B, Sp, D) for
     a VLM]}.
@@ -439,11 +573,18 @@ def forward(model: Transformer, cfg: ModelConfig, batch: dict, *,
     ``build_cache`` (serving prefill) aux["cache"] is a decode cache
     positioned at S in the ``init_cache`` layout.  ``return_hidden``
     returns the final normed hidden state (B, S, D) in place of the
-    logits (the chunked CE of :func:`loss_fn`)."""
+    logits (the chunked CE of :func:`loss_fn`).
+
+    ``mesh`` (a model axis > 1): ``model`` is this rank's block (see the
+    module docstring); the logits are whole on every rank, and the cache
+    holds this rank's KV heads in heads mode, every head in sequence mode
+    (where the pool keeps this rank's slice of the positions:
+    ``serve/cache_pool.py`` ``scatter_request``)."""
+    check_mesh(cfg, mesh)
     tokens = batch["tokens"]
     b, s = tokens.shape
     dt = policy.compute_dtype
-    x = model.embed[tokens].to(dt)                          # (B, S, D)
+    x = _embed(model, cfg, tokens, mesh).to(dt)             # (B, S, D)
     if cfg.family == "vlm" and "patches" in batch:
         patches = batch["patches"].to(dt) @ model.patch_proj.to(dt)
         x = torch.cat([patches, x[:, patches.shape[1]:]], dim=1)
@@ -477,7 +618,7 @@ def forward(model: Transformer, cfg: ModelConfig, batch: dict, *,
         elif blk.attn is not None:
             a_out, (k, v) = attn.attn_block(
                 blk.attn, h, cfg, positions=positions, window=window,
-                resid_dtype=policy.flash_resid_dtype)
+                resid_dtype=policy.flash_resid_dtype, mesh=mesh)
             if build_cache:
                 entry.update(_kv_entry(k, v, quantized=cache_quantized))
         if blk.ssm is not None:
@@ -496,7 +637,7 @@ def forward(model: Transformer, cfg: ModelConfig, batch: dict, *,
             return x, aux_sum
         h2 = rms_norm(x, blk.ln2.to(dt), cfg.norm_eps,
                       bf16_grad=cfg.norm_bf16_grad)
-        f, aux = ffn_apply(blk.ffn, h2, cfg, dt)
+        f, aux = ffn_apply(blk.ffn, h2, cfg, dt, mesh=mesh)
         if cfg.moe is not None:
             aux_sum = aux_sum + aux
         return x + tag(f, "ffn_out"), aux_sum
@@ -520,9 +661,7 @@ def forward(model: Transformer, cfg: ModelConfig, batch: dict, *,
         aux["enc_out"] = enc_out
     if return_hidden:
         return x, aux
-    logits = _mask_padded_vocab(
-        (x @ model.head.to(dt)).to(policy.output_dtype), cfg)
-    return logits, aux
+    return head_logits(model, cfg, x, policy, mesh), aux
 
 
 def _ce_terms(logits32, labels):
@@ -588,7 +727,7 @@ def loss_fn(model: Transformer, cfg: ModelConfig, batch: dict, *,
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, *,
                quantized: bool = True, dtype=torch.bfloat16,
-               device="cuda") -> dict:
+               device="cuda", mesh=None) -> dict:
     """A 0-d ``pos``; for attention, (L, B, Hkv, S, hd) int8 K/V
     (``dtype`` when not quantized) plus (L, B, Hkv, S) f32 scales; for
     MLA, the latents ``mla_lat`` (L, B, S, kv_lora) and ``mla_rope``
@@ -596,9 +735,22 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, *,
     SSM, the conv tail (L, B, K-1, conv_dim) in ``dtype`` and the state
     (L, B, H, N, P) in f32.  An encoder-decoder caches only its
     self-attention: the cross-attention's K / V are projected from
-    ``enc_out`` at every step, as in the reference."""
+    ``enc_out`` at every step, as in the reference.  With ``mesh`` each
+    leaf has this rank's block's shape under
+    ``sharding.serve_cache_specs``: the KV heads or the ``s_max`` slots
+    over the model axis (the serve pool's layout)."""
     L = cfg.n_layers
-    z = lambda shp, dt: torch.zeros(shp, dtype=dt, device=device)  # noqa
+    specs = None
+    if _model_n(mesh) > 1:
+        check_mesh(cfg, mesh)
+        shape = (L, batch, cfg.n_kv, s_max, cfg.head_dim)
+        specs = shd.serve_cache_specs(
+            cfg, {"k": shape, "k_scale": shape[:-1]}, mesh)
+
+    def z(shp, dt, name=None):
+        if specs is not None and name in ("k", "k_scale"):
+            shp = shd.local_shape(shp, specs[name], mesh)
+        return torch.zeros(shp, dtype=dt, device=device)
     cache = {"pos": z((), torch.int32)}
     if cfg.mla is not None:
         m = cfg.mla
@@ -607,9 +759,9 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, *,
     elif cfg.mixer in ("attn", "hybrid"):
         shape = (L, batch, cfg.n_kv, s_max, cfg.head_dim)
         kv_dtype = torch.int8 if quantized else dtype
-        cache.update(k=z(shape, kv_dtype), v=z(shape, kv_dtype),
-                     k_scale=z(shape[:-1], torch.float32),
-                     v_scale=z(shape[:-1], torch.float32))
+        cache.update(k=z(shape, kv_dtype, "k"), v=z(shape, kv_dtype, "k"),
+                     k_scale=z(shape[:-1], torch.float32, "k_scale"),
+                     v_scale=z(shape[:-1], torch.float32, "k_scale"))
     if cfg.mixer in ("ssm", "hybrid"):
         s = cfg.ssm
         cache["conv"] = z((L, batch, s.conv_kernel - 1,
@@ -619,29 +771,62 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, *,
     return cache
 
 
-def grow_cache(cache: dict, s_max: int) -> dict:
-    """Zero-pad every sequence-bearing cache leaf out to ``s_max`` slots."""
+def seq_block(cfg: ModelConfig, mesh, s_max: int) -> tuple[int, int]:
+    """(first global position, slots) of this rank's block of an
+    ``s_max``-slot cache (:func:`init_cache` with ``mesh``): ``(r s_max /
+    n, s_max / n)`` when the model axis splits the sequence
+    (``sharding.serve_kv_shard``), ``(0, s_max)`` otherwise."""
+    n = _model_n(mesh)
+    if n == 1:
+        return 0, s_max
+    kv = shd.serve_kv_shard(mesh, cfg.n_kv, s_max)
+    if kv == "none":
+        raise ValueError(f"neither {cfg.n_kv} KV heads nor {s_max} cache "
+                         f"slots split over a model axis of {n}")
+    if kv == "heads":
+        return 0, s_max
+    s_l = s_max // n
+    return mesh_mod.coords(mesh)["model"] * s_l, s_l
+
+
+def place_seq(dst, src, ax: int, seq_offset: int = 0):
+    """In place: ``dst``, which holds the global positions ``[seq_offset,
+    seq_offset + dst.shape[ax])`` along ``ax``, takes ``src``'s
+    (positions from 0, any number of them) where ``src`` has them, and
+    zeros where it does not.  -> ``dst``."""
+    n = max(0, min(src.shape[ax] - seq_offset, dst.shape[ax]))
+    if n:
+        dst.narrow(ax, 0, n).copy_(src.narrow(ax, seq_offset, n))
+    dst.narrow(ax, n, dst.shape[ax] - n).zero_()
+    return dst
+
+
+def grow_cache(cache: dict, s_max: int, *, cfg: ModelConfig | None = None,
+               mesh=None) -> dict:
+    """Zero-pad every sequence-bearing cache leaf out to ``s_max`` slots.
+    With ``mesh`` (and ``cfg``), a cache :func:`forward` built on it is
+    put in this rank's decode layout (:func:`init_cache`'s): its block
+    of the ``s_max`` positions (:func:`seq_block`; the heads are already
+    this rank's)."""
+    off, s_l = seq_block(cfg, mesh, s_max)
     out = dict(cache)
     for name, ax in CACHE_SEQ_AXES.items():
         if name not in cache:
             continue
         x = cache[name]
-        pad = s_max - x.shape[ax]
-        if pad < 0:
+        if x.shape[ax] > s_max:
             raise ValueError(f"grow_cache: {name} already has "
                              f"{x.shape[ax]} > {s_max} slots")
-        if pad:
+        if (off, s_l) != (0, x.shape[ax]):
             shape = list(x.shape)
-            shape[ax] = s_max
-            grown = torch.zeros(shape, dtype=x.dtype, device=x.device)
-            grown.narrow(ax, 0, x.shape[ax]).copy_(x)
-            out[name] = grown
+            shape[ax] = s_l
+            out[name] = place_seq(x.new_empty(shape), x, ax, off)
     return out
 
 
 def decode_step(model: Transformer, cfg: ModelConfig, cache: dict, tokens_t,
                 *, policy: Policy = Policy.full(), quantized: bool = True,
-                kvq_splits: int = 1, active=None, enc_out=None):
+                kvq_splits: int = 1, active=None, enc_out=None, mesh=None):
     """tokens_t: (B,) int current token.  Returns (logits (B, V), cache).
     ``enc_out`` (B, Se, D): the encoder's output (``forward``'s
     aux["enc_out"]), which an encoder arch's layers attend over.
@@ -655,7 +840,15 @@ def decode_step(model: Transformer, cfg: ModelConfig, cache: dict, tokens_t,
     (slot-pooled serving, GQA caches only) every row decodes at its own
     position, and ``active`` ((B,) bool) gates the position increment so
     free slots stay frozen; their lengths stay >= 1 and their logits are
-    never read."""
+    never read.
+
+    ``mesh`` (a model axis > 1): ``model`` and ``cache`` are this rank's
+    blocks (:func:`init_params`, :func:`init_cache` with ``mesh``); the
+    cache's layout is ``sharding.serve_kv_shard``'s -- "heads", or "seq"
+    (this rank holds S_l of the S slots and every layer decodes through
+    ``collectives.sp_decode_attention_int8``) -- and the logits are whole
+    on every rank."""
+    check_mesh(cfg, mesh)
     pos = cache["pos"]
     per_slot = pos.ndim == 1
     if per_slot and (cfg.mixer != "attn" or cfg.mla is not None):
@@ -669,7 +862,12 @@ def decode_step(model: Transformer, cfg: ModelConfig, cache: dict, tokens_t,
     if (cfg.encoder is not None) != (enc_out is not None):
         raise ValueError(f"decode_step: {cfg.arch_id} takes enc_out only "
                          f"with an encoder, and always then")
-    x = model.embed[tokens_t]                               # (B, D)
+    x = _embed(model, cfg, tokens_t, mesh)                  # (B, D)
+    kv_shard, s_all = "none", 0
+    if "k" in cache:
+        n = _model_n(mesh)
+        s_all = cache["k"].shape[3] * (n if cfg.n_kv % n else 1)
+        kv_shard = shd.serve_kv_shard(mesh, cfg.n_kv, s_all)
     masks = {}                                              # window -> mask
     for i, (blk, window) in enumerate(zip(model.blocks, layer_windows(cfg))):
         def attend(h, blk=blk, i=i, window=window):
@@ -677,21 +875,22 @@ def decode_step(model: Transformer, cfg: ModelConfig, cache: dict, tokens_t,
                 return attn.mla_decode(blk.attn, h, cfg, cache["mla_lat"][i],
                                        cache["mla_rope"][i], pos)[0]
             if window not in masks:
-                masks[window] = attn.decode_mask(
-                    pos, x.shape[0], cache["k"][i].shape[2], window)
+                masks[window] = attn.decode_mask(pos, x.shape[0], s_all,
+                                                 window)
             return attn.attn_decode(
                 blk.attn, h, cfg, cache["k"][i], cache["k_scale"][i],
                 cache["v"][i], cache["v_scale"][i], pos, window=window,
-                mask=masks[window], quantized=quantized, splits=kvq_splits)[0]
+                mask=masks[window], quantized=quantized, splits=kvq_splits,
+                mesh=mesh, kv_shard=kv_shard)[0]
 
-        x = _decode_block(blk, cfg, x, cache, i, attend, enc_out)
+        x = _decode_block(blk, cfg, x, cache, i, attend, enc_out, mesh)
     new_cache = dict(cache)
     new_cache["pos"] = pos + (active.to(torch.int32) if active is not None
                               else 1)
-    return _decode_logits(model, cfg, x, policy), new_cache
+    return _decode_logits(model, cfg, x, policy, mesh), new_cache
 
 
-def _decode_block(blk, cfg, x, cache, i, attend, enc_out=None):
+def _decode_block(blk, cfg, x, cache, i, attend, enc_out=None, mesh=None):
     """One layer of a decode step: ``attend(h)`` the layer's attention over
     its cache, the SSM's step on ``cache["conv"][i]`` / ``["ssm"][i]``
     (updated in place), the mix, the cross-attention over ``enc_out``
@@ -712,13 +911,13 @@ def _decode_block(blk, cfg, x, cache, i, attend, enc_out=None):
         # the MoE routes the (B, 1, D) step as B tokens, every row of the
         # batch (a free slot too) taking capacity, as in the JAX package
         h2 = rms_norm(x[:, None], blk.ln2, cfg.norm_eps)
-        x = x + ffn_apply(blk.ffn, h2, cfg)[0][:, 0]
+        x = x + ffn_apply(blk.ffn, h2, cfg, mesh=mesh)[0][:, 0]
     return x
 
 
-def _decode_logits(model, cfg, x, policy):
+def _decode_logits(model, cfg, x, policy, mesh=None):
     x = rms_norm(x[:, None], model.final_norm, cfg.norm_eps)[:, 0]
-    return _mask_padded_vocab((x @ model.head).to(policy.output_dtype), cfg)
+    return head_logits(model, cfg, x, policy, mesh)
 
 
 # ---------------------------------------------------------------------------

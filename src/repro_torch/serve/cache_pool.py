@@ -6,30 +6,50 @@ lifetime; the free-list and alloc/free accounting live on the host.
 ``scatter_request`` copies a prefilled request cache into its slot in
 place.  Retirement is free: the slot's rows stop being read and the next
 scatter overwrites them.
+
+Over a mesh's model axis (``mesh=``) the pool holds this rank's block of
+the cache, laid out by ``sharding.serve_cache_specs``: its KV heads
+("heads"), or its ``S_l = max_len / n`` positions ``[r S_l, (r+1) S_l)``
+("seq").  The slot axis is never split: every rank holds its block of
+every slot, so the free-list is the same on every rank.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 
 
 def scatter_request(pool_cache: dict, req_cache: dict, slot: int,
-                    length: int) -> dict:
-    """Copy a prefilled request cache (batch dim 1, sequence axis already
-    grown to the pool's ``max_len``) into ``slot`` of the pool, in place,
-    and stamp the slot's length.  Returns ``pool_cache``."""
+                    length: int, *, seq_offset: int | None = None) -> dict:
+    """Copy a prefilled request cache (batch dim 1) into ``slot`` of the
+    pool, in place, and stamp the slot's length.  Returns ``pool_cache``.
+
+    Without ``seq_offset`` the request's sequence axis must already be
+    grown to the pool's ``max_len``.  With it the pool holds the global
+    positions ``[seq_offset, seq_offset + S_pool)`` (a sequence-sharded
+    pool's block; 0 for one that holds every position) and the request
+    cache may be of any length up to ``max_len`` (its prompt bucket):
+    the positions that fall in the block are copied by global position
+    and the rest of the slot's block is zeroed, as a grown cache's tail
+    would be."""
     for name, ax in transformer.CACHE_SEQ_AXES.items():
         if name not in pool_cache:      # the other layout's leaves
             continue
         upd = req_cache[name]
-        if upd.shape[ax] != pool_cache[name].shape[ax]:
-            raise ValueError(
-                f"scatter_request: {name} has {upd.shape[ax]} sequence "
-                f"slots, pool holds {pool_cache[name].shape[ax]} -- grow the "
-                f"prefill cache to max_len first (transformer.grow_cache)")
-        pool_cache[name][:, slot].copy_(upd[:, 0])   # (L, B, ...) batch axis
+        dst = pool_cache[name][:, slot]             # (L, B, ...) batch axis
+        s_pool = dst.shape[ax - 1]
+        if seq_offset is None:
+            if upd.shape[ax] != s_pool:
+                raise ValueError(
+                    f"scatter_request: {name} has {upd.shape[ax]} sequence "
+                    f"slots, pool holds {s_pool} -- grow the prefill cache "
+                    f"to max_len first (transformer.grow_cache)")
+            dst.copy_(upd[:, 0])
+            continue
+        transformer.place_seq(dst, upd[:, 0], ax - 1, seq_offset)
     pool_cache["pos"][slot] = length
     return pool_cache
 
@@ -41,7 +61,7 @@ class SlotPool:
     ``allocs == frees`` and ``occupancy == 0`` (asserted in tests)."""
 
     def __init__(self, cfg: ModelConfig, max_slots: int, max_len: int, *,
-                 quantized: bool = True, device="cuda"):
+                 quantized: bool = True, device="cuda", mesh=None):
         if max_slots < 1:
             raise ValueError(f"SlotPool: max_slots must be >= 1, "
                              f"got {max_slots}")
@@ -49,9 +69,20 @@ class SlotPool:
         self.max_slots = max_slots
         self.max_len = max_len
         self.quantized = quantized
+        self.mesh = mesh
         self.cache = transformer.init_cache(cfg, max_slots, max_len,
                                             quantized=quantized,
-                                            device=device)
+                                            device=device, mesh=mesh)
+        #: ``{leaf: spec}`` of the pool's cache on ``mesh`` (None: no mesh)
+        #: and the first global position this rank's block holds
+        self.specs = None
+        self.seq_offset = 0
+        if mesh is not None:
+            shapes = {n: tuple(x.shape) for n, x in transformer.init_cache(
+                cfg, max_slots, max_len, quantized=quantized,
+                device="meta").items()}
+            self.specs = shd.serve_cache_specs(cfg, shapes, mesh)
+            self.seq_offset = transformer.seq_block(cfg, mesh, max_len)[0]
         # per-slot lengths replace the lockstep scalar position
         self.cache["pos"] = torch.zeros((max_slots,), dtype=torch.int32,
                                         device=device)
@@ -141,14 +172,22 @@ class SlotPool:
         return report
 
     # -- accounting --------------------------------------------------------
+    def _shards(self, name: str) -> int:
+        return 1 if self.specs is None else \
+            shd.spec_shards(self.mesh, self.specs[name])
+
     def bytes_per_slot(self) -> int:
-        """Device bytes one resident request pins (cache bytes / slots)."""
-        total = sum(x.numel() * x.element_size()
+        """Bytes one resident request pins over all devices (the whole
+        cache's bytes / slots)."""
+        total = sum(x.numel() * x.element_size() * self._shards(k)
                     for k, x in self.cache.items() if k != "pos")
         return total // self.max_slots
 
     def bytes_per_slot_per_device(self) -> int:
-        """Bytes one resident request pins on each device: what a byte
-        budget admits against.  Without a mesh (the port has none yet) it
-        equals :meth:`bytes_per_slot`, as the JAX pool's does unsharded."""
-        return self.bytes_per_slot()
+        """Bytes one resident request pins on each device, what a byte
+        budget admits against: the sharded leaves divided by their shard
+        count (``sharding.spec_shards``), i.e. this rank's block.  Equals
+        :meth:`bytes_per_slot` without a mesh."""
+        total = sum(x.numel() * x.element_size()
+                    for k, x in self.cache.items() if k != "pos")
+        return total // self.max_slots

@@ -45,8 +45,19 @@ at ``len(emitted)``); ``evict_request`` moves a request out (``cancel``
 is its ``CANCELLED`` case); ``request_states`` is the host-side view a
 worker ships.  A
 ``tracer`` (``repro_torch.obs.Tracer``) records req / queue / prefill /
-decode / step spans on the host; an untraced engine pays nothing.  The
-mesh comes with a later slice.
+decode / step spans on the host; an untraced engine pays nothing.
+
+Over a ``launch/mesh.py`` ``Mesh`` (``mesh=``; the ranks joined in a
+process group, every rank running the same engine on the same requests)
+the model is this rank's block of the weights and the pool this rank's
+block of the cache: the model axis splits the KV heads, or the cache's
+sequence where the heads do not divide it
+(``sharding.serve_kv_shard``); the data axis replicates (every data row
+of ranks serves the whole trace, as the reference's engine replicates
+its slot axis over data).  The prefill's and the decode's logits are
+gathered whole on every rank, so every host decision -- admission,
+sampling, the sentinel, retries, eviction -- is the same on every rank,
+and so are the streams.  The memory budget is per device.
 """
 from __future__ import annotations
 
@@ -57,6 +68,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.mixed_precision import get_policy
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.flash import ops as flash_ops
 from repro_torch.kernels.kvq import ops as kvq_ops
 from repro_torch.models import transformer
@@ -92,6 +104,27 @@ def supports(cfg: ModelConfig) -> bool:
             and not cfg.global_layers)
 
 
+def _check_shard(model, cfg: ModelConfig, mesh, max_len: int) -> None:
+    """Refuse a mesh the engine cannot serve, and a model that is not this
+    rank's block (``transformer.param_shard_specs``) on it."""
+    n = mesh.shape["model"]
+    if shd.serve_kv_shard(mesh, cfg.n_kv, max_len) == "none":
+        raise ValueError(
+            f"ServeEngine: neither the {cfg.n_kv} KV heads nor max_len "
+            f"{max_len} split over a model axis of {n}")
+    named = {k: tuple(p.shape) for k, p in model.named_parameters()}
+    full = {k: tuple(p.shape) for k, p in transformer.init_params(
+        cfg, device="meta").named_parameters()}
+    specs = transformer.param_shard_specs(cfg, full, mesh)
+    bad = [k for k in full
+           if named.get(k) != shd.local_shape(full[k], specs[k], mesh)]
+    if bad:
+        raise ValueError(
+            f"ServeEngine: the model is not this rank's block on {mesh} "
+            f"(build it with init_params / load_jax_params(mesh=)): "
+            f"{bad[:3]}")
+
+
 def kernel_launches() -> dict:
     """Launch counters of the serving path's CUDA kernels (the forward's
     FMA and tensor-core designs apart, and the decode kernel's lengths and
@@ -116,7 +149,7 @@ class ServeEngine:
                  max_queue: Optional[int] = None,
                  deadline_steps: Optional[int] = None,
                  max_retries: int = 2, retry_backoff_steps: int = 1,
-                 sampler_keys: str = "step", sink=None):
+                 sampler_keys: str = "step", sink=None, mesh=None):
         if not supports(cfg):
             raise NotImplementedError(
                 "ServeEngine needs a GQA attention arch with a full-causal "
@@ -145,14 +178,19 @@ class ServeEngine:
         self.hooks: dict[str, Callable] = {}
         self._tracer = None               # repro_torch.obs.Tracer via .tracer
         self.policy = get_policy(policy_name)
+        self.mesh = mesh
+        if mesh is not None and mesh.shape.get("model", 1) > 1:
+            _check_shard(model, cfg, mesh, max_len)
         # the one cast to the compute dtype (a no-op for a model built in it)
         self.model = model.cast_to_compute(self.policy)
         self.device = self.model.embed.device
         self.capacity_report = None
         if mem_budget_bytes is not None:
             from repro_torch import plan as plan_mod
+            # with a mesh the budget means bytes PER DEVICE
             self.capacity_report = plan_mod.serve_capacity_report(
-                cfg, max_len, mem_budget_bytes, quantized=quantized)
+                cfg, max_len, mem_budget_bytes, quantized=quantized,
+                mesh=mesh)
             cap = self.capacity_report["max_slots"]
             if cap < 1:
                 raise ValueError(
@@ -163,7 +201,7 @@ class ServeEngine:
             max_slots = min(max_slots, cap)
         self.mem_budget_bytes = mem_budget_bytes
         self.pool = SlotPool(cfg, max_slots, max_len, quantized=quantized,
-                             device=self.device)
+                             device=self.device, mesh=mesh)
         self.scheduler = Scheduler(
             max_slots, bytes_per_slot=self.pool.bytes_per_slot_per_device(),
             byte_budget=mem_budget_bytes,
@@ -357,7 +395,8 @@ class ServeEngine:
         if self.scheduler.resident or self.scheduler.has_work():
             raise RuntimeError("reset with in-flight requests")
         self.pool = SlotPool(self.cfg, self.pool.max_slots, self.max_len,
-                             quantized=self.quantized, device=self.device)
+                             quantized=self.quantized, device=self.device,
+                             mesh=self.mesh)
         self.scheduler = Scheduler(
             self.pool.max_slots,
             bytes_per_slot=self.pool.bytes_per_slot_per_device(),
@@ -426,19 +465,23 @@ class ServeEngine:
 
     def _prefill(self, prompt: np.ndarray):
         """Batch-1 prefill of ``prompt`` padded to its bucket -> (last valid
-        logits (1, V), request cache grown to max_len, bucket)."""
+        logits (1, V), request cache at the bucket's length, bucket).  Only
+        the last valid position goes through the head (the padded
+        suffix's logits are garbage by contract); the pool takes the cache
+        by global position (``scatter_request(seq_offset=)``)."""
         plen = len(prompt)
         b = self._bucket_for(plen)
         padded = np.zeros((1, b), np.int32)
         padded[0, :plen] = prompt
         tokens = torch.from_numpy(padded).to(self.device)
-        logits, aux = transformer.forward(
+        x, aux = transformer.forward(
             self.model, self.cfg, {"tokens": tokens}, policy=self.policy,
-            build_cache=True, cache_quantized=self.quantized)
+            build_cache=True, cache_quantized=self.quantized,
+            return_hidden=True, mesh=self.mesh)
         self.n_prefills += 1
-        # last VALID position: padded suffix logits are garbage by contract
-        return (logits[:, plen - 1],
-                transformer.grow_cache(aux["cache"], self.max_len), b)
+        return (transformer.head_logits(self.model, self.cfg,
+                                        x[:, plen - 1], self.policy,
+                                        self.mesh), aux["cache"], b)
 
     def _decode(self) -> torch.Tensor:
         """One decode round over the pool with the fused health sentinel;
@@ -448,7 +491,8 @@ class ServeEngine:
         logits, self.pool.cache = transformer.decode_step(
             self.model, self.cfg, cache, self._tokens_dev,
             policy=self.policy, quantized=self.quantized,
-            kvq_splits=self.kv_splits, active=self._active_dev)
+            kvq_splits=self.kv_splits, active=self._active_dev,
+            mesh=self.mesh)
         self.n_decode_rounds += 1
         keys = None                       # greedy: no keys
         if self.temperature > 0.0 and self.sampler_keys == "step":
@@ -563,7 +607,8 @@ class ServeEngine:
             prompt = self._replay_prompt(req)   # == req.prompt first time
             logits, req_cache, bucket = self._prefill(prompt)
             if scatter_ok is None or scatter_ok(self, req, slot):
-                scatter_request(self.pool.cache, req_cache, slot, len(prompt))
+                scatter_request(self.pool.cache, req_cache, slot,
+                                len(prompt), seq_offset=self.pool.seq_offset)
             tok = self._first_token(req, logits)
             req.state = DECODE
             req.slot = slot

@@ -361,6 +361,67 @@ def test_decode_bias_band_at_head_dim_160(dev, seed):
     torch.testing.assert_close(out, want, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("splits", [1, 4])
+@pytest.mark.parametrize("bias", [False, True])
+def test_decode_partials_form(dev, splits, bias):
+    """``partials=True``: the kernel's unnormalised (o, m, l) divide out
+    to the normalised output of the same call at one and at several
+    splits and to the plain partials', their log-sum-exp ``m + log l``
+    is the plain one's (the kernel's running max is not the row max: it
+    moves only past a margin), and a row with no live position (length
+    0: no tile read) gives (0, NEG_INF, 0) exactly; the cross-shard merge
+    of 2 shards equals the unsharded kernel."""
+    from repro_torch.distributed.collectives import merge_partials
+    b, hkv, g, d, s = 4, 2, 4, 128, 1024
+    gen = torch.Generator(device=dev).manual_seed(7 + splits)
+    q = torch.randn((b, hkv * g, d), generator=gen, device=dev)
+    kq, ks = kvq_ref.quantize_kv(torch.randn((b, hkv, s, d), generator=gen,
+                                             device=dev))
+    vq, vs = kvq_ref.quantize_kv(torch.randn((b, hkv, s, d), generator=gen,
+                                             device=dev))
+    lens = torch.tensor([0, 1024, 300, 513], dtype=torch.int32, device=dev)
+    if bias:
+        kpos = torch.arange(s, device=dev)
+        mask = dict(bias=torch.where(kpos[None] < lens[:, None], 0.0,
+                                     tiling.NEG_INF).float().contiguous())
+    else:
+        mask = dict(lengths=lens)
+    before = kvq_ops.BIAS_KERNEL.launches if bias else kvq_ops.KERNEL.launches
+    o, m, l = kvq_ops.decode_attention(q, kq, ks, vq, vs, splits=splits,
+                                       partials=True, **mask)
+    after = kvq_ops.BIAS_KERNEL.launches if bias else kvq_ops.KERNEL.launches
+    assert after - before == 1
+    # the plain partials on the card, as the other decode tests compare
+    po, pm, pl = (t.reshape(b, hkv * g, *t.shape[3:]) for t in
+                  kvq_ref.decode_partials_ref(
+                      q.reshape(b, hkv, g, d), kq, ks, vq, vs,
+                      mask.get("bias"), d ** -0.5,
+                      lengths=mask.get("lengths")))
+    live = slice(1, None)                  # row 0 has no live position
+    norm = o[live] / l[live][..., None]
+    want = kvq_ops.decode_attention(q, kq, ks, vq, vs, splits=splits,
+                                    **mask)
+    torch.testing.assert_close(norm, want[live], atol=1e-5, rtol=0)
+    torch.testing.assert_close(norm, (po / pl[..., None])[live], atol=1e-5,
+                               rtol=0)
+    torch.testing.assert_close(m[live] + l[live].log(),
+                               pm[live] + pl[live].log(), atol=1e-5,
+                               rtol=1e-6)
+    if not bias:                  # a bias row of -1e30 is live to the kernel
+        assert torch.all(m[0] == tiling.NEG_INF)
+        assert torch.all(l[0] == 0) and torch.all(o[0] == 0)
+    # two sequence shards merged across, lengths form: the unsharded call
+    if not bias:
+        half = s // 2
+        parts = [kvq_ops.decode_attention(
+            q, *(c[:, :, r * half:(r + 1) * half].contiguous()
+                 for c in (kq, ks, vq, vs)), splits=splits, partials=True,
+            lengths=torch.clamp(lens - r * half, 0, half).to(torch.int32))
+            for r in range(2)]
+        got = merge_partials(*(torch.stack(t) for t in zip(*parts)))
+        torch.testing.assert_close(got[live], want[live], atol=1e-5, rtol=0)
+
+
 def test_unsupported_shapes_raise(dev):
     x = torch.zeros((2, 8, 32), device=dev)
     with pytest.raises(ValueError, match="head_dim"):
