@@ -94,9 +94,11 @@ JSON object per line:
    every decode step's within ``TP_B_DECODE`` (from the rank's own cache
    and from its block of the unsharded run's), each rank's int8 prefill
    cache within one rounding step of its block of the unsharded one,
-   greedy equal at every step; (c) llama3-8b at full depth, bf16, on
-   (1, 2) (heads mode) and (d) glm4-9b at 8 of its 40 layers on (1, 4)
-   (sequence mode): the serve cell's engine on the serve trace (16 of 16,
+   greedy equal at every step; (c) llama3-8b at ``TP_C_LAYERS`` (8) of
+   its 32 layers, bf16, on (1, 2) (heads mode) and (d) glm4-9b at
+   ``GLM_TP_LAYERS`` (2) of its 40 layers on (1, 4) (sequence mode),
+   each against an unsharded run of the same depth here: the serve
+   cell's engine on the serve trace (16 of 16,
    no fault, the pool audit clean, every rank's streams equal, launches
    exactly one flash forward a layer an admission and one decode a layer
    a round) and the teacher-forced logits, prefill and decode steps,
@@ -129,6 +131,33 @@ JSON object per line:
    f32 bytes plus the scales).  The ranks only load the libraries the
    ``build`` line built; each is joined with a timeout and killed if it
    fails;
+7c. ``train_tp``: tensor-parallel training (``make_train_step`` on a
+   (1, n) mesh: ``copy_to_model`` / ``reduce_from_model``, the
+   vocab-parallel CE, the sharded clip norm), ranks spawned from this
+   script (``--tp-train-child``; gloo on this card, whose reductions go
+   through the host: the step times are a correctness run's), each
+   building its block of the f32 master weights and AdamW state from
+   ``--seed``, one sub-phase after another: (a) llama3-8b at full width,
+   ``TPT_A_LAYERS`` layers, f32, 1 x ``TPT_A_SEQ``, ``TPT_A_STEPS``
+   steps on (1, 2) (heads mode); (b) the ``train`` cell (4 layers, bf16,
+   1 x 4096) on (1, 2); (c) glm4-9b at ``TPT_C_LAYERS`` of its 40
+   layers, bf16, on (1, 4) (sequence mode: the attention whole on every
+   rank, the FFN and the vocab split); (b) and (c) one warm-up and 3
+   timed steps.  Before each spawn the unsharded run of the same seed,
+   batch and config runs here (in bf16 also its f32 control), each
+   rank's windows of the saved leaves' first-step gradients (a column-
+   and a row-parallel leaf of the middle layer, the embedding, the head,
+   a norm) are written for it, and every device tensor is freed; each
+   rank's peak is reckoned from ``train``'s bytes per parameter and the
+   depth cut where the ranks together would pass ``TPT_FIT_BYTES``.  Per
+   rank: launches on the route's design exactly the meshless counts, the
+   losses and grad norms equal rank 0's, the replicated leaves'
+   gradients and parameters bit-equal across ranks, the readings within
+   ``TPT_A_BOUNDS`` ((a), f32) or ``TPT_BOUNDS`` (3x the larger of the
+   sound reading and the bf16 control), and the first step read again
+   under each planted fault (``TPT_FAULTS``; in (a) also the steps under
+   a moment one row off its parameter), each beyond a bound; the peak,
+   the median step time beside the unsharded run's;
 8. ``train_plan``: the ``train`` configuration from the same weights and
    batch under eight remat settings: (a) off, (b) ``full`` on every block,
    (c) the trainer's ``--remat auto`` without a budget (its
@@ -219,8 +248,8 @@ JSON object per line:
     a 2-layer hymba (window 64) decoding 160 greedy steps from an empty
     cache (tokens held by ``hold_to``, decode launches exact), and
     full-depth hymba at batch 8, s_max 4096: each cache's bytes against
-    the arithmetic, to the byte, and ms/token over 64 steps from position
-    0 and from 4031;
+    the arithmetic, to the byte, and ms/token over ``TWO_TIER_TIMED``
+    (32) steps from position 0 and from 4063;
 21. ``kernel`` lines for the MoE family and glm4-9b, each arch's
     attention heads (glm4-9b 32 / 2 of 128, G=16;
     deepseek-moe-16b 16 / 16 of 128, G=1; granite-moe-3b-a800m 24 / 8 of
@@ -239,9 +268,9 @@ JSON object per line:
     probabilities within 2 f32 ulps; the count is reported either way)
     and its dropped assignments, which must be equal;
 23. ``serve_variants``: glm4-9b, deepseek-moe-16b, granite-moe-3b-a800m
-    and stablelm-12b (head_dim 160) at full width and depth (random bf16
-    weights from ``--seed``: 9.40 B / 16.88 B / 3.37 B / 12.14 B
-    parameters), one at a time, each freed before the
+    and stablelm-12b (head_dim 160) at full width and half their depth
+    (``SERVE_VARIANT_LAYERS``: 20 / 14 / 16 / 20 layers; random bf16
+    weights from ``--seed``), one at a time, each freed before the
     next, served by ``ServeEngine`` as ``serve`` is (8 slots, ``max_len``
     2048, int8, ``kv_splits`` 4, the same 16-request trace): 16 of 16
     done, tok/s, TTFT, ITL, peak memory, and the launches counted exactly
@@ -298,16 +327,18 @@ JSON object per line:
     6 x 191 decodes), then ``torch.profiler`` over the prefill and 4
     decode steps: device ms of the encoder, the cross-attention, the
     decode kernel and the GEMMs, the idle share;
-31. ``serve_variants`` for qwen2-vl-2b (the serve cell's engine and trace:
-    16 of 16, no flash launch, one decode a layer a round) and
+31. ``serve_variants`` for qwen2-vl-2b at 14 of its 28 layers (the serve
+    cell's engine and trace: 16 of 16, no flash launch, one decode a
+    layer a round) and
     ``train_variants`` for qwen2-vl-2b at its 28 layers (batch 1 x 4096:
     a 32 x 32 patch prefix and 3-stream positions; no kernel) and
     whisper-base at 6 + 6 layers (batch 16 x 448, 1500 frames a row;
     the decoder's flash kernels only);
 32. the ``{"kernels": [...]}`` summary (each row with its launches in
     ``serve_variants`` and ``train_variants`` by arch, in
-    ``serve_encdec``, in ``train_dp`` (a) and each rank of (b) and in
-    ``serve_tp`` (b)-(d), rank 0's, beside; the decode rows with
+    ``serve_encdec``, in ``train_dp`` (a) and each rank of (b), in
+    ``train_tp`` (a)-(c), rank 0's, and in ``serve_tp`` (b)-(d), rank
+    0's, beside; the decode rows with
     ``serve_tp`` (a)'s partials times; the head_dim 160 rows apart, with
     stablelm-12b's launches), the ``nvidia-smi`` line, and last
     ``{"ok": true, "device": {...}}``.
@@ -373,6 +404,9 @@ SSM_MEM_LAYERS = 8
 # the two-tier cache: the 2-layer run's window and steps, the full run's
 # s_max (its window stays hymba's 1024)
 TWO_TIER_WINDOW, TWO_TIER_STEPS, TWO_TIER_SMAX = 64, 160, 4096
+# two_tier (b)'s timed decode steps from each start (64 until the whole
+# run needed room for train_tp)
+TWO_TIER_TIMED = 32
 SSD_BWD_SRC = "src/repro_torch/kernels/csrc/ssd_bwd.cu"
 SSD_BWD_SM90_SRC = "src/repro_torch/kernels/csrc/ssd_bwd_sm90.cu"
 SSD_REF_JAX = "src/repro/kernels/ssd/ref.py:22"    # what JAX differentiates
@@ -425,13 +459,18 @@ PROFILE_REQUESTS, PROFILE_NEW, PROFILE_WINDOW = 4, 8, 4
 # cifar_train's profiled ED+SC+MP steps (30 before) and the decode-only
 # rounds serve_variants profiles for an MoE arch (4 before)
 CIFAR_PROFILE_STEPS, MOE_PROFILE_ROUNDS = 15, 2
+# serve_variants' depth: half of each arch's (full depth until the whole
+# run needed room for train_tp; every check counts the layers it serves)
+SERVE_VARIANT_LAYERS = {"glm4-9b": 20, "deepseek-moe-16b": 14,
+                        "granite-moe-3b-a800m": 16, "stablelm-12b": 20,
+                        "qwen2-vl-2b": 14}
 # serve_tp: the teacher-forced runs (batch, prompt, decode steps), the
 # decode kernel's splits (the serve cell's), (a)'s ragged lengths (rows
 # 1 and 7 live in the first shard only), (b)'s depth, (d)'s depth cut
 TP_BATCH, TP_PROMPT, TP_STEPS = 4, 128, 16
 TP_SPLITS = 4
 TP_LENGTHS = [1, 2048, 513, 1024, 7, 1500, 1025, 64]
-TP_B_LAYERS, GLM_TP_LAYERS = 4, 8
+TP_B_LAYERS, TP_C_LAYERS, GLM_TP_LAYERS = 4, 8, 2
 TP_JOIN_S = 420
 # the bounds of the teacher-forced logits (max |diff| over the unsharded
 # run's max |logit|, the prefill's and every decode step's, from the
@@ -439,18 +478,87 @@ TP_JOIN_S = 420
 # its prefill 1e-4 and its decode steps TP_B_DECODE (readings on one
 # H100: 3.13e-6, and 1.74e-4 / 3.67e-4, an f32 reorder turned into whole
 # int8 steps by the cache); (c) / (d) bf16, 3x the largest sound reading
-# (0.02063 / 0.01117), which the bf16 control (the unsharded run against
-# the same weights at f32) and the planted faults bracket (PERF.md)
+# at these depths (0.013889 / 0.0071839, one H100 at 8 and 2 layers;
+# the bf16 control, the unsharded run against the same weights at f32,
+# reads 0.0185 / 0.0173 and the smallest planted fault 0.2535 / 0.3405,
+# PERF.md)
 TP_B_PREFILL, TP_B_DECODE = 1e-4, 1e-3
-TP_BOUND_C, TP_BOUND_D = 3 * 0.02063, 3 * 0.01117
+TP_BOUND_C, TP_BOUND_D = 3 * 0.013889, 3 * 0.0071839
 # the planted faults each sharded run is read again under: the last
 # rank's w_down partial dropped in the middle layer or in every layer,
 # and (sequence mode) shard 0's softmax partials dropped from the merge
 TP_FAULTS = ("w_down_mid", "w_down_all", "merge_drop0")
+# train_tp: tensor-parallel training, ranks spawned on this card over gloo
+# (--tp-train-child), one sub-phase after another: (a) llama3-8b at
+# full width, TPT_A_LAYERS layers, f32, 1 x TPT_A_SEQ, TPT_A_STEPS steps
+# on (1, 2); (b) the train cell (4 layers, bf16, 1 x 4096) on (1, 2);
+# (c) glm4-9b at TPT_C_LAYERS of its 40 layers, bf16, 1 x 4096, on (1,
+# 4): TPT_WARMUP warm-up and TPT_TIMED timed steps.  Each rank's peak is
+# reckoned before its spawn from the train phase's bytes per parameter;
+# a sub-phase whose ranks together pass TPT_FIT_BYTES is cut in depth
+TPT_A_LAYERS, TPT_A_SEQ, TPT_A_STEPS = 2, 1024, 3
+TPT_C_LAYERS = 4
+TPT_WARMUP, TPT_TIMED = 1, 3
+TPT_WINDOW = 8192       # vocab entries of each rank's embed / head block read
+TPT_JOIN_S = 420
+TPT_FIT_BYTES = 76e9
+# the gates: max |diff| over the unsharded run's, the losses and grad
+# norms relative, every step; the step-1 gradients of the saved leaves
+# (_tpt_leaves) over each leaf's largest |gradient|; (a) also the saved
+# leaves after the steps over each leaf's largest |parameter|.  (a) f32:
+# the f32 partials summed in another order.  (b) / (c) bf16: 3x the larger
+# of the sound reading and the bf16 control (the unsharded run against
+# the same weights at f32), from one H100's readings (PERF.md)
+TPT_A_BOUNDS = {"loss": 1e-5, "grad_norm": 1e-5, "grads": 1e-4,
+                "params": 1e-3, "params_floor": 1e-5}
+# (a)'s parameters after the steps, two gates.  "params": the update's
+# relative error in norm, |p - p_ref| / |p_ref - p_init| over each leaf's
+# window (one H100: 4.32e-4), which the planted moment fault
+# (nu_shifted) must break.  "params_floor": the largest |diff| over the
+# leaf's largest |parameter|, over the entries whose step-1 gradient is
+# at least TPT_A_GRAD_FLOOR of the leaf's largest.  AdamW's first steps
+# move an entry by about lr x g / (|g| + eps), so an entry whose gradient
+# sits at the f32 noise floor (the step-1 gradients agree to ~1e-5 of
+# max) moves by a different fraction of lr in each run: the elementwise
+# reading over every entry ("params_max", one H100: 1.42e-5 where 1e-5
+# was predicted) and the step-1 |gradient| at its worst entry over the
+# leaf's largest ("params_max_grad") are reported beside, ungated
+TPT_A_GRAD_FLOOR = 1e-3
+TPT_BOUNDS = {
+    # (b) readings: sound 3.726e-5 / 9.600e-5 / 0.01743, the bf16 control
+    # 2.156e-5 / 2.061e-4 / 0.02197
+    "b": {"loss": 3 * 3.726e-5, "grad_norm": 3 * 2.061e-4,
+          "grads": 3 * 0.02197},
+    # (c) readings: sound 2.627e-5 / 3.593e-4 / 0.01705, the control
+    # 5.093e-5 / 4.185e-4 / 0.02301
+    "c": {"loss": 3 * 5.093e-5, "grad_norm": 3 * 4.185e-4,
+          "grads": 3 * 0.02301}}
+# the planted faults each sub-phase's first step is read again under:
+# copy_to_model's backward sum dropped at the middle layer's FFN input;
+# the vocab-parallel CE's sum of exp left unreduced on every rank; and
+# (sequence mode) copy_to_model put on the replicated attention's input.
+# (a) also runs its steps again under nu_shifted, every rank's AdamW
+# second moment of each sharded leaf read one row off its parameter
+# block, and reads the parameters after them
+TPT_FAULTS = ("copy_mid_ffn", "ce_sum_unreduced", "copy_seq_attn",
+              "nu_shifted")
 # the reference for the baseline's accuracy: examples/cifar_optorch.py's
 # train("baseline", *make_cifar_like(n=2048, seed=0), 200), the JAX
 # package on the CPU: mean accuracy of its last 20 steps
 JAX_CPU_BASELINE_ACC = 1.0
+# the CPU threads of the model phase's reference: a fixed count, so its
+# numbers do not follow the host's core count
+MODEL_CPU_THREADS = 4
+
+
+def _host_cpu() -> dict:
+    """The host's CPU model and core count, read from /proc/cpuinfo."""
+    try:
+        text = pathlib.Path("/proc/cpuinfo").read_text()
+    except OSError:
+        text = ""
+    names = re.findall(r"^model name\s*:\s*(.*)$", text, re.M)
+    return {"model": names[0] if names else None, "cores": os.cpu_count()}
 
 
 def emit(obj: dict) -> None:
@@ -901,7 +1009,18 @@ class Smoke:
     def check_model(self) -> dict:
         """A 2-layer model through prefill + decode and through the loss
         and its backward, on the card (kernels) and on the CPU (plain
-        versions), same weights, f32 policy."""
+        versions, MODEL_CPU_THREADS threads), same weights, f32 policy.
+        Each side's prefill runs twice (the CPU's also on 1 thread) and
+        the line records how far each repeats itself, the int8 caches'
+        rounding steps that differ in each layer, and the host's CPU."""
+        threads = self.torch.get_num_threads()
+        self.torch.set_num_threads(MODEL_CPU_THREADS)
+        try:
+            return self._check_model()
+        finally:
+            self.torch.set_num_threads(threads)
+
+    def _check_model(self) -> dict:
         import numpy as np
         torch = self.torch
         from repro_torch import configs
@@ -927,6 +1046,22 @@ class Smoke:
             rel = lambda a, b: float(  # noqa: E731
                 (a.cpu() - b).abs().max() / b.abs().max())
             prefill_err = rel(got[..., live], want[..., live])
+            rerun = {
+                "cpu": rel(tf.forward(cpu, cfg, {"tokens": tokens},
+                                      policy=pol, build_cache=True)[0][
+                                          ..., live],
+                           want[..., live]),
+                "card": rel(tf.forward(gpu, cfg, {"tokens": tokens.to(
+                    self.dev)}, policy=pol, build_cache=True)[0][..., live],
+                    got[..., live].cpu())}
+            torch.set_num_threads(1)          # the same reference on 1
+            rerun["cpu_1_thread"] = rel(tf.forward(
+                cpu, cfg, {"tokens": tokens}, policy=pol,
+                build_cache=True)[0][..., live], want[..., live])
+            torch.set_num_threads(MODEL_CPU_THREADS)
+            off_by_layer = {n: (aux_g["cache"][n].cpu().int()
+                                - aux_c["cache"][n].int()).ne(0).flatten(1)
+                            .sum(1).tolist() for n in ("k", "v")}
             cache_c = tf.grow_cache(aux_c["cache"], 1024)
             cache_g = {n: t.to(self.dev) for n, t in cache_c.items()}
             off = [int((aux_g["cache"][n].cpu().int()
@@ -976,6 +1111,9 @@ class Smoke:
                 "head_dim": 128, "vocab": 1000, "prompt": [2, 100]},
             "prefill_logits_rel_err": prefill_err, "prefill_tol": 1e-4,
             "int8_cache_off_by_one_frac": off_frac,
+            "int8_cache_off_by_layer": off_by_layer,
+            "prefill_rerun_rel_diff": rerun,
+            "cpu_threads": MODEL_CPU_THREADS, "host_cpu": _host_cpu(),
             "decode_logits_rel_err": decode_err, "decode_tol": 1e-3,
             "loss": losses, "loss_rel_err": loss_err, "loss_tol": 1e-5,
             "grad_rel_err_max": grad_err, "grad_tol": 1e-3})
@@ -1065,8 +1203,6 @@ class Smoke:
         cfg = configs.get_config("llama3-8b")
         model, engine, trace, launches, fields = self._serve_trace(cfg)
         self.serve_launches = launches
-        self.serve_streams = {str(r.rid): list(r.tokens)
-                              for r in engine._requests_done}
         rec = self.record({
             "phase": "serve", **fields,
             "kv_pool_bytes": engine.pool.bytes_per_slot() * 8})
@@ -1080,7 +1216,10 @@ class Smoke:
         self.run_fleet(model, cfg, trace, dict(
             arch=cfg.arch_id, smoke=False, init_seed=self.args.seed,
             device="cuda"))
-        self.run_serve_tp(model, cfg, trace, rec)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        self.run_serve_tp(cfg)
         return rec
 
     # -- serving over a model axis (serve_tp) ------------------------------
@@ -1193,11 +1332,14 @@ class Smoke:
             **self._rate(nbytes, ms, max(t_ops, t_bytes)),
             "flops": flops, "bytes": nbytes})
 
-    def _spawn_tp(self, specs: list, tmp: str) -> list:
-        """For each (spec, world) of ``specs``, ``world`` ``--tp-child``
-        ranks on this card over gloo (NCCL takes one rank a device), all
-        started together, each joined with a timeout and all killed if
-        one fails; -> each spec's list of its ranks' result dicts."""
+    def _spawn_tp(self, specs: list, tmp: str, flag: str = "--tp-child",
+                  join_s: int = TP_JOIN_S, meanwhile=None) -> list:
+        """For each (spec, world) of ``specs``, ``world`` ranks (``flag``:
+        ``--tp-child`` or ``--tp-train-child``) on this card over gloo
+        (NCCL takes one rank a device), all started together, then
+        ``meanwhile()`` here while they start, each joined with a timeout
+        and all killed if one fails; -> each spec's list of its ranks'
+        result dicts."""
         groups = []
         try:
             for spec, world in specs:
@@ -1210,15 +1352,17 @@ class Smoke:
                 pathlib.Path(path).write_text(json.dumps(spec))
                 groups.append((spec, [subprocess.Popen(
                     [sys.executable, str(pathlib.Path(__file__).resolve()),
-                     "--tp-child", f"{path},{r}"], stdout=subprocess.PIPE,
+                     flag, f"{path},{r}"], stdout=subprocess.PIPE,
                     stderr=subprocess.STDOUT, text=True)
                     for r in range(world)]))
+            if meanwhile is not None:
+                meanwhile()
             for spec, procs in groups:
                 for r, p in enumerate(procs):
-                    out, _ = p.communicate(timeout=TP_JOIN_S)
+                    out, _ = p.communicate(timeout=join_s)
                     if p.returncode != 0:
                         raise RuntimeError(
-                            f"serve_tp ({spec['part']}) rank {r} exited "
+                            f"{flag} ({spec['part']}) rank {r} exited "
                             f"{p.returncode}:\n{out[-4000:]}")
         finally:
             for _, procs in groups:
@@ -1267,17 +1411,34 @@ class Smoke:
                 "round_host_ms": fields["wall_s"]
                 / max(1, fields["n_steps"]) * 1e3}
 
-    def run_serve_tp(self, model, cfg, trace, serve_rec: dict) -> dict:
+    def _tp_unsharded(self, cfg, part: str, tmp: str) -> tuple:
+        """(c)'s or (d)'s unsharded side here: ``cfg`` served by
+        :meth:`_serve_trace`, then its teacher-forced run and bf16 control
+        (:meth:`_tp_reference`), every device tensor freed after.  ->
+        (the trace, what the engine run is held against, the reference
+        file, the control)."""
+        model, engine, trace, _, fields = self._serve_trace(cfg)
+        unsharded = self._unsharded(fields, {
+            str(r.rid): list(r.tokens) for r in engine._requests_done})
+        del engine
+        ref, control = self._tp_reference(model, cfg, "bf16", tmp, part)
+        del model
+        gc.collect()
+        self.torch.cuda.empty_cache()
+        return trace, unsharded, ref, control
+
+    def run_serve_tp(self, cfg) -> dict:
         """Serving over a (data, model) mesh (see the module docstring,
         item 6c): (a) the decode kernel's partials form over sequence
-        shards; (b) heads mode at f32 on (1, 2), llama3-8b at
+        shards; (b) heads mode at f32 on (1, 2), llama3-8b (``cfg``) at
         ``TP_B_LAYERS`` layers, teacher-forced; (c) heads mode, llama3-8b
-        at full depth in bf16 on (1, 2): the serve cell's engine and trace
-        and the teacher-forced logits; (d) sequence mode, glm4-9b at
-        ``GLM_TP_LAYERS`` layers on (1, 4), likewise, (c)'s ranks and
-        (d)'s at once.  The ranks are ``--tp-child`` processes on this
-        card over gloo, which stages every reduction through the host: the
-        times are a correctness run's, not tensor parallelism's speed."""
+        at ``TP_C_LAYERS`` layers in bf16 on (1, 2): the serve cell's
+        engine and trace and the teacher-forced logits; (d) sequence mode,
+        glm4-9b at ``GLM_TP_LAYERS`` layers on (1, 4), likewise, (c)'s
+        ranks and (d)'s at once.  The ranks are ``--tp-child`` processes
+        on this card over gloo, which stages every reduction through the
+        host: the times are a correctness run's, not tensor parallelism's
+        speed."""
         torch = self.torch
         from repro_torch import configs
         t0 = time.time()
@@ -1296,38 +1457,32 @@ class Smoke:
         tmp = tempfile.mkdtemp(prefix="serve_tp_")
         parts, checks = {}, {}
         try:
-            # (c)'s reference first, while the serve model is here
-            tc = time.time()
-            ref_c, control_c = self._tp_reference(model, cfg, "bf16", tmp,
-                                                  "c")
-            unsharded_c = self._unsharded(serve_rec, self.serve_streams)
-            secs["c_ref"] = time.time() - tc
             tb = time.time()
             parts["b"] = self.serve_tp_b(cfg, tmp)
             secs["b"] = time.time() - tb
-            # (d)'s unsharded run: glm4-9b cut to GLM_TP_LAYERS
+            # (c)'s and (d)'s unsharded runs: llama3-8b and glm4-9b cut to
+            # TP_C_LAYERS and GLM_TP_LAYERS
+            tc = time.time()
+            cfg_c = dataclasses.replace(cfg, n_layers=TP_C_LAYERS)
+            trace, unsharded_c, ref_c, control_c = self._tp_unsharded(
+                cfg_c, "c", tmp)
+            secs["c_ref"] = time.time() - tc
             td = time.time()
             cfg_d = dataclasses.replace(glm, n_layers=GLM_TP_LAYERS)
-            m_d, engine, trace_d, _, fields = self._serve_trace(cfg_d)
-            unsharded_d = self._unsharded(fields, {
-                str(r.rid): list(r.tokens) for r in engine._requests_done})
-            del engine
-            ref_d, control_d = self._tp_reference(m_d, cfg_d, "bf16", tmp,
-                                                  "d")
-            del m_d
-            gc.collect()
-            torch.cuda.empty_cache()
+            trace_d, unsharded_d, ref_d, control_d = self._tp_unsharded(
+                cfg_d, "d", tmp)
             secs["d_ref"] = time.time() - td
             # (c)'s two ranks (heads mode) and (d)'s four (sequence mode)
             # at once: six processes share the card and the host
             tcd = time.time()
             ranks_c, ranks_d = self._spawn_tp([
-                (dict(part="c", cfg=cfg, policy="bf16", ref=ref_c,
+                (dict(part="c", cfg=cfg_c, policy="bf16", ref=ref_c,
                       engine=True), 2),
                 (dict(part="d", cfg=cfg_d, policy="bf16", ref=ref_d,
                       engine=True), 4)], tmp)
             parts["c"] = self._tp_part(
-                ranks_c, cfg, "bf16", engine=unsharded_c, n_req=len(trace),
+                ranks_c, cfg_c, "bf16", engine=unsharded_c,
+                n_req=len(trace),
                 bounds={"prefill": TP_BOUND_C, "decode": TP_BOUND_C},
                 control=control_c)
             parts["d"] = self._tp_part(
@@ -2374,6 +2529,235 @@ class Smoke:
                 "max_rel_loss_diff": rel, "routes": {"fwd": fwd, "bwd": bwd},
                 "expected_launches": want, "spawn_to_join_s": spawn_s,
                 "ranks": ranks, "checks": checks}
+
+    # -- train_tp ------------------------------------------------------------
+    def run_train_tp(self) -> dict:
+        """Tensor-parallel training (see the module docstring, item 7c):
+        for each sub-phase the unsharded run here (in bf16 also its f32
+        control), each rank's windows of it saved and every device tensor
+        freed, then its ranks (``tp_train_child``); the sub-phases one
+        after another.  gloo stages every reduction through the host: the
+        ranks' step times are a correctness run's, not tensor
+        parallelism's speed."""
+        from repro_torch import configs
+        t0 = time.time()
+        llama = configs.get_config("llama3-8b")
+        glm = configs.get_config("glm4-9b")
+        bpp = getattr(self, "train_bytes_per_param", None) or \
+            TRAIN_PEAK_FALLBACK / self._held_params(dataclasses.replace(
+                llama, n_layers=TRAIN_LAYERS))
+        subs = [("a", dataclasses.replace(llama, n_layers=TPT_A_LAYERS),
+                 "full", TPT_A_SEQ, 2, 0, TPT_A_STEPS),
+                ("b", dataclasses.replace(llama, n_layers=TRAIN_LAYERS),
+                 "bf16", TRAIN_SEQ, 2, TPT_WARMUP, TPT_TIMED),
+                ("c", dataclasses.replace(glm, n_layers=TPT_C_LAYERS),
+                 "bf16", TRAIN_SEQ, 4, TPT_WARMUP, TPT_TIMED)]
+        tmp = tempfile.mkdtemp(prefix="train_tp_")
+        parts = {}
+        try:
+            for part, cfg, policy, seq, world, warmup, timed in subs:
+                parts[part] = self._tpt_part(part, cfg, policy, seq, world,
+                                             warmup, timed, bpp, tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        checks = {f"{p}_{k}": v for p in parts
+                  for k, v in parts[p].pop("checks").items()}
+        self.train_tp_launches = {p: parts[p]["launches_rank0"]
+                                  for p in parts}
+        return self.record({
+            "phase": "train_tp", "ok": all(checks.values()),
+            "checks": checks, **parts, "bytes_per_param": bpp,
+            "gloo_note": "gloo stages every reduction through the host: "
+                         "the step times are a correctness run's",
+            "seconds": time.time() - t0})
+
+    def _tpt_part(self, part, cfg, policy, seq, world, warmup, timed, bpp,
+                  tmp) -> dict:
+        """One ``train_tp`` sub-phase: the depth reckoned to fit, the
+        unsharded run and its control here, the ranks, the gates."""
+        torch = self.torch
+        from repro_torch.distributed import sharding as shd
+        from repro_torch.kernels.flash import ops as flash_ops
+        from repro_torch.launch.mesh import Mesh
+        from repro_torch.models import transformer
+        t0 = time.time()
+        mesh = Mesh(data=1, model=world)
+
+        def reckon(c):
+            specs = transformer.param_placement(c, mesh)
+            return sum(math.prod(shd.local_shape(p.shape, specs[n], mesh))
+                       for n, p in transformer.init_params(
+                           c, device="meta").named_parameters())
+
+        layers = cfg.n_layers
+        while world * reckon(cfg) * bpp > TPT_FIT_BYTES and cfg.n_layers > 1:
+            cfg = dataclasses.replace(cfg, n_layers=cfg.n_layers // 2)
+        local = reckon(cfg)
+        mode = "heads" if cfg.n_kv % world == 0 else "seq"
+        faults = [f for f in TPT_FAULTS
+                  if (f != "copy_seq_attn" or mode == "seq")
+                  and (f != "nu_shifted" or part == "a")]
+        ref, control = {}, None
+
+        def reference():
+            """The unsharded run (and in bf16 its f32 control) while the
+            ranks start; each rank's file published by a rename."""
+            nonlocal control
+            ref.update(self._tpt_reference(cfg, policy, seq, warmup, timed,
+                                           mesh, final=part == "a"))
+            if policy == "bf16":
+                f32 = self._tpt_reference(cfg, "full", seq, warmup, timed,
+                                          mesh, final=False)
+                per_rank = [_tpt_readings(f32["files"][r], ref["losses"],
+                                          ref["grad_norms"],
+                                          grads=ref["files"][r]["grads1"])
+                            for r in range(world)]
+                control = {k: max(x[k] for x in per_rank)
+                           for k in per_rank[0]}
+            for r, f in ref.pop("files").items():
+                path = os.path.join(tmp, f"{part}.ref.{r}")
+                torch.save(f, path + ".tmp")
+                os.replace(path + ".tmp", path)
+
+        ts = time.time()
+        ranks, = self._spawn_tp([(dict(
+            part=part, cfg=cfg, policy=policy,
+            ref=os.path.join(tmp, f"{part}.ref"), batch=1, seq=seq,
+            warmup=warmup, timed=timed, faults=faults), world)], tmp,
+            flag="--tp-train-child", join_s=TPT_JOIN_S, meanwhile=reference)
+        spawn_s = time.time() - ts
+        # the route's design at this dtype and head_dim, and no other's
+        dt = torch.float32 if policy == "full" else torch.bfloat16
+        fwd = flash_ops.fwd_route(dt, cfg.head_dim)
+        bwd = flash_ops.bwd_route(dt, dt, dt, cfg.head_dim)
+        L = cfg.n_layers
+        want = {k: 0 for k in self._launch_counters()}
+        want["flash_fwd_sm90" if fwd == "sm90" else "flash_fwd"] = \
+            2 * L * timed
+        sfx = "_sm90" if bwd == "sm90" else ""
+        want.update({"flash_bwd_delta": L * timed,
+                     f"flash_bwd_dq{sfx}": L * timed,
+                     f"flash_bwd_dkv{sfx}": L * timed})
+        bounds = TPT_A_BOUNDS if part == "a" else TPT_BOUNDS[part]
+        sound = {k: max(rk["readings"][k] for rk in ranks)
+                 for k in ranks[0]["readings"]}
+        peaks = [rk["peak"] for rk in ranks]
+        checks = {
+            "launches": all(rk["launches"] == want for rk in ranks),
+            "unsharded_launches": ref["launches"] == want,
+            "finite": all(rk["finite"] and all(
+                math.isfinite(x) for x in rk["losses"] + rk["grad_norms"])
+                for rk in ranks) and ref["finite"],
+            "ranks_agree": all(
+                rk["losses"] == ranks[0]["losses"]
+                and rk["grad_norms"] == ranks[0]["grad_norms"]
+                for rk in ranks),
+            "replicated_bit_equal": all(
+                rk["digest_grads1"] == ranks[0]["digest_grads1"]
+                and rk["digest_params"] == ranks[0]["digest_params"]
+                for rk in ranks),
+            "local_params": all(rk["local_params"] == local
+                                for rk in ranks),
+            "fits": max(peaks) < 80e9,
+            "bounds_set": bounds is not None}
+        if bounds is not None:
+            checks["within_bounds"] = all(sound[k] <= bounds[k]
+                                          for k in bounds)
+            for f in faults:
+                # a fault the gates refuse: some reading beyond its bound
+                # (or not finite)
+                checks[f"fault_{f}_refused"] = all(
+                    any(not rk["faults"][f][k] <= bounds[k]
+                        for k in rk["faults"][f] if k in bounds)
+                    for rk in ranks)
+        step_s = [statistics.median(rk["step_s"][warmup:]) for rk in ranks]
+        return {
+            "arch": cfg.arch_id, "layers": L, "depth_cut": None
+            if L == layers else {"from": layers, "to": L},
+            "policy": policy, "batch": 1, "seq": seq,
+            "mesh": f"(1, {world})", "mode": mode,
+            "steps": {"warmup": warmup, "timed": timed},
+            "routes": {"fwd": fwd, "bwd": bwd}, "expected_launches": want,
+            "launches_rank0": ranks[0]["launches"],
+            "local_params": local,
+            "replicated_leaves": ranks[0]["replicated_leaves"],
+            "predicted_peak_bytes_per_rank": local * bpp,
+            "max_memory_allocated_bytes": peaks,
+            "unsharded_peak_bytes": ref["peak"],
+            "losses": ranks[0]["losses"], "grad_norms": ranks[0]["grad_norms"],
+            "unsharded": {k: ref[k] for k in ("losses", "grad_norms")},
+            "median_step_s": step_s, "unsharded_median_step_s": ref["step_s"],
+            "step_s": [rk["step_s"] for rk in ranks],
+            "init_s": [rk["init_s"] for rk in ranks],
+            "readings": sound, "bf16_control": control, "bounds": bounds,
+            "faults": {f: {k: max(rk["faults"][f][k] for rk in ranks)
+                           for k in ranks[0]["faults"][f]} for f in faults},
+            "spawn_to_join_s": spawn_s, "seconds": time.time() - t0,
+            "checks": checks}
+
+    def _tpt_reference(self, cfg, policy, seq, warmup, timed, mesh,
+                       final: bool) -> dict:
+        """The unsharded run for ``train_tp`` here: ``build_train_step``
+        (``policy``, remat on every block, the AdamW defaults) from
+        ``init_state(--seed)``, ``warmup`` + ``timed`` steps of the
+        trainer's synthetic stream (batch 1 x ``seq``), the launch
+        counters zeroed between; the first step's gradients of the saved
+        leaves (``_tpt_leaves``) and, with ``final``, the leaves after the
+        steps, cut into each rank's windows; then every device tensor
+        freed.  -> {"files": {rank: what it reads}, the losses, grad
+        norms, launches, median timed step, peak}."""
+        torch = self.torch
+        from repro_torch.core.checkpoint import CheckpointConfig
+        from repro_torch.launch.train import init_state, synthetic_lm_batches
+        from repro_torch.optim import adamw
+        from repro_torch.train.train_step import (TrainConfig,
+                                                  build_train_step,
+                                                  init_loss_scale)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        tc = TrainConfig(policy=policy, remat=CheckpointConfig(
+            enabled=True, policy="full", segment_size=1),
+            opt=adamw.AdamWConfig())
+        model, opt = init_state(cfg, self.args.seed, self.dev)
+        data = synthetic_lm_batches(cfg, 1, seq, seed=self.args.seed,
+                                    device=self.dev)
+        names = _tpt_leaves(cfg)
+        start = None
+        if final:
+            start = _tpt_blocks({n: p for n, p in model.named_parameters()
+                                 if n in names}, cfg, mesh)
+        model, recs, launches, first = _tpt_steps(
+            build_train_step(cfg, tc), model, opt,
+            init_loss_scale(tc, self.dev),
+            [next(data)[1] for _ in range(warmup + timed)], warmup, names)
+        common = {"losses": [r["loss"] for r in recs],
+                  "grad_norms": [r["grad_norm"] for r in recs],
+                  "grad_max": {n: float(first[n].abs().max())
+                               for n in names}}
+        blocks = _tpt_blocks(first, cfg, mesh)
+        files = {r: {**common, "grads1": blocks[r]} for r in blocks}
+        if final:
+            params = {n: p.detach() for n, p in model.named_parameters()
+                      if n in names}
+            after = _tpt_blocks(params, cfg, mesh)
+            top = {n: float(p.abs().max()) for n, p in params.items()}
+            for r in files:
+                files[r].update(final=after[r], param_max=top, update_norm={
+                    n: float((after[r][n] - start[r][n]).norm())
+                    for n in names})
+            del params, start
+        out = {"files": files, "losses": common["losses"],
+               "grad_norms": common["grad_norms"],
+               "finite": all(r["grads_finite"] for r in recs),
+               "launches": launches,
+               "step_s": statistics.median(r["step_s"]
+                                           for r in recs[warmup:]),
+               "peak": torch.cuda.max_memory_allocated(self.dev)}
+        del model, opt, first
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
 
     def run_train_plan(self) -> dict:
         """The ``train`` configuration under eight remat settings, from the
@@ -3676,8 +4060,8 @@ class Smoke:
         near-tie, ``hold_to``; decode launches exact); (b) full-depth
         hymba at batch SSM_BATCH: both caches' bytes at s_max
         TWO_TIER_SMAX against the arithmetic, to the byte, and ms/token
-        over 64 steps from an empty cache and from position
-        TWO_TIER_SMAX - 65."""
+        over TWO_TIER_TIMED steps from an empty cache and from position
+        TWO_TIER_SMAX - TWO_TIER_TIMED - 1."""
         import numpy as np
         torch = self.torch
         from repro_torch import configs
@@ -3737,7 +4121,7 @@ class Smoke:
         torch.cuda.empty_cache()
         model = tf.init_params(cfg, self.args.seed, device=self.dev,
                                dtype=pol.compute_dtype)
-        b, smax, steps = SSM_BATCH, TWO_TIER_SMAX, 64
+        b, smax, steps = SSM_BATCH, TWO_TIER_SMAX, TWO_TIER_TIMED
         n_g = len(cfg.global_layers)
         w = min(cfg.window, smax)
         s = cfg.ssm
@@ -3973,8 +4357,9 @@ class Smoke:
 
     def run_serve_variants(self) -> list:
         """``serve_variants``: glm4-9b, deepseek-moe-16b,
-        granite-moe-3b-a800m and stablelm-12b at full width and depth, one
-        at a time (see the module docstring); a profiled window of decode
+        granite-moe-3b-a800m and stablelm-12b at full width and half their
+        depth (``SERVE_VARIANT_LAYERS``), one at a time (see the module
+        docstring); a profiled window of decode
         rounds for the two MoE archs.  minicpm3-4b, which the engine
         refuses (MLA's latent cache), serves in ``serve_mla``."""
         from repro_torch import configs
@@ -3988,7 +4373,8 @@ class Smoke:
         t_phase = time.time()
         gc.collect()
         torch.cuda.empty_cache()
-        cfg = configs.get_config(arch)
+        cfg = dataclasses.replace(configs.get_config(arch),
+                                  n_layers=SERVE_VARIANT_LAYERS[arch])
         model, engine, _, launches, fields = self._serve_trace(cfg)
         self.variant_launches[arch] = {"serve": launches}
         profile = None
@@ -4815,6 +5201,339 @@ def tp_child(arg: str) -> int:
     return 0
 
 
+def _tpt_leaves(cfg) -> list:
+    """The leaves ``train_tp`` reads, of the middle layer where per layer:
+    a column-parallel (``w_up``; ``wq`` too, whole in sequence mode), a
+    row-parallel (``w_down``), the embedding, the head and a norm."""
+    mid = f"blocks.{cfg.n_layers // 2}"
+    return [f"{mid}.attn.wq", f"{mid}.ffn.w_up", f"{mid}.ffn.w_down",
+            "embed", "lm_head", f"{mid}.ln2"]
+
+
+def _tpt_window(name: str, x):
+    """What ``train_tp`` reads of a rank's block: the first TPT_WINDOW
+    vocab entries of the embedding's rows and of the head's columns, the
+    whole block of every other leaf."""
+    if name == "embed":
+        return x[:TPT_WINDOW]
+    if name == "lm_head":
+        return x[:, :TPT_WINDOW]
+    return x
+
+
+def _tpt_blocks(named: dict, cfg, mesh) -> dict:
+    """{rank: {name: the window of that rank's block, on the host}} of the
+    unsharded ``named`` tensors, cut by ``transformer.param_placement``."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import coords
+    from repro_torch.models import transformer
+    specs = transformer.param_placement(cfg, mesh)
+    return {r: {n: _tpt_window(n, shd.shard_leaf(
+                x.detach(), specs[n], mesh, coords(mesh, r))).to(
+                    "cpu", copy=True)
+                for n, x in named.items()}
+            for r in range(mesh.size)}
+
+
+def _tpt_readings(ref: dict, losses, norms, grads=None,
+                  params=None) -> dict:
+    """A run's readings against the unsharded run ``ref`` (one rank's
+    file: its windows of the saved leaves): the losses' and grad norms'
+    largest relative difference over the steps read; the step-1
+    gradients' (``grads``) largest |diff| over each leaf's largest
+    |gradient|; and the parameters' after the steps (``params``) |diff|
+    over the norm of the unsharded run's update of the window
+    (``params``) and largest |diff| over the leaf's largest |parameter|
+    (``params_max``; ``params_floor`` over the entries whose step-1
+    gradient is at least TPT_A_GRAD_FLOOR of the leaf's largest;
+    ``params_max_grad`` the step-1 |gradient| at the worst entry of
+    ``params_max`` over the leaf's largest)."""
+    out = {"loss": max(abs(a - b) / abs(b) for a, b in
+                       zip(losses, ref["losses"])),
+           "grad_norm": max(abs(a - b) / abs(b) for a, b in
+                            zip(norms, ref["grad_norms"]))}
+    if grads is not None:
+        out["grads"] = max(
+            float((grads[n].float().cpu() - w).abs().max())
+            / ref["grad_max"][n] for n, w in ref["grads1"].items())
+    if params is not None:
+        diff = {n: params[n].float().cpu() - w
+                for n, w in ref["final"].items()}
+        out["params"] = max(float(d.norm()) / ref["update_norm"][n]
+                            for n, d in diff.items())
+        rel = {n: d.abs() / ref["param_max"][n] for n, d in diff.items()}
+        g1 = {n: ref["grads1"][n].abs() / ref["grad_max"][n] for n in diff}
+        worst = max(rel, key=lambda n: float(rel[n].max()))
+        out["params_max"] = float(rel[worst].max())
+        out["params_max_grad"] = float(
+            g1[worst].reshape(-1)[int(rel[worst].argmax())])
+        out["params_floor"] = max(
+            float(rel[n][g1[n] >= TPT_A_GRAD_FLOOR].max()) for n in rel)
+    return out
+
+
+def _tpt_digest(tensors) -> list:
+    """Two integer checksums of the bits of ``tensors`` (in order): equal
+    lists mean bit-equal tensors, save for a collision."""
+    import torch
+    out = []
+    for t in tensors:
+        v = t.detach().float().contiguous().view(torch.int32).reshape(-1)
+        w = torch.arange(v.numel(), device=v.device) % 65521 + 1
+        out += [int(v.long().sum()), int((v.long() * w).sum())]
+    return out
+
+
+def _tpt_steps(step, model, opt, ls, batches, warmup: int, names,
+               keep=lambda name, g: g) -> tuple:
+    """``train_tp``'s run of one side (the unsharded run or a rank): each
+    batch through ``step``, the launch counters zeroed after ``warmup``
+    steps, ``keep(name, gradient)`` copied for ``names`` from the
+    gradients the first step hands to AdamW (through a wrapper of
+    ``adamw.update``; a rank keeps only its windows, so its peak is the
+    training's).  -> (model, each step's metrics and host seconds, the
+    launches of the steps after the warm-up, the first step's kept
+    gradients)."""
+    from repro_torch.optim import adamw
+    first, real = {}, adamw.update
+
+    def update(c, grads, *args, **kwargs):
+        if not first:
+            first.update({n: keep(n, grads[n].detach()).clone()
+                          for n in names})
+        return real(c, grads, *args, **kwargs)
+
+    kernels = Smoke._launch_counters()
+    recs = []
+    adamw.update = update
+    try:
+        for i, batch in enumerate(batches):
+            if i == warmup:
+                for k in kernels.values():
+                    k.launches = 0
+            t = time.time()
+            model, opt, ls, m = step(model, opt, ls, batch)
+            vals = {k: float(v) for k, v in m.items()}      # syncs
+            vals["step_s"] = time.time() - t
+            recs.append(vals)
+    finally:
+        adamw.update = real
+    return model, recs, {n: k.launches for n, k in kernels.items()}, first
+
+
+@contextlib.contextmanager
+def _train_fault(fault: str, model):
+    """A fault planted in every rank's training, undone after (see
+    TPT_FAULTS): ``copy_mid_ffn``, the middle layer's FFN takes its input
+    without ``copy_to_model`` (its input gradient stays this rank's
+    partial); ``ce_sum_unreduced``, the CE's second reduction (the sum of
+    exp) is this rank's own; ``copy_seq_attn``, every layer's attention
+    takes its input through ``copy_to_model``."""
+    import torch
+    from repro_torch.distributed import collectives
+    from repro_torch.models import attention, transformer
+    if fault == "copy_mid_ffn":
+        mid, real = model.blocks[len(model.blocks) // 2].ffn, \
+            transformer.ffn_apply
+
+        def patched(ffn, h, cfg, dtype=None, mesh=None):
+            if ffn is not mid:
+                return real(ffn, h, cfg, dtype, mesh)
+            copy = collectives.copy_to_model
+            collectives.copy_to_model = lambda x, mesh, axis="model": x
+            try:
+                return real(ffn, h, cfg, dtype, mesh)
+            finally:
+                collectives.copy_to_model = copy
+        where, name = transformer, "ffn_apply"
+    elif fault == "ce_sum_unreduced":
+        real = transformer.vocab_parallel_ce
+
+        def patched(logits32, labels, mesh):
+            reduce, calls = collectives.all_reduce_f32, []
+
+            def own_sum(x, op, group):
+                calls.append(op)
+                return x.to(torch.float32, copy=True) if len(calls) == 2 \
+                    else reduce(x, op, group)
+            collectives.all_reduce_f32 = own_sum
+            try:
+                return real(logits32, labels, mesh)
+            finally:
+                collectives.all_reduce_f32 = reduce
+        where, name = transformer, "vocab_parallel_ce"
+    elif fault == "copy_seq_attn":
+        real = attention.attn_block
+
+        def patched(p, x, cfg, *, mesh=None, **kw):
+            return real(p, collectives.copy_to_model(x, mesh), cfg,
+                        mesh=mesh, **kw)
+        where, name = attention, "attn_block"
+    else:
+        raise ValueError(f"unknown fault {fault!r}")
+    setattr(where, name, patched)
+    try:
+        yield
+    finally:
+        setattr(where, name, real)
+
+
+@contextlib.contextmanager
+def _moment_fault(sharded: dict):
+    """``nu_shifted`` (see TPT_FAULTS): before each AdamW update, every
+    sharded leaf's second moment rolled by one row along its first
+    dimension, so it is read one row off its parameter block."""
+    import torch
+    from repro_torch.optim import adamw
+    real = adamw.update
+
+    def update(c, grads, state, *args, **kwargs):
+        for n, on in sharded.items():
+            if on:
+                state.nu[n] = torch.roll(state.nu[n], 1, 0)
+        return real(c, grads, state, *args, **kwargs)
+
+    adamw.update = update
+    try:
+        yield
+    finally:
+        adamw.update = real
+
+
+def tp_train_child(arg: str) -> int:
+    """One rank of ``train_tp``, run as ``chip_smoke.py --tp-train-child
+    spec.json,rank``: gloo over the parent's card, the kernels loaded from
+    the libraries the parent built; this rank's block of the f32 master
+    weights and AdamW state (``launch/train.py`` ``init_state(mesh=)``
+    from ``--seed``), the step from ``make_train_step(mesh=)``.  First the
+    planted faults, each one forward and backward of the first batch from
+    the initial weights; then the sound run: ``warmup`` steps and
+    ``timed`` steps with the launch counters zeroed between, the first
+    step's gradients (what the step hands to AdamW) read against the
+    parent's unsharded run, the replicated leaves' checksums, each step's
+    loss, grad norm and host time, the peak."""
+    path, rank = arg.rsplit(",", 1)
+    rank = int(rank)
+    spec = json.loads(pathlib.Path(path).read_text())
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.checkpoint import CheckpointConfig
+    from repro_torch.core.mixed_precision import (get_policy,
+                                                  scaled_value_and_grad)
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.train import init_state, synthetic_lm_batches
+    from repro_torch.models import transformer
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import (TrainConfig, init_loss_scale,
+                                              make_train_step)
+    torch.set_num_threads(1)
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        for lib in ("flash_fwd", "flash_fwd_sm90", "flash_bwd",
+                    "flash_bwd_sm90"):
+            if not build.library_path(lib).exists():
+                raise RuntimeError(f"tp_train_child: {lib}.cu is not built")
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    world = spec["world"]
+    dist.init_process_group("gloo", init_method=f"file://{spec['rdv']}",
+                            rank=rank, world_size=world)
+    try:
+        cfg = ModelConfig(**{k: tuple(v) if isinstance(v, list) else v
+                             for k, v in spec["cfg"].items()})
+        mesh = Mesh(data=1, model=world)
+        tc = TrainConfig(policy=spec["policy"], remat=CheckpointConfig(
+            enabled=True, policy="full", segment_size=1),
+            opt=adamw.AdamWConfig())
+        step, tc = make_train_step(cfg, tc, {"tokens": torch.empty(
+            (spec["batch"], spec["seq"]), dtype=torch.int32,
+            device="meta")}, mesh=mesh)
+        whole = sorted(n for n, s in step.placement.items()
+                       if all(e is None for e in s))
+        sharded = {n: n not in whole for n in step.placement}
+        stream = synthetic_lm_batches(cfg, spec["batch"], spec["seq"],
+                                      seed=spec["seed"], device=dev)
+        batches = [next(stream)[1]
+                   for _ in range(spec["warmup"] + spec["timed"])]
+        # the parent's unsharded run is on the card until it publishes
+        # this rank's file: allocate nothing before it
+        ref_path = f"{spec['ref']}.{rank}"
+        deadline = time.time() + TPT_JOIN_S
+        while not os.path.exists(ref_path):
+            if time.time() > deadline:
+                raise TimeoutError(f"tp_train_child: no {ref_path}")
+            time.sleep(0.2)
+        ref = torch.load(ref_path)
+        names = _tpt_leaves(cfg)
+        moment = {}
+        if "nu_shifted" in spec["faults"]:
+            # the steps again from the same weights, the moment off by a
+            # row; only the parameters after them are read
+            with _moment_fault(sharded):
+                model, recs, _, _ = _tpt_steps(
+                    step, *init_state(cfg, spec["seed"], dev, mesh),
+                    init_loss_scale(tc, dev), batches, spec["warmup"], [])
+            params = dict(model.named_parameters())
+            got = _tpt_readings(ref, [r["loss"] for r in recs],
+                                [r["grad_norm"] for r in recs], params={
+                n: _tpt_window(n, params[n].detach()) for n in names})
+            moment = {"nu_shifted": {"params": got["params"],
+                                     "params_max": got["params_max"]}}
+            del model, params
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        t0 = time.time()
+        model, opt = init_state(cfg, spec["seed"], dev, mesh)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        out = {"rank": rank, "init_s": time.time() - t0, "faults": moment,
+               "local_params": sum(p.numel() for p in model.parameters()),
+               "replicated_leaves": len(whole)}
+        policy = get_policy(spec["policy"])
+
+        def loss_for(m, b):
+            return transformer.loss_fn(m, cfg, b, policy=policy,
+                                       remat=tc.remat, mesh=mesh)
+
+        for fault in spec["faults"]:
+            if fault == "nu_shifted":
+                continue
+            with _train_fault(fault, model):
+                (loss, _), grads, _ = scaled_value_and_grad(loss_for)(
+                    model, batches[0])
+                norm = adamw.sharded_global_norm(grads, sharded, mesh)
+            out["faults"][fault] = _tpt_readings(
+                ref, [float(loss)], [float(norm)],
+                grads={n: _tpt_window(n, grads[n]) for n in names})
+            del grads
+        model, recs, launches, first = _tpt_steps(
+            step, model, opt, init_loss_scale(tc, dev), batches,
+            spec["warmup"], names + whole, keep=_tpt_window)
+        params = dict(model.named_parameters())
+        out.update(
+            launches=launches, losses=[r["loss"] for r in recs],
+            grad_norms=[r["grad_norm"] for r in recs],
+            finite=all(r["grads_finite"] for r in recs),
+            step_s=[r["step_s"] for r in recs],
+            readings=_tpt_readings(
+                ref, [r["loss"] for r in recs],
+                [r["grad_norm"] for r in recs],
+                grads={n: first[n] for n in names},
+                params={n: _tpt_window(n, params[n].detach())
+                        for n in names} if "final" in ref else None),
+            digest_grads1=_tpt_digest(first[n] for n in whole),
+            digest_params=_tpt_digest(params[n] for n in whole),
+            peak=torch.cuda.max_memory_allocated(dev)
+            if dev.type == "cuda" else 0)
+        pathlib.Path(f"{spec['out']}.{rank}").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4830,11 +5549,14 @@ def main(argv=None) -> int:
                     help="also write every result line to this JSON file")
     ap.add_argument("--dp-child", default="", help=argparse.SUPPRESS)
     ap.add_argument("--tp-child", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--tp-train-child", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.dp_child:
         return dp_child(args.dp_child, args.seed)
     if args.tp_child:
         return tp_child(args.tp_child)
+    if args.tp_train_child:
+        return tp_train_child(args.tp_train_child)
 
     import torch
     if not torch.cuda.is_available():
@@ -4906,6 +5628,7 @@ def main(argv=None) -> int:
     smoke.run_serve()
     smoke.run_train()
     smoke.run_train_dp()
+    smoke.run_train_tp()
     smoke.run_train_plan()
     smoke.run_train_cli()
     pack = [smoke.check_pack(8, 32),                     # the CIFAR batch
@@ -5143,6 +5866,11 @@ def main(argv=None) -> int:
         row["train_dp_launches"] = {
             part: counts.get(row["name"], 0)
             for part, counts in smoke.train_dp_launches.items()}
+        # train_tp: rank 0's launches in the timed steps of (a)-(c) (every
+        # rank's are in its line)
+        row["train_tp_launches"] = {
+            part: counts.get(row["name"], 0)
+            for part, counts in smoke.train_tp_launches.items()}
         for part in ("serve", "train"):
             row[f"{part}_variants_launches"] = {
                 arch: runs[part].get(row["name"], 0)

@@ -18,6 +18,16 @@ whichever package wrote it, and restores into the other.
   * ``latest_intact_step`` / ``restore_latest`` fall back past a damaged
     newest checkpoint, with a warning, to the newest one that verifies.
   * ``keep_last`` bounds the number kept on disk.
+  * A checkpoint holds the GLOBAL arrays, whatever mesh wrote it, as the
+    reference's does (``repro/checkpointing/ckpt.py:9-12``): on a model
+    axis every rank gathers its blocks to rank 0 one leaf at a time
+    (``models/bridge.py`` ``export_params`` / ``export_opt_state`` with
+    ``mesh=``), and rank 0 alone calls :meth:`CheckpointManager.save`, so
+    the manifest, the leaves and the fingerprint are a meshless save's.
+    :meth:`CheckpointManager.restore` checks them against the global
+    shapes (``bridge.abstract_params``, no memory) and returns the global
+    arrays, which each rank of any mesh cuts to its block
+    (``bridge.load_jax_params`` / ``load_opt_state`` with ``mesh=``).
 """
 from __future__ import annotations
 
@@ -215,7 +225,7 @@ class CheckpointManager:
         os.makedirs(tmp)
         arrays = {key.replace("/", "__"): np.asarray(leaf)
                   for key, leaf in _flatten_with_paths(state).items()}
-        shard_name = "shards_00000.npz"           # one process, one shard
+        shard_name = "shards_00000.npz"     # the global arrays, one writer
         np.savez(os.path.join(tmp, shard_name), **arrays)
         manifest = {
             "step": step,

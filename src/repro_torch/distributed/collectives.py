@@ -15,12 +15,19 @@ the slot pool's), so these functions take this rank's blocks and the
 model axis (``mesh.axis_group``).  A mesh whose model axis is 1, or no
 mesh, communicates nothing.
 
-  * :func:`model_all_reduce` -- the row-parallel sum (``wo``,
+  * :func:`reduce_from_model` -- the row-parallel sum (``wo``,
     ``w_down``, the vocab-parallel embedding): each rank's partial in its
     own dtype, summed in f32, the sum rounded back to that dtype.  Every
-    rank gets the same bits.
+    rank gets the same bits.  Its backward is the identity: the sum's
+    gradient is already whole on every rank.
+  * :func:`copy_to_model` -- the identity on the replicated input of a
+    column-parallel product (``wq`` / ``wk`` / ``wv`` in heads mode,
+    ``w_gate`` / ``w_up``, the vocab-sharded head), whose backward sums
+    the ranks' partial input gradients (f32, rounded back).  The pair is
+    Megatron's f / g: every rank calls ``backward()`` on the same loss,
+    so only a gradient that is a partial sum may be summed.
   * :func:`model_all_gather` -- vocab-sharded logits gathered whole on
-    every rank before any host decision.
+    every rank before any host decision (serving; not differentiable).
   * :func:`sp_decode_attention` / :func:`sp_decode_attention_int8` --
     one-token decode with the cache's SEQUENCE dim sharded over the model
     axis: each rank's unnormalised softmax partials (m_i, l_i, o_i)
@@ -94,20 +101,59 @@ def model_axis(mesh, axis: str = "model"):
             mesh_mod.coords(mesh)[axis])
 
 
-def _reduce(x: torch.Tensor, op, group) -> torch.Tensor:
+def all_reduce_f32(x: torch.Tensor, op, group) -> torch.Tensor:
+    """``op`` over ``group`` of ``x`` as f32 (a new tensor; every rank gets
+    the same bits)."""
     y = x.to(torch.float32, copy=True)
     dist.all_reduce(y, op=op, group=group)
     return y
 
 
-def model_all_reduce(x: torch.Tensor, mesh,
-                     axis: str = "model") -> torch.Tensor:
-    """Sum of every rank's ``x`` over ``axis``, in f32, rounded back to
-    ``x.dtype`` (a new tensor; ``x`` itself without a model axis)."""
+def _sum(x: torch.Tensor, group) -> torch.Tensor:
+    return all_reduce_f32(x, dist.ReduceOp.SUM, group).to(x.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, mesh,
+                  axis: str = "model") -> torch.Tensor:
+    """``x`` itself in the forward; in the backward, the sum of every
+    rank's gradient over ``axis`` (f32, rounded back to its dtype).  The
+    identity without a model axis."""
     group, n, _ = model_axis(mesh, axis)
     if n == 1:
         return x
-    return _reduce(x, dist.ReduceOp.SUM, group).to(x.dtype)
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, mesh,
+                      axis: str = "model") -> torch.Tensor:
+    """Sum of every rank's ``x`` over ``axis``, in f32, rounded back to
+    ``x.dtype`` (a new tensor, the same bits on every rank; ``x`` itself
+    without a model axis).  The backward passes the gradient through."""
+    group, n, _ = model_axis(mesh, axis)
+    if n == 1:
+        return x
+    return _ReduceFromModel.apply(x, group)
 
 
 def model_all_gather(x: torch.Tensor, mesh, dim: int = -1,
@@ -150,8 +196,8 @@ def merge_partials(o, m, l, *, amax=None, total=None):
 
 def _group_merge(o, m, l, group):
     return merge_partials(
-        o, m, l, amax=lambda t: _reduce(t, dist.ReduceOp.MAX, group),
-        total=lambda t: _reduce(t, dist.ReduceOp.SUM, group))
+        o, m, l, amax=lambda t: all_reduce_f32(t, dist.ReduceOp.MAX, group),
+        total=lambda t: all_reduce_f32(t, dist.ReduceOp.SUM, group))
 
 
 def _seq_offset(mesh, s_local: int, axis: str) -> tuple:

@@ -15,23 +15,26 @@ Fault-tolerance features wired here:
     loss-spike detector (``train/guards.py``) escalates consecutive bad
     steps to a rollback to the last good checkpoint;
   * elastic restarts: the mesh is built from however many ranks there
-    are (``launch/mesh.py`` ``make_mesh_for``), and a checkpoint written
-    at one data width restores at another (every rank holds the whole
-    state).
+    are (``launch/mesh.py`` ``make_mesh_for``), and a checkpoint holds
+    the global arrays whatever mesh wrote it, so it restores at another
+    data width or model width (each rank cuts its block).
 
-Data parallelism: under ``torchrun``'s environment (``RANK``,
+Data and tensor parallelism: under ``torchrun``'s environment (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` / ``MASTER_PORT`` for
 ``env://``) the trainer joins a process group, NCCL on the card (rank r
 on ``cuda:LOCAL_RANK``) and gloo with ``--device cpu``, and trains on the
-mesh ``make_mesh_for(world, max_model=--max-model)``.  Every rank draws
-the same global batch; the train step takes each rank's rows and
-all-reduces the gradients (``train/train_step.py``).  Rank 0 alone
-prints the step lines, writes ``--events`` and saves checkpoints; every
-rank waits at a barrier after a save, and every rank restores.  A model
-axis > 1 (tensor parallelism) is not ported yet and exits 2: two ranks
-need ``--max-model 1``, since ``make_mesh_for(2)`` is (data 1, model
-2).  Without that environment the trainer runs one rank, as the mesh
-(data 1, model 1).
+mesh ``make_mesh_for(world, max_model=--max-model)``: two ranks make
+(data 1, model 2) under the default ``--max-model``, (data 2, model 1)
+with ``--max-model 1``.  Every rank draws the same global batch; the
+train step takes each rank's rows by its data coordinate, and on a model
+axis > 1 each rank holds its block of the weights, the gradients and the
+AdamW moments (``train/train_step.py``).  Rank 0 alone prints the step
+lines, writes ``--events`` and saves checkpoints, the sharded leaves
+gathered to it one at a time (``bridge.export_params(mesh=)``); every
+rank waits at a barrier after a save, and every rank restores its block.
+The dense GQA archs train on a model axis > 1; an MoE arch, MLA, the SSM
+mixers and the encoder exit 2 there.  Without that environment the
+trainer runs one rank, as the mesh (data 1, model 1).
 
 Memory-budgeted training: ``--remat auto`` solves a ``RematPlan`` from
 the transformer profile (``repro_torch.plan``): with ``--mem-budget-mb
@@ -56,8 +59,7 @@ the plain versions:
       --metrics-every 10
 
   PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \\
-      -m repro_torch.launch.train --device cpu --smoke --max-model 1 \\
-      --steps 10 --batch 4 --seq 64
+      -m repro_torch.launch.train --device cpu --smoke --steps 3
 
 qwen2-vl-2b trains here as in the reference: text-only batches, the
 positions broadcast over M-RoPE's three streams.  An encoder-decoder
@@ -206,23 +208,38 @@ def _auto_remat(cfg, args, batch_sds, mesh=None, log=print):
     return remat, int(rep["peak_bytes"])
 
 
-def init_state(cfg, seed: int, device):
-    """Fresh f32 master weights (``requires_grad`` on) and AdamW state."""
+def init_state(cfg, seed: int, device, mesh=None):
+    """Fresh f32 master weights (``requires_grad`` on) and AdamW state:
+    this rank's blocks on ``mesh``'s model axis."""
     model = transformer.init_params(cfg, seed, device=device,
-                                    dtype=torch.float32).requires_grad_()
+                                    dtype=torch.float32,
+                                    mesh=mesh).requires_grad_()
     return model, adamw.init(dict(model.named_parameters()))
 
 
-def train_state(model, opt) -> dict:
-    """The checkpointed state in the JAX package's layout."""
-    return {"params": bridge.export_params(model),
-            "opt": bridge.export_opt_state(opt)}
+def train_state(model, opt, mesh=None) -> dict | None:
+    """The checkpointed state in the JAX package's layout, the global
+    arrays; with ``mesh`` every rank calls it and rank 0 gets the state,
+    the others None (only rank 0's model group gathers)."""
+    params = bridge.export_params(model, mesh=mesh)
+    opt = bridge.export_opt_state(opt, mesh=mesh, cfg=model.cfg)
+    return None if params is None else {"params": params, "opt": opt}
 
 
-def load_state(cfg, state: dict, device):
-    model = bridge.load_jax_params(cfg, state["params"],
-                                   device=device).requires_grad_()
-    return model, bridge.load_opt_state(state["opt"], device=device)
+def state_like(cfg) -> dict:
+    """The global shape of the checkpointed state, at no memory: what a
+    checkpoint from any mesh must fit."""
+    tree = bridge.abstract_params(cfg)
+    return {"params": tree, "opt": adamw.AdamWState(
+        mu=tree, nu=tree, count=np.zeros((), np.int32))}
+
+
+def load_state(cfg, state: dict, device, mesh=None):
+    """The global state -> this rank's blocks of the model and moments."""
+    model = bridge.load_jax_params(cfg, state["params"], device=device,
+                                   mesh=mesh).requires_grad_()
+    return model, bridge.load_opt_state(state["opt"], device=device,
+                                        cfg=cfg, mesh=mesh)
 
 
 def run(args) -> int:
@@ -240,17 +257,30 @@ def run(args) -> int:
     rank, world, device = init_distributed(args.device)
     try:
         mesh = make_mesh_for(world, max_model=args.max_model)
-        if mesh.shape["model"] > 1:
+        refusal = _mesh_refusal(cfg, mesh)
+        if refusal is not None:
             if rank == 0:
-                print(f"mesh: {describe(mesh)}: a model axis > 1 is "
-                      f"tensor-parallel training, not ported yet; pass "
-                      f"--max-model 1 for a (data, 1) mesh",
-                      file=sys.stderr)
+                print(refusal, file=sys.stderr)
             return 2
         return _train(args, cfg, mesh, rank, world, device)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def _mesh_refusal(cfg, mesh) -> str | None:
+    """Why ``cfg`` does not train on ``mesh``'s model axis, or None."""
+    if mesh.shape["model"] == 1:
+        return None
+    if cfg.moe is not None:
+        return (f"mesh: {describe(mesh)}: {cfg.arch_id}'s MoE FFN over a "
+                f"model axis is the MoE TP / EP item of ROADMAP.md section "
+                f"1, not ported; pass --max-model 1")
+    try:
+        transformer.check_mesh(cfg, mesh)
+    except NotImplementedError as e:
+        return f"mesh: {describe(mesh)}: {e}; pass --max-model 1"
+    return None
 
 
 def _train(args, cfg, mesh, rank: int, world: int, device) -> int:
@@ -299,15 +329,15 @@ def _train(args, cfg, mesh, rank: int, world: int, device) -> int:
     if tc.remat.plan is not None and rank == 0:
         os.makedirs(args.ckpt_dir, exist_ok=True)
         tc.remat.plan.save(os.path.join(args.ckpt_dir, "remat_plan.json"))
-    model, opt = init_state(cfg, args.seed, device)
+    model, opt = init_state(cfg, args.seed, device, mesh)
     ls = init_loss_scale(tc, device)
     start_step, data_state = 0, 0
 
     latest = mgr.latest_intact_step()
     if latest is not None and not args.fresh:
-        restored, extra = mgr.restore(latest, train_state(model, opt),
+        restored, extra = mgr.restore(latest, state_like(cfg),
                                       config=cfg.arch_id)
-        model, opt = load_state(cfg, restored, device)
+        model, opt = load_state(cfg, restored, device, mesh)
         start_step = extra.get("step", latest)
         data_state = extra.get("data_state", 0)
         if tc.use_loss_scale and "loss_scale" in extra:
@@ -325,14 +355,18 @@ def _train(args, cfg, mesh, rank: int, world: int, device) -> int:
 
     def save(step):
         # ``step`` = completed steps; a resume continues there.  Every
-        # rank holds the same state: rank 0 writes it, the others wait
+        # rank calls train_state: rank 0's model group gathers the global
+        # state (its blocks, on a model axis), rank 0 writes it, the
+        # others wait
+        state = train_state(model, opt, mesh)
         if rank == 0:
             with maybe_span(tracer, "checkpoint", step=step, op="save"):
-                mgr.save(step, train_state(model, opt),
+                mgr.save(step, state,
                          extra={"step": step, "data_state": data_state,
                                 "loss_scale": float(ls.scale),
                                 "arch": cfg.arch_id},
                          config=cfg.arch_id)
+        del state
         if world > 1:
             dist.barrier()
 
@@ -397,15 +431,14 @@ def _train(args, cfg, mesh, rank: int, world: int, device) -> int:
                 if latest is None:
                     log("[guard] rollback with no checkpoint on disk — "
                         "restarting from init")
-                    model, opt = init_state(cfg, args.seed, device)
+                    model, opt = init_state(cfg, args.seed, device, mesh)
                     step, data_state = 0, 0
                 else:
                     with maybe_span(tracer, "checkpoint", step=latest,
                                     op="restore"):
                         restored, extra = mgr.restore(
-                            latest, train_state(model, opt),
-                            config=cfg.arch_id)
-                    model, opt = load_state(cfg, restored, device)
+                            latest, state_like(cfg), config=cfg.arch_id)
+                    model, opt = load_state(cfg, restored, device, mesh)
                     step = extra.get("step", latest)
                     data_state = extra.get("data_state", 0)
                     if tc.use_loss_scale and "loss_scale" in extra:
@@ -474,10 +507,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--accum", type=int, default=1)
     ap.add_argument("--max-model", type=int, default=16,
                     help="largest model (tensor-parallel) axis of the mesh "
-                         "make_mesh_for builds from the world size; only a "
-                         "(data, 1) mesh trains here, and two ranks give "
-                         "model 2 under the default: pass --max-model 1 "
-                         "for data parallelism (a model axis > 1 exits 2)")
+                         "make_mesh_for builds from the world size: two "
+                         "ranks give (data 1, model 2) under the default, "
+                         "(data 2, model 1) with --max-model 1")
     ap.add_argument("--policy", default="bf16",
                     choices=["full", "bf16", "fp16", "bf16_params",
                              "resid_bf16"],

@@ -25,13 +25,15 @@ prompts), as ``repro.models.attention.mla_block`` does -- no kernel lies on
 MLA's path in the reference, so none lies on the port's -- and
 :func:`mla_decode` attends in the latent space over a bf16 latent cache.
 
-Over a mesh's model axis (serving, ``transformer.forward(mesh=)``) a layer
-holds this rank's block of its weights, and the head counts come from the
-weights' shapes.  Heads mode: ``wq`` / ``wk`` / ``wv`` hold this rank's
-contiguous H / n query and Hkv / n KV heads (whole GQA groups), the flash
-and decode kernels run unchanged on them, and ``wo`` is row-parallel: its
-partial products are summed over the model axis
-(``collectives.model_all_reduce``).  Sequence mode (the heads do not
+Over a mesh's model axis (``transformer.forward(mesh=)``, serving and
+training) a layer holds this rank's block of its weights, and the head
+counts come from the weights' shapes.  Heads mode: ``wq`` / ``wk`` /
+``wv`` hold this rank's contiguous H / n query and Hkv / n KV heads
+(whole GQA groups), the flash and decode kernels run unchanged on them,
+and ``wo`` is row-parallel: its partial products are summed over the
+model axis (``collectives.reduce_from_model``); in training the layer's
+input enters through ``collectives.copy_to_model``, whose backward sums
+the heads' partial input gradients.  Sequence mode (the heads do not
 divide the axis): the projections are whole on every rank, the prefill
 attends over the whole prompt, and :func:`attn_decode` (``kv_shard=
 "seq"``) reads this rank's slice of the cache's sequence through
@@ -121,10 +123,10 @@ def gqa_attention(q, k, v, *, q_pos, k_pos, window: int = 0,
 
 def _row_parallel(out, wo, cfg, mesh):
     """``out @ wo``, summed over the model axis when ``wo`` holds only this
-    rank's rows (heads mode)."""
+    rank's rows (heads mode; the sum's backward is the identity)."""
     y = out @ wo
     if wo.shape[0] != cfg.n_heads * cfg.head_dim:
-        y = collectives.model_all_reduce(y, mesh)
+        y = collectives.reduce_from_model(y, mesh)
     return y
 
 
@@ -140,11 +142,16 @@ def attn_block(p, x, cfg, *, positions, window: int = 0,
     (``Policy.flash_resid_dtype``).  The head counts are the weights':
     this rank's heads on a mesh's model axis in heads mode (``wo``'s
     partial products then summed over ``mesh``'s model axis), all of them
-    otherwise."""
+    otherwise.  Under autograd in heads mode ``x`` enters through
+    ``collectives.copy_to_model``, so its gradient is summed over the
+    ranks' heads; in sequence mode every rank computes the whole
+    attention and its whole input gradient."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     h, hkv = p.wq.shape[1] // hd, p.wk.shape[1] // hd
     dt = x.dtype
+    if h != cfg.n_heads:               # heads mode: column-parallel q/k/v
+        x = collectives.copy_to_model(x, mesh)
     q = (x @ p.wq.to(dt)).reshape(b, s, h, hd)
     k = (x @ p.wk.to(dt)).reshape(b, s, hkv, hd)
     v = (x @ p.wv.to(dt)).reshape(b, s, hkv, hd)

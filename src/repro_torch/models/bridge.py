@@ -11,6 +11,12 @@ weights keep their ``(d_in, d_out)`` orientation, so every leaf is a
 plain copy.  The same layout carries the AdamW moments, so a training
 checkpoint of either package restores into the other.
 
+On a mesh's model axis each rank holds its block of every sharded leaf
+(``transformer.param_placement``): the loaders cut the global arrays
+(``mesh=``), and the exporters gather them back whole, one leaf at a
+time over the model group, on rank 0 (:func:`gather_named`), so a
+checkpoint holds the same global arrays whatever mesh wrote it.
+
 The CNN (``models/cnn.py``) has its own pair, :func:`load_cnn_params` and
 :func:`export_cnn_params`: the JAX CNN keeps ``blocks`` as a list of
 per-block dicts (not stacked), which become ``blocks.<i>.<name>``, and its
@@ -23,10 +29,13 @@ import numpy as np
 import torch
 
 from repro_torch.core.mixed_precision import Policy
+from repro_torch.distributed import collectives
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (MLA, SSM, Attention, Block,
                                             EncBlock, GeluMLP, MoE, SwiGLU,
-                                            Transformer, shard_fn)
+                                            Transformer, init_params,
+                                            param_placement, shard_fn)
 from repro_torch.optim.adamw import AdamWState
 
 _ATTN = ("wq", "wk", "wv", "wo")
@@ -110,10 +119,11 @@ def load_jax_params(cfg: ModelConfig, tree: dict, *, device="cuda",
     return model if policy is None else model.cast_to_compute(policy)
 
 
-def to_jax_tree(named: dict) -> dict:
+def to_jax_tree(named: dict, stack=np.stack) -> dict:
     """{port parameter name: tensor or array} -> a JAX-layout tree of numpy
     arrays, the ``blocks.<i>.*`` and ``enc_blocks.<i>.*`` leaves stacked
-    along a leading layer axis."""
+    along a leading layer axis (by ``stack``, given the layers' arrays in
+    order)."""
     tree: dict = {}
     layers: dict = {}
     for name, x in named.items():
@@ -128,9 +138,53 @@ def to_jax_tree(named: dict) -> dict:
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = np.stack([per_layer[i]
-                                   for i in range(len(per_layer))])
+        node[path[-1]] = stack([per_layer[i]
+                                for i in range(len(per_layer))])
     return tree
+
+
+def _abstract(shape, dtype=np.float32) -> np.ndarray:
+    """A read-only zero-stride array of ``shape``: a leaf's signature, no
+    memory."""
+    return np.broadcast_to(np.zeros((), dtype), tuple(shape))
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The JAX-layout tree of ``cfg``'s GLOBAL f32 parameter shapes, every
+    leaf a zero-stride array: what a checkpoint written at any mesh must
+    fit (``CheckpointManager.restore``'s ``like``), at no memory."""
+    named = {n: _abstract(p.shape) for n, p in
+             init_params(cfg, device="meta").named_parameters()}
+    return to_jax_tree(named, stack=lambda xs: _abstract(
+        (len(xs),) + xs[0].shape, xs[0].dtype))
+
+
+def gather_named(named: dict, cfg: ModelConfig, mesh) -> dict | None:
+    """{port name: this rank's block} -> {port name: the whole numpy
+    array} on rank 0 of the world, None on the other ranks.  Every rank
+    calls it; only the ranks of rank 0's model group (data coordinate 0)
+    take part: the sharded leaves are gathered over that group one at a
+    time, in name order, so no rank holds more than one whole leaf on the
+    device, and no other rank copies anything.  Without a mesh it is this
+    rank's own arrays."""
+    if mesh is None:
+        return {n: x.detach().cpu().numpy() for n, x in named.items()}
+    collectives.model_axis(mesh)       # the groups exist on every rank
+    if mesh_mod.coords(mesh).get("data", 0) != 0:
+        return None
+    specs = param_placement(cfg, mesh)
+    keep = mesh_mod.rank() == 0
+    out = {}
+    for name in sorted(named):
+        x = named[name].detach()
+        dim = None if specs is None else next(
+            (d for d, e in enumerate(specs[name]) if e is not None), None)
+        if dim is not None:
+            x = collectives.model_all_gather(x, mesh, dim=dim)
+        if keep:
+            out[name] = x.cpu().numpy()
+        del x
+    return out if keep else None
 
 
 def from_jax_tree(tree: dict) -> dict:
@@ -155,28 +209,44 @@ def from_jax_tree(tree: dict) -> dict:
     return named
 
 
-def export_params(model: Transformer) -> dict:
+def export_params(model: Transformer, mesh=None) -> dict | None:
     """The reverse of :func:`load_jax_params`: a JAX-layout tree of numpy
-    arrays with the per-layer leaves stacked along a leading layer axis."""
-    return to_jax_tree(dict(model.named_parameters()))
+    arrays with the per-layer leaves stacked along a leading layer axis.
+    With ``mesh`` every rank calls it and rank 0 gets the global arrays
+    (:func:`gather_named`), the others None."""
+    named = gather_named(dict(model.named_parameters()), model.cfg, mesh)
+    return None if named is None else to_jax_tree(named)
 
 
-def export_opt_state(state: AdamWState) -> AdamWState:
+def export_opt_state(state: AdamWState, mesh=None,
+                     cfg: ModelConfig | None = None) -> AdamWState | None:
     """The port's AdamW state -> the JAX layout: moments as stacked trees of
-    numpy arrays, the step count as a 0-d int32 array."""
-    return AdamWState(mu=to_jax_tree(state.mu), nu=to_jax_tree(state.nu),
+    numpy arrays, the step count as a 0-d int32 array.  With ``mesh`` (and
+    ``cfg``) the moments are gathered as :func:`export_params` gathers
+    their parameters: the global state on rank 0, None elsewhere."""
+    mu = gather_named(state.mu, cfg, mesh)
+    nu = gather_named(state.nu, cfg, mesh)
+    if mu is None:
+        return None
+    return AdamWState(mu=to_jax_tree(mu), nu=to_jax_tree(nu),
                       count=np.asarray(state.count.cpu().numpy(),
                                        dtype=np.int32))
 
 
-def load_opt_state(state, *, device="cuda") -> AdamWState:
+def load_opt_state(state, *, device="cuda", cfg: ModelConfig | None = None,
+                   mesh=None, rank: int | None = None) -> AdamWState:
     """A JAX-layout AdamW state (``mu``, ``nu``, ``count``, from either
-    package) -> the port's, on ``device``."""
+    package) -> the port's, on ``device``.  With ``mesh`` (and ``cfg``; a
+    model axis > 1) each moment is cut like its parameter
+    (``transformer.shard_fn``; ``rank`` defaults to this process's)."""
+    cut = shard_fn(cfg, mesh, rank)
+
+    def moments(tree):
+        return {n: _to_tensor(cut(n, a), device)
+                for n, a in from_jax_tree(tree).items()}
+
     return AdamWState(
-        mu={n: _to_tensor(a, device)
-            for n, a in from_jax_tree(state.mu).items()},
-        nu={n: _to_tensor(a, device)
-            for n, a in from_jax_tree(state.nu).items()},
+        mu=moments(state.mu), nu=moments(state.nu),
         count=_to_tensor(np.asarray(state.count, dtype=np.int32), device))
 
 

@@ -45,6 +45,16 @@ whole (:func:`head_logits`), so every rank holds the same logits before
 any host decision.  The dense GQA archs only: MoE, MLA, SSM and the
 encoder raise.
 
+Training over the model axis runs the same forward under autograd: the
+row-parallel sums are ``collectives.reduce_from_model`` (backward: the
+identity), and the replicated input of every column-parallel product
+(the FFN's, the attention's in heads mode, the final norm's output before
+the vocab-sharded head) enters through ``collectives.copy_to_model``,
+whose backward sums the ranks' partial gradients.  :func:`loss_fn`
+(``mesh=``) never gathers the vocab: :func:`vocab_parallel_ce` reduces
+the softmax's statistics over the axis, and its backward needs no
+collective.
+
 Public entry points:
   init_params(cfg, seed, ...)          -> Transformer
   forward(model, cfg, batch, ...)      -> (logits (B, S, V), aux)
@@ -60,6 +70,7 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -161,8 +172,9 @@ def ffn_apply(ffn, h, cfg, dtype=None, mesh=None):
     GELU MLP (aux 0.0), or the MoE (``moe.moe_ffn`` over a (B, S, D)
     view), its weights cast to ``dtype`` where they are used.  A SwiGLU
     holding this rank's columns of ``w_gate`` / ``w_up`` and rows of
-    ``w_down`` sums its output over ``mesh``'s model axis; the MoE refuses
-    a model axis > 1."""
+    ``w_down`` takes its input through ``collectives.copy_to_model`` and
+    sums its output over ``mesh``'s model axis; the MoE refuses a model
+    axis > 1."""
     if isinstance(ffn, MoE):
         return moe_mod.moe_ffn(ffn.weights(dtype), h, cfg,
                                mesh=mesh if _model_n(mesh) > 1 else None)
@@ -170,9 +182,12 @@ def ffn_apply(ffn, h, cfg, dtype=None, mesh=None):
     if isinstance(ffn, GeluMLP):
         return gelu_mlp(h, *(cast(getattr(ffn, n))
                              for n in GeluMLP.NAMES)), 0.0
+    parallel = ffn.w_down.shape[0] != cfg.d_ff      # this rank's columns
+    if parallel:
+        h = collectives.copy_to_model(h, mesh)
     out = swiglu(h, cast(ffn.w_gate), cast(ffn.w_up), cast(ffn.w_down))
-    if ffn.w_down.shape[0] != cfg.d_ff:              # row-parallel
-        out = collectives.model_all_reduce(out, mesh)
+    if parallel:                                     # row-parallel w_down
+        out = collectives.reduce_from_model(out, mesh)
     return out, 0.0
 
 
@@ -289,6 +304,17 @@ def param_shard_specs(cfg: ModelConfig, shapes, mesh) -> dict:
             if len(parts) > 1 and parts[-2] == "attn":
                 specs[name] = ()
     return specs
+
+
+def param_placement(cfg: ModelConfig, mesh) -> dict | None:
+    """``{name: spec}``: where each parameter (and its AdamW moments) lies
+    on ``mesh`` -- :func:`param_shard_specs` over the global shapes -- or
+    None without a model axis > 1 (every rank holds the whole model)."""
+    if _model_n(mesh) == 1:
+        return None
+    shapes = {n: tuple(p.shape) for n, p in init_params(
+        cfg, device="meta").named_parameters()}
+    return param_shard_specs(cfg, shapes, mesh)
 
 
 def shard_fn(cfg: ModelConfig, mesh, rank: int | None = None):
@@ -447,7 +473,7 @@ def _embed(model: Transformer, cfg: ModelConfig, tokens, mesh=None):
     x = e[local.clamp(0, v_l - 1)]
     x = torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype,
                                                     device=x.device))
-    return collectives.model_all_reduce(x, mesh)
+    return collectives.reduce_from_model(x, mesh)
 
 
 def head_logits(model: Transformer, cfg: ModelConfig, x, policy: Policy,
@@ -677,10 +703,61 @@ def _ce_terms(logits32, labels):
     return lse - label_logit
 
 
+class _VocabParallelCE(torch.autograd.Function):
+    """Per-token NLL from this rank's f32 block of the logits (the vocab
+    split over the model group); the forward reduces the row max (MAX),
+    the sum of ``exp`` and the label's shifted logit (SUM, non-zero on
+    the one rank whose block holds it) over the group.  The backward is
+    ``softmax_block - onehot_block`` times the upstream gradient, from
+    the saved block and the reduced statistics: no collective."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, offset: int, group):
+        sum_ = dist.ReduceOp.SUM
+        m = collectives.all_reduce_f32(logits.amax(dim=-1),
+                                       dist.ReduceOp.MAX, group)
+        shifted = logits - m[..., None]
+        total = collectives.all_reduce_f32(torch.exp(shifted).sum(dim=-1),
+                                           sum_, group)
+        local = labels.long() - offset
+        label_logit = collectives.all_reduce_f32(
+            torch.where(_hits(logits, local), shifted, torch.zeros(
+                (), device=shifted.device)).sum(dim=-1), sum_, group)
+        ctx.save_for_backward(logits, m, total, local)
+        return torch.log(total) - label_logit
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, m, total, local = ctx.saved_tensors
+        p = torch.exp(logits - m[..., None]) / total[..., None]
+        return ((p - _hits(logits, local).to(p.dtype)) * g[..., None],
+                None, None, None)
+
+
+def _hits(logits, local):
+    """(..., V_l) bool: where this block's vocab index is the label
+    (``local``: the label less the block's first global index)."""
+    return torch.arange(logits.shape[-1], device=logits.device) \
+        == local[..., None]
+
+
+def vocab_parallel_ce(logits32, labels, mesh):
+    """Per-token NLL (..., ) from ``logits32`` (..., V / n), this rank's f32
+    block of the vocab on ``mesh``'s model axis (its padded tail already
+    masked by global index), against global ``labels``: the reference's
+    CE (``repro/models/transformer.py:453-467``) with the vocab never
+    gathered.  Every rank gets the same NLL."""
+    group, n, r = collectives.model_axis(mesh)
+    if n == 1:
+        return _ce_terms(logits32, labels)
+    return _VocabParallelCE.apply(logits32, labels, r * logits32.shape[-1],
+                                  group)
+
+
 def loss_fn(model: Transformer, cfg: ModelConfig, batch: dict, *,
             policy: Policy = Policy.full(),
             remat: CheckpointConfig = CheckpointConfig(),
-            moe_aux_weight: float = 0.01, ce_chunk: int = 0):
+            moe_aux_weight: float = 0.01, ce_chunk: int = 0, mesh=None):
     """Mean next-token cross entropy over ``batch["loss_mask"]`` (default
     all ones), plus ``moe_aux_weight`` times the layers' mean MoE aux for
     an MoE arch -> (loss, {"nll": loss, "moe_aux": ...}); as in the JAX
@@ -690,31 +767,42 @@ def loss_fn(model: Transformer, cfg: ModelConfig, batch: dict, *,
     ``ce_chunk > 0`` the LM head and the softmax run per sequence chunk of
     that many tokens (the last one ragged), each under ``checkpoint``, so
     the (B, S, V) logits never exist at once: the peak holds one (B,
-    chunk, V) block, recomputed in the backward."""
+    chunk, V) block, recomputed in the backward.
+
+    ``mesh`` (a model axis > 1): ``model`` is this rank's block and the
+    head holds its block of the vocab.  The final hidden state enters the
+    head through ``collectives.copy_to_model`` and the CE is
+    :func:`vocab_parallel_ce` on this rank's (B, S, V / n) logits (per
+    chunk with ``ce_chunk``): the whole vocab never exists on one rank,
+    and every rank returns the same loss."""
     labels = batch["labels"]
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32,
                           device=labels.device)
-    if ce_chunk > 0:
+    if ce_chunk > 0 or model.head.shape[-1] != cfg.padded_vocab:
         hidden, aux = forward(model, cfg, batch, policy=policy, remat=remat,
-                              return_hidden=True)
+                              return_hidden=True, mesh=mesh)
+        hidden = collectives.copy_to_model(hidden, mesh)
         head = model.head.to(policy.compute_dtype)
+        off = collectives.model_axis(mesh)[2] * head.shape[-1]
 
-        def chunk_nll(x_c, lab_c, mask_c):
-            logits = _mask_padded_vocab((x_c @ head).float(), cfg)
-            return (_ce_terms(logits, lab_c) * mask_c).sum()
+        def block_nll(x_c, lab_c, mask_c):
+            logits = _mask_padded_vocab((x_c @ head).float(), cfg,
+                                        offset=off)
+            return (vocab_parallel_ce(logits, lab_c, mesh) * mask_c).sum()
 
-        if torch.is_grad_enabled():
-            chunk_nll = functools.partial(checkpoint, chunk_nll,
+        step = ce_chunk if ce_chunk > 0 else hidden.shape[1]
+        if ce_chunk > 0 and torch.is_grad_enabled():
+            block_nll = functools.partial(checkpoint, block_nll,
                                           use_reentrant=False)
-        total = sum(chunk_nll(hidden[:, c:c + ce_chunk],
-                              labels[:, c:c + ce_chunk],
-                              mask[:, c:c + ce_chunk])
-                    for c in range(0, hidden.shape[1], ce_chunk))
+        total = sum(block_nll(hidden[:, c:c + step], labels[:, c:c + step],
+                              mask[:, c:c + step])
+                    for c in range(0, hidden.shape[1], step))
         loss = total / torch.clamp(mask.sum(), min=1.0)
     else:
-        logits, aux = forward(model, cfg, batch, policy=policy, remat=remat)
+        logits, aux = forward(model, cfg, batch, policy=policy, remat=remat,
+                              mesh=mesh)
         nll = _ce_terms(logits.float(), labels)
         loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     if cfg.moe is not None:

@@ -16,6 +16,8 @@ import math
 
 import torch
 
+from repro_torch.distributed import collectives
+
 
 @dataclasses.dataclass
 class AdamWState:
@@ -75,16 +77,39 @@ def jax_layout_decay_mask(params: dict) -> dict:
             for n, p in params.items()}
 
 
+def _sum_squares(tensors) -> torch.Tensor:
+    return torch.stack([t.float().square().sum() for t in tensors]).sum()
+
+
 def global_norm(tensors) -> torch.Tensor:
-    return torch.sqrt(torch.stack([t.float().square().sum()
-                                   for t in tensors]).sum())
+    return torch.sqrt(_sum_squares(tensors))
+
+
+def sharded_global_norm(grads: dict, sharded: dict, mesh) -> torch.Tensor:
+    """The global norm of a model whose leaves named True in ``sharded``
+    are this rank's blocks over ``mesh``'s model axis: their squares
+    summed over the model group (one 0-d all-reduce), plus the
+    replicated leaves' squares counted once.  Every rank of the group
+    gets the same bits."""
+    split = [g for n, g in grads.items() if sharded[n]]
+    whole = [g for n, g in grads.items() if not sharded[n]]
+    sq = _sum_squares(split) if split else torch.zeros(
+        (), device=next(iter(grads.values())).device)
+    sq = collectives.reduce_from_model(sq, mesh)
+    return torch.sqrt(sq + _sum_squares(whole) if whole else sq)
 
 
 @torch.no_grad()
 def update(cfg: AdamWConfig, grads: dict, state: AdamWState, params: dict,
-           *, decay: dict | None = None, skip: torch.Tensor | None = None):
+           *, decay: dict | None = None, skip: torch.Tensor | None = None,
+           sharded: dict | None = None, mesh=None):
     """One step -> (params, state, {"grad_norm", "lr"}); ``params`` and the
-    moments are updated in place and returned.
+    moments are updated in place and returned.  On a mesh's model axis
+    (``mesh``, with ``sharded``: {name: True where the leaf is this rank's
+    block}) ``params``, ``grads`` and the moments are this rank's blocks
+    (the reference's ``opt_shard``: each moment placed as its parameter),
+    and the clip reads :func:`sharded_global_norm`, the whole model's
+    norm, so every rank clips by the same factor.
 
     ``decay`` ({name: bool}) says which parameters take weight decay;
     default: those of rank >= 2, the JAX rule, which is right wherever
@@ -93,7 +118,8 @@ def update(cfg: AdamWConfig, grads: dict, state: AdamWState, params: dict,
     package's are stacked, passes the JAX-layout ranks
     (:func:`jax_layout_decay_mask`).  ``skip`` (0-d bool tensor, True =
     skip) leaves parameters, moments and the step count as they were."""
-    gnorm = global_norm(grads.values())
+    gnorm = global_norm(grads.values()) if sharded is None \
+        else sharded_global_norm(grads, sharded, mesh)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0) if cfg.grad_clip > 0 else 1.0
     count = state.count + 1

@@ -14,15 +14,28 @@ transformer profile of the per-device microbatch) and builds the step.
     device (``torch.where``) without a host sync.
 The JAX package jits the step with mesh shardings; the port runs it
 eagerly on the device of the model.  With a ``launch/mesh.py`` ``Mesh``
-whose DP size (``sharding.dp_size``) is > 1, inside an initialized
-process group of that many ranks, each rank holds a full replica, takes
-its rows of the global batch (``sharding.batch_specs``), runs the step
-above on them (the flash kernels per rank, on the local batch, as the
-reference's ``shard_map`` runs them when only the batch shards), and
-all-reduces the f32 gradients, the loss and the finite flag to their
-global values before AdamW, so every rank takes the same update or the
-same skip.  A mesh whose model axis is > 1 (tensor parallelism) is not
-ported yet and raises.
+of (data, model) axes, inside an initialized process group of
+``mesh.size`` ranks (ranks row-major, the model axis innermost):
+
+  * each rank takes its rows of the global batch by its data coordinate
+    (``sharding.batch_specs``, :func:`local_batch`) and runs the step
+    above on them (the flash kernels per rank, on its local batch and
+    heads, as the reference's ``shard_map`` runs them);
+  * on a model axis > 1 (tensor parallelism) the model is this rank's
+    block of the f32 master weights (``transformer.param_placement``,
+    which the step carries as ``step.placement``),
+    ``transformer.loss_fn(mesh=)`` runs the column- / row-parallel
+    forward and the vocab-parallel CE, the gradients and both AdamW
+    moments are this rank's blocks, and the clip reads the whole model's
+    norm (``adamw.sharded_global_norm``).  The replicated leaves (the
+    norms; the attention in sequence mode) get the same gradient on
+    every rank by construction and take no model-axis reduction;
+  * the f32 gradients and the loss are averaged over the data axis's
+    group, and the finite flag is reduced with MIN over the whole world,
+    so every rank takes the same update or the same skip.
+
+The dense GQA archs train on a model axis > 1 (``transformer.check_mesh``);
+the MoE raises, naming tensor / expert parallelism for the MoE.
 """
 from __future__ import annotations
 
@@ -35,6 +48,7 @@ from repro_torch.core.checkpoint import CheckpointConfig
 from repro_torch.core.mixed_precision import (LossScale, get_policy,
                                               scaled_value_and_grad)
 from repro_torch.distributed import sharding as shd
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
@@ -111,40 +125,64 @@ def resolve_remat(cfg: ModelConfig, tc: TrainConfig, batch_sds: dict,
 def make_train_step(cfg: ModelConfig, tc: TrainConfig, batch_sds: dict,
                     mesh=None):
     """:func:`resolve_remat` then :func:`build_train_step` -> (step, the
-    resolved TrainConfig)."""
+    resolved TrainConfig); ``step.placement`` is this rank's placement of
+    the parameters and moments on ``mesh``
+    (``transformer.param_placement``), as the reference returns its
+    shardings beside its step."""
     tc = resolve_remat(cfg, tc, batch_sds, mesh=mesh)
     return build_train_step(cfg, tc, mesh=mesh), tc
 
 
-def _dp_group(mesh):
-    """The process group a step with ``mesh`` reduces over, or None (no
-    reduction): the default group whenever one is initialized (its size
-    must be the mesh's DP size), none for a DP size of 1 without one."""
+def _dp_view(mesh):
+    """``mesh`` as (data, model): its DP axes (pod, data) merged into one
+    "data" axis of ``sharding.dp_size`` ranks.  Ranks lie row-major with
+    the model axis innermost, so each rank keeps its place."""
+    return mesh_mod.Mesh(data=shd.dp_size(mesh),
+                         model=mesh.shape.get("model", 1))
+
+
+def _data_group(cfg: ModelConfig, mesh):
+    """The process group a step with ``mesh`` averages its gradients and
+    loss over, or None (no reduction): the default group on a (data, 1)
+    mesh whenever one is initialized, the data axis's group on a model
+    axis > 1 (None where the data axis is 1).  Raises where ``cfg`` does
+    not train on the mesh's model axis, and where the process group is
+    missing or of another size."""
     if mesh is None:
         return None
-    if "model" in mesh.axis_names and mesh.shape["model"] > 1:
-        raise NotImplementedError(
-            f"train step on {mesh}: a model axis > 1 is tensor-parallel "
-            f"training, which comes with the tensor-parallel slice of the "
-            f"distributed port; use a (data, 1) mesh")
-    n_dp = shd.dp_size(mesh)
+    n_model = mesh.shape.get("model", 1)
+    if n_model > 1:
+        if cfg.moe is not None:
+            raise NotImplementedError(
+                f"{cfg.arch_id} on {mesh}: the MoE does not train on a "
+                f"model axis > 1 (tensor / expert parallelism for the MoE "
+                f"is not ported)")
+        transformer.check_mesh(cfg, mesh)
     if not dist.is_initialized():
-        if n_dp > 1:
-            raise RuntimeError(f"train step on {mesh}: data parallelism "
+        if mesh.size > 1:
+            kind = "tensor" if n_model > 1 else "data"
+            raise RuntimeError(f"train step on {mesh}: {kind} parallelism "
                                f"needs an initialized process group")
         return None
-    if dist.get_world_size() != n_dp:
+    if dist.get_world_size() != mesh.size:
         raise RuntimeError(f"train step on {mesh}: the process group has "
-                           f"{dist.get_world_size()} ranks, the mesh's "
-                           f"DP size is {n_dp}")
-    return dist.group.WORLD
+                           f"{dist.get_world_size()} ranks, the mesh has "
+                           f"{mesh.size}")
+    if n_model == 1:
+        return dist.group.WORLD
+    return mesh_mod.axis_group(_dp_view(mesh), "data")
 
 
-def local_batch(cfg: ModelConfig, batch: dict, mesh, rank: int) -> dict:
-    """Rank ``rank``'s rows of a global batch: each leaf split along the
-    dim its ``sharding.batch_specs`` entry puts on the DP axes (axis 1 of
-    M-RoPE's (3, B, S) positions, axis 0 of everything else)."""
+def local_batch(cfg: ModelConfig, batch: dict, mesh,
+                rank: int | None = None) -> dict:
+    """The rows of a global batch that rank ``rank`` (default: this
+    process) trains on: each leaf split along the dim its
+    ``sharding.batch_specs`` entry puts on the DP axes (axis 1 of
+    M-RoPE's (3, B, S) positions, axis 0 of everything else), by the
+    rank's data coordinate (the ranks of one model group take the same
+    rows)."""
     n = shd.dp_size(mesh)
+    at = mesh_mod.coords(_dp_view(mesh), rank)["data"]
     out = {}
     for name, spec in shd.batch_specs(cfg, batch, mesh).items():
         x = batch[name]
@@ -153,7 +191,7 @@ def local_batch(cfg: ModelConfig, batch: dict, mesh, rank: int) -> dict:
             raise ValueError(f"batch leaf {name!r}: {x.shape[d]} rows do "
                              f"not split over {n} DP ranks")
         rows = x.shape[d] // n
-        out[name] = x.narrow(d, rank * rows, rows)
+        out[name] = x.narrow(d, at * rows, rows)
     return out
 
 
@@ -165,15 +203,23 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None):
     the step updates them and ``opt_state`` in place.  ``metrics`` are
     0-d device tensors: loss, grads_finite, grad_norm, lr.  With a DP
     mesh (see the module docstring) ``batch`` is the global batch, every
-    rank passes the same one, and the metrics are global."""
+    rank passes the same one, and the metrics are global; on a model axis
+    > 1 ``model`` is this rank's block (``init_params(mesh=)``,
+    ``bridge.load_jax_params(mesh=)``) and ``opt_state`` its moments
+    (``adamw.init`` on its parameters).  The step carries the placement
+    it trains (``transformer.param_placement``) as ``step.placement``."""
     policy = get_policy(tc.policy)
     if tc.accum < 1:
         raise ValueError(f"accum must be >= 1, got {tc.accum}")
-    group = _dp_group(mesh)
+    group = _data_group(cfg, mesh)
+    specs = transformer.param_placement(cfg, mesh)
+    sharded = None if specs is None else {
+        n: any(e is not None for e in spec) for n, spec in specs.items()}
+    reduce = group is not None or specs is not None
 
     def loss_for(model, mb):
         return transformer.loss_fn(model, cfg, mb, policy=policy,
-                                   remat=tc.remat)
+                                   remat=tc.remat, mesh=mesh)
 
     def compute_grads(model, ls, batch):
         vg = scaled_value_and_grad(loss_for, ls)
@@ -206,21 +252,26 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None):
             finite_acc
 
     def reduce_grads(loss, grads, finite):
-        """The DP mean of the loss and the f32 gradients, and the finite
-        flag of every rank (MIN), so all ranks step or skip together."""
-        n = dist.get_world_size(group)
-        grads = {k: g.contiguous() for k, g in grads.items()}
-        works = [dist.all_reduce(g, group=group, async_op=True)
-                 for g in grads.values()]
-        loss = loss.detach().clone()
+        """The DP mean of the loss and the f32 gradients over the data
+        group, and the finite flag of every rank of the world (MIN), so
+        all ranks step or skip together."""
         flag = finite.to(torch.int32)
-        dist.all_reduce(loss, group=group)
-        dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=group)
+        works = []
+        if group is not None:
+            grads = {k: g.contiguous() for k, g in grads.items()}
+            works = [dist.all_reduce(g, group=group, async_op=True)
+                     for g in grads.values()]
+            loss = loss.detach().clone()
+            dist.all_reduce(loss, group=group)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN)
         for w in works:
             w.wait()
-        for g in grads.values():
-            g.div_(n)
-        return loss / n, grads, flag.bool()
+        if group is not None:
+            n = dist.get_world_size(group)
+            for g in grads.values():
+                g.div_(n)
+            loss = loss / n
+        return loss, grads, flag.bool()
 
     decay: dict = {}
 
@@ -234,19 +285,21 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None):
         if decay.keys() != params.keys():   # rebuilt only for a new model
             decay.clear()
             decay.update(adamw.jax_layout_decay_mask(params))
-        if group is None:
+        if not reduce:
             loss, grads, finite = compute_grads(model, ls, batch)
         else:
             loss, grads, finite = reduce_grads(*compute_grads(
-                model, ls, local_batch(cfg, batch, mesh, dist.get_rank())))
+                model, ls, local_batch(cfg, batch, mesh)))
         skip = ~finite if (tc.use_loss_scale or tc.skip_nonfinite) else None
         _, opt_state, metrics = adamw.update(
-            tc.opt, grads, opt_state, params, decay=decay, skip=skip)
+            tc.opt, grads, opt_state, params, decay=decay, skip=skip,
+            sharded=sharded, mesh=mesh)
         new_ls = loss_scale.update(finite) if tc.use_loss_scale \
             else loss_scale
         metrics = {"loss": loss, "grads_finite": finite, **metrics}
         return model, opt_state, new_ls, metrics
 
+    train_step.placement = specs
     return train_step
 
 

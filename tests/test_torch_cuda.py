@@ -493,3 +493,41 @@ def test_selective_remat_relaunches_flash_on_card(dev, remat):
     assert float(loss) == float(loss0)
     for g, g0 in zip(grads, grads0):       # the same arithmetic, rerun
         assert float((g - g0).abs().max()) <= 1e-6 * float(g0.abs().max())
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_vocab_parallel_ce_backward_on_card(dev, n, monkeypatch):
+    """``transformer._VocabParallelCE`` on CUDA blocks, one process: the
+    group's three reductions (row max, sum of exp, label logit) done by
+    hand over every block, each block's NLL and logits' gradient against
+    ``_ce_terms`` on the whole logits under autograd (vocab 250, its dead
+    tail in the last block)."""
+    from repro_torch.distributed import collectives
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(configs.smoke_config("llama3-8b"), vocab=250)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    whole = torch.randn(2, 33, cfg.padded_vocab, generator=gen,
+                        device=dev) * 3
+    labels = torch.randint(0, cfg.vocab, (2, 33), generator=gen, device=dev)
+    upstream = torch.rand(2, 33, generator=gen, device=dev) + 0.5
+    masked = tf._mask_padded_vocab(whole, cfg)
+    ref = whole.clone().requires_grad_()
+    nll = tf._ce_terms(tf._mask_padded_vocab(ref, cfg), labels)
+    (nll * upstream).sum().backward()
+    v_l = cfg.padded_vocab // n
+    blocks = masked.split(v_l, dim=-1)
+    m = torch.stack([b.amax(-1) for b in blocks]).amax(0)
+    total = sum(torch.exp(b - m[..., None]).sum(-1) for b in blocks)
+    label = masked.gather(-1, labels[..., None].long())[..., 0] - m
+    for r, blk in enumerate(blocks):
+        hand = iter([m, total, label])      # the group's reductions, in order
+        monkeypatch.setattr(collectives, "all_reduce_f32",
+                            lambda x, op, group, hand=hand: next(hand))
+        x = blk.clone().requires_grad_()
+        got = tf._VocabParallelCE.apply(x, labels, r * v_l, object())
+        (got * upstream).sum().backward()
+        torch.cuda.synchronize()
+        err = float((got - nll).detach().abs().max())
+        assert err <= 1e-5 * float(nll.detach().abs().max())
+        want = ref.grad[..., r * v_l:(r + 1) * v_l]
+        assert float((x.grad - want).abs().max()) <= 1e-6

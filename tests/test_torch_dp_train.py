@@ -18,7 +18,9 @@ and its own mesh tests are too slow on emulated devices to run here.
   * ``launch.train`` under torchrun's environment: 2 ranks with
     ``--max-model 1`` print the mesh banner and train, a checkpoint they
     write resumes at 1 rank with the losses of an uninterrupted 1-rank
-    run, and 2 ranks without ``--max-model 1`` (model axis 2) exit 2.
+    run, and 2 ranks without ``--max-model 1`` make a model axis of 2:
+    the (1, 2) mesh trains (``tests/test_torch_tp_train.py`` holds its
+    numbers) and an MoE arch there exits 2.
 
 Tolerances: losses and grad norms 1e-5 relative to JAX's (two f32
 implementations that sum in different orders; measured <= 4e-7).  The
@@ -403,14 +405,23 @@ def test_cli_two_ranks_then_elastic_resume_at_one(tmp_path):
 
 
 def test_cli_two_ranks_need_max_model_one(tmp_path):
+    # without --max-model 1, two ranks train on (data 1, model 2)
     outs = _cli(2, tmp_path, "--steps", "1", "--fresh")
+    assert [rc for rc, _, _ in outs] == [0, 0], outs[0][2][-2000:]
+    assert "mesh: data=1 x model=2 (2 devices)" in outs[0][1]
+    assert "step     0 loss" in outs[0][1] and outs[1][1] == ""
+    # an MoE arch there exits 2, naming the MoE's model-axis item
+    outs = _cli(2, tmp_path / "moe", "--arch", "deepseek-moe-16b",
+                "--steps", "1", "--fresh")
     assert [rc for rc, _, _ in outs] == [2, 2]
-    assert "--max-model 1" in outs[0][2]
+    assert "--max-model 1" in outs[0][2] and "MoE TP / EP" in outs[0][2]
     assert "model=2" in outs[0][2]
     help_ = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
                             "--help"], env=_env(), capture_output=True,
                            text=True, timeout=JOIN_S)
-    assert "--max-model 1" in " ".join(help_.stdout.split())
+    text = " ".join(help_.stdout.split())
+    assert "(data 1, model 2) under the default" in text
+    assert "--max-model 1" in text
 
 
 if __name__ == "__main__":

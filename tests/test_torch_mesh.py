@@ -367,8 +367,14 @@ def test_train_profile_per_device_equals_jax(arch, shape, axes):
 
 def test_trainer_refuses_a_model_axis():
     cfg = configs.smoke_config("llama3-8b")
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+    # tensor parallelism trains, over a process group of the mesh's size
+    with pytest.raises(RuntimeError, match="process group"):
         ts.build_train_step(cfg, ts.TrainConfig(),
+                            mesh=tmesh.Mesh(data=1, model=2))
+    # the MoE does not shard over the model axis
+    with pytest.raises(NotImplementedError, match="MoE"):
+        ts.build_train_step(configs.smoke_config("deepseek-moe-16b"),
+                            ts.TrainConfig(),
                             mesh=tmesh.Mesh(data=1, model=2))
     with pytest.raises(RuntimeError, match="process group"):
         ts.build_train_step(cfg, ts.TrainConfig(),
