@@ -139,11 +139,13 @@ JSON object per line:
    building its block of the f32 master weights and AdamW state from
    ``--seed``, one sub-phase after another: (a) llama3-8b at full width,
    ``TPT_A_LAYERS`` layers, f32, 1 x ``TPT_A_SEQ``, ``TPT_A_STEPS``
-   steps on (1, 2) (heads mode); (b) the ``train`` cell (4 layers, bf16,
-   1 x 4096) on (1, 2); (c) glm4-9b at ``TPT_C_LAYERS`` of its 40
-   layers, bf16, on (1, 4) (sequence mode: the attention whole on every
-   rank, the FFN and the vocab split); (b) and (c) one warm-up and 3
-   timed steps.  Before each spawn the unsharded run of the same seed,
+   steps on (1, 2) (heads mode); (b) the ``train`` cell's llama3-8b
+   cut to ``TPT_B_LAYERS`` (2) layers, bf16, at 1 x ``TPT_BC_SEQ``
+   (1024) on (1, 2), its ranks started with (a)'s; (c) glm4-9b at
+   ``TPT_C_LAYERS`` of its 40 layers, bf16, 1 x 1024, on (1, 4)
+   (sequence mode: the attention whole on every rank, the FFN and the
+   vocab split); (b) and (c) one warm-up and 3 timed steps.  Before
+   each sub-phase's ranks use it, the unsharded run of the same seed,
    batch and config runs here (in bf16 also its f32 control), each
    rank's windows of the saved leaves' first-step gradients (a column-
    and a row-parallel leaf of the middle layer, the embedding, the head,
@@ -158,6 +160,26 @@ JSON object per line:
    under each planted fault (``TPT_FAULTS``; in (a) also the steps under
    a moment one row off its parameter), each beyond a bound; the peak,
    the median step time beside the unsharded run's;
+7d. ``moe_tp``: the MoE FFN over a model axis (``models/moe.py`` with
+   ``mesh=``), ranks spawned as in 7c and 6c, one sub-phase after
+   another: (a) deepseek-moe-16b TP-experts (``w_gate`` / ``w_up`` /
+   ``w_down`` and the shared experts split on F), f32, 2 layers, 1 x
+   1024, 3 steps on (1, 2); (b) granite-moe-3b-a800m with
+   ``expert_mode="ep"`` (10 of its 40 experts a rank), likewise on
+   (1, 4); both as 7c's (a) (``MOE_TP_BOUNDS``), the saved leaves the
+   middle layer's router, ``w_gate``, ``w_down``, shared experts and
+   ``ln2``, the embedding and the head, and every routing call of the
+   first step (its forward and its recompute) against the unsharded
+   run's: the top-k indices, equal or different only at near-ties (the
+   ``moe_model`` rule), and the kept assignments, each rank's (TP) or
+   the ranks' sum (EP) equal call for call; (c) deepseek TP serving,
+   bf16, 4 layers on (1, 2): the serve cell's engine and trace and the
+   teacher-forced steps, as 6c's (c); (d) granite EP serving, bf16, 2
+   layers on (1, 4), teacher-forced (routing reported, ungated in
+   bf16); (c) and (d)'s ranks at once, within ``MOE_TP_BOUND_C`` /
+   ``_D`` (3x the larger of the sound reading and the bf16 control).
+   Each sub-phase is read again under its planted faults
+   (``MOE_TP_FAULTS``), each beyond a bound;
 8. ``train_plan``: the ``train`` configuration from the same weights and
    batch under eight remat settings: (a) off, (b) ``full`` on every block,
    (c) the trainer's ``--remat auto`` without a budget (its
@@ -249,7 +271,7 @@ JSON object per line:
     cache (tokens held by ``hold_to``, decode launches exact), and
     full-depth hymba at batch 8, s_max 4096: each cache's bytes against
     the arithmetic, to the byte, and ms/token over ``TWO_TIER_TIMED``
-    (32) steps from position 0 and from 4063;
+    (16) steps from position 0 and from 4079;
 21. ``kernel`` lines for the MoE family and glm4-9b, each arch's
     attention heads (glm4-9b 32 / 2 of 128, G=16;
     deepseek-moe-16b 16 / 16 of 128, G=1; granite-moe-3b-a800m 24 / 8 of
@@ -302,7 +324,7 @@ JSON object per line:
     ``model`` line's tolerances, the launches exact in each part (none
     for MLA: no kernel lies on the reference's MLA path);
 27. ``serve_mla``: ``launch/serve.py``'s lockstep for minicpm3-4b at full
-    width and depth (batch 8, prompt 2048, 32 new tokens, bf16 latent
+    width and depth (batch 8, prompt 1024, 16 new tokens, bf16 latent
     cache) after a one-step warm-up, no kernel launched, then
     ``torch.profiler`` over its prefill and first 4 decode steps;
 28. ``kernel`` lines for whisper-base and qwen2-vl-2b: the flash forward
@@ -337,8 +359,8 @@ JSON object per line:
 32. the ``{"kernels": [...]}`` summary (each row with its launches in
     ``serve_variants`` and ``train_variants`` by arch, in
     ``serve_encdec``, in ``train_dp`` (a) and each rank of (b), in
-    ``train_tp`` (a)-(c), rank 0's, and in ``serve_tp`` (b)-(d), rank
-    0's, beside; the decode rows with
+    ``train_tp`` (a)-(c), rank 0's, in ``moe_tp`` (a)-(d), rank 0's,
+    and in ``serve_tp`` (b)-(d), rank 0's, beside; the decode rows with
     ``serve_tp`` (a)'s partials times; the head_dim 160 rows apart, with
     stablelm-12b's launches), the ``nvidia-smi`` line, and last
     ``{"ok": true, "device": {...}}``.
@@ -405,8 +427,8 @@ SSM_MEM_LAYERS = 8
 # s_max (its window stays hymba's 1024)
 TWO_TIER_WINDOW, TWO_TIER_STEPS, TWO_TIER_SMAX = 64, 160, 4096
 # two_tier (b)'s timed decode steps from each start (64 until the whole
-# run needed room for train_tp)
-TWO_TIER_TIMED = 32
+# run needed room for train_tp, 32 until it needed room for moe_tp)
+TWO_TIER_TIMED = 16
 SSD_BWD_SRC = "src/repro_torch/kernels/csrc/ssd_bwd.cu"
 SSD_BWD_SM90_SRC = "src/repro_torch/kernels/csrc/ssd_bwd_sm90.cu"
 SSD_REF_JAX = "src/repro/kernels/ssd/ref.py:22"    # what JAX differentiates
@@ -433,7 +455,9 @@ VARIANT_TRAIN_LAYERS = {"glm4-9b": 4, "deepseek-moe-16b": 2,
                         "minicpm3-4b": 24}
 # head_dim 160 (stablelm-12b: 32 / 8 heads, G = 4) and MLA (minicpm3-4b)
 HEAD160, MLA_ARCH = "stablelm-12b", "minicpm3-4b"
-MLA_BATCH, MLA_PROMPT, MLA_GEN = 8, 2048, 32    # the serve_mla lockstep
+# the serve_mla lockstep (prompt 2048 and 32 new tokens until the whole
+# run needed room for moe_tp)
+MLA_BATCH, MLA_PROMPT, MLA_GEN = 8, 1024, 16
 # whisper-base and qwen2-vl-2b: whisper's lockstep (batch, prompt, new
 # tokens: 256 of its 448-token text context) and its train batch (16 x the
 # 448-token context, 1500 frames a row); qwen2-vl's train sequence opens
@@ -489,17 +513,24 @@ TP_BOUND_C, TP_BOUND_D = 3 * 0.013889, 3 * 0.0071839
 # and (sequence mode) shard 0's softmax partials dropped from the merge
 TP_FAULTS = ("w_down_mid", "w_down_all", "merge_drop0")
 # train_tp: tensor-parallel training, ranks spawned on this card over gloo
-# (--tp-train-child), one sub-phase after another: (a) llama3-8b at
-# full width, TPT_A_LAYERS layers, f32, 1 x TPT_A_SEQ, TPT_A_STEPS steps
-# on (1, 2); (b) the train cell (4 layers, bf16, 1 x 4096) on (1, 2);
-# (c) glm4-9b at TPT_C_LAYERS of its 40 layers, bf16, 1 x 4096, on (1,
-# 4): TPT_WARMUP warm-up and TPT_TIMED timed steps.  Each rank's peak is
+# (--tp-train-child): (a) llama3-8b at full width, TPT_A_LAYERS layers,
+# f32, 1 x TPT_A_SEQ, TPT_A_STEPS steps on (1, 2); (b) the train cell's
+# llama3-8b at TPT_B_LAYERS layers, bf16, 1 x TPT_BC_SEQ, on (1, 2), its
+# ranks started with (a)'s; then (c) glm4-9b at TPT_C_LAYERS of its 40
+# layers, bf16, 1 x TPT_BC_SEQ, on (1, 4): (b) and (c) TPT_WARMUP
+# warm-up and TPT_TIMED timed steps.  Each rank's peak is
 # reckoned before its spawn from the train phase's bytes per parameter;
 # a sub-phase whose ranks together pass TPT_FIT_BYTES is cut in depth
 TPT_A_LAYERS, TPT_A_SEQ, TPT_A_STEPS = 2, 1024, 3
 TPT_C_LAYERS = 4
+# (b)'s depth and (b) and (c)'s sequence: the train cell's 4 layers at
+# 1 x TRAIN_SEQ (4096) until the whole run needed room for moe_tp (gloo's
+# host-staged reductions grow with the tokens; at 2 layers (b)'s
+# unsharded run fits beside (a)'s ranks, which end before (b)'s allocate)
+TPT_B_LAYERS, TPT_BC_SEQ = 2, 1024
 TPT_WARMUP, TPT_TIMED = 1, 3
 TPT_WINDOW = 8192       # vocab entries of each rank's embed / head block read
+TPT_EXPERT_WINDOW = 8   # experts of each rank's expert block read (moe_tp)
 TPT_JOIN_S = 420
 TPT_FIT_BYTES = 76e9
 # the gates: max |diff| over the unsharded run's, the losses and grad
@@ -525,14 +556,14 @@ TPT_A_BOUNDS = {"loss": 1e-5, "grad_norm": 1e-5, "grads": 1e-4,
 # leaf's largest ("params_max_grad") are reported beside, ungated
 TPT_A_GRAD_FLOOR = 1e-3
 TPT_BOUNDS = {
-    # (b) readings: sound 3.726e-5 / 9.600e-5 / 0.01743, the bf16 control
-    # 2.156e-5 / 2.061e-4 / 0.02197
-    "b": {"loss": 3 * 3.726e-5, "grad_norm": 3 * 2.061e-4,
-          "grads": 3 * 0.02197},
-    # (c) readings: sound 2.627e-5 / 3.593e-4 / 0.01705, the control
-    # 5.093e-5 / 4.185e-4 / 0.02301
-    "c": {"loss": 3 * 5.093e-5, "grad_norm": 3 * 4.185e-4,
-          "grads": 3 * 0.02301}}
+    # (b) readings at 2 layers, 1 x 1024 (PR 30): sound 3.591e-5 /
+    # 1.071e-4 / 0.01761, the bf16 control 5.362e-5 / 2.236e-4 / 0.02238
+    "b": {"loss": 3 * 5.362e-5, "grad_norm": 3 * 2.236e-4,
+          "grads": 3 * 0.02238},
+    # (c) readings at 1 x 1024 (PR 30): sound 4.043e-5 / 3.206e-4 /
+    # 0.01544, the control 7.045e-5 / 2.648e-4 / 0.02904
+    "c": {"loss": 3 * 7.045e-5, "grad_norm": 3 * 3.206e-4,
+          "grads": 3 * 0.02904}}
 # the planted faults each sub-phase's first step is read again under:
 # copy_to_model's backward sum dropped at the middle layer's FFN input;
 # the vocab-parallel CE's sum of exp left unreduced on every rank; and
@@ -542,6 +573,39 @@ TPT_BOUNDS = {
 # block, and reads the parameters after them
 TPT_FAULTS = ("copy_mid_ffn", "ce_sum_unreduced", "copy_seq_attn",
               "nu_shifted")
+# moe_tp: the MoE FFN over a model axis, ranks on this card over gloo as
+# in train_tp and serve_tp, one sub-phase after another: (a) deepseek-
+# moe-16b TP-experts, f32, 1 x MOE_TP_SEQ, MOE_TP_STEPS steps on (1, 2);
+# (b) granite-moe-3b-a800m expert-parallel (expert_mode "ep": 10 of its
+# 40 experts a rank), f32, likewise on (1, 4); (c) deepseek TP serving,
+# bf16, on (1, 2): the serve cell's engine and trace and the teacher-forced
+# steps; (d) granite EP serving, bf16, on (1, 4), teacher-forced.  Depths:
+MOE_TP_LAYERS = {"a": 2, "b": 2, "c": 4, "d": 2}
+MOE_TP_SEQ, MOE_TP_STEPS = 1024, 3
+# the gates of (a) and (b), f32 (train_tp (a)'s; the update-norm reading
+# "params" is reported beside, ungated): losses and grad norms relative,
+# step-1 gradients of the saved leaves over each leaf's largest, the
+# parameters after the steps over the leaf's largest where the step-1
+# gradient is at least TPT_A_GRAD_FLOOR of the leaf's largest
+MOE_TP_BOUNDS = {"loss": 1e-5, "grad_norm": 1e-5, "grads": 1e-4,
+                 "params_floor": 1e-5}
+# (c) / (d) bf16: the teacher-forced logits' bounds, the prefill's and
+# the decode steps', each 3x the larger of the sound reading and the bf16
+# control (one H100, PERF.md PR 30; bf16 routing flips at random weights
+# make both large): (c) prefill sound 0.08061, control 0.07015; decode
+# sound 0.21526, control 0.24206; (d) prefill sound 0.11803, control
+# 0.12214; decode sound 0.21122, control 0.25782
+MOE_TP_BOUND_C = {"prefill": 3 * 0.08061, "decode": 3 * 0.24206}
+MOE_TP_BOUND_D = {"prefill": 3 * 0.12214, "decode": 3 * 0.25782}
+# the planted faults each sub-phase is read again under: the last rank's
+# MoE partial left out of the sum at the middle layer; every rank's
+# experts taken from offset 0; copy_to_model left off the combine weights
+# (the router's gradient a rank's partial); copy_to_model put on the
+# router's input (the aux's input gradient summed over the model axis)
+MOE_TP_FAULTS = {"a": ("moe_partial_dropped", "combine_weights_unsummed",
+                       "router_input_summed"),
+                 "b": ("ep_offset_zero", "combine_weights_unsummed"),
+                 "c": ("moe_partial_dropped",), "d": ("ep_offset_zero",)}
 # the reference for the baseline's accuracy: examples/cifar_optorch.py's
 # train("baseline", *make_cifar_like(n=2048, seed=0), 200), the JAX
 # package on the CPU: mean accuracy of its last 20 steps
@@ -1334,8 +1398,9 @@ class Smoke:
 
     def _spawn_tp(self, specs: list, tmp: str, flag: str = "--tp-child",
                   join_s: int = TP_JOIN_S, meanwhile=None) -> list:
-        """For each (spec, world) of ``specs``, ``world`` ranks (``flag``:
-        ``--tp-child`` or ``--tp-train-child``) on this card over gloo
+        """For each (spec, world) of ``specs``, ``world`` ranks (the spec's
+        ``flag``, else ``flag``: ``--tp-child`` or ``--tp-train-child``)
+        on this card over gloo
         (NCCL takes one rank a device), all started together, then
         ``meanwhile()`` here while they start, each joined with a timeout
         and all killed if one fails; -> each spec's list of its ranks'
@@ -1352,7 +1417,8 @@ class Smoke:
                 pathlib.Path(path).write_text(json.dumps(spec))
                 groups.append((spec, [subprocess.Popen(
                     [sys.executable, str(pathlib.Path(__file__).resolve()),
-                     flag, f"{path},{r}"], stdout=subprocess.PIPE,
+                     spec.get("flag", flag), f"{path},{r}"],
+                    stdout=subprocess.PIPE,
                     stderr=subprocess.STDOUT, text=True)
                     for r in range(world)]))
             if meanwhile is not None:
@@ -1362,7 +1428,8 @@ class Smoke:
                     out, _ = p.communicate(timeout=join_s)
                     if p.returncode != 0:
                         raise RuntimeError(
-                            f"{flag} ({spec['part']}) rank {r} exited "
+                            f"{spec.get('flag', flag)} ({spec['part']}) "
+                            f"rank {r} exited "
                             f"{p.returncode}:\n{out[-4000:]}")
         finally:
             for _, procs in groups:
@@ -1376,7 +1443,8 @@ class Smoke:
     def _tp_reference(self, model, cfg, policy: str, tmp: str,
                       part: str) -> tuple[str, dict | None]:
         """The unsharded teacher-forced run in this process (its own
-        greedy tokens), saved for the ranks; in bf16 also the bf16
+        greedy tokens; an MoE's routing calls beside), saved for the
+        ranks; in bf16 also the bf16
         control: the same weights at f32 (policy ``full``) fed the same
         tokens, the bf16 run's logits against its.  -> (the file, the
         control's ``_tf_compare`` or None)."""
@@ -1385,10 +1453,14 @@ class Smoke:
         prompts = torch.randint(0, cfg.vocab, (TP_BATCH, TP_PROMPT),
                                 generator=gen, device=self.dev,
                                 dtype=torch.int32)
-        logits, tokens, cache = tp_forced(model, cfg, policy, prompts)
+        routing = []
+        with _routing_spy(routing, cfg.n_layers * (TP_STEPS + 1)
+                          if cfg.moe is not None else 0):
+            logits, tokens, cache = tp_forced(model, cfg, policy, prompts)
         path = os.path.join(tmp, f"{part}.ref.pt")
         torch.save({"prompts": prompts.cpu(), "tokens": tokens,
-                    "logits": logits, "cache": cache}, path)
+                    "logits": logits, "cache": cache,
+                    "routing": routing}, path)
         control = None
         if policy == "bf16":
             m32 = copy.deepcopy(model).float()
@@ -1434,8 +1506,8 @@ class Smoke:
         ``TP_B_LAYERS`` layers, teacher-forced; (c) heads mode, llama3-8b
         at ``TP_C_LAYERS`` layers in bf16 on (1, 2): the serve cell's
         engine and trace and the teacher-forced logits; (d) sequence mode,
-        glm4-9b at ``GLM_TP_LAYERS`` layers on (1, 4), likewise, (c)'s
-        ranks and (d)'s at once.  The ranks are ``--tp-child`` processes
+        glm4-9b at ``GLM_TP_LAYERS`` layers on (1, 4), likewise; (b)'s,
+        (c)'s and (d)'s ranks at once.  The ranks are ``--tp-child`` processes
         on this card over gloo, which stages every reduction through the
         host: the times are a correctness run's, not tensor parallelism's
         speed."""
@@ -1458,8 +1530,8 @@ class Smoke:
         parts, checks = {}, {}
         try:
             tb = time.time()
-            parts["b"] = self.serve_tp_b(cfg, tmp)
-            secs["b"] = time.time() - tb
+            cfg_b, ref_b = self._serve_tp_b_reference(cfg, tmp)
+            secs["b_ref"] = time.time() - tb
             # (c)'s and (d)'s unsharded runs: llama3-8b and glm4-9b cut to
             # TP_C_LAYERS and GLM_TP_LAYERS
             tc = time.time()
@@ -1472,14 +1544,20 @@ class Smoke:
             trace_d, unsharded_d, ref_d, control_d = self._tp_unsharded(
                 cfg_d, "d", tmp)
             secs["d_ref"] = time.time() - td
-            # (c)'s two ranks (heads mode) and (d)'s four (sequence mode)
-            # at once: six processes share the card and the host
+            # (b)'s and (c)'s two ranks (heads mode) and (d)'s four
+            # (sequence mode) at once: eight processes share the card and
+            # the host
             tcd = time.time()
-            ranks_c, ranks_d = self._spawn_tp([
+            ranks_b, ranks_c, ranks_d = self._spawn_tp([
+                (dict(part="b", cfg=cfg_b, policy="full", ref=ref_b,
+                      engine=False), 2),
                 (dict(part="c", cfg=cfg_c, policy="bf16", ref=ref_c,
                       engine=True), 2),
                 (dict(part="d", cfg=cfg_d, policy="bf16", ref=ref_d,
                       engine=True), 4)], tmp)
+            parts["b"] = self._tp_part(
+                ranks_b, cfg_b, "full", engine=None,
+                bounds={"prefill": TP_B_PREFILL, "decode": TP_B_DECODE})
             parts["c"] = self._tp_part(
                 ranks_c, cfg_c, "bf16", engine=unsharded_c,
                 n_req=len(trace),
@@ -1490,7 +1568,7 @@ class Smoke:
                 n_req=len(trace_d),
                 bounds={"prefill": TP_BOUND_D, "decode": TP_BOUND_D},
                 control=control_d)
-            secs["c_d_ranks"] = time.time() - tcd
+            secs["b_c_d_ranks"] = time.time() - tcd
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         checks["a"] = all(r["ok"] for r in part_a)
@@ -1518,10 +1596,10 @@ class Smoke:
             "gloo_note": "gloo stages every reduction through the host",
             "phase_seconds": secs, "seconds": time.time() - t0})
 
-    def serve_tp_b(self, cfg, tmp: str) -> dict:
-        """``serve_tp`` (b): ``cfg`` at ``TP_B_LAYERS`` layers, f32, on
-        (1, 2): the unsharded teacher-forced run here, then the two
-        ranks."""
+    def _serve_tp_b_reference(self, cfg, tmp: str) -> tuple:
+        """``serve_tp`` (b)'s config (``cfg`` at ``TP_B_LAYERS`` layers,
+        f32) and its unsharded teacher-forced run's file, every device
+        tensor freed after."""
         torch = self.torch
         from repro_torch.models import transformer
         cfg_b = dataclasses.replace(cfg, n_layers=TP_B_LAYERS)
@@ -1531,11 +1609,7 @@ class Smoke:
         del m_b
         gc.collect()
         torch.cuda.empty_cache()
-        ranks, = self._spawn_tp([(dict(part="b", cfg=cfg_b, policy="full",
-                                       ref=ref_b, engine=False), 2)], tmp)
-        return self._tp_part(ranks, cfg_b, "full", engine=None,
-                             bounds={"prefill": TP_B_PREFILL,
-                                     "decode": TP_B_DECODE})
+        return cfg_b, ref_b
 
     def _tp_part(self, ranks: list, cfg, policy: str, engine: dict | None,
                  n_req: int = 0, *, bounds: dict, control=None) -> dict:
@@ -1589,6 +1663,13 @@ class Smoke:
                 <= bounds["decode"]
             out["bounds"] = bounds
             out["bf16_control"] = control
+            if "routing" in tf[0]:
+                # bf16: reported, not gated (a bf16 partial sum moves the
+                # router's input by more than its f32 near-ties)
+                out["routing"] = _routing_summary(
+                    tf, tf[0]["routing"]["ref_kept"],
+                    ep=cfg.moe.expert_mode == "ep",
+                    key=lambda t: t["routing"])
             faults = [r["faults"] for r in ranks]
             out["faults"] = faults[0]
             for f in faults[0]:
@@ -2141,14 +2222,18 @@ class Smoke:
         return lines
 
 
-    def _profile(self, fn):
+    def _profile(self, fn, host: bool = True):
         """``torch.profiler`` over ``fn()``: (wall s, device busy s, rows of
         (device us, kernel name, launches)), busiest first.  The SSD op's,
         the MoE FFN's and the encoder-decoder's ranges go to
-        ``last_scopes`` instead of the rows."""
+        ``last_scopes`` instead of the rows.  ``host=False`` records the
+        device's activity only: the same rows, no ranges, and a
+        ``key_averages()`` several times cheaper where the host dispatches
+        many operators."""
         from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA] if not host
+                     else [ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
             t0 = time.time()
             out = fn()
             self.sync()
@@ -2194,9 +2279,10 @@ class Smoke:
                               .astype(np.int32), PROFILE_NEW)
                  for _ in range(PROFILE_REQUESTS)]
         engine.reset()
-        summary, wall, busy_s, rows = self._profile(lambda: engine.run(trace))
+        summary, wall, busy_s, rows = self._profile(
+            lambda: engine.run(trace), host=False)
         rounds, d_wall, d_busy, d_rows = self._decode_window(
-            engine, cfg, PROFILE_WINDOW)
+            engine, cfg, PROFILE_WINDOW, host=False)
         self.decode_round_device_ms = d_busy / rounds * 1e3
         return self.record({
             "phase": "profile", "wall_s": wall, "device_busy_s": busy_s,
@@ -2310,7 +2396,7 @@ class Smoke:
             and launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == 0,
         }
 
-    def _decode_window(self, engine, cfg, steps: int):
+    def _decode_window(self, engine, cfg, steps: int, host: bool = True):
         """``torch.profiler`` over ``steps`` engine steps that only decode:
         8 requests of 256 prompt tokens admitted first (one a step), then
         nothing to admit.  Returns (decode rounds, wall s, device busy s,
@@ -2324,7 +2410,7 @@ class Smoke:
             engine.step()
         rounds = engine.n_decode_rounds
         _, wall, busy, rows = self._profile(
-            lambda: [engine.step() for _ in range(steps)])
+            lambda: [engine.step() for _ in range(steps)], host=host)
         rounds = engine.n_decode_rounds - rounds
         for rid in rids:
             engine.cancel(rid)
@@ -2344,7 +2430,7 @@ class Smoke:
         self.train_launches = launches
         self.train_records = list(records[:7])  # warm-up and timed steps
         self.train_bytes_per_param = peak / n_params
-        _, wall, busy_s, rows = self._profile(run["one_step"])
+        _, wall, busy_s, rows = self._profile(run["one_step"], host=False)
         peak = run["peak"] = self.torch.cuda.max_memory_allocated(self.dev)
         timed = records[2:7]
         step_s = statistics.median(r["step_s"] for r in timed)
@@ -2535,10 +2621,12 @@ class Smoke:
         """Tensor-parallel training (see the module docstring, item 7c):
         for each sub-phase the unsharded run here (in bf16 also its f32
         control), each rank's windows of it saved and every device tensor
-        freed, then its ranks (``tp_train_child``); the sub-phases one
-        after another.  gloo stages every reduction through the host: the
-        ranks' step times are a correctness run's, not tensor
-        parallelism's speed."""
+        freed, while its ranks (``tp_train_child``) start and wait for it;
+        (a)'s and (b)'s ranks started at once, (b)'s unsharded run going
+        on here while (a)'s ranks run and published when they have ended,
+        then (c)'s.  gloo stages every reduction
+        through the host: the ranks' step times are a correctness run's,
+        not tensor parallelism's speed."""
         from repro_torch import configs
         t0 = time.time()
         llama = configs.get_config("llama3-8b")
@@ -2548,16 +2636,41 @@ class Smoke:
                 llama, n_layers=TRAIN_LAYERS))
         subs = [("a", dataclasses.replace(llama, n_layers=TPT_A_LAYERS),
                  "full", TPT_A_SEQ, 2, 0, TPT_A_STEPS),
-                ("b", dataclasses.replace(llama, n_layers=TRAIN_LAYERS),
-                 "bf16", TRAIN_SEQ, 2, TPT_WARMUP, TPT_TIMED),
+                ("b", dataclasses.replace(llama, n_layers=TPT_B_LAYERS),
+                 "bf16", TPT_BC_SEQ, 2, TPT_WARMUP, TPT_TIMED),
                 ("c", dataclasses.replace(glm, n_layers=TPT_C_LAYERS),
-                 "bf16", TRAIN_SEQ, 4, TPT_WARMUP, TPT_TIMED)]
+                 "bf16", TPT_BC_SEQ, 4, TPT_WARMUP, TPT_TIMED)]
         tmp = tempfile.mkdtemp(prefix="train_tp_")
         parts = {}
         try:
-            for part, cfg, policy, seq, world, warmup, timed in subs:
-                parts[part] = self._tpt_part(part, cfg, policy, seq, world,
-                                             warmup, timed, bpp, tmp)
+            plans = {sub[0]: self._tpt_prepare(*sub, bpp, tmp)
+                     for sub in subs[:2]}
+
+            def a_done():
+                # (b)'s ranks allocate once their files appear: only after
+                # (a)'s have ended (their results written, their memory
+                # back) do both fit the card
+                need = 2 * plans["b"]["local"] * bpp
+                deadline = time.time() + TPT_JOIN_S
+                while not all(os.path.exists(os.path.join(
+                        tmp, f"a.out.{r}")) for r in range(2)) or (
+                        self.dev.type == "cuda"
+                        and self.torch.cuda.mem_get_info(self.dev)[0] < need):
+                    if time.time() > deadline:
+                        raise TimeoutError("train_tp: (a)'s ranks did not end")
+                    time.sleep(0.2)
+
+            def references():
+                plans["a"]["reference"]()
+                plans["b"]["reference"](before_publish=a_done)
+
+            ts = time.time()
+            ranks = self._spawn_tp(
+                [(plans[p]["spec"], 2) for p in plans], tmp,
+                join_s=TPT_JOIN_S, meanwhile=references)
+            for p, rk in zip(plans, ranks):
+                parts[p] = self._tpt_finish(plans[p], rk, time.time() - ts)
+            parts["c"] = self._tpt_part(*subs[2], bpp, tmp)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         checks = {f"{p}_{k}": v for p in parts
@@ -2573,11 +2686,28 @@ class Smoke:
 
     def _tpt_part(self, part, cfg, policy, seq, world, warmup, timed, bpp,
                   tmp) -> dict:
-        """One ``train_tp`` sub-phase: the depth reckoned to fit, the
-        unsharded run and its control here, the ranks, the gates."""
+        """One ``train_tp`` sub-phase: :meth:`_tpt_prepare`, its ranks
+        spawned while its unsharded run goes on here, :meth:`_tpt_finish`."""
+        plan = self._tpt_prepare(part, cfg, policy, seq, world, warmup,
+                                 timed, bpp, tmp)
+        ts = time.time()
+        ranks, = self._spawn_tp([(plan["spec"], world)], tmp,
+                                flag="--tp-train-child", join_s=TPT_JOIN_S,
+                                meanwhile=plan["reference"])
+        return self._tpt_finish(plan, ranks, time.time() - ts)
+
+    def _tpt_prepare(self, part, cfg, policy, seq, world, warmup, timed,
+                     bpp, tmp, *, faults=None, bounds=None,
+                     final=None) -> dict:
+        """A ``train_tp`` (or ``moe_tp`` training) sub-phase before its
+        ranks: the depth reckoned to fit, the ranks' spec and
+        ``reference(before_publish=None)``, the unsharded run and its
+        control here (each rank's file published by a rename, after
+        ``before_publish()``), to run while the ranks start.
+        ``faults``, ``bounds`` and ``final`` (the parameters after the
+        steps read) default to ``train_tp``'s for ``part``."""
         torch = self.torch
         from repro_torch.distributed import sharding as shd
-        from repro_torch.kernels.flash import ops as flash_ops
         from repro_torch.launch.mesh import Mesh
         from repro_torch.models import transformer
         t0 = time.time()
@@ -2594,17 +2724,28 @@ class Smoke:
             cfg = dataclasses.replace(cfg, n_layers=cfg.n_layers // 2)
         local = reckon(cfg)
         mode = "heads" if cfg.n_kv % world == 0 else "seq"
-        faults = [f for f in TPT_FAULTS
-                  if (f != "copy_seq_attn" or mode == "seq")
-                  and (f != "nu_shifted" or part == "a")]
-        ref, control = {}, None
+        if faults is None:
+            faults = [f for f in TPT_FAULTS
+                      if (f != "copy_seq_attn" or mode == "seq")
+                      and (f != "nu_shifted" or part == "a")]
+        if final is None:
+            final = part == "a"
+        if bounds is None:
+            bounds = TPT_A_BOUNDS if part == "a" else TPT_BOUNDS[part]
+        ref = {}
+        plan = dict(part=part, cfg=cfg, layers=layers, local=local,
+                    bpp=bpp, mode=mode, faults=faults, bounds=bounds,
+                    policy=policy,
+                    seq=seq, warmup=warmup, timed=timed, ref=ref,
+                    control=None, t0=t0, spec=dict(
+                        part=part, cfg=cfg, policy=policy,
+                        ref=os.path.join(tmp, f"{part}.ref"), batch=1,
+                        seq=seq, warmup=warmup, timed=timed, faults=faults,
+                        flag="--tp-train-child"))
 
-        def reference():
-            """The unsharded run (and in bf16 its f32 control) while the
-            ranks start; each rank's file published by a rename."""
-            nonlocal control
+        def reference(before_publish=None):
             ref.update(self._tpt_reference(cfg, policy, seq, warmup, timed,
-                                           mesh, final=part == "a"))
+                                           mesh, final=final))
             if policy == "bf16":
                 f32 = self._tpt_reference(cfg, "full", seq, warmup, timed,
                                           mesh, final=False)
@@ -2612,20 +2753,28 @@ class Smoke:
                                           ref["grad_norms"],
                                           grads=ref["files"][r]["grads1"])
                             for r in range(world)]
-                control = {k: max(x[k] for x in per_rank)
-                           for k in per_rank[0]}
+                plan["control"] = {k: max(x[k] for x in per_rank)
+                                   for k in per_rank[0]}
+            if before_publish is not None:
+                before_publish()
             for r, f in ref.pop("files").items():
                 path = os.path.join(tmp, f"{part}.ref.{r}")
                 torch.save(f, path + ".tmp")
                 os.replace(path + ".tmp", path)
 
-        ts = time.time()
-        ranks, = self._spawn_tp([(dict(
-            part=part, cfg=cfg, policy=policy,
-            ref=os.path.join(tmp, f"{part}.ref"), batch=1, seq=seq,
-            warmup=warmup, timed=timed, faults=faults), world)], tmp,
-            flag="--tp-train-child", join_s=TPT_JOIN_S, meanwhile=reference)
-        spawn_s = time.time() - ts
+        plan["reference"] = reference
+        return plan
+
+    def _tpt_finish(self, plan: dict, ranks: list, spawn_s: float) -> dict:
+        """A ``train_tp`` / ``moe_tp`` training sub-phase's ranks against
+        its unsharded run: launches, agreement, the readings within its
+        bounds, every planted fault beyond one, the routing."""
+        from repro_torch.kernels.flash import ops as flash_ops
+        torch = self.torch
+        cfg, policy, ref = plan["cfg"], plan["policy"], plan["ref"]
+        warmup, timed, faults = plan["warmup"], plan["timed"], plan["faults"]
+        bounds, local, layers = plan["bounds"], plan["local"], plan["layers"]
+        control, t0 = plan["control"], plan["t0"]
         # the route's design at this dtype and head_dim, and no other's
         dt = torch.float32 if policy == "full" else torch.bfloat16
         fwd = flash_ops.fwd_route(dt, cfg.head_dim)
@@ -2638,7 +2787,6 @@ class Smoke:
         want.update({"flash_bwd_delta": L * timed,
                      f"flash_bwd_dq{sfx}": L * timed,
                      f"flash_bwd_dkv{sfx}": L * timed})
-        bounds = TPT_A_BOUNDS if part == "a" else TPT_BOUNDS[part]
         sound = {k: max(rk["readings"][k] for rk in ranks)
                  for k in ranks[0]["readings"]}
         peaks = [rk["peak"] for rk in ranks]
@@ -2671,17 +2819,24 @@ class Smoke:
                         for k in rk["faults"][f] if k in bounds)
                     for rk in ranks)
         step_s = [statistics.median(rk["step_s"][warmup:]) for rk in ranks]
+        routing = None
+        if cfg.moe is not None:
+            routing = _routing_summary(ranks, ref["routing_kept"],
+                                       ep=cfg.moe.expert_mode == "ep")
+            checks["routing_calls"] = routing["calls_equal"]
+            checks["routing_near_ties_only"] = routing["not_near_tie"] == 0
+            checks["routing_drops_equal"] = routing["kept_equal"]
         return {
             "arch": cfg.arch_id, "layers": L, "depth_cut": None
             if L == layers else {"from": layers, "to": L},
-            "policy": policy, "batch": 1, "seq": seq,
-            "mesh": f"(1, {world})", "mode": mode,
+            "policy": policy, "batch": 1, "seq": plan["seq"],
+            "mesh": f"(1, {len(ranks)})", "mode": plan["mode"],
             "steps": {"warmup": warmup, "timed": timed},
             "routes": {"fwd": fwd, "bwd": bwd}, "expected_launches": want,
             "launches_rank0": ranks[0]["launches"],
             "local_params": local,
             "replicated_leaves": ranks[0]["replicated_leaves"],
-            "predicted_peak_bytes_per_rank": local * bpp,
+            "predicted_peak_bytes_per_rank": local * plan["bpp"],
             "max_memory_allocated_bytes": peaks,
             "unsharded_peak_bytes": ref["peak"],
             "losses": ranks[0]["losses"], "grad_norms": ranks[0]["grad_norms"],
@@ -2692,6 +2847,7 @@ class Smoke:
             "readings": sound, "bf16_control": control, "bounds": bounds,
             "faults": {f: {k: max(rk["faults"][f][k] for rk in ranks)
                            for k in ranks[0]["faults"][f]} for f in faults},
+            "routing": routing,
             "spawn_to_join_s": spawn_s, "seconds": time.time() - t0,
             "checks": checks}
 
@@ -2727,16 +2883,20 @@ class Smoke:
         if final:
             start = _tpt_blocks({n: p for n, p in model.named_parameters()
                                  if n in names}, cfg, mesh)
-        model, recs, launches, first = _tpt_steps(
-            build_train_step(cfg, tc), model, opt,
-            init_loss_scale(tc, self.dev),
-            [next(data)[1] for _ in range(warmup + timed)], warmup, names)
+        routing = []
+        with _routing_spy(routing, 2 * cfg.n_layers):
+            model, recs, launches, first = _tpt_steps(
+                build_train_step(cfg, tc), model, opt,
+                init_loss_scale(tc, self.dev),
+                [next(data)[1] for _ in range(warmup + timed)], warmup,
+                names)
         common = {"losses": [r["loss"] for r in recs],
                   "grad_norms": [r["grad_norm"] for r in recs],
                   "grad_max": {n: float(first[n].abs().max())
                                for n in names}}
         blocks = _tpt_blocks(first, cfg, mesh)
-        files = {r: {**common, "grads1": blocks[r]} for r in blocks}
+        files = {r: {**common, "grads1": blocks[r], "routing": routing}
+                 for r in blocks}
         if final:
             params = {n: p.detach() for n, p in model.named_parameters()
                       if n in names}
@@ -2749,6 +2909,7 @@ class Smoke:
             del params, start
         out = {"files": files, "losses": common["losses"],
                "grad_norms": common["grad_norms"],
+               "routing_kept": [c["kept"] for c in routing],
                "finite": all(r["grads_finite"] for r in recs),
                "launches": launches,
                "step_s": statistics.median(r["step_s"]
@@ -2758,6 +2919,90 @@ class Smoke:
         gc.collect()
         torch.cuda.empty_cache()
         return out
+
+    def run_moe_tp(self) -> dict:
+        """The MoE FFN over a model axis (see the module docstring, item
+        7d): (c)'s and (d)'s unsharded serving runs here first, then the
+        ranks of all four sub-phases at once -- (a) / (b) as ``train_tp``'s
+        (``_tpt_prepare``: they wait for their unsharded run, which goes
+        on here meanwhile), (c) / (d) as ``serve_tp``'s -- then the gates
+        (``_tpt_finish``, ``_tp_part``).  gloo stages every reduction
+        through the host: the times are a correctness run's."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.models import transformer
+        t0 = time.time()
+        ds = configs.get_config("deepseek-moe-16b")
+        gr = configs.get_config("granite-moe-3b-a800m")
+        gr = dataclasses.replace(gr, moe=dataclasses.replace(
+            gr.moe, expert_mode="ep"))
+        llama = configs.get_config("llama3-8b")
+        bpp = getattr(self, "train_bytes_per_param", None) or \
+            TRAIN_PEAK_FALLBACK / self._held_params(dataclasses.replace(
+                llama, n_layers=TRAIN_LAYERS))
+        cut = {p: dataclasses.replace(c, n_layers=MOE_TP_LAYERS[p])
+               for p, c in (("a", ds), ("b", gr), ("c", ds), ("d", gr))}
+        tmp = tempfile.mkdtemp(prefix="moe_tp_")
+        parts, secs = {}, {}
+        try:
+            ts = time.time()
+            trace, unsharded_c, ref_c, control_c = self._tp_unsharded(
+                cut["c"], "moe_c", tmp)
+            m_d = transformer.init_params(cut["d"], self.args.seed,
+                                          device=self.dev,
+                                          dtype=torch.bfloat16)
+            ref_d, control_d = self._tp_reference(m_d, cut["d"], "bf16", tmp,
+                                                  "moe_d")
+            del m_d
+            gc.collect()
+            torch.cuda.empty_cache()
+            secs["c_d_unsharded"] = time.time() - ts
+            plans = {p: self._tpt_prepare(
+                f"moe_{p}", cut[p], "full", MOE_TP_SEQ, world, 0,
+                MOE_TP_STEPS, bpp, tmp, faults=list(MOE_TP_FAULTS[p]),
+                bounds=MOE_TP_BOUNDS, final=True)
+                for p, world in (("a", 2), ("b", 4))}
+
+            def references():
+                for p in plans:
+                    tr = time.time()
+                    plans[p]["reference"]()
+                    secs[f"{p}_unsharded"] = time.time() - tr
+
+            ts = time.time()
+            ranks_a, ranks_b, ranks_c, ranks_d = self._spawn_tp([
+                (plans["a"]["spec"], 2), (plans["b"]["spec"], 4),
+                (dict(part="moe_c", cfg=cut["c"], policy="bf16", ref=ref_c,
+                      engine=True, faults=MOE_TP_FAULTS["c"]), 2),
+                (dict(part="moe_d", cfg=cut["d"], policy="bf16", ref=ref_d,
+                      engine=False, faults=MOE_TP_FAULTS["d"]), 4)], tmp,
+                join_s=TPT_JOIN_S, meanwhile=references)
+            spawn_s = time.time() - ts
+            secs["ranks"] = spawn_s
+            parts["a"] = self._tpt_finish(plans["a"], ranks_a, spawn_s)
+            parts["b"] = self._tpt_finish(plans["b"], ranks_b, spawn_s)
+            parts["c"] = self._tp_part(
+                ranks_c, cut["c"], "bf16", engine=unsharded_c,
+                n_req=len(trace), bounds=MOE_TP_BOUND_C, control=control_c)
+            parts["d"] = self._tp_part(
+                ranks_d, cut["d"], "bf16", engine=None,
+                bounds=MOE_TP_BOUND_D, control=control_d)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        for p, world in (("c", 2), ("d", 4)):
+            parts[p]["mesh"] = f"(1, {world})"
+        checks = {f"{p}_{k}": v for p in parts
+                  for k, v in parts[p].pop("checks").items()}
+        self.moe_tp_launches = {p: parts[p]["launches_rank0"] for p in parts}
+        return self.record({
+            "phase": "moe_tp", "ok": all(checks.values()), "checks": checks,
+            **parts, "expert_modes": {"a": "tp", "b": "ep", "c": "tp",
+                                      "d": "ep"},
+            "bytes_per_param": bpp,
+            "gloo_note": "gloo stages every reduction through the host, "
+                         "and the four sub-phases' 12 ranks share the card "
+                         "and the host: the times are a correctness run's",
+            "phase_seconds": secs, "seconds": time.time() - t0})
 
     def run_train_plan(self) -> dict:
         """The ``train`` configuration under eight remat settings, from the
@@ -2914,7 +3159,7 @@ class Smoke:
             launches = {k: kern.launches for k, kern in kernels.items()}
             steps_peak = torch.cuda.max_memory_allocated(self.dev)
             memory = self._saved_and_peak(model, cfg, batch, remat)
-            _, wall, busy_s, rows = self._profile(one_step)
+            _, wall, busy_s, rows = self._profile(one_step, host=False)
         gemm = [(name, c) for _, name, c in rows if GEMM_NAME.search(name)]
         timed = records[1:1 + TRAIN_PLAN_STEPS]
         step_s = statistics.median(r["step_s"] for r in timed)
@@ -3205,7 +3450,7 @@ class Smoke:
         prof_steps = CIFAR_PROFILE_STEPS
         r, wall, busy_s, rows = self._profile(lambda: ex.train(
             "ED+SC+MP", imgs, labels, prof_steps, seed=self.args.seed,
-            device=self.dev, params=params, log_every=0))
+            device=self.dev, params=params, log_every=0), host=False)
         return self.record({
             "phase": "cifar_train", "ok": all(checks.values()),
             "checks": checks, "arch": "resnet18", "steps": CIFAR_STEPS,
@@ -4679,13 +4924,13 @@ class Smoke:
     def run_serve_mla(self) -> dict:
         """``serve_mla``: ``launch/serve.py``'s lockstep for minicpm3-4b at
         full width and depth, as ``python -m repro_torch.launch.serve
-        --arch minicpm3-4b --batch 8 --prompt-len 2048 --gen 32`` runs it
+        --arch minicpm3-4b --batch 8 --prompt-len 1024 --gen 16`` runs it
         (random bf16 weights from ``--seed``, bf16 latent cache): a one-step
         warm-up run, then the measured run with every kernel counter zeroed
         just before it and read just after (all 0: MLA runs the plain
         attention, as the reference does), then a profile of its prefill
         and first 4 decode steps.  The prefill's one-shot attention holds
-        f32 scores of B x H x S^2 (5.4 GB at 8 x 40 x 2048^2) a layer while
+        f32 scores of B x H x S^2 (1.3 GB at 8 x 40 x 1024^2) a layer while
         it runs, as the reference's does: the peak says so."""
         torch = self.torch
         from repro_torch import configs
@@ -4967,8 +5212,9 @@ def tp_forced(model, cfg, policy: str, prompts, mesh=None, forced=None,
     steps (``TP_SPLITS`` splits), each fed ``forced[:, t]`` or, without
     it, the greedy token of the step before.  ``cache`` (this rank's
     layout) replaces the prefill's own cache before the decode steps.
-    -> (logits (TP_STEPS + 1, B, V) f32 on the host, the fed tokens (B,
-    TP_STEPS), the prefill's cache on the host)."""
+    -> (logits (TP_STEPS + 1, B, V) f32 on the host, V the live vocab
+    (the padded tail's -1e30 cut off), the fed tokens (B, TP_STEPS), the
+    prefill's cache on the host)."""
     import torch
     from repro_torch.train import serve_step
     p = prompts.shape[1]
@@ -4981,13 +5227,13 @@ def tp_forced(model, cfg, policy: str, prompts, mesh=None, forced=None,
         kept = {k: v.cpu() for k, v in own.items()}
         if cache is not None:
             own = {k: v.to(prompts.device) for k, v in cache.items()}
-        out, fed = [logits.float().cpu()], []
+        out, fed = [logits[:, :cfg.vocab].float().cpu()], []
         for t in range(TP_STEPS):
             tok = (logits.argmax(-1) if forced is None
                    else forced[:, t].to(prompts.device)).to(torch.int32)
             fed.append(tok.cpu())
             logits, own = decode(model, own, tok)
-            out.append(logits.float().cpu())
+            out.append(logits[:, :cfg.vocab].float().cpu())
     return torch.stack(out), torch.stack(fed, 1), kept
 
 
@@ -5039,13 +5285,18 @@ def _planted(fault: str, model, mesh, rank: int):
     drops its ``w_down`` partial (its block zeroed) in the middle layer /
     in every layer; ``merge_drop0``, every rank merges the sequence
     partials as if shard 0 had no live position (a merge that is wrong
-    the same way on every rank)."""
+    the same way on every rank); the MoE's (``moe_tp``) as
+    ``_moe_fault``."""
     import torch
     from repro_torch.distributed import collectives
     from repro_torch.kernels import tiling
     from repro_torch.launch.mesh import coords
     r, n = coords(mesh, rank)["model"], mesh.shape["model"]
     saved, merge = [], collectives._group_merge
+    if fault in MOE_TP_FAULTS["c"] + MOE_TP_FAULTS["d"]:
+        with _moe_fault(fault, model, mesh):
+            yield
+        return
     if fault.startswith("w_down") and r == n - 1:
         blocks = model.blocks if fault == "w_down_all" \
             else [model.blocks[len(model.blocks) // 2]]
@@ -5070,6 +5321,19 @@ def _planted(fault: str, model, mesh, rank: int):
             w.data.copy_(v)
 
 
+def _spec_cfg(fields: dict):
+    """The parent's config, field for field, from its JSON spec (tuples
+    travel as lists, the MoE / MLA / SSM / encoder sub-configs as
+    dicts)."""
+    from repro_torch.models import config as mc
+    sub = {"moe": mc.MoEConfig, "mla": mc.MLAConfig, "ssm": mc.SSMConfig,
+           "encoder": mc.EncoderConfig}
+    return mc.ModelConfig(**{
+        k: sub[k](**v) if k in sub and v is not None
+        else tuple(v) if isinstance(v, list) else v
+        for k, v in fields.items()})
+
+
 def tp_child(arg: str) -> int:
     """One rank of ``serve_tp`` (b)-(d), run as ``chip_smoke.py --tp-child
     spec.json,rank``: gloo over the parent's card, the kernels loaded
@@ -5087,7 +5351,6 @@ def tp_child(arg: str) -> int:
     from repro_torch.kernels import build
     from repro_torch.launch.mesh import Mesh, coords
     from repro_torch.models import transformer
-    from repro_torch.models.config import ModelConfig
     from repro_torch.serve import ServeEngine, synthetic_trace
     torch.set_num_threads(1)
     dev = torch.device(spec["device"])
@@ -5101,9 +5364,7 @@ def tp_child(arg: str) -> int:
     dist.init_process_group("gloo", init_method=f"file://{spec['rdv']}",
                             rank=rank, world_size=world)
     try:
-        # the parent's config, field for field (tuples travel as lists)
-        cfg = ModelConfig(**{k: tuple(v) if isinstance(v, list) else v
-                             for k, v in spec["cfg"].items()})
+        cfg = _spec_cfg(spec["cfg"])
         mesh = Mesh(data=1, model=world)
         dtype = torch.bfloat16 if spec["policy"] == "bf16" \
             else torch.float32
@@ -5127,11 +5388,16 @@ def tp_child(arg: str) -> int:
         if spec["ref"]:
             ref = torch.load(spec["ref"])
             zero()
-            logits, _, own = tp_forced(model, cfg, spec["policy"],
-                                       ref["prompts"].to(dev), mesh=mesh,
-                                       forced=ref["tokens"])
+            routing = []
+            with _routing_spy(routing, len(ref.get("routing", ()))):
+                logits, _, own = tp_forced(model, cfg, spec["policy"],
+                                           ref["prompts"].to(dev), mesh=mesh,
+                                           forced=ref["tokens"])
             out["tf"] = {**_tf_compare(logits, ref["logits"]),
                          "launches": read()}
+            if cfg.moe is not None:
+                out["tf"]["routing"] = _routing_agreement(
+                    ref["routing"], routing, cfg.moe.top_k)
             # the decode steps again from this rank's block of the
             # unsharded run's prefill cache: the decode path's own
             # arithmetic, without the caches' rounding of the prefill
@@ -5183,7 +5449,7 @@ def tp_child(arg: str) -> int:
             # the gates must refuse
             ref = torch.load(spec["ref"])
             out["faults"] = {}
-            for fault in TP_FAULTS:
+            for fault in spec.get("faults", TP_FAULTS):
                 if fault == "merge_drop0" and out["mode"] != "seq":
                     continue
                 with _planted(fault, model, mesh, rank):
@@ -5196,6 +5462,7 @@ def tp_child(arg: str) -> int:
                                       "max_rel")}
             del ref
         pathlib.Path(f"{spec['out']}.{rank}").write_text(json.dumps(out))
+        dist.barrier()           # no rank tears gloo down under another
     finally:
         dist.destroy_process_group()
     return 0
@@ -5204,8 +5471,17 @@ def tp_child(arg: str) -> int:
 def _tpt_leaves(cfg) -> list:
     """The leaves ``train_tp`` reads, of the middle layer where per layer:
     a column-parallel (``w_up``; ``wq`` too, whole in sequence mode), a
-    row-parallel (``w_down``), the embedding, the head and a norm."""
+    row-parallel (``w_down``), the embedding, the head and a norm; for an
+    MoE (``moe_tp``) the router, ``w_gate``, ``w_down``, the shared
+    experts' ``shared_gate`` / ``shared_down``, the embedding, the head
+    and a norm."""
     mid = f"blocks.{cfg.n_layers // 2}"
+    if cfg.moe is not None:         # moe_tp: the router, experts, a norm
+        shared = ["shared_gate", "shared_down"] if cfg.moe.num_shared \
+            else []
+        return [f"{mid}.ffn.{n}" for n in ["router", "w_gate", "w_down",
+                                           *shared]] \
+            + ["embed", "lm_head", f"{mid}.ln2"]
     return [f"{mid}.attn.wq", f"{mid}.ffn.w_up", f"{mid}.ffn.w_down",
             "embed", "lm_head", f"{mid}.ln2"]
 
@@ -5213,11 +5489,14 @@ def _tpt_leaves(cfg) -> list:
 def _tpt_window(name: str, x):
     """What ``train_tp`` reads of a rank's block: the first TPT_WINDOW
     vocab entries of the embedding's rows and of the head's columns, the
-    whole block of every other leaf."""
+    first TPT_EXPERT_WINDOW of an MoE's experts (``w_gate`` / ``w_down``,
+    (E_local, ., .)), the whole block of every other leaf."""
     if name == "embed":
         return x[:TPT_WINDOW]
     if name == "lm_head":
         return x[:, :TPT_WINDOW]
+    if x.ndim == 3:
+        return x[:TPT_EXPERT_WINDOW]
     return x
 
 
@@ -5322,16 +5601,159 @@ def _tpt_steps(step, model, opt, ls, batches, warmup: int, names,
 
 
 @contextlib.contextmanager
-def _train_fault(fault: str, model):
+def _routing_spy(calls: list, limit: int):
+    """Record the MoE FFN's first ``limit`` routing calls into ``calls``:
+    each call's top-k indices and router probabilities on the host, and
+    the assignments this rank's capacity dispatch kept."""
+    import torch
+    from repro_torch.models import moe
+    topk, slots = moe.router_topk, moe.dispatch_slots
+
+    def topk_spy(x, w, k):
+        out = topk(x, w, k)
+        if len(calls) < limit:
+            probs = torch.softmax(x.detach().float() @ w.detach().float(),
+                                  dim=-1)
+            calls.append({"top_i": out[1].cpu(), "probs": probs.cpu(),
+                          "kept": None})
+        return out
+
+    def slots_spy(top_i, e, cap):
+        dst, keep = slots(top_i, e, cap)
+        if calls and calls[-1]["kept"] is None:
+            calls[-1]["kept"] = int(keep.sum())
+        return dst, keep
+
+    moe.router_topk, moe.dispatch_slots = topk_spy, slots_spy
+    try:
+        yield
+    finally:
+        moe.router_topk, moe.dispatch_slots = topk, slots
+
+
+def _routing_agreement(ref: list, got: list, k: int) -> dict:
+    """A rank's routing calls against the unsharded run's, call for call
+    (``moe_model``'s rule): tokens whose k experts differ, and of those
+    the ones not at a near-tie (the unsharded run's k-th and (k+1)-th
+    probabilities more than 2 f32 ulps apart); the kept assignments of
+    each call."""
+    import numpy as np
+    n_tok = n_diff = n_not_tie = 0
+    for r, g in zip(ref, got):
+        differ = (r["top_i"].sort(-1).values
+                  != g["top_i"].sort(-1).values).any(-1)
+        n_tok += r["top_i"].shape[0]
+        n_diff += int(differ.sum())
+        for row in r["probs"][differ].sort(-1, descending=True).values \
+                .numpy():
+            ulp = np.spacing(np.float32(row[k - 1]))
+            n_not_tie += int(row[k - 1] - row[k] > 2 * ulp)
+    return {"calls": len(got), "tokens": n_tok, "differ": n_diff,
+            "not_near_tie": n_not_tie, "kept": [c["kept"] for c in got],
+            "ref_kept": [c["kept"] for c in ref]}
+
+
+def _routing_summary(ranks: list, ref_kept: list, ep: bool,
+                     key=lambda rk: rk["routing"]) -> dict:
+    """Every rank's ``_routing_agreement`` folded: the worst rank's
+    counts, and whether the kept assignments equal the unsharded run's
+    call for call (TP-experts: each rank's; expert parallelism: the
+    ranks' sum, each rank keeping its own experts' assignments)."""
+    rs = [key(rk) for rk in ranks]
+    kept = [sum(c) for c in zip(*(r["kept"] for r in rs))] if ep \
+        else rs[0]["kept"]
+    return {"calls": rs[0]["calls"],
+            "calls_equal": all(r["calls"] == len(ref_kept) for r in rs),
+            "tokens": rs[0]["tokens"],
+            "differ": max(r["differ"] for r in rs),
+            "not_near_tie": max(r["not_near_tie"] for r in rs),
+            "kept_equal": kept == ref_kept and (ep or all(
+                r["kept"] == ref_kept for r in rs)),
+            "kept": kept, "unsharded_kept": ref_kept}
+
+
+@contextlib.contextmanager
+def _moe_fault(fault: str, model, mesh):
+    """An MoE fault planted in every rank's run, undone after (see
+    MOE_TP_FAULTS): ``moe_partial_dropped``, the last rank of the model
+    axis sends zeros for its partial of the middle layer's MoE;
+    ``ep_offset_zero``, every rank takes its experts from offset 0;
+    ``combine_weights_unsummed``, the combine weights skip
+    ``copy_to_model`` (their gradient stays this rank's partial);
+    ``router_input_summed``, the router's input takes ``copy_to_model``
+    (its gradient, already whole, summed over the axis)."""
+    from repro_torch.distributed import collectives
+    from repro_torch.launch.mesh import coords
+    from repro_torch.models import moe, transformer
+    if fault == "moe_partial_dropped":
+        last = coords(mesh)["model"] == mesh.shape["model"] - 1
+        mid, real = model.blocks[len(model.blocks) // 2].ffn, \
+            transformer.ffn_apply
+
+        def patched(ffn, h, cfg, dtype=None, mesh=None):
+            if ffn is not mid:
+                return real(ffn, h, cfg, dtype, mesh)
+            reduce = collectives.reduce_from_model
+            collectives.reduce_from_model = \
+                lambda x, mesh, axis="model": reduce(x * 0 if last else x,
+                                                     mesh, axis)
+            try:
+                return real(ffn, h, cfg, dtype, mesh)
+            finally:
+                collectives.reduce_from_model = reduce
+        where, name = transformer, "ffn_apply"
+    elif fault == "ep_offset_zero":
+        real = moe.expert_layout
+
+        def patched(weights, cfg, mesh):
+            return real(weights, cfg, mesh)[0], 0
+        where, name = moe, "expert_layout"
+    elif fault == "combine_weights_unsummed":
+        real = moe._route
+
+        def patched(weights, x, cfg, mesh):
+            copy, calls = collectives.copy_to_model, []
+
+            def second_whole(t, mesh, axis="model"):
+                calls.append(t)        # the experts' input, then w
+                return t if len(calls) == 2 else copy(t, mesh, axis)
+            collectives.copy_to_model = second_whole
+            try:
+                return real(weights, x, cfg, mesh)
+            finally:
+                collectives.copy_to_model = copy
+        where, name = moe, "_route"
+    elif fault == "router_input_summed":
+        real = moe.router_topk
+
+        def patched(x, w, k):
+            return real(collectives.copy_to_model(x, mesh), w, k)
+        where, name = moe, "router_topk"
+    else:
+        raise ValueError(f"unknown fault {fault!r}")
+    setattr(where, name, patched)
+    try:
+        yield
+    finally:
+        setattr(where, name, real)
+
+
+@contextlib.contextmanager
+def _train_fault(fault: str, model, mesh):
     """A fault planted in every rank's training, undone after (see
-    TPT_FAULTS): ``copy_mid_ffn``, the middle layer's FFN takes its input
-    without ``copy_to_model`` (its input gradient stays this rank's
-    partial); ``ce_sum_unreduced``, the CE's second reduction (the sum of
-    exp) is this rank's own; ``copy_seq_attn``, every layer's attention
-    takes its input through ``copy_to_model``."""
+    TPT_FAULTS, and MOE_TP_FAULTS: ``_moe_fault``): ``copy_mid_ffn``, the
+    middle layer's FFN takes its input without ``copy_to_model`` (its
+    input gradient stays this rank's partial); ``ce_sum_unreduced``, the
+    CE's second reduction (the sum of exp) is this rank's own;
+    ``copy_seq_attn``, every layer's attention takes its input through
+    ``copy_to_model``."""
     import torch
     from repro_torch.distributed import collectives
     from repro_torch.models import attention, transformer
+    if fault in MOE_TP_FAULTS["a"] + MOE_TP_FAULTS["b"]:
+        with _moe_fault(fault, model, mesh):
+            yield
+        return
     if fault == "copy_mid_ffn":
         mid, real = model.blocks[len(model.blocks) // 2].ffn, \
             transformer.ffn_apply
@@ -5424,7 +5846,6 @@ def tp_train_child(arg: str) -> int:
     from repro_torch.launch.mesh import Mesh
     from repro_torch.launch.train import init_state, synthetic_lm_batches
     from repro_torch.models import transformer
-    from repro_torch.models.config import ModelConfig
     from repro_torch.optim import adamw
     from repro_torch.train.train_step import (TrainConfig, init_loss_scale,
                                               make_train_step)
@@ -5441,8 +5862,7 @@ def tp_train_child(arg: str) -> int:
     dist.init_process_group("gloo", init_method=f"file://{spec['rdv']}",
                             rank=rank, world_size=world)
     try:
-        cfg = ModelConfig(**{k: tuple(v) if isinstance(v, list) else v
-                             for k, v in spec["cfg"].items()})
+        cfg = _spec_cfg(spec["cfg"])
         mesh = Mesh(data=1, model=world)
         tc = TrainConfig(policy=spec["policy"], remat=CheckpointConfig(
             enabled=True, policy="full", segment_size=1),
@@ -5501,7 +5921,7 @@ def tp_train_child(arg: str) -> int:
         for fault in spec["faults"]:
             if fault == "nu_shifted":
                 continue
-            with _train_fault(fault, model):
+            with _train_fault(fault, model, mesh):
                 (loss, _), grads, _ = scaled_value_and_grad(loss_for)(
                     model, batches[0])
                 norm = adamw.sharded_global_norm(grads, sharded, mesh)
@@ -5509,10 +5929,15 @@ def tp_train_child(arg: str) -> int:
                 ref, [float(loss)], [float(norm)],
                 grads={n: _tpt_window(n, grads[n]) for n in names})
             del grads
-        model, recs, launches, first = _tpt_steps(
-            step, model, opt, init_loss_scale(tc, dev), batches,
-            spec["warmup"], names + whole, keep=_tpt_window)
+        routing = []
+        with _routing_spy(routing, 2 * cfg.n_layers):
+            model, recs, launches, first = _tpt_steps(
+                step, model, opt, init_loss_scale(tc, dev), batches,
+                spec["warmup"], names + whole, keep=_tpt_window)
         params = dict(model.named_parameters())
+        if cfg.moe is not None:
+            out["routing"] = _routing_agreement(ref["routing"], routing,
+                                                cfg.moe.top_k)
         out.update(
             launches=launches, losses=[r["loss"] for r in recs],
             grad_norms=[r["grad_norm"] for r in recs],
@@ -5529,6 +5954,7 @@ def tp_train_child(arg: str) -> int:
             peak=torch.cuda.max_memory_allocated(dev)
             if dev.type == "cuda" else 0)
         pathlib.Path(f"{spec['out']}.{rank}").write_text(json.dumps(out))
+        dist.barrier()           # no rank tears gloo down under another
     finally:
         dist.destroy_process_group()
     return 0
@@ -5629,6 +6055,7 @@ def main(argv=None) -> int:
     smoke.run_train()
     smoke.run_train_dp()
     smoke.run_train_tp()
+    smoke.run_moe_tp()
     smoke.run_train_plan()
     smoke.run_train_cli()
     pack = [smoke.check_pack(8, 32),                     # the CIFAR batch
@@ -5871,6 +6298,11 @@ def main(argv=None) -> int:
         row["train_tp_launches"] = {
             part: counts.get(row["name"], 0)
             for part, counts in smoke.train_tp_launches.items()}
+        # moe_tp: rank 0's launches in (a)'s and (b)'s steps, (c)'s engine
+        # run and (d)'s teacher-forced steps
+        row["moe_tp_launches"] = {
+            part: counts.get(row["name"], 0)
+            for part, counts in smoke.moe_tp_launches.items()}
         for part in ("serve", "train"):
             row[f"{part}_variants_launches"] = {
                 arch: runs[part].get(row["name"], 0)

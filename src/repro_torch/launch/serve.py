@@ -60,9 +60,13 @@ and writes events:
     torchrun --nproc-per-node 2 -m repro_torch.launch.serve --device cpu \
         --smoke --engine --max-model 2
 
-A model axis > 1 serves through the engine only: lockstep mode, the
-fleet (``--replicas`` > 1, ``--workers``, ``--journal``), an MoE arch and
-a mesh whose axis splits neither the KV heads nor ``--max-len`` exit 2.
+An MoE arch serves there with its experts split over the model axis
+(TP-experts, or expert parallelism under ``expert_mode="ep"``; the
+``experts:`` banner names which).  A model axis > 1 serves through the
+engine only: lockstep mode, the fleet (``--replicas`` > 1, ``--workers``,
+``--journal``), MLA, the SSM mixers, the encoder, an MoE whose split dims
+do not divide the axis and a mesh whose axis splits neither the KV heads
+nor ``--max-len`` exit 2.
 """
 from __future__ import annotations
 
@@ -81,7 +85,7 @@ from repro_torch.core.mixed_precision import get_policy
 from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.kvq import ops as kvq_ops
 from repro_torch.launch.mesh import describe, init_distributed, make_mesh_for
-from repro_torch.models import transformer
+from repro_torch.models import moe, transformer
 from repro_torch.obs import MemStat, Tracer
 from repro_torch.serve import sampling
 
@@ -364,7 +368,9 @@ def _serve_engine(args, cfg, model, sink, mesh=None) -> int:
     if mesh is not None:
         print(f"mesh: {describe(mesh)}, kv cache sharded over "
               f"'{shd.serve_kv_shard(mesh, cfg.n_kv, args.max_len)}', "
-              f"{per:.2f} MB/slot PER DEVICE")
+              f"{per:.2f} MB/slot PER DEVICE"
+              + (f", experts: {moe.describe_layout(cfg, mesh.shape['model'])}"
+                 if cfg.moe is not None and mesh.shape["model"] > 1 else ""))
     dev = "/device" if mesh is not None else ""
     print(f"capacity: {per:.2f} MB/slot{dev} at max_len={args.max_len}"
           + (f" -> budget {args.mem_budget_mb} MB"
@@ -501,10 +507,10 @@ def _mesh_refusal(args, cfg, mesh) -> str | None:
         return (f"mesh: {describe(mesh)}: the serving fleet (--replicas, "
                 f"--workers, --journal) over a model axis is later work "
                 f"(ROADMAP.md section 1); pass --max-model 1")
-    if cfg.moe is not None:
-        return (f"mesh: {describe(mesh)}: {cfg.arch_id}'s MoE FFN over a "
-                f"model axis is the MoE TP / EP item of ROADMAP.md section "
-                f"1, not ported; pass --max-model 1")
+    try:
+        transformer.check_mesh(cfg, mesh)
+    except (NotImplementedError, ValueError) as e:
+        return f"mesh: {describe(mesh)}: {e}; pass --max-model 1"
     if not args.engine:
         return (f"mesh: {describe(mesh)}: a model axis serves through the "
                 f"engine (--engine); lockstep runs on one device, pass "
@@ -580,7 +586,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--max-model", type=int, default=16,
                     help="largest model axis of the mesh over torchrun's "
-                         "ranks (launch/mesh.py make_mesh_for)")
+                         "ranks (launch/mesh.py make_mesh_for); an MoE arch "
+                         "splits its experts over it (F, or E with "
+                         "expert_mode='ep')")
     # -- continuous-batching engine mode ----------------------------------
     ap.add_argument("--engine", action="store_true",
                     help="serve a synthetic request trace through the "

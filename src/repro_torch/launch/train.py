@@ -32,9 +32,12 @@ AdamW moments (``train/train_step.py``).  Rank 0 alone prints the step
 lines, writes ``--events`` and saves checkpoints, the sharded leaves
 gathered to it one at a time (``bridge.export_params(mesh=)``); every
 rank waits at a barrier after a save, and every rank restores its block.
-The dense GQA archs train on a model axis > 1; an MoE arch, MLA, the SSM
-mixers and the encoder exit 2 there.  Without that environment the
-trainer runs one rank, as the mesh (data 1, model 1).
+The GQA attention archs train on a model axis > 1, the MoE archs among
+them (TP-experts, or expert parallelism under ``expert_mode="ep"``; the
+banner's ``experts:`` names which); MLA, the SSM mixers, the encoder and
+an MoE whose split dims do not divide the axis exit 2 there.  Without
+that environment the trainer runs one rank, as the mesh (data 1, model
+1).
 
 Memory-budgeted training: ``--remat auto`` solves a ``RematPlan`` from
 the transformer profile (``repro_torch.plan``): with ``--mem-budget-mb
@@ -92,7 +95,7 @@ from repro_torch.data.synthetic import token_stream
 from repro_torch.events import EventSink
 from repro_torch.launch.mesh import (describe, init_distributed,
                                      make_mesh_for)
-from repro_torch.models import bridge, transformer
+from repro_torch.models import bridge, moe, transformer
 from repro_torch.obs import MemStat, MetricsRegistry, Tracer, maybe_span
 from repro_torch.optim import adamw
 from repro_torch.train.guards import GuardConfig, TrainGuard
@@ -272,20 +275,18 @@ def _mesh_refusal(cfg, mesh) -> str | None:
     """Why ``cfg`` does not train on ``mesh``'s model axis, or None."""
     if mesh.shape["model"] == 1:
         return None
-    if cfg.moe is not None:
-        return (f"mesh: {describe(mesh)}: {cfg.arch_id}'s MoE FFN over a "
-                f"model axis is the MoE TP / EP item of ROADMAP.md section "
-                f"1, not ported; pass --max-model 1")
     try:
         transformer.check_mesh(cfg, mesh)
-    except NotImplementedError as e:
+    except (NotImplementedError, ValueError) as e:
         return f"mesh: {describe(mesh)}: {e}; pass --max-model 1"
     return None
 
 
 def _train(args, cfg, mesh, rank: int, world: int, device) -> int:
     log = print if rank == 0 else _quiet
-    log(f"mesh: {describe(mesh)} ({mesh.size} devices)")
+    log(f"mesh: {describe(mesh)} ({mesh.size} devices)"
+        + (f", experts: {moe.describe_layout(cfg, mesh.shape['model'])}"
+           if cfg.moe is not None and mesh.shape["model"] > 1 else ""))
     log(f"device: {device}"
         + (f" ({torch.cuda.get_device_name(device)})"
            if device.type == "cuda" else ""))
@@ -509,7 +510,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="largest model (tensor-parallel) axis of the mesh "
                          "make_mesh_for builds from the world size: two "
                          "ranks give (data 1, model 2) under the default, "
-                         "(data 2, model 1) with --max-model 1")
+                         "(data 2, model 1) with --max-model 1; an MoE arch "
+                         "splits its experts over the model axis (F, or E "
+                         "with expert_mode='ep')")
     ap.add_argument("--policy", default="bf16",
                     choices=["full", "bf16", "fp16", "bf16_params",
                              "resid_bf16"],

@@ -42,8 +42,9 @@ masked lookup of this rank's rows, summed over the axis), the SwiGLU's
 sum), attention by heads or by the cache's sequence
 (``attention.py``), and the head's vocab-sharded logits are gathered
 whole (:func:`head_logits`), so every rank holds the same logits before
-any host decision.  The dense GQA archs only: MoE, MLA, SSM and the
-encoder raise.
+any host decision.  The MoE holds its block of the experts, TP-experts
+or expert-parallel (``models/moe.py``), and sums its partials likewise.
+The GQA attention archs only: MLA, SSM and the encoder raise.
 
 Training over the model axis runs the same forward under autograd: the
 row-parallel sums are ``collectives.reduce_from_model`` (backward: the
@@ -173,11 +174,10 @@ def ffn_apply(ffn, h, cfg, dtype=None, mesh=None):
     view), its weights cast to ``dtype`` where they are used.  A SwiGLU
     holding this rank's columns of ``w_gate`` / ``w_up`` and rows of
     ``w_down`` takes its input through ``collectives.copy_to_model`` and
-    sums its output over ``mesh``'s model axis; the MoE refuses a model
-    axis > 1."""
+    sums its output over ``mesh``'s model axis; the MoE holding its block
+    of the experts does the same inside ``moe.moe_ffn``."""
     if isinstance(ffn, MoE):
-        return moe_mod.moe_ffn(ffn.weights(dtype), h, cfg,
-                               mesh=mesh if _model_n(mesh) > 1 else None)
+        return moe_mod.moe_ffn(ffn.weights(dtype), h, cfg, mesh=mesh)
     cast = (lambda w: w) if dtype is None else (lambda w: w.to(dtype))
     if isinstance(ffn, GeluMLP):
         return gelu_mlp(h, *(cast(getattr(ffn, n))
@@ -278,14 +278,42 @@ def _model_n(mesh) -> int:
 
 def check_mesh(cfg: ModelConfig, mesh) -> None:
     """Raise unless ``cfg`` runs over ``mesh``'s model axis: a model axis
-    of 1 runs every arch; a larger one the dense GQA archs (the MoE
-    refuses it in ``moe.moe_ffn``)."""
-    if _model_n(mesh) == 1:
+    of 1 runs every arch; a larger one the GQA attention archs, the MoE
+    among them where each of its split dims divides the axis (the
+    reference's ``shard_map`` takes no other; a ValueError naming the
+    leaf)."""
+    n = _model_n(mesh)
+    if n == 1:
         return
     if cfg.mla is not None or cfg.mixer != "attn" or cfg.encoder is not None:
         raise NotImplementedError(
             f"{cfg.arch_id}: a model axis > 1 runs the GQA attention "
             f"archs; MLA, the SSM mixers and the encoder are not sharded")
+    check_moe_split(cfg, mesh)
+
+
+def check_moe_split(cfg: ModelConfig, mesh) -> None:
+    """Raise (ValueError, naming the leaf) where an MoE leaf's split dim
+    does not divide ``mesh``'s model axis: every expert leaf's F
+    (TP-experts) or E (expert parallelism), the shared experts' Fs, as
+    ``sharding.param_specs`` places them (the router is replicated);
+    nothing for a dense arch or without a model axis."""
+    n = _model_n(mesh)
+    if cfg.moe is None or n == 1:
+        return
+    m = cfg.moe
+    split = ("E", m.num_experts) if m.expert_mode == "ep" \
+        else ("F", m.d_expert)
+    dims = dict.fromkeys(("w_gate", "w_up", "w_down"), split)
+    if m.num_shared:
+        dims.update(dict.fromkeys(("shared_gate", "shared_up",
+                                   "shared_down"), ("Fs", m.d_shared)))
+    for leaf, (dim, size) in dims.items():
+        if size % n:
+            raise ValueError(
+                f"{cfg.arch_id}: the MoE leaf ffn.{leaf} splits its {dim} "
+                f"of {size} over the model axis, and {n} does not divide "
+                f"it (expert_mode={cfg.moe.expert_mode!r})")
 
 
 def param_shard_specs(cfg: ModelConfig, shapes, mesh) -> dict:
@@ -323,6 +351,7 @@ def shard_fn(cfg: ModelConfig, mesh, rank: int | None = None):
     the identity without a model axis."""
     if _model_n(mesh) == 1:
         return lambda name, x: x
+    check_moe_split(cfg, mesh)
     where = mesh_mod.coords(mesh, rank)
 
     def cut(name, x):

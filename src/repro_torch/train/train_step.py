@@ -34,8 +34,11 @@ of (data, model) axes, inside an initialized process group of
     group, and the finite flag is reduced with MIN over the whole world,
     so every rank takes the same update or the same skip.
 
-The dense GQA archs train on a model axis > 1 (``transformer.check_mesh``);
-the MoE raises, naming tensor / expert parallelism for the MoE.
+The GQA attention archs train on a model axis > 1, the MoE among them
+(TP-experts or expert parallelism, ``models/moe.py``); its ``moe_aux``
+term is part of each data shard's loss, so it is averaged over the data
+group with the loss and never summed over the model axis
+(``transformer.check_mesh`` refuses the rest).
 """
 from __future__ import annotations
 
@@ -152,11 +155,6 @@ def _data_group(cfg: ModelConfig, mesh):
         return None
     n_model = mesh.shape.get("model", 1)
     if n_model > 1:
-        if cfg.moe is not None:
-            raise NotImplementedError(
-                f"{cfg.arch_id} on {mesh}: the MoE does not train on a "
-                f"model axis > 1 (tensor / expert parallelism for the MoE "
-                f"is not ported)")
         transformer.check_mesh(cfg, mesh)
     if not dist.is_initialized():
         if mesh.size > 1:

@@ -531,3 +531,31 @@ def test_vocab_parallel_ce_backward_on_card(dev, n, monkeypatch):
         assert err <= 1e-5 * float(nll.detach().abs().max())
         want = ref.grad[..., r * v_l:(r + 1) * v_l]
         assert float((x.grad - want).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_expert_parallel_slots_on_card(dev, n):
+    """The expert-parallel capacity dispatch (``moe.dispatch_slots`` on
+    indices shifted by each rank's first expert: the reference's
+    ``in_range`` form) on CUDA tensors equals the CPU's for one routing of
+    granite-moe-3b-a800m's 40 experts, top-8, 1024 tokens, and the ranks'
+    kept assignments are the meshless dispatch's."""
+    from repro_torch.models import moe
+    cfg = configs.get_config("granite-moe-3b-a800m")
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(1024, 64, generator=gen)
+    w = torch.randn(64, e, generator=gen)
+    _, top_i, _ = moe.router_topk(x, w, k)
+    cap = moe.capacity(1024, cfg)
+    e_l = e // n
+    _, whole = moe.dispatch_slots(top_i, e, cap)
+    kept = 0
+    for r in range(n):
+        dst_c, keep_c = moe.dispatch_slots(top_i - r * e_l, e_l, cap)
+        dst_g, keep_g = moe.dispatch_slots((top_i - r * e_l).to(dev), e_l,
+                                           cap)
+        assert torch.equal(dst_g.cpu(), dst_c)
+        assert torch.equal(keep_g.cpu(), keep_c)
+        kept = kept + keep_c.int()
+    assert torch.equal(kept, whole.int())

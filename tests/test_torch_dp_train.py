@@ -20,7 +20,7 @@ and its own mesh tests are too slow on emulated devices to run here.
     write resumes at 1 rank with the losses of an uninterrupted 1-rank
     run, and 2 ranks without ``--max-model 1`` make a model axis of 2:
     the (1, 2) mesh trains (``tests/test_torch_tp_train.py`` holds its
-    numbers) and an MoE arch there exits 2.
+    numbers), an MoE arch there too (``tests/test_torch_moe_tp.py``).
 
 Tolerances: losses and grad norms 1e-5 relative to JAX's (two f32
 implementations that sum in different orders; measured <= 4e-7).  The
@@ -410,12 +410,12 @@ def test_cli_two_ranks_need_max_model_one(tmp_path):
     assert [rc for rc, _, _ in outs] == [0, 0], outs[0][2][-2000:]
     assert "mesh: data=1 x model=2 (2 devices)" in outs[0][1]
     assert "step     0 loss" in outs[0][1] and outs[1][1] == ""
-    # an MoE arch there exits 2, naming the MoE's model-axis item
+    # an MoE arch there trains too, its experts split over the model axis
     outs = _cli(2, tmp_path / "moe", "--arch", "deepseek-moe-16b",
                 "--steps", "1", "--fresh")
-    assert [rc for rc, _, _ in outs] == [2, 2]
-    assert "--max-model 1" in outs[0][2] and "MoE TP / EP" in outs[0][2]
-    assert "model=2" in outs[0][2]
+    assert [rc for rc, _, _ in outs] == [0, 0], outs[0][2][-2000:]
+    assert "mesh: data=1 x model=2 (2 devices), experts: tp" in outs[0][1]
+    assert "step     0 loss" in outs[0][1] and outs[1][1] == ""
     help_ = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
                             "--help"], env=_env(), capture_output=True,
                            text=True, timeout=JOIN_S)

@@ -371,9 +371,9 @@ def test_trainer_refuses_a_model_axis():
     with pytest.raises(RuntimeError, match="process group"):
         ts.build_train_step(cfg, ts.TrainConfig(),
                             mesh=tmesh.Mesh(data=1, model=2))
-    # the MoE does not shard over the model axis
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ts.build_train_step(configs.smoke_config("deepseek-moe-16b"),
+    # MLA does not shard over the model axis (the MoE does)
+    with pytest.raises(NotImplementedError, match="MLA"):
+        ts.build_train_step(configs.smoke_config("minicpm3-4b"),
                             ts.TrainConfig(),
                             mesh=tmesh.Mesh(data=1, model=2))
     with pytest.raises(RuntimeError, match="process group"):

@@ -146,15 +146,25 @@ def test_capacity_equals_dropless_when_uncapped():
 
 
 def test_mesh_and_expert_parallel_raise():
+    """Without a mesh ``expert_mode`` is ignored, as in the reference: an
+    EP config computes what the TP config computes, bit for bit.  On a
+    model axis that does not divide a split dim the MoE raises, naming the
+    leaf, and whole weights on a model axis are refused."""
+    from repro_torch.launch.mesh import Mesh
     cfg = configs.smoke_config("granite-moe-3b-a800m")
     _, p = _layer0("granite-moe-3b-a800m")
-    x = torch.zeros((1, 4, 64))
-    with pytest.raises(NotImplementedError, match="slice G"):
-        moe.moe_ffn(p, x, cfg, mesh=object())
+    x = torch.from_numpy(_x(1, 4, 64))
     ep = dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, expert_mode="ep"))
-    with pytest.raises(NotImplementedError, match="slice G"):
-        moe.moe_ffn(p, x, ep)
+    out_tp, aux_tp = moe.moe_ffn(p, x, cfg)
+    out_ep, aux_ep = moe.moe_ffn(p, x, ep)
+    torch.testing.assert_close(out_ep, out_tp, rtol=0, atol=0)
+    assert float(aux_ep) == float(aux_tp)
+    for c, leaf in ((cfg, "F of 32"), (ep, "E of 8")):
+        with pytest.raises(ValueError, match=f"ffn.w_gate splits its {leaf}"):
+            tf.check_mesh(c, Mesh(data=1, model=3))
+    with pytest.raises(ValueError, match="w_gate block"):
+        moe.expert_layout(p, cfg, Mesh(data=1, model=2))
 
 
 # --------------------------------------------------------------------------

@@ -38,8 +38,10 @@ meshless one, so the oracle is JAX's meshless ``ServeEngine``
   * the CLI under torchrun's environment: 2 ranks with ``--device cpu
     --smoke --engine --policy full`` print the mesh banner and the ``kv cache sharded
     over 'heads'`` line, rank 1 prints nothing, and both ranks' streams
-    equal a 1-rank run's; ``--replicas 2`` and an MoE arch on a model
-    axis of 2 exit 2.
+    equal a 1-rank run's; ``--replicas 2`` and an MLA arch (minicpm3-4b)
+    on a model axis of 2 exit 2 (the MoE archs serve there since the MoE
+    splits its experts: ``tests/test_torch_moe_tp.py``; the case keeps
+    its id ``moe``).
 """
 from __future__ import annotations
 
@@ -396,7 +398,7 @@ def test_cli_two_ranks_serve_the_one_rank_streams(tmp_path):
 
 @pytest.mark.parametrize("args,needle", [
     (("--replicas", "2"), "serving fleet"),
-    (("--arch", "deepseek-moe-16b"), "MoE TP / EP"),
+    (("--arch", "minicpm3-4b"), "MLA"),
 ], ids=["fleet", "moe"])
 def test_cli_refuses_on_a_model_axis(tmp_path, args, needle):
     outs = _cli(2, tmp_path / "x", *args)
