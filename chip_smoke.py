@@ -94,7 +94,7 @@ JSON object per line:
    every decode step's within ``TP_B_DECODE`` (from the rank's own cache
    and from its block of the unsharded run's), each rank's int8 prefill
    cache within one rounding step of its block of the unsharded one,
-   greedy equal at every step; (c) llama3-8b at ``TP_C_LAYERS`` (8) of
+   greedy equal at every step; (c) llama3-8b at ``TP_C_LAYERS`` (4) of
    its 32 layers, bf16, on (1, 2) (heads mode) and (d) glm4-9b at
    ``GLM_TP_LAYERS`` (2) of its 40 layers on (1, 4) (sequence mode),
    each against an unsharded run of the same depth here: the serve
@@ -142,7 +142,7 @@ JSON object per line:
    steps on (1, 2) (heads mode); (b) the ``train`` cell's llama3-8b
    cut to ``TPT_B_LAYERS`` (2) layers, bf16, at 1 x ``TPT_BC_SEQ``
    (1024) on (1, 2), its ranks started with (a)'s; (c) glm4-9b at
-   ``TPT_C_LAYERS`` of its 40 layers, bf16, 1 x 1024, on (1, 4)
+   ``TPT_C_LAYERS`` (2) of its 40 layers, bf16, 1 x 1024, on (1, 4)
    (sequence mode: the attention whole on every rank, the FFN and the
    vocab split); (b) and (c) one warm-up and 3 timed steps.  Before
    each sub-phase's ranks use it, the unsharded run of the same seed,
@@ -164,7 +164,7 @@ JSON object per line:
    ``mesh=``), ranks spawned as in 7c and 6c, one sub-phase after
    another: (a) deepseek-moe-16b TP-experts (``w_gate`` / ``w_up`` /
    ``w_down`` and the shared experts split on F), f32, 2 layers, 1 x
-   1024, 3 steps on (1, 2); (b) granite-moe-3b-a800m with
+   ``MOE_TP_SEQ`` (512), 3 steps on (1, 2); (b) granite-moe-3b-a800m with
    ``expert_mode="ep"`` (10 of its 40 experts a rank), likewise on
    (1, 4); both as 7c's (a) (``MOE_TP_BOUNDS``), the saved leaves the
    middle layer's router, ``w_gate``, ``w_down``, shared experts and
@@ -177,9 +177,43 @@ JSON object per line:
    teacher-forced steps, as 6c's (c); (d) granite EP serving, bf16, 2
    layers on (1, 4), teacher-forced (routing reported, ungated in
    bf16); (c) and (d)'s ranks at once, within ``MOE_TP_BOUND_C`` /
-   ``_D`` (3x the larger of the sound reading and the bf16 control).
+   ``_D`` (3x the larger of the sound reading and the bf16 control);
+   (c) and (d) again at f32 (``c_f32`` / ``d_f32``: 2 layers each,
+   teacher-forced only, routing exact; their ranks started with the
+   others, building nothing until (a)'s have ended): the prefill and the
+   decode steps from the unsharded run's cache within
+   ``MOE_TP_F32_BOUNDS`` (``serve_tp`` (b)'s), each rank's int8 prefill
+   cache within one step of its block of the unsharded one, greedy
+   equal, the decode steps from the rank's own cache reported (the
+   one-step differences compound there).
    Each sub-phase is read again under its planted faults
-   (``MOE_TP_FAULTS``), each beyond a bound;
+   (``MOE_TP_FAULTS``), each beyond a bound, the f32 readings' by more
+   than ``FAULT_MARGIN`` (10x);
+7e. ``ssm_tp``: the SSM mixers and the encoder over a model axis, ranks
+   spawned as in 7d, all at once: (a) hymba-1.5b at 4 layers (global
+   layer 0, windowed 1-3), f32, 1 x 2048 (past its 1024 window), 3 steps
+   on (1, 2) (sequence mode: 5 KV heads, the attention and the SSM whole
+   on every rank, the FFN and the vocab split); (b) mamba2-130m at its
+   24 layers, f32, 1 x 2048, 3 steps on (1, 4); (c) whisper-base at 6 + 6
+   layers, f32, 2 x 448, 1500 seeded frames a row, 3 steps on (1, 2)
+   (heads mode: the encoder, the cross-attention and the GELU MLP split);
+   each as 7d's (a) (``MOE_TP_BOUNDS``), launches exactly the meshless
+   counts (the flash kernels and the SSD chunk and its backward, each on
+   its route's design), the replicated leaves (every ``ssm`` leaf among
+   them) bit-equal across ranks; (d) f32 serving, teacher-forced through
+   ``make_serve_steps`` on (1, 2): hymba at 4 layers, 4 x 1536 (its
+   global layer decoding by length over a sequence-split cache, its
+   windowed ones by the band's bias, both through the decode kernel's
+   partials) and whisper at 6 + 6, 4 x 64 over 1500 frames (each decode
+   step taking the encoder's output), 16 steps each, gated as 7d's f32
+   readings, launches exact, the same weights in bf16 reported beside,
+   ungated; (e) ``launch/serve.py``'s lockstep for
+   mamba2-130m under ``torch.distributed.run`` with 2 ranks
+   (``--max-model 2``): rank 0's tokens equal a 1-rank run's, rank 1
+   serves nothing and never creates a CUDA context.  The GELU MLPs'
+   biases are drawn from the seed (the reference starts them at zero),
+   and each sub-phase is read again under its planted faults
+   (``SSM_TP_FAULTS``), each beyond its bound by more than 10x;
 8. ``train_plan``: the ``train`` configuration from the same weights and
    batch under eight remat settings: (a) off, (b) ``full`` on every block,
    (c) the trainer's ``--remat auto`` without a budget (its
@@ -236,8 +270,9 @@ JSON object per line:
     prefill 256 tokens and decode 80 steps past the window, on the card
     (kernels) and on the CPU (plain versions), same weights: logits,
     conv / SSM / int8 K/V caches, greedy tokens;
-16. ``serve_ssm``: ``launch/serve.py``'s lockstep at full width and depth
-    for mamba2-130m and hymba-1.5b (random bf16 weights, batch 8, prompt
+16. ``serve_ssm``: ``launch/serve.py``'s lockstep at full width and half
+    their depth (``SSM_CELL_LAYERS``: 12 and 16 layers) for mamba2-130m
+    and hymba-1.5b (random bf16 weights, batch 8, prompt
     2048, 32 new tokens, int8 cache) after a one-step warm-up run, the
     launch counters zeroed just before each run and read just after, then
     ``torch.profiler`` over its prefill and its first 4 decode steps run
@@ -258,12 +293,13 @@ JSON object per line:
     chunk forward and its tensor-core backward, the FMA flash kernels)
     against the CPU, with the ``model`` line's tolerances and exact
     launches;
-19. ``train_ssm``: mamba2-130m and hymba-1.5b at full width and depth
-    through ``build_train_step`` (random f32 masters, bf16, remat every
-    block, AdamW, batch 8 x 2048): 2 warm-up and 5 timed steps with the
-    launch counters zeroed before and read after (``ssd_chunk_sm90`` 2 x L
-    x 5, ``ssd_chunk_bwd_sm90`` L x 5, hymba's flash forward 2 x 32 x 5
-    and delta / dQ / dKV 32 x 5, the FMA routes 0), one profiled step, then
+19. ``train_ssm``: mamba2-130m and hymba-1.5b at full width and
+    ``SSM_CELL_LAYERS`` (12 / 16) layers through ``build_train_step``
+    (random f32 masters, bf16, remat every block, AdamW, batch 8 x 2048):
+    2 warm-up and 5 timed steps with the launch counters zeroed before and
+    read after (``ssd_chunk_sm90`` 2 x L x 5, ``ssd_chunk_bwd_sm90`` L x
+    5, hymba's flash forward 2 x L x 5 and delta / dQ / dKV L x 5, the FMA
+    routes 0), one profiled step, then
     saved-after-forward bytes and the fwd+bwd peak under remat off and on
     (hymba at ``SSM_MEM_LAYERS`` layers);
 20. ``two_tier``: the two-tier rolling cache against the uniform cache:
@@ -280,8 +316,9 @@ JSON object per line:
     decode kernel at B=8, S=2048, ragged lengths, splits 4 (lengths
     entry), each against its plain version and its ``tiling`` twin; then
     ``variant_kernels``, the seconds they took;
-22. ``moe_model``: 2-layer deepseek-moe-16b and granite-moe-3b-a800m at
-    full width, policy full, card against CPU from one set of weights
+22. ``moe_model``: deepseek-moe-16b and granite-moe-3b-a800m at 1 layer
+    (``MODEL_CHECK_LAYERS``) and full width, policy full, card against
+    CPU from one set of weights
     (``bridge``): prefill logits and int8 caches, 4 decode steps, the
     loss with its ``moe_aux`` and every gradient (remat on every block,
     so each layer routes again in the backward), at the ``model`` line's
@@ -290,8 +327,8 @@ JSON object per line:
     probabilities within 2 f32 ulps; the count is reported either way)
     and its dropped assignments, which must be equal;
 23. ``serve_variants``: glm4-9b, deepseek-moe-16b, granite-moe-3b-a800m
-    and stablelm-12b (head_dim 160) at full width and half their depth
-    (``SERVE_VARIANT_LAYERS``: 20 / 14 / 16 / 20 layers; random bf16
+    and stablelm-12b (head_dim 160) at full width and a quarter of their
+    depth (``SERVE_VARIANT_LAYERS``: 10 / 7 / 8 / 10 layers; random bf16
     weights from ``--seed``), one at a time, each freed before the
     next, served by ``ServeEngine`` as ``serve`` is (8 slots, ``max_len``
     2048, int8, ``kv_splits`` 4, the same 16-request trace): 16 of 16
@@ -303,7 +340,7 @@ JSON object per line:
     (``moe.router``, ``moe.dispatch``, ``moe.experts``, ``moe.combine``,
     ``moe.shared``), the decode kernel and the GEMMs;
 24. ``train_variants``: those four and minicpm3-4b at full width with
-    depth cut (``VARIANT_TRAIN_LAYERS``: 4, 2, 8, 4 and 24 layers), as
+    depth cut (``VARIANT_TRAIN_LAYERS``: 4, 2, 8, 4 and 12 layers), as
     ``train`` runs (f32 masters, bf16, remat every block, AdamW, batch 1 x
     4096, 2 warm-up and 5 timed steps, launches exact: none for MLA), with
     ``moe_aux`` from one more forward, the peak, and the arithmetic that
@@ -318,13 +355,14 @@ JSON object per line:
     on a band of 1024 at serve_ssm's decode shape; then
     ``head160_kernels``, the seconds they took;
 26. ``head160_model`` and ``mla_model``: stablelm-12b and minicpm3-4b cut
-    to 2 layers at full width, policy full, card against CPU from one set
+    to ``MODEL_CHECK_LAYERS`` (1) at full width, policy full, card against CPU from one set
     of weights: prefill logits and caches (int8 K/V; MLA's bf16 latents),
     4 lockstep decode steps, the loss and every gradient, at the
     ``model`` line's tolerances, the launches exact in each part (none
     for MLA: no kernel lies on the reference's MLA path);
 27. ``serve_mla``: ``launch/serve.py``'s lockstep for minicpm3-4b at full
-    width and depth (batch 8, prompt 1024, 16 new tokens, bf16 latent
+    width and half its depth (``MLA_SERVE_LAYERS``: 31 of 62 layers;
+    batch 8, prompt 1024, 16 new tokens, bf16 latent
     cache) after a one-step warm-up, no kernel launched, then
     ``torch.profiler`` over its prefill and first 4 decode steps;
 28. ``kernel`` lines for whisper-base and qwen2-vl-2b: the flash forward
@@ -334,8 +372,8 @@ JSON object per line:
     D = 64 (B=16, 8 KV heads, S=512, ragged, splits 1 and 4) and at
     qwen2-vl's G = 6, D = 128 (B=8, 2 KV heads, S=2048, ragged, splits 4
     and 1); then ``encdec_vlm_kernels``, the seconds they took;
-29. ``whisper_model`` and ``qwen2vl_model``: each cut to 2 decoder layers
-    (whisper: 2 encoder layers too) at full width, policy full, card
+29. ``whisper_model`` and ``qwen2vl_model``: each cut to 1 decoder layer
+    (whisper: 1 encoder layer too) at full width, policy full, card
     against CPU from one set of weights, as ``head160_model``: whisper on
     1500 frames a row, qwen2-vl with a 16-patch grid prefix and 3-stream
     positions whose streams differ; the loss's gradients include the
@@ -349,10 +387,11 @@ JSON object per line:
     6 x 191 decodes), then ``torch.profiler`` over the prefill and 4
     decode steps: device ms of the encoder, the cross-attention, the
     decode kernel and the GEMMs, the idle share;
-31. ``serve_variants`` for qwen2-vl-2b at 14 of its 28 layers (the serve
+31. ``serve_variants`` for qwen2-vl-2b at 7 of its 28 layers (the serve
     cell's engine and trace: 16 of 16, no flash launch, one decode a
     layer a round) and
-    ``train_variants`` for qwen2-vl-2b at its 28 layers (batch 1 x 4096:
+    ``train_variants`` for qwen2-vl-2b at ``QWEN_TRAIN_LAYERS`` (14) of its
+    28 layers (batch 1 x 4096:
     a 32 x 32 patch prefix and 3-stream positions; no kernel) and
     whisper-base at 6 + 6 layers (batch 16 x 448, 1500 frames a row;
     the decoder's flash kernels only);
@@ -360,7 +399,8 @@ JSON object per line:
     ``serve_variants`` and ``train_variants`` by arch, in
     ``serve_encdec``, in ``train_dp`` (a) and each rank of (b), in
     ``train_tp`` (a)-(c), rank 0's, in ``moe_tp`` (a)-(d), rank 0's,
-    and in ``serve_tp`` (b)-(d), rank 0's, beside; the decode rows with
+    in ``ssm_tp`` (a)-(e), rank 0's, and in ``serve_tp`` (b)-(d), rank
+    0's, beside; the decode rows with
     ``serve_tp`` (a)'s partials times; the head_dim 160 rows apart, with
     stablelm-12b's launches), the ``nvidia-smi`` line, and last
     ``{"ok": true, "device": {...}}``.
@@ -423,6 +463,9 @@ SSD_TPU = "src/repro/kernels/ssd/kernel.py:42"
 SSM_PROMPT, SSM_GEN, SSM_BATCH = 2048, 32, 8   # the serve_ssm lockstep
 # train_ssm's remat-off against remat-on memory: hymba at this depth
 SSM_MEM_LAYERS = 8
+# serve_ssm's and train_ssm's depth: half of each arch's (full depth until
+# the whole run needed room for ssm_tp; hymba keeps global layers 0, 15)
+SSM_CELL_LAYERS = {"mamba2-130m": 12, "hymba-1.5b": 16}
 # the two-tier cache: the 2-layer run's window and steps, the full run's
 # s_max (its window stays hymba's 1024)
 TWO_TIER_WINDOW, TWO_TIER_STEPS, TWO_TIER_SMAX = 64, 160, 4096
@@ -449,15 +492,18 @@ FLEET_SLOTS, FLEET_LEN = 8, 2048
 # minicpm3-4b and the depth train_variants cuts each to; the depths keep
 # AdamW's peak near the train phase's (the arithmetic: its bytes per
 # parameter, printed by the phase, times each cut model's parameters:
-# 48.6 GB at stablelm's 4 layers, 42.7 GB at minicpm3's 24)
+# 48.6 GB at stablelm's 4 layers, 42.7 GB at minicpm3's 24; minicpm3 at
+# 12 since the whole run needed room for ssm_tp)
 VARIANT_TRAIN_LAYERS = {"glm4-9b": 4, "deepseek-moe-16b": 2,
                         "granite-moe-3b-a800m": 8, "stablelm-12b": 4,
-                        "minicpm3-4b": 24}
+                        "minicpm3-4b": 12}
 # head_dim 160 (stablelm-12b: 32 / 8 heads, G = 4) and MLA (minicpm3-4b)
 HEAD160, MLA_ARCH = "stablelm-12b", "minicpm3-4b"
 # the serve_mla lockstep (prompt 2048 and 32 new tokens until the whole
-# run needed room for moe_tp)
+# run needed room for moe_tp) and its depth (minicpm3-4b's 62 layers until
+# the whole run needed room for ssm_tp)
 MLA_BATCH, MLA_PROMPT, MLA_GEN = 8, 1024, 16
+MLA_SERVE_LAYERS = 31
 # whisper-base and qwen2-vl-2b: whisper's lockstep (batch, prompt, new
 # tokens: 256 of its 448-token text context) and its train batch (16 x the
 # 448-token context, 1500 frames a row); qwen2-vl's train sequence opens
@@ -467,6 +513,13 @@ WHISPER, QWEN = "whisper-base", "qwen2-vl-2b"
 WHISPER_BATCH, WHISPER_PROMPT, WHISPER_GEN = 16, 64, 192
 WHISPER_CTX = 448
 QWEN_GRID = 32
+# train_variants' depth for qwen2-vl-2b (its 28 layers until the whole run
+# needed room for ssm_tp)
+QWEN_TRAIN_LAYERS = 14
+# the depth the card-vs-CPU phases of the variant archs (moe_model,
+# head160_model, mla_model, whisper_model, qwen2vl_model) cut each model
+# to (2 until the whole run needed room for ssm_tp; whisper's encoder too)
+MODEL_CHECK_LAYERS = 1
 MODEL_PHASE = {HEAD160: "head160_model", MLA_ARCH: "mla_model",
                WHISPER: "whisper_model", QWEN: "qwen2vl_model"}
 # the train phase's peak when that phase did not run in this process
@@ -483,18 +536,21 @@ PROFILE_REQUESTS, PROFILE_NEW, PROFILE_WINDOW = 4, 8, 4
 # cifar_train's profiled ED+SC+MP steps (30 before) and the decode-only
 # rounds serve_variants profiles for an MoE arch (4 before)
 CIFAR_PROFILE_STEPS, MOE_PROFILE_ROUNDS = 15, 2
-# serve_variants' depth: half of each arch's (full depth until the whole
-# run needed room for train_tp; every check counts the layers it serves)
-SERVE_VARIANT_LAYERS = {"glm4-9b": 20, "deepseek-moe-16b": 14,
-                        "granite-moe-3b-a800m": 16, "stablelm-12b": 20,
-                        "qwen2-vl-2b": 14}
+# serve_variants' depth: a quarter of each arch's (full depth until the
+# whole run needed room for train_tp, half until it needed room for
+# ssm_tp; every check counts the layers it serves)
+SERVE_VARIANT_LAYERS = {"glm4-9b": 10, "deepseek-moe-16b": 7,
+                        "granite-moe-3b-a800m": 8, "stablelm-12b": 10,
+                        "qwen2-vl-2b": 7}
 # serve_tp: the teacher-forced runs (batch, prompt, decode steps), the
 # decode kernel's splits (the serve cell's), (a)'s ragged lengths (rows
 # 1 and 7 live in the first shard only), (b)'s depth, (d)'s depth cut
 TP_BATCH, TP_PROMPT, TP_STEPS = 4, 128, 16
 TP_SPLITS = 4
 TP_LENGTHS = [1, 2048, 513, 1024, 7, 1500, 1025, 64]
-TP_B_LAYERS, TP_C_LAYERS, GLM_TP_LAYERS = 4, 8, 2
+# (c) at 4 layers since the whole run needed room for ssm_tp (its bound
+# below stays the one derived at 8)
+TP_B_LAYERS, TP_C_LAYERS, GLM_TP_LAYERS = 4, 4, 2
 TP_JOIN_S = 420
 # the bounds of the teacher-forced logits (max |diff| over the unsharded
 # run's max |logit|, the prefill's and every decode step's, from the
@@ -521,8 +577,10 @@ TP_FAULTS = ("w_down_mid", "w_down_all", "merge_drop0")
 # warm-up and TPT_TIMED timed steps.  Each rank's peak is
 # reckoned before its spawn from the train phase's bytes per parameter;
 # a sub-phase whose ranks together pass TPT_FIT_BYTES is cut in depth
+# (c) at 2 layers since the whole run needed room for ssm_tp (its bounds
+# below stay the ones derived at 4 layers)
 TPT_A_LAYERS, TPT_A_SEQ, TPT_A_STEPS = 2, 1024, 3
-TPT_C_LAYERS = 4
+TPT_C_LAYERS = 2
 # (b)'s depth and (b) and (c)'s sequence: the train cell's 4 layers at
 # 1 x TRAIN_SEQ (4096) until the whole run needed room for moe_tp (gloo's
 # host-staged reductions grow with the tokens; at 2 layers (b)'s
@@ -581,7 +639,8 @@ TPT_FAULTS = ("copy_mid_ffn", "ce_sum_unreduced", "copy_seq_attn",
 # bf16, on (1, 2): the serve cell's engine and trace and the teacher-forced
 # steps; (d) granite EP serving, bf16, on (1, 4), teacher-forced.  Depths:
 MOE_TP_LAYERS = {"a": 2, "b": 2, "c": 4, "d": 2}
-MOE_TP_SEQ, MOE_TP_STEPS = 1024, 3
+# (1024 until the whole run needed room for ssm_tp)
+MOE_TP_SEQ, MOE_TP_STEPS = 512, 3
 # the gates of (a) and (b), f32 (train_tp (a)'s; the update-norm reading
 # "params" is reported beside, ungated): losses and grad norms relative,
 # step-1 gradients of the saved leaves over each leaf's largest, the
@@ -606,6 +665,40 @@ MOE_TP_FAULTS = {"a": ("moe_partial_dropped", "combine_weights_unsummed",
                        "router_input_summed"),
                  "b": ("ep_offset_zero", "combine_weights_unsummed"),
                  "c": ("moe_partial_dropped",), "d": ("ep_offset_zero",)}
+# moe_tp (c) / (d) read again at f32 (policy full), teacher-forced, at
+# serve_tp (b)'s bounds (prefill 1e-4, decode 1e-3 of max: routing is
+# exact at f32) on the prefill and the decode path (the decode steps from
+# the unsharded run's cache), each planted fault beyond its bound by more
+# than FAULT_MARGIN x
+MOE_TP_F32_BOUNDS = {"prefill": TP_B_PREFILL, "decode": TP_B_DECODE}
+MOE_TP_F32_LAYERS = {"c": 2, "d": 2}
+FAULT_MARGIN = 10
+# ssm_tp: the SSM mixers and the encoder over a model axis, ranks on this
+# card over gloo as in moe_tp, all started together: (a) hymba-1.5b at 4
+# layers (global layer 0, windowed 1-3), f32, 1 x SSM_TP_SEQ (past the
+# 1024 window), on (1, 2) (sequence mode: 5 KV heads); (b) mamba2-130m at
+# all 24 layers, f32, 1 x SSM_TP_SEQ, on (1, 4); (c) whisper-base at 6 + 6
+# layers, f32, WHISPER_TP_BATCH x WHISPER_CTX, 1500 frames a row, on (1, 2)
+# (heads mode); each SSM_TP_STEPS steps, gated as moe_tp (a); (d) f32
+# serving, teacher-forced through make_serve_steps on (1, 2): hymba at 4
+# layers, TP_BATCH x SSM_TP_PROMPT (the global layer decoding by length
+# over a sequence-split cache, the windowed ones by the band's bias), and
+# whisper at 6 + 6, TP_BATCH x WHISPER_TP_PROMPT, 1500 frames, the decode
+# steps taking the encoder's output; TP_STEPS steps each, gated as
+# moe_tp's f32 readings; (e) launch/serve.py's lockstep for mamba2-130m under
+# torchrun, 2 ranks, --max-model 2, against a 1-rank run.  The GELU MLPs'
+# biases are drawn from the seed (_seed_biases), so b2_per_rank shows
+SSM_TP_LAYERS = {"a": 4, "b": 24, "c": 6, "d_hymba": 4, "d_whisper": 6}
+SSM_TP_SEQ, SSM_TP_STEPS, WHISPER_TP_BATCH = 2048, 3, 2
+SSM_TP_PROMPT, WHISPER_TP_PROMPT = 1536, 64
+SSM_TP_LOCKSTEP = ["--arch", "mamba2-130m", "--max-model", "2", "--batch",
+                   "4", "--prompt-len", "256", "--gen", "16"]
+SSM_TP_FAULTS = {"a": ("ffn_partial_dropped", "ssm_input_copied"),
+                 "b": ("ssm_input_copied",),
+                 "c": ("ffn_partial_dropped", "b2_per_rank",
+                       "xattn_unreduced"),
+                 "d_hymba": ("ffn_partial_dropped", "band_local_positions"),
+                 "d_whisper": ("xattn_unreduced", "b2_per_rank")}
 # the reference for the baseline's accuracy: examples/cifar_optorch.py's
 # train("baseline", *make_cifar_like(n=2048, seed=0), 200), the JAX
 # package on the CPU: mean accuracy of its last 20 steps
@@ -1441,31 +1534,38 @@ class Smoke:
                  for r in range(spec["world"])] for spec, _ in groups]
 
     def _tp_reference(self, model, cfg, policy: str, tmp: str,
-                      part: str) -> tuple[str, dict | None]:
+                      part: str, prompt: int = TP_PROMPT
+                      ) -> tuple[str, dict | None]:
         """The unsharded teacher-forced run in this process (its own
-        greedy tokens; an MoE's routing calls beside), saved for the
-        ranks; in bf16 also the bf16
+        greedy tokens; an MoE's routing calls beside; an encoder arch on
+        seeded normal frames, saved with it), TP_BATCH x ``prompt``,
+        saved for the ranks; in bf16 also the bf16
         control: the same weights at f32 (policy ``full``) fed the same
         tokens, the bf16 run's logits against its.  -> (the file, the
         control's ``_tf_compare`` or None)."""
         torch = self.torch
         gen = torch.Generator(device=self.dev).manual_seed(self.args.seed)
-        prompts = torch.randint(0, cfg.vocab, (TP_BATCH, TP_PROMPT),
+        prompts = torch.randint(0, cfg.vocab, (TP_BATCH, prompt),
                                 generator=gen, device=self.dev,
                                 dtype=torch.int32)
+        frames = None if cfg.encoder is None else torch.randn(
+            (TP_BATCH, cfg.encoder.n_frames, cfg.d_model), generator=gen,
+            device=self.dev)
         routing = []
         with _routing_spy(routing, cfg.n_layers * (TP_STEPS + 1)
                           if cfg.moe is not None else 0):
-            logits, tokens, cache = tp_forced(model, cfg, policy, prompts)
+            logits, tokens, cache = tp_forced(model, cfg, policy, prompts,
+                                              frames=frames)
         path = os.path.join(tmp, f"{part}.ref.pt")
         torch.save({"prompts": prompts.cpu(), "tokens": tokens,
-                    "logits": logits, "cache": cache,
-                    "routing": routing}, path)
+                    "logits": logits, "cache": cache, "routing": routing,
+                    "frames": None if frames is None else frames.cpu()},
+                   path)
         control = None
         if policy == "bf16":
             m32 = copy.deepcopy(model).float()
             logits32, _, _ = tp_forced(m32, cfg, "full", prompts,
-                                       forced=tokens)
+                                       forced=tokens, frames=frames)
             del m32
             gc.collect()
             torch.cuda.empty_cache()
@@ -1572,15 +1672,6 @@ class Smoke:
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         checks["a"] = all(r["ok"] for r in part_a)
-        # (b) f32: besides the logits' bounds (_tp_part), each rank's int8
-        # prefill cache its block of the unsharded one up to single
-        # rounding steps, and the greedy tokens equal at every step
-        tf_b = parts["b"]["tf"]
-        checks["b_cache_within_one_step"] = all(
-            c["k_int8_max_steps"] <= 1 and c["v_int8_max_steps"] <= 1
-            for c in tf_b["cache_vs_unsharded"])
-        checks["b_greedy_equal"] = tf_b["greedy_equal_steps"] \
-            == TP_STEPS + 1
         for p in parts:
             for k, v in parts[p].pop("checks").items():
                 checks[f"{p}_{k}"] = v
@@ -1612,12 +1703,21 @@ class Smoke:
         return cfg_b, ref_b
 
     def _tp_part(self, ranks: list, cfg, policy: str, engine: dict | None,
-                 n_req: int = 0, *, bounds: dict, control=None) -> dict:
+                 n_req: int = 0, *, bounds: dict, control=None,
+                 margin: float = 0.0, gate_own_cache: bool = True) -> dict:
         """One sub-phase's ranks against the unsharded run: launches,
         memory, streams, host times, teacher-forced logits (``bounds``:
         the prefill's and the decode steps' limits), the planted faults
-        (each beyond the decode bound or the prefill's), the bf16
-        control beside."""
+        (each beyond the decode bound or the prefill's; with ``margin``,
+        beyond it by more than that factor), the bf16 control beside.  At
+        f32 each rank's int8 prefill cache must also be within one step of
+        its block of the unsharded one, and the greedy tokens equal.
+        ``gate_own_cache`` False gates the decode steps (and their greedy
+        tokens) from the unsharded run's cache only -- the decode path --
+        and reports those from the rank's own cache: there the one-step
+        int8 differences the cache gate allows (an f32 reorder at a
+        rounding boundary) compound over the steps, and an MoE's routing
+        can flip at them."""
         from repro_torch.kernels.flash import ops as flash_ops
         L = cfg.n_layers
         fwd = "flash_fwd_sm90" if flash_ops.fwd_route(
@@ -1648,9 +1748,7 @@ class Smoke:
                 "launches": [t["launches"] for t in tf],
                 "ranks_agree": all(t["digest"] == tf[0]["digest"]
                                    for t in tf)}
-            want = {k: 0 for k in tf[0]["launches"]}
-            want[fwd] = L
-            want["flash_decode"] = L * TP_STEPS
+            want = _serve_want(cfg, policy, tf[0]["launches"])
             checks["launches"] = all(t["launches"] == want for t in tf)
             checks["tf_ranks_agree"] = out["tf"]["ranks_agree"]
             # the logits gates: the prefill's, and the decode steps' from
@@ -1659,10 +1757,23 @@ class Smoke:
             checks["prefill_within_bound"] = \
                 t["prefill_rel"] <= bounds["prefill"]
             checks["decode_within_bound"] = max(
-                t["decode_rel_own_cache"], t["decode_rel_ref_cache"]) \
-                <= bounds["decode"]
+                t["decode_rel_own_cache"] if gate_own_cache else 0.0,
+                t["decode_rel_ref_cache"]) <= bounds["decode"]
+            out["own_cache_gated"] = gate_own_cache
+            if policy == "full":
+                checks["cache_within_one_step"] = all(
+                    c["k_int8_max_steps"] <= 1 and c["v_int8_max_steps"] <= 1
+                    for c in t["cache_vs_unsharded"])
+                checks["greedy_equal"] = TP_STEPS + 1 == (
+                    t["greedy_equal_steps"] if gate_own_cache
+                    else t["greedy_equal_steps_ref_cache"])
             out["bounds"] = bounds
             out["bf16_control"] = control
+            if "tf_bf16" in ranks[0]:
+                out["bf16_ungated"] = {
+                    k: (min if k == "greedy_equal" else max)(
+                        r["tf_bf16"][k] for r in ranks)
+                    for k in ranks[0]["tf_bf16"]}
             if "routing" in tf[0]:
                 # bf16: reported, not gated (a bf16 partial sum moves the
                 # router's input by more than its f32 near-ties)
@@ -1678,6 +1789,11 @@ class Smoke:
                     x[f]["prefill_rel"] > bounds["prefill"]
                     or x[f]["decode_rel"] > bounds["decode"]
                     for x in faults)
+                if margin:
+                    checks[f"fault_{f}_beyond_{margin:g}x"] = all(
+                        max(x[f]["prefill_rel"] / bounds["prefill"],
+                            x[f]["decode_rel"] / bounds["decode"]) > margin
+                        for x in faults)
         if engine is not None:
             e0 = ranks[0]["engine"]
             want = {k: 0 for k in e0["launches"]}
@@ -2698,32 +2814,26 @@ class Smoke:
 
     def _tpt_prepare(self, part, cfg, policy, seq, world, warmup, timed,
                      bpp, tmp, *, faults=None, bounds=None,
-                     final=None) -> dict:
+                     final=None, batch: int = 1) -> dict:
         """A ``train_tp`` (or ``moe_tp`` training) sub-phase before its
         ranks: the depth reckoned to fit, the ranks' spec and
         ``reference(before_publish=None)``, the unsharded run and its
         control here (each rank's file published by a rename, after
         ``before_publish()``), to run while the ranks start.
         ``faults``, ``bounds`` and ``final`` (the parameters after the
-        steps read) default to ``train_tp``'s for ``part``."""
+        steps read) default to ``train_tp``'s for ``part``; ``batch``
+        rows of ``seq`` tokens a step (an encoder arch's with frames)."""
         torch = self.torch
-        from repro_torch.distributed import sharding as shd
         from repro_torch.launch.mesh import Mesh
-        from repro_torch.models import transformer
         t0 = time.time()
         mesh = Mesh(data=1, model=world)
-
-        def reckon(c):
-            specs = transformer.param_placement(c, mesh)
-            return sum(math.prod(shd.local_shape(p.shape, specs[n], mesh))
-                       for n, p in transformer.init_params(
-                           c, device="meta").named_parameters())
-
         layers = cfg.n_layers
-        while world * reckon(cfg) * bpp > TPT_FIT_BYTES and cfg.n_layers > 1:
+        while world * _local_params(cfg, world) * bpp > TPT_FIT_BYTES \
+                and cfg.n_layers > 1:
             cfg = dataclasses.replace(cfg, n_layers=cfg.n_layers // 2)
-        local = reckon(cfg)
-        mode = "heads" if cfg.n_kv % world == 0 else "seq"
+        local = _local_params(cfg, world)
+        mode = "no attention" if cfg.n_kv == 0 else \
+            "heads" if cfg.n_kv % world == 0 else "seq"
         if faults is None:
             faults = [f for f in TPT_FAULTS
                       if (f != "copy_seq_attn" or mode == "seq")
@@ -2735,20 +2845,20 @@ class Smoke:
         ref = {}
         plan = dict(part=part, cfg=cfg, layers=layers, local=local,
                     bpp=bpp, mode=mode, faults=faults, bounds=bounds,
-                    policy=policy,
+                    policy=policy, batch=batch,
                     seq=seq, warmup=warmup, timed=timed, ref=ref,
                     control=None, t0=t0, spec=dict(
                         part=part, cfg=cfg, policy=policy,
-                        ref=os.path.join(tmp, f"{part}.ref"), batch=1,
+                        ref=os.path.join(tmp, f"{part}.ref"), batch=batch,
                         seq=seq, warmup=warmup, timed=timed, faults=faults,
                         flag="--tp-train-child"))
 
         def reference(before_publish=None):
             ref.update(self._tpt_reference(cfg, policy, seq, warmup, timed,
-                                           mesh, final=final))
+                                           mesh, final=final, batch=batch))
             if policy == "bf16":
                 f32 = self._tpt_reference(cfg, "full", seq, warmup, timed,
-                                          mesh, final=False)
+                                          mesh, final=False, batch=batch)
                 per_rank = [_tpt_readings(f32["files"][r], ref["losses"],
                                           ref["grad_norms"],
                                           grads=ref["files"][r]["grads1"])
@@ -2765,28 +2875,42 @@ class Smoke:
         plan["reference"] = reference
         return plan
 
-    def _tpt_finish(self, plan: dict, ranks: list, spawn_s: float) -> dict:
-        """A ``train_tp`` / ``moe_tp`` training sub-phase's ranks against
-        its unsharded run: launches, agreement, the readings within its
-        bounds, every planted fault beyond one, the routing."""
+    def _tpt_finish(self, plan: dict, ranks: list, spawn_s: float,
+                    margin: float = 0.0) -> dict:
+        """A ``train_tp`` / ``moe_tp`` / ``ssm_tp`` training sub-phase's
+        ranks against its unsharded run: launches, agreement, the readings
+        within its bounds, every planted fault beyond one (with
+        ``margin``, beyond it by more than that factor), the routing."""
         from repro_torch.kernels.flash import ops as flash_ops
+        from repro_torch.kernels.ssd import ops as ssd_ops
         torch = self.torch
         cfg, policy, ref = plan["cfg"], plan["policy"], plan["ref"]
         warmup, timed, faults = plan["warmup"], plan["timed"], plan["faults"]
         bounds, local, layers = plan["bounds"], plan["local"], plan["layers"]
         control, t0 = plan["control"], plan["t0"]
-        # the route's design at this dtype and head_dim, and no other's
+        # the route's design at this dtype and head_dim, and no other's:
+        # the decoder's causal attention (the encoder's runs no kernel) and
+        # the SSD chunk, twice a layer a step under remat, their backward
+        # once
         dt = torch.float32 if policy == "full" else torch.bfloat16
-        fwd = flash_ops.fwd_route(dt, cfg.head_dim)
-        bwd = flash_ops.bwd_route(dt, dt, dt, cfg.head_dim)
+        fwd = flash_ops.fwd_route(dt, cfg.head_dim) if cfg.n_kv else None
+        bwd = flash_ops.bwd_route(dt, dt, dt, cfg.head_dim) if cfg.n_kv \
+            else None
         L = cfg.n_layers
-        want = {k: 0 for k in self._launch_counters()}
-        want["flash_fwd_sm90" if fwd == "sm90" else "flash_fwd"] = \
-            2 * L * timed
-        sfx = "_sm90" if bwd == "sm90" else ""
-        want.update({"flash_bwd_delta": L * timed,
-                     f"flash_bwd_dq{sfx}": L * timed,
-                     f"flash_bwd_dkv{sfx}": L * timed})
+        want = {k: 0 for k in self._all_counters()}
+        if cfg.mixer in ("attn", "hybrid"):
+            want["flash_fwd_sm90" if fwd == "sm90" else "flash_fwd"] = \
+                2 * L * timed
+            sfx = "_sm90" if bwd == "sm90" else ""
+            want.update({"flash_bwd_delta": L * timed,
+                         f"flash_bwd_dq{sfx}": L * timed,
+                         f"flash_bwd_dkv{sfx}": L * timed})
+        if cfg.mixer in ("ssm", "hybrid"):
+            n, p = cfg.ssm.d_state, cfg.ssm.head_p
+            want["ssd_chunk_sm90" if ssd_ops.ssd_route(n, p) == "sm90"
+                 else "ssd_chunk"] = 2 * L * timed
+            want["ssd_chunk_bwd_sm90" if ssd_ops.ssd_bwd_route(n, p)
+                 == "sm90" else "ssd_chunk_bwd"] = L * timed
         sound = {k: max(rk["readings"][k] for rk in ranks)
                  for k in ranks[0]["readings"]}
         peaks = [rk["peak"] for rk in ranks]
@@ -2818,6 +2942,11 @@ class Smoke:
                     any(not rk["faults"][f][k] <= bounds[k]
                         for k in rk["faults"][f] if k in bounds)
                     for rk in ranks)
+                if margin:
+                    checks[f"fault_{f}_beyond_{margin:g}x"] = all(
+                        any(not rk["faults"][f][k] <= margin * bounds[k]
+                            for k in rk["faults"][f] if k in bounds)
+                        for rk in ranks)
         step_s = [statistics.median(rk["step_s"][warmup:]) for rk in ranks]
         routing = None
         if cfg.moe is not None:
@@ -2829,7 +2958,7 @@ class Smoke:
         return {
             "arch": cfg.arch_id, "layers": L, "depth_cut": None
             if L == layers else {"from": layers, "to": L},
-            "policy": policy, "batch": 1, "seq": plan["seq"],
+            "policy": policy, "batch": plan["batch"], "seq": plan["seq"],
             "mesh": f"(1, {len(ranks)})", "mode": plan["mode"],
             "steps": {"warmup": warmup, "timed": timed},
             "routes": {"fwd": fwd, "bwd": bwd}, "expected_launches": want,
@@ -2852,7 +2981,7 @@ class Smoke:
             "checks": checks}
 
     def _tpt_reference(self, cfg, policy, seq, warmup, timed, mesh,
-                       final: bool) -> dict:
+                       final: bool, batch: int = 1) -> dict:
         """The unsharded run for ``train_tp`` here: ``build_train_step``
         (``policy``, remat on every block, the AdamW defaults) from
         ``init_state(--seed)``, ``warmup`` + ``timed`` steps of the
@@ -2864,7 +2993,7 @@ class Smoke:
         norms, launches, median timed step, peak}."""
         torch = self.torch
         from repro_torch.core.checkpoint import CheckpointConfig
-        from repro_torch.launch.train import init_state, synthetic_lm_batches
+        from repro_torch.launch.train import init_state
         from repro_torch.optim import adamw
         from repro_torch.train.train_step import (TrainConfig,
                                                   build_train_step,
@@ -2876,8 +3005,9 @@ class Smoke:
             enabled=True, policy="full", segment_size=1),
             opt=adamw.AdamWConfig())
         model, opt = init_state(cfg, self.args.seed, self.dev)
-        data = synthetic_lm_batches(cfg, 1, seq, seed=self.args.seed,
-                                    device=self.dev)
+        _seed_biases(model, cfg, self.args.seed)
+        batches = _tpt_batches(cfg, batch, seq, self.args.seed, self.dev,
+                               warmup + timed)
         names = _tpt_leaves(cfg)
         start = None
         if final:
@@ -2887,9 +3017,7 @@ class Smoke:
         with _routing_spy(routing, 2 * cfg.n_layers):
             model, recs, launches, first = _tpt_steps(
                 build_train_step(cfg, tc), model, opt,
-                init_loss_scale(tc, self.dev),
-                [next(data)[1] for _ in range(warmup + timed)], warmup,
-                names)
+                init_loss_scale(tc, self.dev), batches, warmup, names)
         common = {"losses": [r["loss"] for r in recs],
                   "grad_norms": [r["grad_norm"] for r in recs],
                   "grad_max": {n: float(first[n].abs().max())
@@ -2956,6 +3084,20 @@ class Smoke:
             del m_d
             gc.collect()
             torch.cuda.empty_cache()
+            # (c) and (d) again at f32, where routing is exact: the gates
+            # a wrong shard cannot hide under
+            ref32, cut32 = {}, {
+                p: dataclasses.replace(cut[p], n_layers=MOE_TP_F32_LAYERS[p])
+                for p in ("c", "d")}
+            for p in ("c", "d"):
+                m32 = transformer.init_params(cut32[p], self.args.seed,
+                                              device=self.dev,
+                                              dtype=torch.float32)
+                ref32[p], _ = self._tp_reference(m32, cut32[p], "full", tmp,
+                                                 f"moe_{p}32")
+                del m32
+                gc.collect()
+                torch.cuda.empty_cache()
             secs["c_d_unsharded"] = time.time() - ts
             plans = {p: self._tpt_prepare(
                 f"moe_{p}", cut[p], "full", MOE_TP_SEQ, world, 0,
@@ -2970,13 +3112,28 @@ class Smoke:
                     secs[f"{p}_unsharded"] = time.time() - tr
 
             ts = time.time()
-            ranks_a, ranks_b, ranks_c, ranks_d = self._spawn_tp([
-                (plans["a"]["spec"], 2), (plans["b"]["spec"], 4),
-                (dict(part="moe_c", cfg=cut["c"], policy="bf16", ref=ref_c,
-                      engine=True, faults=MOE_TP_FAULTS["c"]), 2),
-                (dict(part="moe_d", cfg=cut["d"], policy="bf16", ref=ref_d,
-                      engine=False, faults=MOE_TP_FAULTS["d"]), 4)], tmp,
-                join_s=TPT_JOIN_S, meanwhile=references)
+            # the f32 readings' ranks start with the others but build
+            # nothing until (a)'s ranks have ended: (a)'s 16 GB ranks and
+            # the unsharded runs leave no room for them beside
+            after = [os.path.join(tmp, f"moe_a.out.{r}") for r in range(2)]
+            ranks_a, ranks_b, ranks_c, ranks_d, ranks_c32, ranks_d32 = \
+                self._spawn_tp([
+                    (plans["a"]["spec"], 2), (plans["b"]["spec"], 4),
+                    (dict(part="moe_c", cfg=cut["c"], policy="bf16",
+                          ref=ref_c, engine=True,
+                          faults=MOE_TP_FAULTS["c"]), 2),
+                    (dict(part="moe_d", cfg=cut["d"], policy="bf16",
+                          ref=ref_d, engine=False,
+                          faults=MOE_TP_FAULTS["d"]), 4),
+                    (dict(part="moe_c32", cfg=cut32["c"], policy="full",
+                          ref=ref32["c"], engine=False, after=after,
+                          need=12 * _local_params(cut32["c"], 2),
+                          faults=MOE_TP_FAULTS["c"]), 2),
+                    (dict(part="moe_d32", cfg=cut32["d"], policy="full",
+                          ref=ref32["d"], engine=False, after=after,
+                          need=12 * _local_params(cut32["d"], 4),
+                          faults=MOE_TP_FAULTS["d"]), 4)], tmp,
+                    join_s=TPT_JOIN_S, meanwhile=references)
             spawn_s = time.time() - ts
             secs["ranks"] = spawn_s
             parts["a"] = self._tpt_finish(plans["a"], ranks_a, spawn_s)
@@ -2987,9 +3144,14 @@ class Smoke:
             parts["d"] = self._tp_part(
                 ranks_d, cut["d"], "bf16", engine=None,
                 bounds=MOE_TP_BOUND_D, control=control_d)
+            for p, rk in (("c", ranks_c32), ("d", ranks_d32)):
+                parts[f"{p}_f32"] = self._tp_part(
+                    rk, cut32[p], "full", engine=None,
+                    bounds=MOE_TP_F32_BOUNDS, margin=FAULT_MARGIN,
+                    gate_own_cache=False)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
-        for p, world in (("c", 2), ("d", 4)):
+        for p, world in (("c", 2), ("d", 4), ("c_f32", 2), ("d_f32", 4)):
             parts[p]["mesh"] = f"(1, {world})"
         checks = {f"{p}_{k}": v for p in parts
                   for k, v in parts[p].pop("checks").items()}
@@ -3000,9 +3162,165 @@ class Smoke:
                                       "d": "ep"},
             "bytes_per_param": bpp,
             "gloo_note": "gloo stages every reduction through the host, "
-                         "and the four sub-phases' 12 ranks share the card "
+                         "and the six sub-phases' 18 ranks share the card "
                          "and the host: the times are a correctness run's",
             "phase_seconds": secs, "seconds": time.time() - t0})
+
+    def run_ssm_tp(self) -> dict:
+        """The SSM mixers and the encoder over a model axis (see the
+        module docstring, item 7e): (d)'s unsharded serving runs here
+        first (f32, then bf16 and its control), (e)'s lockstep processes
+        started beside; then the ranks of (a)-(d) at once -- (a)-(c) as
+        ``moe_tp``'s training (``_tpt_prepare``: they wait for their
+        unsharded run, which goes on here meanwhile), (d) as
+        ``serve_tp``'s -- then the gates (``_tpt_finish``, ``_tp_part``)
+        and (e)'s.  gloo stages every reduction through the host: the
+        times are a correctness run's."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.models import transformer
+        t0 = time.time()
+        hy = configs.get_config("hymba-1.5b")
+        m2 = configs.get_config("mamba2-130m")
+        wh = configs.get_config(WHISPER)
+        llama = configs.get_config("llama3-8b")
+        bpp = getattr(self, "train_bytes_per_param", None) or \
+            TRAIN_PEAK_FALLBACK / self._held_params(dataclasses.replace(
+                llama, n_layers=TRAIN_LAYERS))
+        base = {"a": hy, "b": m2, "c": wh, "d_hymba": hy, "d_whisper": wh}
+        cut = {p: dataclasses.replace(c, n_layers=SSM_TP_LAYERS[p])
+               for p, c in base.items()}
+        for p in ("c", "d_whisper"):
+            cut[p] = dataclasses.replace(cut[p], encoder=dataclasses.replace(
+                wh.encoder, n_layers=SSM_TP_LAYERS[p]))
+        tmp = tempfile.mkdtemp(prefix="ssm_tp_")
+        parts, secs, lock = {}, {}, None
+        try:
+            lock = self._lockstep_start(tmp)
+            ts = time.time()
+            refs, controls = {}, {}
+            for p, prompt in (("d_hymba", SSM_TP_PROMPT),
+                              ("d_whisper", WHISPER_TP_PROMPT)):
+                m = transformer.init_params(cut[p], self.args.seed,
+                                            device=self.dev,
+                                            dtype=torch.float32)
+                _seed_biases(m, cut[p], self.args.seed)
+                refs[p], _ = self._tp_reference(m, cut[p], "full", tmp,
+                                                f"ssm_{p}", prompt=prompt)
+                m = m.to(torch.bfloat16)
+                refs[p + "_bf16"], controls[p] = self._tp_reference(
+                    m, cut[p], "bf16", tmp, f"ssm_{p}_bf16", prompt=prompt)
+                del m
+                gc.collect()
+                torch.cuda.empty_cache()
+            secs["d_unsharded"] = time.time() - ts
+            plans = {p: self._tpt_prepare(
+                f"ssm_{p}", cut[p], "full",
+                WHISPER_CTX if p == "c" else SSM_TP_SEQ, world, 0,
+                SSM_TP_STEPS, bpp, tmp, faults=list(SSM_TP_FAULTS[p]),
+                bounds=MOE_TP_BOUNDS, final=True,
+                batch=WHISPER_TP_BATCH if p == "c" else 1)
+                for p, world in (("a", 2), ("b", 4), ("c", 2))}
+
+            def references():
+                for p in plans:
+                    tr = time.time()
+                    plans[p]["reference"]()
+                    secs[f"{p}_unsharded"] = time.time() - tr
+
+            ts = time.time()
+            ranks = self._spawn_tp(
+                [(plans[p]["spec"], w) for p, w in (("a", 2), ("b", 4),
+                                                    ("c", 2))]
+                + [(dict(part=f"ssm_{p}", cfg=cut[p], policy="full",
+                         ref=refs[p], bf16_ref=refs[p + "_bf16"],
+                         engine=False, faults=SSM_TP_FAULTS[p]), 2)
+                   for p in ("d_hymba", "d_whisper")],
+                tmp, join_s=TPT_JOIN_S, meanwhile=references)
+            spawn_s = time.time() - ts
+            secs["ranks"] = spawn_s
+            for p, rk in zip("abc", ranks):
+                parts[p] = self._tpt_finish(plans[p], rk, spawn_s,
+                                            margin=FAULT_MARGIN)
+            for p, rk in zip(("d_hymba", "d_whisper"), ranks[3:]):
+                parts[p] = self._tp_part(
+                    rk, cut[p], "full", engine=None, bounds=MOE_TP_F32_BOUNDS,
+                    control=controls[p], margin=FAULT_MARGIN,
+                    gate_own_cache=False)
+                parts[p]["mesh"] = "(1, 2)"
+            te = time.time()
+            parts["e"] = self._lockstep_finish(lock)
+            secs["e_wait"] = time.time() - te
+        finally:
+            for proc in (lock or {}).get("procs", ()):
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+            shutil.rmtree(tmp, ignore_errors=True)
+        checks = {f"{p}_{k}": v for p in parts
+                  for k, v in parts[p].pop("checks").items()}
+        self.ssm_tp_launches = {p: parts[p]["launches_rank0"] for p in parts}
+        return self.record({
+            "phase": "ssm_tp", "ok": all(checks.values()), "checks": checks,
+            **parts, "bytes_per_param": bpp,
+            "gloo_note": "gloo stages every reduction through the host, "
+                         "and the sub-phases' 12 ranks share the card and "
+                         "the host: the times are a correctness run's",
+            "phase_seconds": secs, "seconds": time.time() - t0})
+
+    def _lockstep_start(self, tmp: str) -> dict:
+        """``ssm_tp`` (e)'s processes, started at once: ``launch/serve.py``
+        lockstep (``SSM_TP_LOCKSTEP``) under ``torch.distributed.run`` with
+        2 ranks, and a 1-rank run, each through ``--lockstep-child``
+        (every rank writes what it served, its launches and whether it
+        touched the card)."""
+        me = str(pathlib.Path(__file__).resolve())
+        out = os.path.join(tmp, "lockstep")
+        two = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "2", me]
+        procs = [subprocess.Popen(
+            [*pre, "--lockstep-child", f"{out}.{name}", *SSM_TP_LOCKSTEP],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for name, pre in (("two", two), ("one", [sys.executable, me]))]
+        return {"out": out, "procs": procs, "t0": time.time()}
+
+    def _lockstep_finish(self, lock: dict) -> dict:
+        """``ssm_tp`` (e): the lockstep's ranks against the 1-rank run:
+        rank 0's tokens equal, rank 1 served nothing and never touched the
+        card, rank 0's launches one SSD chunk a layer (the prefill)."""
+        for proc in lock["procs"]:
+            out, _ = proc.communicate(timeout=TPT_JOIN_S)
+            if proc.returncode != 0:
+                raise RuntimeError(f"ssm_tp (e): a lockstep run exited "
+                                   f"{proc.returncode}:\n{out[-4000:]}")
+        wall = time.time() - lock["t0"]
+        rd = lambda name: json.loads(pathlib.Path(   # noqa: E731
+            f"{lock['out']}.{name}").read_text())
+        r0, r1, one = rd("two.0"), rd("two.1"), rd("one.0")
+        from repro_torch import configs
+        cfg = configs.get_config(SSM_TP_LOCKSTEP[1])
+        # one SSD chunk a layer in the prefill; the SSM's decode step (its
+        # O(1) state update) runs no kernel
+        want = {k: 0 for k in r0["launches"]}
+        want["ssd_chunk_sm90"] = cfg.n_layers
+        checks = {"rcs": [r0["rc"], r1["rc"], one["rc"]] == [0, 0, 0],
+                  "tokens_equal_one_rank": r0["tokens"] == one["tokens"]
+                  and r0["tokens"] is not None,
+                  "rank1_served_nothing": r1["tokens"] is None,
+                  "rank1_no_card": not r1["cuda_initialized"]
+                  and r1["peak"] == 0,
+                  "launches": r0["launches"] == want
+                  and one["launches"] == want}
+        return {"arch": cfg.arch_id, "argv": SSM_TP_LOCKSTEP,
+                "mesh": "(1, 2)", "tokens_rank0": r0["tokens"],
+                "launches_rank0": r0["launches"],
+                "expected_launches": want,
+                "peak_bytes": {"rank0": r0["peak"], "rank1": r1["peak"],
+                               "one_rank": one["peak"]},
+                "rank1_cuda_initialized": r1["cuda_initialized"],
+                "prefill_s": [r0["prefill_s"], one["prefill_s"]],
+                "decode_s": [r0["decode_s"], one["decode_s"]],
+                "wall_s": wall, "checks": checks}
 
     def run_train_plan(self) -> dict:
         """The ``train`` configuration under eight remat settings, from the
@@ -3903,9 +4221,10 @@ class Smoke:
         return out
 
     def run_serve_ssm(self) -> dict:
-        """``launch/serve.py``'s lockstep at full width and depth for
-        mamba2-130m and hymba-1.5b, as ``python -m repro_torch.launch.serve
-        --arch ... --batch 8 --prompt-len 2048 --gen 32`` runs it: a
+        """``launch/serve.py``'s lockstep at full width and
+        ``SSM_CELL_LAYERS`` for mamba2-130m and hymba-1.5b, as ``python -m
+        repro_torch.launch.serve --arch ... --batch 8 --prompt-len 2048
+        --gen 32`` runs it: a
         warm-up run of one decode step, then the measured run with every
         launch counter zeroed just before it and read just after, then a
         profile of its prefill and first decode steps."""
@@ -3930,7 +4249,8 @@ class Smoke:
                     "--prompt-len", str(SSM_PROMPT), "--gen", str(SSM_GEN),
                     "--policy", "bf16", "--seed", str(self.args.seed)]
             args = serve.build_parser().parse_args(argv)
-            cfg = configs.get_config(arch)
+            cfg = dataclasses.replace(configs.get_config(arch),
+                                      n_layers=SSM_CELL_LAYERS[arch])
             t0 = time.time()
             model = serve.build_model(args, cfg, self.dev)
             self.sync()
@@ -4200,7 +4520,8 @@ class Smoke:
             gc.collect()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(self.dev)
-            cfg = configs.get_config(arch)
+            cfg = dataclasses.replace(configs.get_config(arch),
+                                      n_layers=SSM_CELL_LAYERS[arch])
             tc = TrainConfig(policy="bf16", remat=CheckpointConfig(
                 enabled=True, policy="full", segment_size=1),
                 opt=adamw.AdamWConfig())
@@ -4445,9 +4766,9 @@ class Smoke:
 
     # -- the MoE family and glm4-9b -----------------------------------------
     def check_moe_model(self) -> list:
-        """``moe_model``: 2-layer deepseek-moe-16b and granite-moe-3b-a800m
-        at full width, policy full, card against CPU from one set of
-        weights (see the module docstring)."""
+        """``moe_model``: deepseek-moe-16b and granite-moe-3b-a800m at
+        ``MODEL_CHECK_LAYERS`` and full width, policy full, card against
+        CPU from one set of weights (see the module docstring)."""
         from repro_torch import configs
         return [self._moe_model(arch) for arch in VARIANT_TRAIN_LAYERS
                 if configs.get_config(arch).moe is not None]
@@ -4460,7 +4781,8 @@ class Smoke:
         from repro_torch.core.checkpoint import CheckpointConfig
         from repro_torch.core.mixed_precision import Policy
         from repro_torch.models import bridge, moe, transformer as tf
-        cfg = dataclasses.replace(configs.get_config(arch), n_layers=2)
+        cfg = dataclasses.replace(configs.get_config(arch),
+                                  n_layers=MODEL_CHECK_LAYERS)
         k = cfg.moe.top_k
         cpu = tf.init_params(cfg, self.args.seed, device="cpu")
         gpu = bridge.load_jax_params(cfg, bridge.export_params(cpu),
@@ -4576,7 +4898,7 @@ class Smoke:
         return self.record({
             "phase": "moe_model", "arch": arch, "ok": all(checks.values()),
             "checks": checks,
-            "cfg": {"n_layers": 2, "d_model": cfg.d_model,
+            "cfg": {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
                     "n_heads": cfg.n_heads, "n_kv": cfg.n_kv,
                     "head_dim": cfg.head_dim, "vocab": cfg.vocab,
                     "experts": cfg.moe.num_experts, "top_k": k,
@@ -4748,10 +5070,21 @@ class Smoke:
                 "flash_decode": kvq_ops.KERNEL,
                 "flash_decode_bias": kvq_ops.BIAS_KERNEL}
 
+    @staticmethod
+    def _all_counters() -> dict:
+        """The attention kernels' launch counters and the SSD chunk's,
+        forward and backward, each design apart."""
+        from repro_torch.kernels.ssd import ops as ssd_ops
+        return {**Smoke._launch_counters(),
+                "ssd_chunk_sm90": ssd_ops.KERNEL_SM90,
+                "ssd_chunk": ssd_ops.KERNEL,
+                "ssd_chunk_bwd_sm90": ssd_ops.KERNEL_BWD_SM90,
+                "ssd_chunk_bwd": ssd_ops.KERNEL_BWD}
+
     def check_model_vs_cpu(self, arch: str) -> dict:
         """``head160_model`` (stablelm-12b) / ``mla_model`` (minicpm3-4b) /
-        ``whisper_model`` / ``qwen2vl_model``: ``arch`` cut to 2 layers
-        (whisper: 2 encoder layers too) at full width, policy full, card
+        ``whisper_model`` / ``qwen2vl_model``: ``arch`` cut to
+        ``MODEL_CHECK_LAYERS`` (whisper's encoder too) at full width, policy full, card
         against CPU from one set of weights (``bridge``): prefill logits
         and caches (int8 K/V, or MLA's bf16 latents), 4 lockstep decode
         steps (whisper's over the prefill's ``enc_out``), the loss and
@@ -4775,10 +5108,11 @@ class Smoke:
         from repro_torch.core.mixed_precision import Policy
         from repro_torch.models import bridge, transformer as tf
         t_phase = time.time()
-        cfg = dataclasses.replace(configs.get_config(arch), n_layers=2)
+        cfg = dataclasses.replace(configs.get_config(arch),
+                                  n_layers=MODEL_CHECK_LAYERS)
         if cfg.encoder is not None:
             cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
-                cfg.encoder, n_layers=2))
+                cfg.encoder, n_layers=MODEL_CHECK_LAYERS))
         L, mla = cfg.n_layers, cfg.mla is not None
         no_flash = mla or cfg.mrope_sections is not None
         cpu = tf.init_params(cfg, self.args.seed, device="cpu")
@@ -4923,8 +5257,9 @@ class Smoke:
 
     def run_serve_mla(self) -> dict:
         """``serve_mla``: ``launch/serve.py``'s lockstep for minicpm3-4b at
-        full width and depth, as ``python -m repro_torch.launch.serve
-        --arch minicpm3-4b --batch 8 --prompt-len 1024 --gen 16`` runs it
+        full width and ``MLA_SERVE_LAYERS`` layers, as ``python -m
+        repro_torch.launch.serve --arch minicpm3-4b --batch 8
+        --prompt-len 1024 --gen 16`` runs it
         (random bf16 weights from ``--seed``, bf16 latent cache): a one-step
         warm-up run, then the measured run with every kernel counter zeroed
         just before it and read just after (all 0: MLA runs the plain
@@ -4942,7 +5277,8 @@ class Smoke:
                 "--prompt-len", str(MLA_PROMPT), "--gen", str(MLA_GEN),
                 "--policy", "bf16", "--seed", str(self.args.seed)]
         args = serve.build_parser().parse_args(argv)
-        cfg = configs.get_config(MLA_ARCH)
+        cfg = dataclasses.replace(configs.get_config(MLA_ARCH),
+                                  n_layers=MLA_SERVE_LAYERS)
         t0 = time.time()
         model = serve.build_model(args, cfg, self.dev)
         self.sync()
@@ -5206,25 +5542,42 @@ def dp_child(spec: str, seed: int) -> int:
 
 
 def tp_forced(model, cfg, policy: str, prompts, mesh=None, forced=None,
-              cache=None):
-    """Teacher-forced serve steps (``train/serve_step.py``): the prefill
-    of ``prompts`` (B, P) grown to P + TP_STEPS slots, then TP_STEPS decode
-    steps (``TP_SPLITS`` splits), each fed ``forced[:, t]`` or, without
-    it, the greedy token of the step before.  ``cache`` (this rank's
-    layout) replaces the prefill's own cache before the decode steps.
-    -> (logits (TP_STEPS + 1, B, V) f32 on the host, V the live vocab
-    (the padded tail's -1e30 cut off), the fed tokens (B, TP_STEPS), the
-    prefill's cache on the host)."""
+              cache=None, frames=None):
+    """Teacher-forced serve steps (``train/serve_step.py``: the builders
+    without ``mesh``, ``make_serve_steps`` with it): the prefill of
+    ``prompts`` (B, P) (an encoder arch's with its ``frames``, the
+    encoder's output then handed to every decode step) grown to P +
+    TP_STEPS slots, then TP_STEPS decode steps (``TP_SPLITS`` splits),
+    each fed ``forced[:, t]`` or, without it, the greedy token of the step
+    before.  ``cache`` (this rank's layout) replaces the prefill's own
+    cache before the decode steps.  -> (logits (TP_STEPS + 1, B, V) f32
+    on the host, V the live vocab (the padded tail's -1e30 cut off), the
+    fed tokens (B, TP_STEPS), the prefill's cache on the host)."""
     import torch
+    from repro_torch.core.mixed_precision import get_policy
+    from repro_torch.models import transformer
     from repro_torch.train import serve_step
     p = prompts.shape[1]
-    prefill = serve_step.build_prefill_step(
-        cfg, policy_name=policy, s_max=p + TP_STEPS, mesh=mesh)
-    decode = serve_step.build_decode_step(
-        cfg, policy_name=policy, kvq_splits=TP_SPLITS, mesh=mesh)
+    batch = {"tokens": prompts}
+    if frames is not None:
+        batch["frames"] = frames
+    if mesh is None:
+        prefill = serve_step.build_prefill_step(
+            cfg, policy_name=policy, s_max=p + TP_STEPS)
+        decode = serve_step.build_decode_step(
+            cfg, policy_name=policy, kvq_splits=TP_SPLITS)
+    else:
+        prefill, _ = serve_step.make_serve_steps(
+            cfg, mesh, batch, kind="prefill", policy_name=policy,
+            s_max=p + TP_STEPS)
+        decode, _ = serve_step.make_serve_steps(
+            cfg, mesh, {"tokens_t": prompts[:, 0]}, kind="decode",
+            policy_name=policy, kvq_splits=TP_SPLITS)
     with torch.no_grad():
-        logits, own = prefill(model, {"tokens": prompts})
-        kept = {k: v.cpu() for k, v in own.items()}
+        enc = None if frames is None else transformer.run_encoder(
+            model, cfg, frames, get_policy(policy), mesh)
+        logits, own = prefill(model, batch)
+        kept = {k: v.to("cpu", copy=True) for k, v in own.items()}
         if cache is not None:
             own = {k: v.to(prompts.device) for k, v in cache.items()}
         out, fed = [logits[:, :cfg.vocab].float().cpu()], []
@@ -5232,9 +5585,76 @@ def tp_forced(model, cfg, policy: str, prompts, mesh=None, forced=None,
             tok = (logits.argmax(-1) if forced is None
                    else forced[:, t].to(prompts.device)).to(torch.int32)
             fed.append(tok.cpu())
-            logits, own = decode(model, own, tok)
+            logits, own = decode(model, own, tok, enc)
             out.append(logits[:, :cfg.vocab].float().cpu())
     return torch.stack(out), torch.stack(fed, 1), kept
+
+
+def _serve_want(cfg, policy: str, counters) -> dict:
+    """The launches of one teacher-forced run (:func:`tp_forced`): its
+    prefill's flash forward (the route's design) a causal attention layer
+    and SSD chunk an SSM layer, and each decode step's decode kernel an
+    attention layer (the dense-bias entry for a windowed one); 0 for
+    every other counter in ``counters``."""
+    import torch
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.models import transformer
+    want = {k: 0 for k in counters}
+    dt = torch.bfloat16 if policy == "bf16" else torch.float32
+    if cfg.mixer in ("attn", "hybrid") and cfg.mla is None:
+        fwd = "flash_fwd_sm90" if flash_ops.fwd_route(dt, cfg.head_dim) \
+            == "sm90" else "flash_fwd"
+        want[fwd] = cfg.n_layers
+        for w in transformer.layer_windows(cfg):
+            want["flash_decode_bias" if w > 0 else "flash_decode"] += \
+                TP_STEPS
+    if cfg.mixer in ("ssm", "hybrid"):
+        route = ssd_ops.ssd_route(cfg.ssm.d_state, cfg.ssm.head_p)
+        want["ssd_chunk_sm90" if route == "sm90" else "ssd_chunk"] = \
+            cfg.n_layers
+    return want
+
+
+def _seed_biases(model, cfg, seed: int, mesh=None) -> None:
+    """In place: every GELU MLP's ``b1`` / ``b2`` (which start at zero,
+    as the reference's) drawn 0.1 x normal from ``seed``, whole and in
+    the meshless order, then cut to this rank's block on ``mesh`` -- so a
+    bias added per rank, or not at all, shows in the loss and logits.  A
+    model with no GELU MLP is left as it is."""
+    import torch
+    from repro_torch.models import transformer
+    if cfg.mlp_kind != "gelu":
+        return
+    cut = transformer.shard_fn(cfg, mesh)
+    dev = model.embed.device
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    with torch.no_grad():
+        for pre, blocks in (("blocks", model.blocks),
+                            ("enc_blocks", model.enc_blocks or [])):
+            for i, blk in enumerate(blocks):
+                for name, n in (("b1", cfg.d_ff), ("b2", cfg.d_model)):
+                    whole = 0.1 * torch.randn(n, generator=gen, device=dev)
+                    getattr(blk.ffn, name).copy_(
+                        cut(f"{pre}.{i}.ffn.{name}", whole))
+
+
+def _tpt_batches(cfg, batch: int, seq: int, seed: int, device, n: int):
+    """``n`` batches of the trainer's synthetic stream (``batch`` x
+    ``seq``), an encoder arch's with seeded normal frames (anew each
+    batch, from a generator on ``device``): the same on the parent and on
+    every rank."""
+    import torch
+    from repro_torch.launch.train import synthetic_lm_batches
+    stream = synthetic_lm_batches(cfg, batch, seq, seed=seed, device=device)
+    out = [next(stream)[1] for _ in range(n)]
+    if cfg.encoder is not None:
+        gen = torch.Generator(device=device).manual_seed(seed + 1)
+        for b in out:
+            b["frames"] = torch.randn(
+                (batch, cfg.encoder.n_frames, cfg.d_model), generator=gen,
+                device=device)
+    return out
 
 
 def _tf_compare(got, ref) -> dict:
@@ -5297,6 +5717,10 @@ def _planted(fault: str, model, mesh, rank: int):
         with _moe_fault(fault, model, mesh):
             yield
         return
+    if fault in MIXER_FAULTS:
+        with _mixer_fault(fault, model, mesh):
+            yield
+        return
     if fault.startswith("w_down") and r == n - 1:
         blocks = model.blocks if fault == "w_down_all" \
             else [model.blocks[len(model.blocks) // 2]]
@@ -5355,7 +5779,8 @@ def tp_child(arg: str) -> int:
     torch.set_num_threads(1)
     dev = torch.device(spec["device"])
     if dev.type == "cuda":
-        for lib in ("flash_fwd", "flash_fwd_sm90", "flash_decode"):
+        for lib in ("flash_fwd", "flash_fwd_sm90", "flash_decode", "ssd",
+                    "ssd_sm90"):
             if not build.library_path(lib).exists():
                 raise RuntimeError(f"tp_child: {lib}.cu is not built")
         torch.cuda.set_device(dev)
@@ -5368,9 +5793,19 @@ def tp_child(arg: str) -> int:
         mesh = Mesh(data=1, model=world)
         dtype = torch.bfloat16 if spec["policy"] == "bf16" \
             else torch.float32
+        # build nothing on the card until the ranks named have ended and
+        # ``need`` bytes (3x this rank's f32 weights) are free
+        deadline = time.time() + TPT_JOIN_S
+        while not all(os.path.exists(p) for p in spec.get("after", ())) or (
+                dev.type == "cuda"
+                and torch.cuda.mem_get_info(dev)[0] < spec.get("need", 0)):
+            if time.time() > deadline:
+                raise TimeoutError(f"tp_child: waited for {spec['after']}")
+            time.sleep(0.2)
         model = transformer.init_params(cfg, spec["seed"], device=dev,
                                         dtype=dtype, mesh=mesh)
-        kernels = Smoke._launch_counters()
+        _seed_biases(model, cfg, spec["seed"], mesh)
+        kernels = Smoke._all_counters()
         out = {"rank": rank,
                "mode": shd.serve_kv_shard(mesh, cfg.n_kv, 2048)}
 
@@ -5385,14 +5820,18 @@ def tp_child(arg: str) -> int:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
 
+        frames = None
         if spec["ref"]:
             ref = torch.load(spec["ref"])
             zero()
             routing = []
+            frames = ref.get("frames")
+            frames = None if frames is None else frames.to(dev)
             with _routing_spy(routing, len(ref.get("routing", ()))):
                 logits, _, own = tp_forced(model, cfg, spec["policy"],
                                            ref["prompts"].to(dev), mesh=mesh,
-                                           forced=ref["tokens"])
+                                           forced=ref["tokens"],
+                                           frames=frames)
             out["tf"] = {**_tf_compare(logits, ref["logits"]),
                          "launches": read()}
             if cfg.moe is not None:
@@ -5409,7 +5848,8 @@ def tp_child(arg: str) -> int:
             out["tf"]["cache"] = _cache_diff(own, block)
             logits, _, _ = tp_forced(model, cfg, spec["policy"],
                                      ref["prompts"].to(dev), mesh=mesh,
-                                     forced=ref["tokens"], cache=block)
+                                     forced=ref["tokens"], cache=block,
+                                     frames=frames)
             out["tf"]["from_ref_cache"] = _tf_compare(logits, ref["logits"])
             del ref, logits
         if spec["engine"]:
@@ -5455,11 +5895,23 @@ def tp_child(arg: str) -> int:
                 with _planted(fault, model, mesh, rank):
                     logits, _, _ = tp_forced(
                         model, cfg, spec["policy"], ref["prompts"].to(dev),
-                        mesh=mesh, forced=ref["tokens"])
+                        mesh=mesh, forced=ref["tokens"], frames=frames)
                 out["faults"][fault] = {
                     k: v for k, v in _tf_compare(logits, ref["logits"])
                     .items() if k in ("prefill_rel", "decode_rel",
                                       "max_rel")}
+            del ref
+        if spec.get("bf16_ref"):
+            # the same weights in bf16 against the unsharded bf16 run:
+            # reported beside the f32 gates
+            ref = torch.load(spec["bf16_ref"])
+            model = model.to(torch.bfloat16)
+            logits, _, _ = tp_forced(model, cfg, "bf16",
+                                     ref["prompts"].to(dev), mesh=mesh,
+                                     forced=ref["tokens"], frames=frames)
+            out["tf_bf16"] = {
+                k: v for k, v in _tf_compare(logits, ref["logits"]).items()
+                if k in ("prefill_rel", "decode_rel", "greedy_equal")}
             del ref
         pathlib.Path(f"{spec['out']}.{rank}").write_text(json.dumps(out))
         dist.barrier()           # no rank tears gloo down under another
@@ -5468,14 +5920,45 @@ def tp_child(arg: str) -> int:
     return 0
 
 
+def _local_params(cfg, world: int) -> int:
+    """The parameters one rank of a (1, ``world``) mesh holds of ``cfg``
+    (``transformer.param_placement``)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer
+    mesh = Mesh(data=1, model=world)
+    specs = transformer.param_placement(cfg, mesh)
+    return sum(math.prod(shd.local_shape(p.shape, specs[n], mesh))
+               for n, p in transformer.init_params(
+                   cfg, device="meta").named_parameters())
+
+
 def _tpt_leaves(cfg) -> list:
     """The leaves ``train_tp`` reads, of the middle layer where per layer:
     a column-parallel (``w_up``; ``wq`` too, whole in sequence mode), a
     row-parallel (``w_down``), the embedding, the head and a norm; for an
     MoE (``moe_tp``) the router, ``w_gate``, ``w_down``, the shared
     experts' ``shared_gate`` / ``shared_down``, the embedding, the head
-    and a norm."""
+    and a norm; for ``ssm_tp`` the SSM's leaves (whole on every rank), the
+    hybrid's mix norm and FFN, and the encoder-decoder's attention,
+    cross-attention, GELU MLP (``b2`` too) and an encoder layer's."""
     mid = f"blocks.{cfg.n_layers // 2}"
+    if cfg.encoder is not None:     # ssm_tp: the encoder-decoder
+        enc = f"enc_blocks.{cfg.encoder.n_layers // 2}"
+        return [f"{mid}.attn.wq", f"{mid}.xattn.wq", f"{mid}.xattn.wo",
+                f"{mid}.ffn.w1", f"{mid}.ffn.w2", f"{mid}.ffn.b2",
+                f"{enc}.attn.wq", f"{enc}.ffn.w2", "embed", "lm_head",
+                f"{mid}.ln2"]
+    if cfg.mixer == "ssm":          # ssm_tp: no MLP, so no ln2 gradient
+        # (a_log and dt_bias start at zero: their largest |parameter| is a
+        # few lr steps, which the params gates would divide by)
+        return [f"{mid}.ssm.{n}" for n in ("in_proj", "conv_w", "d_skip",
+                                            "out_proj")] \
+            + ["embed", "lm_head", f"{mid}.ln1"]
+    if cfg.mixer == "hybrid":
+        return [f"{mid}.attn.wq", f"{mid}.ssm.in_proj", f"{mid}.ssm.out_proj",
+                f"{mid}.mix_norm_ssm", f"{mid}.ffn.w_up", f"{mid}.ffn.w_down",
+                "embed", "lm_head", f"{mid}.ln2"]
     if cfg.moe is not None:         # moe_tp: the router, experts, a norm
         shared = ["shared_gate", "shared_down"] if cfg.moe.num_shared \
             else []
@@ -5582,7 +6065,7 @@ def _tpt_steps(step, model, opt, ls, batches, warmup: int, names,
                           for n in names})
         return real(c, grads, *args, **kwargs)
 
-    kernels = Smoke._launch_counters()
+    kernels = Smoke._all_counters()
     recs = []
     adamw.update = update
     try:
@@ -5738,6 +6221,76 @@ def _moe_fault(fault: str, model, mesh):
         setattr(where, name, real)
 
 
+#: the planted faults of ssm_tp (_mixer_fault)
+MIXER_FAULTS = ("ffn_partial_dropped", "b2_per_rank", "ssm_input_copied",
+                "xattn_unreduced", "band_local_positions")
+
+
+@contextlib.contextmanager
+def _mixer_fault(fault: str, model, mesh):
+    """An ``ssm_tp`` fault planted in every rank's run, undone after:
+    ``ffn_partial_dropped``, the last rank of the model axis sends zeros
+    for its partial of the middle layer's FFN (the SwiGLU's or the GELU
+    MLP's row-parallel sum); ``b2_per_rank``, the GELU MLP adds its
+    whole ``b2`` on every rank before the row-parallel sum (n times in
+    all); ``ssm_input_copied``, the SSM mixer takes its input through
+    ``copy_to_model`` (its input gradient, whole already, summed over the
+    axis: the loss exact, every gradient below it n-fold);
+    ``xattn_unreduced``, the cross-attention's ``wo`` partials left
+    unsummed; ``band_local_positions``, the sequence-split decode reads a
+    windowed layer's band at the local positions of its shard, not the
+    global ones."""
+    from repro_torch.distributed import collectives
+    from repro_torch.models import attention, layers, transformer
+    from repro_torch.models import ssm as ssm_mod
+    if fault == "ffn_partial_dropped":
+        with _moe_fault("moe_partial_dropped", model, mesh):
+            yield
+        return
+    if fault == "b2_per_rank":
+        real = transformer.ffn_apply
+
+        def patched(ffn, h, cfg, dtype=None, mesh=None):
+            if not isinstance(ffn, transformer.GeluMLP) \
+                    or ffn.w2.shape[0] == cfg.d_ff:
+                return real(ffn, h, cfg, dtype, mesh)
+            w1, b1, w2, b2 = (getattr(ffn, n) if dtype is None
+                              else getattr(ffn, n).to(dtype)
+                              for n in transformer.GeluMLP.NAMES)
+            h = collectives.copy_to_model(h, mesh)
+            return collectives.reduce_from_model(
+                layers.gelu_mlp(h, w1, b1, w2, b2), mesh), 0.0
+        where, name = transformer, "ffn_apply"
+    elif fault == "ssm_input_copied":
+        real = ssm_mod.ssm_block
+
+        def patched(p, x, cfg, **kw):
+            return real(p, collectives.copy_to_model(x, mesh), cfg, **kw)
+        where, name = ssm_mod, "ssm_block"
+    elif fault == "xattn_unreduced":
+        real = attention.cross_attn_block
+
+        def patched(p, x, enc_kv, cfg, mesh=None):
+            return real(p, x, enc_kv, cfg)
+        where, name = attention, "cross_attn_block"
+    elif fault == "band_local_positions":
+        real = collectives.sp_decode_attention_int8
+        n = mesh.shape["model"]
+
+        def patched(q, k_q, *args, bias=None, **kw):
+            if bias is not None:          # every shard reads columns 0..S_l
+                bias = bias[:, :k_q.shape[2]].repeat(1, n)
+            return real(q, k_q, *args, bias=bias, **kw)
+        where, name = collectives, "sp_decode_attention_int8"
+    else:
+        raise ValueError(f"unknown fault {fault!r}")
+    setattr(where, name, patched)
+    try:
+        yield
+    finally:
+        setattr(where, name, real)
+
+
 @contextlib.contextmanager
 def _train_fault(fault: str, model, mesh):
     """A fault planted in every rank's training, undone after (see
@@ -5752,6 +6305,10 @@ def _train_fault(fault: str, model, mesh):
     from repro_torch.models import attention, transformer
     if fault in MOE_TP_FAULTS["a"] + MOE_TP_FAULTS["b"]:
         with _moe_fault(fault, model, mesh):
+            yield
+        return
+    if fault in MIXER_FAULTS:
+        with _mixer_fault(fault, model, mesh):
             yield
         return
     if fault == "copy_mid_ffn":
@@ -5844,7 +6401,7 @@ def tp_train_child(arg: str) -> int:
                                                   scaled_value_and_grad)
     from repro_torch.kernels import build
     from repro_torch.launch.mesh import Mesh
-    from repro_torch.launch.train import init_state, synthetic_lm_batches
+    from repro_torch.launch.train import init_state
     from repro_torch.models import transformer
     from repro_torch.optim import adamw
     from repro_torch.train.train_step import (TrainConfig, init_loss_scale,
@@ -5853,7 +6410,8 @@ def tp_train_child(arg: str) -> int:
     dev = torch.device(spec["device"])
     if dev.type == "cuda":
         for lib in ("flash_fwd", "flash_fwd_sm90", "flash_bwd",
-                    "flash_bwd_sm90"):
+                    "flash_bwd_sm90", "ssd", "ssd_sm90", "ssd_bwd",
+                    "ssd_bwd_sm90"):
             if not build.library_path(lib).exists():
                 raise RuntimeError(f"tp_train_child: {lib}.cu is not built")
         torch.cuda.set_device(dev)
@@ -5873,10 +6431,13 @@ def tp_train_child(arg: str) -> int:
         whole = sorted(n for n, s in step.placement.items()
                        if all(e is None for e in s))
         sharded = {n: n not in whole for n in step.placement}
-        stream = synthetic_lm_batches(cfg, spec["batch"], spec["seq"],
-                                      seed=spec["seed"], device=dev)
-        batches = [next(stream)[1]
-                   for _ in range(spec["warmup"] + spec["timed"])]
+        batches = _tpt_batches(cfg, spec["batch"], spec["seq"], spec["seed"],
+                               dev, spec["warmup"] + spec["timed"])
+
+        def fresh():
+            model, opt = init_state(cfg, spec["seed"], dev, mesh)
+            _seed_biases(model, cfg, spec["seed"], mesh)
+            return model, opt
         # the parent's unsharded run is on the card until it publishes
         # this rank's file: allocate nothing before it
         ref_path = f"{spec['ref']}.{rank}"
@@ -5893,8 +6454,8 @@ def tp_train_child(arg: str) -> int:
             # row; only the parameters after them are read
             with _moment_fault(sharded):
                 model, recs, _, _ = _tpt_steps(
-                    step, *init_state(cfg, spec["seed"], dev, mesh),
-                    init_loss_scale(tc, dev), batches, spec["warmup"], [])
+                    step, *fresh(), init_loss_scale(tc, dev), batches,
+                    spec["warmup"], [])
             params = dict(model.named_parameters())
             got = _tpt_readings(ref, [r["loss"] for r in recs],
                                 [r["grad_norm"] for r in recs], params={
@@ -5906,7 +6467,7 @@ def tp_train_child(arg: str) -> int:
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
         t0 = time.time()
-        model, opt = init_state(cfg, spec["seed"], dev, mesh)
+        model, opt = fresh()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         out = {"rank": rank, "init_s": time.time() - t0, "faults": moment,
@@ -5960,6 +6521,40 @@ def tp_train_child(arg: str) -> int:
     return 0
 
 
+def lockstep_child(out: str, argv: list) -> int:
+    """``launch/serve.py``'s ``main(argv)`` as one rank of ``ssm_tp`` (e)
+    (``chip_smoke.py --lockstep-child OUT ARGS...``, under
+    ``torch.distributed.run`` or alone), writing ``OUT.<rank>``: the
+    tokens its lockstep served (None where it served none), the launches
+    and host times of that lockstep, its exit code, whether it touched the
+    card and its peak there."""
+    import torch
+    from repro_torch.launch import serve
+    rank = int(os.environ.get("RANK", "0"))
+    counters = Smoke._all_counters()
+    rec = {"rank": rank, "tokens": None,
+           "launches": {k: 0 for k in counters}, "prefill_s": None,
+           "decode_s": None}
+    real = serve.lockstep
+
+    def recording(*args, **kwargs):
+        for k in counters.values():
+            k.launches = 0
+        r = real(*args, **kwargs)
+        rec.update(tokens=r["tokens"].tolist(), prefill_s=r["prefill_s"],
+                   decode_s=r["decode_s"],
+                   launches={n: k.launches for n, k in counters.items()})
+        return r
+
+    serve.lockstep = recording
+    rec["rc"] = serve.main(argv)
+    rec["cuda_initialized"] = torch.cuda.is_initialized()
+    rec["peak"] = torch.cuda.max_memory_allocated() \
+        if rec["cuda_initialized"] else 0
+    pathlib.Path(f"{out}.{rank}").write_text(json.dumps(rec))
+    return rec["rc"]
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5976,6 +6571,9 @@ def main(argv=None) -> int:
     ap.add_argument("--dp-child", default="", help=argparse.SUPPRESS)
     ap.add_argument("--tp-child", default="", help=argparse.SUPPRESS)
     ap.add_argument("--tp-train-child", default="", help=argparse.SUPPRESS)
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--lockstep-child"]:
+        return lockstep_child(argv[1], argv[2:])
     args = ap.parse_args(argv)
     if args.dp_child:
         return dp_child(args.dp_child, args.seed)
@@ -6056,6 +6654,7 @@ def main(argv=None) -> int:
     smoke.run_train_dp()
     smoke.run_train_tp()
     smoke.run_moe_tp()
+    smoke.run_ssm_tp()
     smoke.run_train_plan()
     smoke.run_train_cli()
     pack = [smoke.check_pack(8, 32),                     # the CIFAR batch
@@ -6152,10 +6751,12 @@ def main(argv=None) -> int:
     smoke.check_model_vs_cpu(QWEN)
     smoke.run_serve_encdec()
     smoke._serve_variant(QWEN)
-    for arch, batch, seq in ((QWEN, 1, TRAIN_SEQ),
-                             (WHISPER, WHISPER_BATCH, WHISPER_CTX)):
+    for arch, layers, batch, seq in (
+            (QWEN, QWEN_TRAIN_LAYERS, 1, TRAIN_SEQ),
+            (WHISPER, configs.get_config(WHISPER).n_layers, WHISPER_BATCH,
+             WHISPER_CTX)):
         cfg = configs.get_config(arch)
-        smoke._train_variant(arch, cfg.n_layers, batch, seq,
+        smoke._train_variant(arch, layers, batch, seq,
                              smoke._train_extras(cfg, batch, seq))
     smoke.sync()
 
@@ -6303,6 +6904,11 @@ def main(argv=None) -> int:
         row["moe_tp_launches"] = {
             part: counts.get(row["name"], 0)
             for part, counts in smoke.moe_tp_launches.items()}
+        # ssm_tp: rank 0's launches in (a)-(c)'s steps, (d)'s
+        # teacher-forced runs and (e)'s lockstep
+        row["ssm_tp_launches"] = {
+            part: counts.get(row["name"], 0)
+            for part, counts in smoke.ssm_tp_launches.items()}
         for part in ("serve", "train"):
             row[f"{part}_variants_launches"] = {
                 arch: runs[part].get(row["name"], 0)

@@ -62,11 +62,21 @@ and writes events:
 
 An MoE arch serves there with its experts split over the model axis
 (TP-experts, or expert parallelism under ``expert_mode="ep"``; the
-``experts:`` banner names which).  A model axis > 1 serves through the
-engine only: lockstep mode, the fleet (``--replicas`` > 1, ``--workers``,
-``--journal``), MLA, the SSM mixers, the encoder, an MoE whose split dims
-do not divide the axis and a mesh whose axis splits neither the KV heads
-nor ``--max-len`` exit 2.
+``experts:`` banner names which).  On a model axis > 1 the engine exits
+2 for the fleet (``--replicas`` > 1, ``--workers``, ``--journal``), for
+an arch it does not take (MLA, the SSM mixers, the encoder, as on one
+device), an MoE whose split dims do not divide the axis and a mesh whose
+axis splits neither the KV heads nor ``--max-len``.
+
+Lockstep mode (no ``--engine``) runs unsharded on any mesh, as the
+reference's ``run`` gives it no mesh: rank 0 serves on its device and
+prints; every other rank builds no model, touches no card, and waits for
+rank 0's exit code (a gloo broadcast, the ranks' only traffic), which it
+returns silently.  So the archs the engine refuses serve on a host with
+more than one device:
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --device cpu \
+        --smoke --arch mamba2-130m
 """
 from __future__ import annotations
 
@@ -81,6 +91,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import configs
+from repro_torch.core.device import resolve_device
 from repro_torch.core.mixed_precision import get_policy
 from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.kvq import ops as kvq_ops
@@ -500,10 +511,10 @@ def run_lockstep(args, cfg, model, device) -> int:
 
 
 def _mesh_refusal(args, cfg, mesh) -> str | None:
-    """Why this slice does not serve ``args`` on a model axis > 1, or
+    """Why the engine does not serve ``args`` on a model axis > 1, or
     None."""
     n = mesh.shape["model"]
-    if args.engine and (args.replicas > 1 or args.workers or args.journal):
+    if args.replicas > 1 or args.workers or args.journal:
         return (f"mesh: {describe(mesh)}: the serving fleet (--replicas, "
                 f"--workers, --journal) over a model axis is later work "
                 f"(ROADMAP.md section 1); pass --max-model 1")
@@ -511,30 +522,69 @@ def _mesh_refusal(args, cfg, mesh) -> str | None:
         transformer.check_mesh(cfg, mesh)
     except (NotImplementedError, ValueError) as e:
         return f"mesh: {describe(mesh)}: {e}; pass --max-model 1"
-    if not args.engine:
-        return (f"mesh: {describe(mesh)}: a model axis serves through the "
-                f"engine (--engine); lockstep runs on one device, pass "
-                f"--max-model 1")
     from repro_torch.serve import supports
-    if supports(cfg) and shd.serve_kv_shard(mesh, cfg.n_kv,
-                                            args.max_len) == "none":
+    if not supports(cfg):
+        return (f"mesh: {describe(mesh)}: the engine does not take "
+                f"{cfg.arch_id} (SSM, hybrid or encoder-decoder; as on one "
+                f"device): drop --engine, lockstep serves it unsharded on "
+                f"any mesh, or pass --max-model 1")
+    if shd.serve_kv_shard(mesh, cfg.n_kv, args.max_len) == "none":
         return (f"mesh: {describe(mesh)}: neither {cfg.n_kv} KV heads nor "
                 f"--max-len {args.max_len} split over a model axis of {n}")
     return None
 
 
 def run(args) -> int:
+    if not args.engine and "RANK" in os.environ \
+            and "WORLD_SIZE" in os.environ:
+        return _lockstep_ranks(args)
     rank, world, device = init_distributed(args.device)
     try:
         if rank == 0:
-            return _run(args, world, device)
-        # rank 0 alone prints and writes events
-        args.events = ""
-        with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
-            return _run(args, world, device)
+            rc = _run(args, world, device)
+        else:
+            # rank 0 alone prints and writes events
+            args.events = ""
+            with open(os.devnull, "w") as null, \
+                    contextlib.redirect_stdout(null):
+                rc = _run(args, world, device)
+        if rc == 2 and dist.is_initialized():
+            # every rank refuses alike; none tears its connections down
+            # while another is still joining the group
+            dist.barrier()
+        return rc
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def _lockstep_ranks(args) -> int:
+    """Lockstep under ``torchrun``'s environment, unsharded on any mesh
+    (the reference's ``run`` gives lockstep no mesh): the ranks join a
+    gloo group; rank 0 serves on its device (``cuda:LOCAL_RANK``, or the
+    CPU) and prints; every other rank builds nothing, touches no card and
+    waits for rank 0's exit code, broadcast when rank 0 has ended (1 if
+    it raised), and returns it."""
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    dist.init_process_group("gloo", init_method="env://", rank=rank,
+                            world_size=world)
+    rc = torch.ones(1, dtype=torch.int32)
+    try:
+        if rank != 0:
+            dist.broadcast(rc, 0)
+            return int(rc)
+        try:
+            device = resolve_device(args.device)
+            if device.type == "cuda":
+                device = torch.device("cuda",
+                                      int(os.environ.get("LOCAL_RANK", 0)))
+                torch.cuda.set_device(device)
+            rc[0] = _run(args, world, device)
+        finally:
+            dist.broadcast(rc, 0)
+        return int(rc)
+    finally:
+        dist.destroy_process_group()
 
 
 def _run(args, world: int, device) -> int:
@@ -542,7 +592,10 @@ def _run(args, world: int, device) -> int:
     print(f"mesh: {describe(mesh)} ({mesh.size} devices)")
     cfg = configs.smoke_config(args.arch) if args.smoke \
         else configs.get_config(args.arch)
-    tp = mesh.shape["model"] > 1
+    if not args.engine and mesh.size > 1:
+        print(f"lockstep: unsharded on rank 0's device; the other "
+              f"{mesh.size - 1} ranks wait")
+    tp = args.engine and mesh.shape["model"] > 1
     if tp:
         why = _mesh_refusal(args, cfg, mesh)
         if why is not None:

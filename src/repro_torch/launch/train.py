@@ -34,8 +34,10 @@ gathered to it one at a time (``bridge.export_params(mesh=)``); every
 rank waits at a barrier after a save, and every rank restores its block.
 The GQA attention archs train on a model axis > 1, the MoE archs among
 them (TP-experts, or expert parallelism under ``expert_mode="ep"``; the
-banner's ``experts:`` names which); MLA, the SSM mixers, the encoder and
-an MoE whose split dims do not divide the axis exit 2 there.  Without
+banner's ``experts:`` names which), and the SSM mixers (mamba2-130m,
+hymba-1.5b: every ``ssm`` leaf whole on every rank); MLA and an MoE
+whose split dims do not divide the axis exit 2 there, and an encoder
+arch exits 2 on any mesh (this trainer's stream has no frames).  Without
 that environment the trainer runs one rank, as the mesh (data 1, model
 1).
 
@@ -264,6 +266,10 @@ def run(args) -> int:
         if refusal is not None:
             if rank == 0:
                 print(refusal, file=sys.stderr)
+            if dist.is_initialized():
+                # every rank refuses alike; none tears its connections
+                # down while another is still joining the group
+                dist.barrier()
             return 2
         return _train(args, cfg, mesh, rank, world, device)
     finally:

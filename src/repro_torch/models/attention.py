@@ -172,21 +172,26 @@ def attn_block(p, x, cfg, *, positions, window: int = 0,
                          mesh), (k, v)
 
 
-def cross_attn_block(p, x, enc_kv, cfg):
+def cross_attn_block(p, x, enc_kv, cfg, mesh=None):
     """Whisper's decoder cross-attention (``repro.models.attention``
     ``cross_attn_block``): x (B, S, D_model) attends over every encoder
     frame of ``enc_kv`` = (k, v), each (B, Se, Hkv, hd), projected from the
     encoder's output by the caller; no RoPE, no mask, f32 scores.  p holds
-    wq / wo (its wk / wv are the caller's), cast to ``x.dtype`` here."""
+    wq / wo (its wk / wv are the caller's), cast to ``x.dtype`` here.  The
+    head counts are the weights': this rank's heads in heads mode on
+    ``mesh``'s model axis, ``wo``'s partial products then summed (the
+    caller takes ``x`` through ``collectives.copy_to_model``)."""
     b, s, _ = x.shape
-    h, hkv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    hd = cfg.head_dim
+    h, hkv = p.wq.shape[1] // hd, enc_kv[0].shape[2]
     dt = x.dtype
     k, v = enc_kv
     qg = (x @ p.wq.to(dt)).reshape(b, s, hkv, h // hkv, hd).float()
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * hd ** -0.5
     pr = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", pr, v.float())
-    return out.reshape(b, s, h * hd).to(dt) @ p.wo.to(dt)
+    return _row_parallel(out.reshape(b, s, h * hd).to(dt), p.wo.to(dt), cfg,
+                         mesh)
 
 
 def _write_token(cache, new, at):

@@ -62,8 +62,11 @@ def swiglu(x, w_gate, w_up, w_down):
 
 def gelu_mlp(x, w1, b1, w2, b2):
     """The two-layer MLP with biases and the tanh-approximated GELU (the
-    reference's ``jax.nn.gelu(approximate=True)``)."""
-    return F.gelu(x @ w1 + b1, approximate="tanh") @ w2 + b2
+    reference's ``jax.nn.gelu(approximate=True)``); ``b2`` None leaves
+    the output bias to the caller (a row-parallel ``w2`` adds it after
+    its sum)."""
+    out = F.gelu(x @ w1 + b1, approximate="tanh") @ w2
+    return out if b2 is None else out + b2
 
 
 def rope_freqs(head_dim: int, theta: float, fraction: float = 1.0,

@@ -44,7 +44,12 @@ sum), attention by heads or by the cache's sequence
 whole (:func:`head_logits`), so every rank holds the same logits before
 any host decision.  The MoE holds its block of the experts, TP-experts
 or expert-parallel (``models/moe.py``), and sums its partials likewise.
-The GQA attention archs only: MLA, SSM and the encoder raise.
+The SSM mixer runs whole on every rank (its input and its output's
+gradient are whole there: no collective), hymba's attention beside it
+split as any GQA layer's, and its conv and SSM state are whole too.  The
+encoder-decoder's encoder layers split as the decoder's, and each
+decoder layer's cross-attention by heads (or whole in sequence mode),
+over the encoder's output, whole on every rank.  MLA raises.
 
 Training over the model axis runs the same forward under autograd: the
 row-parallel sums are ``collectives.reduce_from_model`` (backward: the
@@ -173,15 +178,22 @@ def ffn_apply(ffn, h, cfg, dtype=None, mesh=None):
     GELU MLP (aux 0.0), or the MoE (``moe.moe_ffn`` over a (B, S, D)
     view), its weights cast to ``dtype`` where they are used.  A SwiGLU
     holding this rank's columns of ``w_gate`` / ``w_up`` and rows of
-    ``w_down`` takes its input through ``collectives.copy_to_model`` and
-    sums its output over ``mesh``'s model axis; the MoE holding its block
-    of the experts does the same inside ``moe.moe_ffn``."""
+    ``w_down`` (the GELU MLP: of ``w1`` / ``b1`` and of ``w2``) takes its
+    input through ``collectives.copy_to_model`` and sums its output over
+    ``mesh``'s model axis, the GELU MLP adding its whole ``b2`` once,
+    after the sum; the MoE holding its block of the experts does the same
+    inside ``moe.moe_ffn``."""
     if isinstance(ffn, MoE):
         return moe_mod.moe_ffn(ffn.weights(dtype), h, cfg, mesh=mesh)
     cast = (lambda w: w) if dtype is None else (lambda w: w.to(dtype))
     if isinstance(ffn, GeluMLP):
-        return gelu_mlp(h, *(cast(getattr(ffn, n))
-                             for n in GeluMLP.NAMES)), 0.0
+        w1, b1, w2, b2 = (cast(getattr(ffn, n)) for n in GeluMLP.NAMES)
+        if w2.shape[0] == cfg.d_ff:
+            return gelu_mlp(h, w1, b1, w2, b2), 0.0
+        # this rank's columns of w1 / b1 and rows of w2: b2 once, after
+        # the row-parallel sum
+        out = gelu_mlp(collectives.copy_to_model(h, mesh), w1, b1, w2, None)
+        return collectives.reduce_from_model(out, mesh) + b2, 0.0
     parallel = ffn.w_down.shape[0] != cfg.d_ff      # this rank's columns
     if parallel:
         h = collectives.copy_to_model(h, mesh)
@@ -278,17 +290,18 @@ def _model_n(mesh) -> int:
 
 def check_mesh(cfg: ModelConfig, mesh) -> None:
     """Raise unless ``cfg`` runs over ``mesh``'s model axis: a model axis
-    of 1 runs every arch; a larger one the GQA attention archs, the MoE
-    among them where each of its split dims divides the axis (the
-    reference's ``shard_map`` takes no other; a ValueError naming the
-    leaf)."""
+    of 1 runs every arch; a larger one every arch but MLA -- the GQA
+    attention archs, the SSM mixers (whole on every rank) and the
+    encoder-decoder, and the MoE where each of its split dims divides the
+    axis (the reference's ``shard_map`` takes no other; a ValueError
+    naming the leaf)."""
     n = _model_n(mesh)
     if n == 1:
         return
-    if cfg.mla is not None or cfg.mixer != "attn" or cfg.encoder is not None:
+    if cfg.mla is not None:
         raise NotImplementedError(
-            f"{cfg.arch_id}: a model axis > 1 runs the GQA attention "
-            f"archs; MLA, the SSM mixers and the encoder are not sharded")
+            f"{cfg.arch_id}: MLA (latent attention) is not sharded over a "
+            f"model axis > 1")
     check_moe_split(cfg, mesh)
 
 
@@ -322,14 +335,16 @@ def param_shard_specs(cfg: ModelConfig, shapes, mesh) -> dict:
     the attention projections whole where the heads do not divide the
     model axis (``sharding.flash_shard_specs`` splits no heads): sequence
     mode, where each rank attends over the whole prompt and its slice of
-    the cache.  The reference leaves that layout to XLA
-    (``repro/models/attention.py:111-116``)."""
+    the cache.  The cross-attention's projections (``xattn``) follow the
+    self-attention's, the encoder's too.  The reference leaves that
+    layout to XLA (``repro/models/attention.py:111-116``).  Every SSM leaf
+    is whole (``sharding.param_specs``)."""
     specs = shd.param_specs(cfg, shapes, mesh)
     split = shd.flash_shard_specs(mesh, 1, cfg.n_heads, cfg.n_kv)
     if split is None or split[1] is None:
         for name in specs:
             parts = name.split(".")
-            if len(parts) > 1 and parts[-2] == "attn":
+            if len(parts) > 1 and parts[-2] in ("attn", "xattn"):
                 specs[name] = ()
     return specs
 
@@ -571,12 +586,16 @@ def _mix(blk, cfg, a_out, s_out):
 
 
 def run_encoder(model: Transformer, cfg: ModelConfig, frames,
-                policy: Policy = Policy.full()):
+                policy: Policy = Policy.full(), mesh=None):
     """Whisper's encoder over stub frame embeddings (B, Se, D) -> (B, Se,
     D) in the compute dtype (``repro.models.transformer._run_encoder``):
     a plain loop over ``enc_blocks`` -- bidirectional attention (the plain
     ``gqa_attention``, as the reference's jnp path) with RoPE at positions
-    0..Se-1, then the MLP -- and ``enc_norm``.  Never under remat."""
+    0..Se-1, then the MLP -- and ``enc_norm``.  Never under remat.  With
+    ``mesh`` (a model axis > 1) the layers are this rank's blocks, split
+    as the decoder's (the attention by heads, or whole in sequence mode;
+    the MLP by columns and rows), and the output is whole on every
+    rank."""
     dt = policy.compute_dtype
     eps, bf = cfg.norm_eps, cfg.norm_bf16_grad
     with moe_mod._part("encdec.encoder"):
@@ -586,23 +605,32 @@ def run_encoder(model: Transformer, cfg: ModelConfig, frames,
         for blk in model.enc_blocks:
             h = rms_norm(x, blk.ln1.to(dt), eps, bf16_grad=bf)
             x = x + attn.attn_block(blk.attn, h, cfg, positions=pos,
-                                    causal=False)[0]
+                                    causal=False, mesh=mesh)[0]
             h2 = rms_norm(x, blk.ln2.to(dt), eps, bf16_grad=bf)
-            x = x + ffn_apply(blk.ffn, h2, cfg, dt)[0]
+            x = x + ffn_apply(blk.ffn, h2, cfg, dt, mesh=mesh)[0]
         return rms_norm(x, model.enc_norm.to(dt), eps, bf16_grad=bf)
 
 
-def _cross_attend(blk, cfg, hx, enc_out):
+def _cross_attend(blk, cfg, hx, enc_out, mesh=None):
     """The layer's cross-attention over the encoder's output: K / V
     projected from ``enc_out`` (cast to ``hx.dtype``) with the layer's
-    ``xattn`` weights, then ``attention.cross_attn_block``."""
+    ``xattn`` weights, then ``attention.cross_attn_block``.  ``xattn``
+    holding this rank's KV heads (heads mode on ``mesh``'s model axis):
+    ``hx`` and ``enc_out``, whole on every rank, enter through
+    ``collectives.copy_to_model`` (their gradients are the ranks' heads'
+    partials), and ``wo``'s partial products are summed."""
     dt = hx.dtype
+    hd = cfg.head_dim
+    hkv = blk.xattn.wk.shape[1] // hd
     with moe_mod._part("encdec.cross_attn"):
+        if hkv != cfg.n_kv:
+            hx = collectives.copy_to_model(hx, mesh)
+            enc_out = collectives.copy_to_model(enc_out, mesh)
         e = enc_out.to(dt)
         b, se, _ = e.shape
-        k = (e @ blk.xattn.wk.to(dt)).reshape(b, se, cfg.n_kv, cfg.head_dim)
-        v = (e @ blk.xattn.wv.to(dt)).reshape(b, se, cfg.n_kv, cfg.head_dim)
-        return attn.cross_attn_block(blk.xattn, hx, (k, v), cfg)
+        k = (e @ blk.xattn.wk.to(dt)).reshape(b, se, hkv, hd)
+        v = (e @ blk.xattn.wv.to(dt)).reshape(b, se, hkv, hd)
+        return attn.cross_attn_block(blk.xattn, hx, (k, v), cfg, mesh=mesh)
 
 
 def forward(model: Transformer, cfg: ModelConfig, batch: dict, *,
@@ -650,7 +678,7 @@ def forward(model: Transformer, cfg: ModelConfig, batch: dict, *,
             positions = positions.expand(3, b, s)
     enc_out = None
     if cfg.encoder is not None:
-        enc_out = run_encoder(model, cfg, batch["frames"], policy)
+        enc_out = run_encoder(model, cfg, batch["frames"], policy, mesh)
     entries = []
     # a tag is a copy: only where a save_names policy will keep it
     tags = remat.tags if torch.is_grad_enabled() and not build_cache \
@@ -687,7 +715,7 @@ def forward(model: Transformer, cfg: ModelConfig, batch: dict, *,
         if blk.xattn is not None:
             hx = rms_norm(x, blk.ln_x.to(dt), cfg.norm_eps,
                           bf16_grad=cfg.norm_bf16_grad)
-            x = x + _cross_attend(blk, cfg, hx, enc_out)
+            x = x + _cross_attend(blk, cfg, hx, enc_out, mesh)
         if blk.ffn is None:                  # pure-SSM blocks have no MLP
             return x, aux_sum
         h2 = rms_norm(x, blk.ln2.to(dt), cfg.norm_eps,
@@ -855,14 +883,17 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, *,
     ``enc_out`` at every step, as in the reference.  With ``mesh`` each
     leaf has this rank's block's shape under
     ``sharding.serve_cache_specs``: the KV heads or the ``s_max`` slots
-    over the model axis (the serve pool's layout)."""
+    over the model axis (the serve pool's layout); the conv tail and the
+    SSM state are whole on every rank (``sharding.cache_specs`` splits
+    them over DP only)."""
     L = cfg.n_layers
     specs = None
     if _model_n(mesh) > 1:
         check_mesh(cfg, mesh)
-        shape = (L, batch, cfg.n_kv, s_max, cfg.head_dim)
-        specs = shd.serve_cache_specs(
-            cfg, {"k": shape, "k_scale": shape[:-1]}, mesh)
+        if cfg.mixer in ("attn", "hybrid"):
+            shape = (L, batch, cfg.n_kv, s_max, cfg.head_dim)
+            specs = shd.serve_cache_specs(
+                cfg, {"k": shape, "k_scale": shape[:-1]}, mesh)
 
     def z(shp, dt, name=None):
         if specs is not None and name in ("k", "k_scale"):
@@ -924,12 +955,13 @@ def grow_cache(cache: dict, s_max: int, *, cfg: ModelConfig | None = None,
     With ``mesh`` (and ``cfg``), a cache :func:`forward` built on it is
     put in this rank's decode layout (:func:`init_cache`'s): its block
     of the ``s_max`` positions (:func:`seq_block`; the heads are already
-    this rank's)."""
-    off, s_l = seq_block(cfg, mesh, s_max)
+    this rank's).  A cache with no sequence axis (the pure SSM's) is
+    returned as it is."""
+    names = [n for n in CACHE_SEQ_AXES if n in cache]
+    off, s_l = seq_block(cfg, mesh, s_max) if names else (0, s_max)
     out = dict(cache)
-    for name, ax in CACHE_SEQ_AXES.items():
-        if name not in cache:
-            continue
+    for name in names:
+        ax = CACHE_SEQ_AXES[name]
         x = cache[name]
         if x.shape[ax] > s_max:
             raise ValueError(f"grow_cache: {name} already has "
@@ -1023,7 +1055,7 @@ def _decode_block(blk, cfg, x, cache, i, attend, enc_out=None, mesh=None):
     x = x + _mix(blk, cfg, a_out, s_out)
     if blk.xattn is not None:
         hx = rms_norm(x[:, None], blk.ln_x, cfg.norm_eps)
-        x = x + _cross_attend(blk, cfg, hx, enc_out)[:, 0]
+        x = x + _cross_attend(blk, cfg, hx, enc_out, mesh)[:, 0]
     if blk.ffn is not None:
         # the MoE routes the (B, 1, D) step as B tokens, every row of the
         # batch (a free slot too) taking capacity, as in the JAX package
@@ -1070,12 +1102,17 @@ def _tier_slots(cfg: ModelConfig) -> list[tuple[str, int]]:
 
 def init_cache_two_tier(cfg: ModelConfig, batch: int, s_max: int, *,
                         quantized: bool = True, dtype=torch.bfloat16,
-                        device="cuda") -> dict:
+                        device="cuda", mesh=None) -> dict:
     """A 0-d ``pos``; for each tier ``g`` (the global layers, ``s_max``
     slots) and ``w`` (the window layers, ``min(window, s_max)`` slots):
     ``{tier}k`` / ``{tier}v`` (n_tier, B, Hkv, S_tier, hd) int8 (``dtype``
     when not quantized) and ``{tier}k_scale`` / ``{tier}v_scale`` f32; for
-    the hybrid, ``conv`` and ``ssm`` as :func:`init_cache`'s."""
+    the hybrid, ``conv`` and ``ssm`` as :func:`init_cache`'s.  Not sharded:
+    a ``mesh`` whose model axis is > 1 raises."""
+    if _model_n(mesh) > 1:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: the two-tier cache is not sharded over a model "
+            f"axis > 1; serve over a mesh with init_cache(mesh=)")
     if not (cfg.window > 0 and cfg.global_layers
             and cfg.mixer in ("attn", "hybrid")):
         raise ValueError(f"{cfg.arch_id}: the two-tier cache needs a "

@@ -73,25 +73,32 @@ def _rows(cfg, batch: dict, mesh, where) -> dict:
 
 def make_serve_steps(cfg: ModelConfig, mesh, input_sds: dict, *,
                      kind: str, policy_name: str = "bf16",
-                     quantized: bool = True, kvq_splits: int = 1):
+                     quantized: bool = True, kvq_splits: int = 1,
+                     s_max: int | None = None):
     """The prefill or decode step over ``mesh``, and this rank's parameter
     placement ``{name: spec}`` (``transformer.param_shard_specs``: what
     :func:`transformer.init_params` / ``bridge.load_jax_params`` with
     ``mesh`` cut the model to).
 
-    ``input_sds``: the prefill's batch (``{"tokens": (B, S) ...}``), or the
-    decode's ``{"cache": ..., "tokens_t": (B,)}`` (tensors or shapes; only
-    their shapes are read).  The step takes the global batch, or the
-    cache in this rank's layout and the global tokens, and runs on this
-    rank's rows (``sharding.batch_specs``; decode tokens split over DP
-    only where they divide, as the reference's)."""
+    ``input_sds``: the prefill's batch (``{"tokens": (B, S) ...}``, an
+    encoder arch's with its ``frames``), or the decode's ``{"cache": ...,
+    "tokens_t": (B,)}`` (and ``enc_out`` for an encoder arch; tensors or
+    shapes, only their shapes are read).  The step takes the global
+    batch, or the cache in this rank's layout, the global tokens and the
+    global ``enc_out`` (``transformer.run_encoder(mesh=)`` on the global
+    frames: whole on every rank), and runs on this rank's rows
+    (``sharding.batch_specs``; decode tokens and ``enc_out`` split over
+    DP only where they divide, as the reference's).  ``s_max``: the
+    prefill's cache length, prompt + generation (as
+    :func:`build_prefill_step`'s; the decode cells' cache arrives at that
+    length)."""
     check = transformer.init_params(cfg, device="meta")
     placement = transformer.param_shard_specs(
         cfg, {n: tuple(p.shape) for n, p in check.named_parameters()}, mesh)
     where = mesh_mod.coords(mesh)
     if kind == "prefill":
         fn = build_prefill_step(cfg, policy_name=policy_name,
-                                quantized=quantized, mesh=mesh)
+                                quantized=quantized, s_max=s_max, mesh=mesh)
         shd.batch_specs(cfg, input_sds, mesh)          # every leaf has one
 
         def prefill(model, batch):
@@ -105,9 +112,12 @@ def make_serve_steps(cfg: ModelConfig, mesh, input_sds: dict, *,
 
     def decode(model, cache, tokens_t, enc_out=None):
         # the reference's tok_shard: over DP where the rows divide, else
-        # every rank takes them all
-        if tokens_t.shape[0] % shd.dp_size(mesh) == 0:
-            tokens_t = _rows(cfg, {"tokens_t": tokens_t}, mesh,
-                             where)["tokens_t"]
-        return fn(model, cache, tokens_t, enc_out)
+        # every rank takes them all; the encoder's output likewise
+        n_dp = shd.dp_size(mesh)
+        rows = {k: v for k, v in (("tokens_t", tokens_t),
+                                  ("enc_out", enc_out))
+                if v is not None and v.shape[0] % n_dp == 0}
+        rows = _rows(cfg, rows, mesh, where)
+        return fn(model, cache, rows.get("tokens_t", tokens_t),
+                  rows.get("enc_out", enc_out))
     return decode, placement

@@ -34,11 +34,14 @@ of (data, model) axes, inside an initialized process group of
     group, and the finite flag is reduced with MIN over the whole world,
     so every rank takes the same update or the same skip.
 
-The GQA attention archs train on a model axis > 1, the MoE among them
-(TP-experts or expert parallelism, ``models/moe.py``); its ``moe_aux``
-term is part of each data shard's loss, so it is averaged over the data
-group with the loss and never summed over the model axis
-(``transformer.check_mesh`` refuses the rest).
+Every arch but MLA trains on a model axis > 1 (``transformer.check_mesh``
+refuses MLA): the GQA attention archs, the MoE among them (TP-experts or
+expert parallelism, ``models/moe.py``; its ``moe_aux`` term is part of
+each data shard's loss, so it is averaged over the data group with the
+loss and never summed over the model axis), the SSM mixers (every ``ssm``
+leaf whole on every rank, its gradient the same bits on each, as the
+norms') and the encoder-decoder (``batch["frames"]`` split over DP with
+the tokens).
 """
 from __future__ import annotations
 

@@ -38,10 +38,12 @@ meshless one, so the oracle is JAX's meshless ``ServeEngine``
   * the CLI under torchrun's environment: 2 ranks with ``--device cpu
     --smoke --engine --policy full`` print the mesh banner and the ``kv cache sharded
     over 'heads'`` line, rank 1 prints nothing, and both ranks' streams
-    equal a 1-rank run's; ``--replicas 2`` and an MLA arch (minicpm3-4b)
-    on a model axis of 2 exit 2 (the MoE archs serve there since the MoE
-    splits its experts: ``tests/test_torch_moe_tp.py``; the case keeps
-    its id ``moe``).
+    equal a 1-rank run's; ``--replicas 2``, an MLA arch (minicpm3-4b) and
+    ``--engine`` with an SSM arch (mamba2-130m, which the engine takes on
+    no mesh) on a model axis of 2 exit 2 (the MoE archs serve there since
+    the MoE splits its experts: ``tests/test_torch_moe_tp.py``; the MLA
+    case keeps its id ``moe``; lockstep serves every arch unsharded on
+    any mesh: ``tests/test_torch_ssm_tp.py``).
 """
 from __future__ import annotations
 
@@ -399,7 +401,8 @@ def test_cli_two_ranks_serve_the_one_rank_streams(tmp_path):
 @pytest.mark.parametrize("args,needle", [
     (("--replicas", "2"), "serving fleet"),
     (("--arch", "minicpm3-4b"), "MLA"),
-], ids=["fleet", "moe"])
+    (("--arch", "mamba2-130m"), "the engine does not take mamba2-130m"),
+], ids=["fleet", "moe", "ssm_engine"])
 def test_cli_refuses_on_a_model_axis(tmp_path, args, needle):
     outs = _cli(2, tmp_path / "x", *args)
     assert [o[0] for o in outs] == [2, 2]
