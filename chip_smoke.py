@@ -51,8 +51,10 @@ JSON object per line:
    5 slots must allocate exactly 5 x ``bytes_per_slot`` on the card (its
    ``pos`` lengths aside), and the trace's first 6 requests must finish
    with never more than 5 resident;
-6b. ``fleet``: the serving fleet on that model and trace (``serve/router.py``,
-   ``faults.py``, ``journal.py``, ``worker.py``): 2 in-process replicas
+6b. ``fleet``: the serving fleet on that trace and the serve cell's model
+   cut to ``FLEET_LAYERS`` (16) of its 32 layers, from ``--seed``
+   (``serve/router.py``, ``faults.py``, ``journal.py``, ``worker.py``): 2
+   in-process replicas
    (8 slots, ``max_len`` 2048, int8, ``kv_splits`` 4, request keys), one
    line a sub-phase: (a) ``fleet_reference``, greedy and fault-free, each
    token's top-1 / top-2 logit gap recorded; (b) ``fleet_chaos``, the same
@@ -63,17 +65,27 @@ JSON object per line:
    at temperature 0.8, top-k 50, one request evicted mid-stream and
    resubmitted with its emitted tokens and key on the other replica; (e)
    ``fleet_workers``, 2 subprocess workers (their own weights from
-   ``--seed``, full size) on the first 8 requests, one SIGKILLed, the
+   ``--seed``, at the same depth: ``fleet_worker``) on the first 8
+   requests, one SIGKILLed, the
    survivor's kernel launches and no ``nvcc`` in the children; (f)
    ``fleet_traced``, (b) again with tracers on the engines, the router
    and the journal: spans by name and the median host duration of an
-   engine step beside ``profile``'s device time of a decode round.  Tokens
-   of (b)-(f) equal the reference's or differ first at a near-tie: the
-   reference's top-2 gap within 2 bf16 ulps of its top logit and the held
-   run's token among its best within that much; where the held run ran in
-   this process ((b)-(d), (f)) also the reverse, and the two runs' top
-   logits within 2 ulps of each other (``top_logit_drift`` reads that
-   drift over every draw both runs recorded).  The launch counters are
+   engine step beside ``profile``'s device time of a decode round.
+   Between (a) and (b), ``fleet_replay``: every request of (a) decoded
+   again and submitted again with its first j tokens as ``emitted`` (j
+   its first, middle and last draw), which re-prefills them as a replay
+   does, the draw's logits against the same draw decoded, within
+   ``REPLAY_PREMISE_ULPS``, and a replay fed a wrong last token beyond
+   it.  Tokens of (b)-(f) equal the reference's or differ first at a
+   near-tie: the reference's top-2 gap within 2 bf16 ulps of its top
+   logit and the held run's token among its best within that much;
+   where the held run ran in this process ((b)-(d), (f)) also the
+   reverse, and the two runs' top logits within 2 ulps of each other
+   (``top_logit_drift`` reads that drift over every draw both runs
+   recorded).  A stream the held run replayed before its first
+   difference is held instead, from the replay on, to its twin, the same
+   replay made again here, by the same near-tie rule
+   (``hold_replayed``).  The launch counters are
    zeroed before each of (a)-(c), (d)'s migrated run and (f), and read
    after: one launch a layer for each prefill and each decode round;
 6c. ``serve_tp``: serving over a (data, model) mesh, after the fleet:
@@ -87,7 +99,7 @@ JSON object per line:
    from this script (``--tp-child``; gloo on this card, since NCCL takes
    one rank a device and gloo stages every reduction through the host:
    the times are a correctness run's), each building its block of the
-   weights from ``--seed``: (b) llama3-8b at 4 layers, f32, on (1, 2),
+   weights from ``--seed``: (b) llama3-8b at 2 layers, f32, on (1, 2),
    teacher-forced serve steps (``train/serve_step.py``; prefill 4 x 128,
    16 decode steps fed the unsharded run's greedy tokens) against the
    unsharded run here: the prefill's logits within ``TP_B_PREFILL`` and
@@ -107,7 +119,16 @@ JSON object per line:
    weights at f32) reported beside; each teacher-forced run is read again
    under the planted faults (``TP_FAULTS``), and each must break its
    bounds; per rank the launches, the peak memory and the host time of a
-   decode round beside the unsharded run's, the streams equal to the
+   decode round beside the unsharded run's; (e) the fleet on (1, 2)
+   (``launch/serve.py``'s pieces, as its ``--replicas 2 --chaos-seed 0
+   --journal`` then ``--recover`` run them): (c)'s llama3-8b, 2 replicas
+   of the serve cell on the mesh, the chaos plan of seed 0, the journal
+   killed at append ``FLEET_CRASH_AT`` (rank 0 writes it, rank 1 mirrors
+   it), the fleet recovered on the same engines and the trace finished;
+   every request done and reconciled, no slot leak, the ranks' streams
+   and decision digests equal, launches exact a rank, and rank 0's
+   streams held to the unsharded fleet's here by the replay gate
+   (``hold_to``); the streams equal to the
    unsharded run's reported;
 7. ``train``: llama3-8b at full width and 4 layers (random f32 master
    weights from ``--seed``), policy bf16, remat on every block, AdamW,
@@ -193,8 +214,8 @@ JSON object per line:
    spawned as in 7d, all at once: (a) hymba-1.5b at 4 layers (global
    layer 0, windowed 1-3), f32, 1 x 2048 (past its 1024 window), 3 steps
    on (1, 2) (sequence mode: 5 KV heads, the attention and the SSM whole
-   on every rank, the FFN and the vocab split); (b) mamba2-130m at its
-   24 layers, f32, 1 x 2048, 3 steps on (1, 4); (c) whisper-base at 6 + 6
+   on every rank, the FFN and the vocab split); (b) mamba2-130m at 6 of
+   its 24 layers, f32, 1 x 2048, 3 steps on (1, 4); (c) whisper-base at 4 + 4
    layers, f32, 2 x 448, 1500 seeded frames a row, 3 steps on (1, 2)
    (heads mode: the encoder, the cross-attention and the GELU MLP split);
    each as 7d's (a) (``MOE_TP_BOUNDS``), launches exactly the meshless
@@ -210,10 +231,24 @@ JSON object per line:
    ungated; (e) ``launch/serve.py``'s lockstep for
    mamba2-130m under ``torch.distributed.run`` with 2 ranks
    (``--max-model 2``): rank 0's tokens equal a 1-rank run's, rank 1
-   serves nothing and never creates a CUDA context.  The GELU MLPs'
-   biases are drawn from the seed (the reference starts them at zero),
-   and each sub-phase is read again under its planted faults
-   (``SSM_TP_FAULTS``), each beyond its bound by more than 10x;
+   serves nothing and never creates a CUDA context; (f) MLA training,
+   minicpm3-4b at 4 layers, f32, 1 x 1024, 3 steps on (1, 2) (``q_b`` /
+   ``kv_b`` / ``wo`` by its 40 heads), as (a) (no kernel launched: MLA
+   runs the plain attention); (g) MLA serving through
+   ``make_serve_steps`` on (1, 2), 4 x 1024 + 16 steps, the latent cache
+   split by sequence, gated as (d) (each rank's bf16 latents within one
+   rounding step of its block of the unsharded run's and the prefill's
+   bound beyond it, and half the unsharded bytes; the decode steps from
+   the unsharded run's cache with the latents in f32, greedy equal; from
+   the rank's own cache reported), the bf16 policy reported; (h) the two-tier cache, hymba at 4 layers,
+   f32, both tiers by sequence on (1, 2): the cache built here from the
+   unsharded prefill of 4 x 1016, then 16 decode steps whose rolling
+   write wraps past slot 1024 across the ranks' blocks, against the
+   unsharded two-tier decode (``MOE_TP_F32_BOUNDS``' decode bound, greedy
+   equal, ``flash_decode`` once a layer a step).  The GELU MLPs' biases
+   are drawn from the seed (the reference starts them at zero), and each
+   sub-phase is read again under its planted faults (``SSM_TP_FAULTS``),
+   each beyond its bound by more than 10x;
 8. ``train_plan``: the ``train`` configuration from the same weights and
    batch under eight remat settings: (a) off, (b) ``full`` on every block,
    (c) the trainer's ``--remat auto`` without a budget (its
@@ -270,9 +305,9 @@ JSON object per line:
     prefill 256 tokens and decode 80 steps past the window, on the card
     (kernels) and on the CPU (plain versions), same weights: logits,
     conv / SSM / int8 K/V caches, greedy tokens;
-16. ``serve_ssm``: ``launch/serve.py``'s lockstep at full width and half
-    their depth (``SSM_CELL_LAYERS``: 12 and 16 layers) for mamba2-130m
-    and hymba-1.5b (random bf16 weights, batch 8, prompt
+16. ``serve_ssm``: ``launch/serve.py``'s lockstep at full width and a
+    quarter of their depth (``SSM_CELL_LAYERS``: 6 and 8 layers) for
+    mamba2-130m and hymba-1.5b (random bf16 weights, batch 8, prompt
     2048, 32 new tokens, int8 cache) after a one-step warm-up run, the
     launch counters zeroed just before each run and read just after, then
     ``torch.profiler`` over its prefill and its first 4 decode steps run
@@ -294,7 +329,7 @@ JSON object per line:
     against the CPU, with the ``model`` line's tolerances and exact
     launches;
 19. ``train_ssm``: mamba2-130m and hymba-1.5b at full width and
-    ``SSM_CELL_LAYERS`` (12 / 16) layers through ``build_train_step``
+    ``SSM_CELL_LAYERS`` (6 / 8) layers through ``build_train_step``
     (random f32 masters, bf16, remat every block, AdamW, batch 8 x 2048):
     2 warm-up and 5 timed steps with the launch counters zeroed before and
     read after (``ssd_chunk_sm90`` 2 x L x 5, ``ssd_chunk_bwd_sm90`` L x
@@ -327,8 +362,8 @@ JSON object per line:
     probabilities within 2 f32 ulps; the count is reported either way)
     and its dropped assignments, which must be equal;
 23. ``serve_variants``: glm4-9b, deepseek-moe-16b, granite-moe-3b-a800m
-    and stablelm-12b (head_dim 160) at full width and a quarter of their
-    depth (``SERVE_VARIANT_LAYERS``: 10 / 7 / 8 / 10 layers; random bf16
+    and stablelm-12b (head_dim 160) at full width and an eighth of their
+    depth (``SERVE_VARIANT_LAYERS``: 5 / 4 / 4 / 5 layers; random bf16
     weights from ``--seed``), one at a time, each freed before the
     next, served by ``ServeEngine`` as ``serve`` is (8 slots, ``max_len``
     2048, int8, ``kv_splits`` 4, the same 16-request trace): 16 of 16
@@ -340,7 +375,7 @@ JSON object per line:
     (``moe.router``, ``moe.dispatch``, ``moe.experts``, ``moe.combine``,
     ``moe.shared``), the decode kernel and the GEMMs;
 24. ``train_variants``: those four and minicpm3-4b at full width with
-    depth cut (``VARIANT_TRAIN_LAYERS``: 4, 2, 8, 4 and 12 layers), as
+    depth cut (``VARIANT_TRAIN_LAYERS``: 4, 2, 4, 4 and 6 layers), as
     ``train`` runs (f32 masters, bf16, remat every block, AdamW, batch 1 x
     4096, 2 warm-up and 5 timed steps, launches exact: none for MLA), with
     ``moe_aux`` from one more forward, the peak, and the arithmetic that
@@ -361,7 +396,7 @@ JSON object per line:
     ``model`` line's tolerances, the launches exact in each part (none
     for MLA: no kernel lies on the reference's MLA path);
 27. ``serve_mla``: ``launch/serve.py``'s lockstep for minicpm3-4b at full
-    width and half its depth (``MLA_SERVE_LAYERS``: 31 of 62 layers;
+    width and an eighth of its depth (``MLA_SERVE_LAYERS``: 8 of 62 layers;
     batch 8, prompt 1024, 16 new tokens, bf16 latent
     cache) after a one-step warm-up, no kernel launched, then
     ``torch.profiler`` over its prefill and first 4 decode steps;
@@ -387,10 +422,10 @@ JSON object per line:
     6 x 191 decodes), then ``torch.profiler`` over the prefill and 4
     decode steps: device ms of the encoder, the cross-attention, the
     decode kernel and the GEMMs, the idle share;
-31. ``serve_variants`` for qwen2-vl-2b at 7 of its 28 layers (the serve
+31. ``serve_variants`` for qwen2-vl-2b at 4 of its 28 layers (the serve
     cell's engine and trace: 16 of 16, no flash launch, one decode a
     layer a round) and
-    ``train_variants`` for qwen2-vl-2b at ``QWEN_TRAIN_LAYERS`` (14) of its
+    ``train_variants`` for qwen2-vl-2b at ``QWEN_TRAIN_LAYERS`` (7) of its
     28 layers (batch 1 x 4096:
     a 32 x 32 patch prefix and 3-stream positions; no kernel) and
     whisper-base at 6 + 6 layers (batch 16 x 448, 1500 frames a row;
@@ -399,7 +434,7 @@ JSON object per line:
     ``serve_variants`` and ``train_variants`` by arch, in
     ``serve_encdec``, in ``train_dp`` (a) and each rank of (b), in
     ``train_tp`` (a)-(c), rank 0's, in ``moe_tp`` (a)-(d), rank 0's,
-    in ``ssm_tp`` (a)-(e), rank 0's, and in ``serve_tp`` (b)-(d), rank
+    in ``ssm_tp`` (a)-(h), rank 0's, and in ``serve_tp`` (b)-(e), rank
     0's, beside; the decode rows with
     ``serve_tp`` (a)'s partials times; the head_dim 160 rows apart, with
     stablelm-12b's launches), the ``nvidia-smi`` line, and last
@@ -463,9 +498,10 @@ SSD_TPU = "src/repro/kernels/ssd/kernel.py:42"
 SSM_PROMPT, SSM_GEN, SSM_BATCH = 2048, 32, 8   # the serve_ssm lockstep
 # train_ssm's remat-off against remat-on memory: hymba at this depth
 SSM_MEM_LAYERS = 8
-# serve_ssm's and train_ssm's depth: half of each arch's (full depth until
-# the whole run needed room for ssm_tp; hymba keeps global layers 0, 15)
-SSM_CELL_LAYERS = {"mamba2-130m": 12, "hymba-1.5b": 16}
+# serve_ssm's and train_ssm's depth: a quarter of each arch's (full depth
+# until the whole run needed room for ssm_tp, half until it needed room
+# for ssm_tp (f)-(h) and serve_tp (e); hymba keeps global layer 0)
+SSM_CELL_LAYERS = {"mamba2-130m": 6, "hymba-1.5b": 8}
 # the two-tier cache: the 2-layer run's window and steps, the full run's
 # s_max (its window stays hymba's 1024)
 TWO_TIER_WINDOW, TWO_TIER_STEPS, TWO_TIER_SMAX = 64, 160, 4096
@@ -488,22 +524,51 @@ FLEET_CRASH_AT = 200
 FLEET_EVICT_AFTER = 6
 FLEET_SIGKILL_STEP = 6
 FLEET_SLOTS, FLEET_LEN = 8, 2048
+# the fleet's depth: half the serve cell's 32 layers (all 32 until the
+# whole run needed room for train_tp, moe_tp and ssm_tp at their
+# sequences)
+FLEET_LAYERS = 16
+# serve_tp (e): the fleet on (1, 2), llama3-8b at TP_C_LAYERS layers in
+# heads mode, bf16: 2 replicas under the serve CLI's chaos plan (--chaos-seed
+# FLEET_TP_CHAOS), the journal crashed at append FLEET_CRASH_AT, then a
+# recovery on the same engines; the unsharded fleet runs the same here
+FLEET_TP_CHAOS = 0
+# the replay gate (fleet (b)-(f)): a held stream equals the reference's
+# or first leaves it at a near-tie within 2 bf16 ulps of the top logit
+# in both runs (hold_to).  Where the held run replayed the request (a
+# prefill over its prompt and first j tokens: a failover, a recovery, a
+# migration, a NaN's replay) at a draw j > 0 at or before that first
+# difference, the stream is held from there to its twin instead: the
+# same replay made again on a fresh engine here (the prompt and the
+# reference's first j tokens), decoded to the difference; it must equal
+# the twin's or leave it at a near-tie as above (hold_replayed).  A
+# replay reads the prompt's K / V whole where a decode reads the int8
+# cache, so it moves a draw's scores: REPLAY_PREMISE_ULPS bounds that
+# move, in bf16 ulps of the draw's top logit, on fleet_replay's draws
+# and on every twin's replay draw.  It decides no token (the twins do):
+# it refuses a replay that computes something else.  One H100 read 2
+# ulps at most over 48 draws (PERF.md); the bound is twice that, and
+# fleet_replay's planted replay, fed a wrong last token, must pass it
+REPLAY_PREMISE_ULPS = 4
 # the MoE family, glm4-9b (GQA groups 16, 1 and 3), stablelm-12b and
 # minicpm3-4b and the depth train_variants cuts each to; the depths keep
 # AdamW's peak near the train phase's (the arithmetic: its bytes per
 # parameter, printed by the phase, times each cut model's parameters:
 # 48.6 GB at stablelm's 4 layers, 42.7 GB at minicpm3's 24; minicpm3 at
-# 12 since the whole run needed room for ssm_tp)
+# 12 since the whole run needed room for ssm_tp, granite and minicpm3 at
+# half that since it needed room for ssm_tp (f)-(h) and serve_tp (e))
 VARIANT_TRAIN_LAYERS = {"glm4-9b": 4, "deepseek-moe-16b": 2,
-                        "granite-moe-3b-a800m": 8, "stablelm-12b": 4,
-                        "minicpm3-4b": 12}
+                        "granite-moe-3b-a800m": 4, "stablelm-12b": 4,
+                        "minicpm3-4b": 6}
 # head_dim 160 (stablelm-12b: 32 / 8 heads, G = 4) and MLA (minicpm3-4b)
 HEAD160, MLA_ARCH = "stablelm-12b", "minicpm3-4b"
 # the serve_mla lockstep (prompt 2048 and 32 new tokens until the whole
 # run needed room for moe_tp) and its depth (minicpm3-4b's 62 layers until
-# the whole run needed room for ssm_tp)
+# the whole run needed room for ssm_tp, 31 until it needed room for ssm_tp
+# (f)-(h) and serve_tp (e), 16 until those were measured at their
+# sequences)
 MLA_BATCH, MLA_PROMPT, MLA_GEN = 8, 1024, 16
-MLA_SERVE_LAYERS = 31
+MLA_SERVE_LAYERS = 8
 # whisper-base and qwen2-vl-2b: whisper's lockstep (batch, prompt, new
 # tokens: 256 of its 448-token text context) and its train batch (16 x the
 # 448-token context, 1500 frames a row); qwen2-vl's train sequence opens
@@ -514,8 +579,9 @@ WHISPER_BATCH, WHISPER_PROMPT, WHISPER_GEN = 16, 64, 192
 WHISPER_CTX = 448
 QWEN_GRID = 32
 # train_variants' depth for qwen2-vl-2b (its 28 layers until the whole run
-# needed room for ssm_tp)
-QWEN_TRAIN_LAYERS = 14
+# needed room for ssm_tp, 14 until it needed room for ssm_tp (f)-(h) and
+# serve_tp (e))
+QWEN_TRAIN_LAYERS = 7
 # the depth the card-vs-CPU phases of the variant archs (moe_model,
 # head160_model, mla_model, whisper_model, qwen2vl_model) cut each model
 # to (2 until the whole run needed room for ssm_tp; whisper's encoder too)
@@ -536,12 +602,13 @@ PROFILE_REQUESTS, PROFILE_NEW, PROFILE_WINDOW = 4, 8, 4
 # cifar_train's profiled ED+SC+MP steps (30 before) and the decode-only
 # rounds serve_variants profiles for an MoE arch (4 before)
 CIFAR_PROFILE_STEPS, MOE_PROFILE_ROUNDS = 15, 2
-# serve_variants' depth: a quarter of each arch's (full depth until the
+# serve_variants' depth: an eighth of each arch's (full depth until the
 # whole run needed room for train_tp, half until it needed room for
-# ssm_tp; every check counts the layers it serves)
-SERVE_VARIANT_LAYERS = {"glm4-9b": 10, "deepseek-moe-16b": 7,
-                        "granite-moe-3b-a800m": 8, "stablelm-12b": 10,
-                        "qwen2-vl-2b": 7}
+# ssm_tp, a quarter until it needed room for ssm_tp (f)-(h) and serve_tp
+# (e); every check counts the layers it serves)
+SERVE_VARIANT_LAYERS = {"glm4-9b": 5, "deepseek-moe-16b": 4,
+                        "granite-moe-3b-a800m": 4, "stablelm-12b": 5,
+                        "qwen2-vl-2b": 4}
 # serve_tp: the teacher-forced runs (batch, prompt, decode steps), the
 # decode kernel's splits (the serve cell's), (a)'s ragged lengths (rows
 # 1 and 7 live in the first shard only), (b)'s depth, (d)'s depth cut
@@ -549,8 +616,9 @@ TP_BATCH, TP_PROMPT, TP_STEPS = 4, 128, 16
 TP_SPLITS = 4
 TP_LENGTHS = [1, 2048, 513, 1024, 7, 1500, 1025, 64]
 # (c) at 4 layers since the whole run needed room for ssm_tp (its bound
-# below stays the one derived at 8)
-TP_B_LAYERS, TP_C_LAYERS, GLM_TP_LAYERS = 4, 4, 2
+# below stays the one derived at 8); (b) at 2 (4 until the whole run
+# needed room for ssm_tp (f)-(h) and serve_tp (e))
+TP_B_LAYERS, TP_C_LAYERS, GLM_TP_LAYERS = 2, 4, 2
 TP_JOIN_S = 420
 # the bounds of the teacher-forced logits (max |diff| over the unsharded
 # run's max |logit|, the prefill's and every decode step's, from the
@@ -677,7 +745,7 @@ FAULT_MARGIN = 10
 # card over gloo as in moe_tp, all started together: (a) hymba-1.5b at 4
 # layers (global layer 0, windowed 1-3), f32, 1 x SSM_TP_SEQ (past the
 # 1024 window), on (1, 2) (sequence mode: 5 KV heads); (b) mamba2-130m at
-# all 24 layers, f32, 1 x SSM_TP_SEQ, on (1, 4); (c) whisper-base at 6 + 6
+# SSM_TP_LAYERS, f32, 1 x SSM_TP_SEQ, on (1, 4); (c) whisper-base at 6 + 6
 # layers, f32, WHISPER_TP_BATCH x WHISPER_CTX, 1500 frames a row, on (1, 2)
 # (heads mode); each SSM_TP_STEPS steps, gated as moe_tp (a); (d) f32
 # serving, teacher-forced through make_serve_steps on (1, 2): hymba at 4
@@ -688,7 +756,9 @@ FAULT_MARGIN = 10
 # moe_tp's f32 readings; (e) launch/serve.py's lockstep for mamba2-130m under
 # torchrun, 2 ranks, --max-model 2, against a 1-rank run.  The GELU MLPs'
 # biases are drawn from the seed (_seed_biases), so b2_per_rank shows
-SSM_TP_LAYERS = {"a": 4, "b": 24, "c": 6, "d_hymba": 4, "d_whisper": 6}
+# ((b) at 6 of mamba2's 24 layers and (c) at 4 + 4 (24 and 6 + 6
+# before) since the whole run needed room for (f)-(h))
+SSM_TP_LAYERS = {"a": 4, "b": 6, "c": 4, "d_hymba": 4, "d_whisper": 6}
 SSM_TP_SEQ, SSM_TP_STEPS, WHISPER_TP_BATCH = 2048, 3, 2
 SSM_TP_PROMPT, WHISPER_TP_PROMPT = 1536, 64
 SSM_TP_LOCKSTEP = ["--arch", "mamba2-130m", "--max-model", "2", "--batch",
@@ -699,6 +769,26 @@ SSM_TP_FAULTS = {"a": ("ffn_partial_dropped", "ssm_input_copied"),
                        "xattn_unreduced"),
                  "d_hymba": ("ffn_partial_dropped", "band_local_positions"),
                  "d_whisper": ("xattn_unreduced", "b2_per_rank")}
+# ssm_tp (f)-(h), in the same spawn: (f) MLA training, minicpm3-4b at
+# MLA_TP_LAYERS layers, f32, 1 x MLA_TP_SEQ, SSM_TP_STEPS steps on (1, 2)
+# (q_b / kv_b / wo by its 40 heads), gated as (a); (g) MLA serving,
+# minicpm3-4b at MLA_TP_LAYERS, TP_BATCH x MLA_TP_PROMPT through
+# make_serve_steps on (1, 2), the latent cache split by sequence, gated at
+# f32 latents as (d) (its bf16-latent reading reported); (h) the two-tier
+# cache, hymba-1.5b at TWO_TIER_TP_LAYERS (global 0, windowed 1-3), f32,
+# both tiers split by sequence on (1, 2) (5 KV heads): its cache built
+# from the unsharded prefill of TP_BATCH x TWO_TIER_TP_PROMPT (the window
+# tier the prompt's first 1024 slots), then TP_STEPS decode steps, whose
+# rolling write wraps past slot 1024 across the ranks' blocks, against the
+# unsharded two-tier decode at (d)'s decode bound
+MLA_TP_LAYERS, MLA_TP_SEQ, MLA_TP_PROMPT = 4, 1024, 1024
+TWO_TIER_TP_LAYERS, TWO_TIER_TP_PROMPT = 4, 1016
+# the planted faults: the rope key, the latents or wo's partials without
+# their collective (training), a latent written at its local slot on every
+# rank (serving), the window's rolling write at the local slot
+SSM_TP_FAULTS.update({
+    "f": ("mla_rope_uncopied", "mla_wo_unreduced", "mla_latent_uncopied"),
+    "g": ("mla_latent_local_positions",), "h": ("window_write_local",)})
 # the reference for the baseline's accuracy: examples/cifar_optorch.py's
 # train("baseline", *make_cifar_like(n=2048, seed=0), 200), the JAX
 # package on the CPU: mean accuracy of its last 20 steps
@@ -776,6 +866,65 @@ def hold_to(ref: dict, recs: dict, got: dict, got_recs=None):
     return counts, firsts, {"n": len(drift),
                             "n_nonzero": sum(d > 0 for d in drift),
                             "max": max(drift, default=None)}
+
+
+def hold_replayed(ref: dict, recs: dict, got: dict, got_recs, replays,
+                  twin):
+    """:func:`hold_to` under the replay gate (``REPLAY_PREMISE_ULPS``).
+    ``replays[key]``: the draws the held run re-prefilled ``key`` at (a
+    replay); ``twin({key: (j, i)})`` makes each such replay again on a
+    fresh engine (the prompt and ``ref[key][:j]``) and decodes it to draw
+    ``i`` -> (the twins' streams, their draws' scores).  A stream first
+    different from ``ref`` at draw ``i`` that was replayed at a draw ``j``
+    (the last, 0 < j <= i) is held to its twin instead, up to ``i``:
+    ``replayed`` where it equals it, ``replayed_near_tie`` where
+    :func:`hold_to` calls the difference from the twin a near-tie, else
+    ``diverged``; ``diverged`` too where the twin's draw ``j`` moved the
+    top logit from the reference's by more than REPLAY_PREMISE_ULPS.  ->
+    :func:`hold_to`'s (counts, first differences, drift)."""
+    counts, firsts, drift = hold_to(ref, recs, got, got_recs)
+    counts.update(replayed=0, replayed_near_tie=0)
+    cases = {}
+    for f in firsts:
+        js = [j for j in replays.get(f["key"], ()) if 0 < j <= f["index"]]
+        if js:
+            cases[f["key"]] = (max(js), f["index"])
+    if not cases:
+        return counts, firsts, drift
+    streams, twin_recs = twin(cases)
+    for f in firsts:
+        if f["key"] not in cases:
+            continue
+        key, (j, i) = f["key"], cases[f["key"]]
+        held, vs, _ = hold_to({key: streams[key][:i + 1]},
+                              {**recs, **twin_recs}, {key: got[key][:i + 1]},
+                              got_recs)
+        a, b = recs[(key, j)], twin_recs.get((key, j))
+        moved = float("inf") if b is None else abs(a[0] - b[0]) \
+            / bf16_ulp(a[0])
+        kind = ("diverged" if held["diverged"]
+                or moved > REPLAY_PREMISE_ULPS else
+                "replayed" if held["equal"] else "replayed_near_tie")
+        counts[f["kind"]] -= 1
+        counts[kind] += 1
+        f.update(kind=kind, replayed_at=j, replay_moved_ulps=moved,
+                 vs_twin=vs[0] if vs else None)
+    return counts, firsts, drift
+
+
+class _Replays:
+    """A ``Router`` event sink that keeps, of each failover and each
+    recovery, the draw its replay re-prefills (the tokens emitted then):
+    ``replays[gid]``, for ``hold_replayed`` where the replicas are
+    subprocesses."""
+
+    def __init__(self):
+        self.replays: dict = {}
+
+    def emit(self, kind: str, step=None, **fields) -> None:
+        if kind in ("failover", "recover"):
+            self.replays.setdefault(fields["gid"], set()).add(
+                fields["emitted"])
 
 
 def grid_positions(b: int, s: int, rows: int, cols: int):
@@ -1357,6 +1506,7 @@ class Smoke:
     def run_serve(self) -> dict:
         torch = self.torch
         from repro_torch import configs
+        from repro_torch.models import transformer
         cfg = configs.get_config("llama3-8b")
         model, engine, trace, launches, fields = self._serve_trace(cfg)
         self.serve_launches = launches
@@ -1366,13 +1516,17 @@ class Smoke:
         self.profile_serve(engine, cfg)
         self.check_serve_budget(model, cfg, trace[:6],
                                 engine.pool.bytes_per_slot())
-        # the fleet's workers make their own weights: free the engine first
-        del engine
+        # the fleet at FLEET_LAYERS, its workers making their own weights:
+        # free the serve cell first
+        del engine, model
         gc.collect()
         torch.cuda.empty_cache()
-        self.run_fleet(model, cfg, trace, dict(
-            arch=cfg.arch_id, smoke=False, init_seed=self.args.seed,
-            device="cuda"))
+        cfg_f = dataclasses.replace(cfg, n_layers=FLEET_LAYERS)
+        model = transformer.init_params(cfg_f, self.args.seed,
+                                        device=self.dev,
+                                        dtype=torch.bfloat16)
+        self.run_fleet(model, cfg_f, trace, dict(
+            n_layers=FLEET_LAYERS, init_seed=self.args.seed))
         del model
         gc.collect()
         torch.cuda.empty_cache()
@@ -1644,17 +1798,22 @@ class Smoke:
             trace_d, unsharded_d, ref_d, control_d = self._tp_unsharded(
                 cfg_d, "d", tmp)
             secs["d_ref"] = time.time() - td
+            te = time.time()
+            fleet_e = self._fleet_tp_unsharded(cfg_c, tmp)
+            secs["e_ref"] = time.time() - te
             # (b)'s and (c)'s two ranks (heads mode) and (d)'s four
             # (sequence mode) at once: eight processes share the card and
             # the host
             tcd = time.time()
-            ranks_b, ranks_c, ranks_d = self._spawn_tp([
+            ranks_b, ranks_c, ranks_d, ranks_e = self._spawn_tp([
                 (dict(part="b", cfg=cfg_b, policy="full", ref=ref_b,
                       engine=False), 2),
                 (dict(part="c", cfg=cfg_c, policy="bf16", ref=ref_c,
                       engine=True), 2),
                 (dict(part="d", cfg=cfg_d, policy="bf16", ref=ref_d,
-                      engine=True), 4)], tmp)
+                      engine=True), 4),
+                (dict(part="e", cfg=cfg_c, policy="bf16", ref="",
+                      engine=False, fleet=True), 2)], tmp)
             parts["b"] = self._tp_part(
                 ranks_b, cfg_b, "full", engine=None,
                 bounds={"prefill": TP_B_PREFILL, "decode": TP_B_DECODE})
@@ -1668,7 +1827,8 @@ class Smoke:
                 n_req=len(trace_d),
                 bounds={"prefill": TP_BOUND_D, "decode": TP_BOUND_D},
                 control=control_d)
-            secs["b_c_d_ranks"] = time.time() - tcd
+            parts["e"] = self._fleet_tp_part(ranks_e, cfg_c, fleet_e)
+            secs["b_c_d_e_ranks"] = time.time() - tcd
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         checks["a"] = all(r["ok"] for r in part_a)
@@ -1684,8 +1844,90 @@ class Smoke:
                                    "kernel_ms", "plain_ms", "bound_ms")}
                 for r in part_a],
             "b": parts["b"], "c": parts["c"], "d": parts["d"],
+            "e": parts["e"],
             "gloo_note": "gloo stages every reduction through the host",
             "phase_seconds": secs, "seconds": time.time() - t0})
+
+    def _fleet_tp_unsharded(self, cfg, tmp: str) -> dict:
+        """``serve_tp`` (e)'s unsharded fleet here (:func:`fleet_tp_run`,
+        no mesh; ``cfg`` in bf16 from ``--seed``), every device tensor
+        freed after."""
+        torch = self.torch
+        from repro_torch.models import transformer
+        model = transformer.init_params(cfg, self.args.seed, device=self.dev,
+                                        dtype=torch.bfloat16)
+        counters = self._all_counters()
+
+        def zero():
+            for k in counters.values():
+                k.launches = 0
+        out = fleet_tp_run(model, cfg, None, os.path.join(tmp, "e_ref.jsonl"),
+                           self.args.seed, zero, lambda: {
+                               n: k.launches for n, k in counters.items()},
+                           self.sync)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    def _fleet_tp_part(self, ranks: list, cfg, ref: dict) -> dict:
+        """``serve_tp`` (e)'s ranks against the unsharded fleet: every
+        request done and reconciled with the journal, no slot leak, the
+        crash landed and every request live at it recovered, the ranks'
+        streams and decision digests equal (at the crash and at the end),
+        launches a rank exact (the tensor-core forward once a layer an
+        admission, the decode kernel once a layer a round), and rank 0's
+        streams held to the unsharded fleet's, equal or first different
+        at a near-tie within 2 bf16 ulps in both (``hold_to``): the two
+        fleets decide alike, so they replay at the same draws."""
+        fl = [r["fleet"] for r in ranks]
+        recs = lambda f: {(k, i): (t, v, ids)      # noqa: E731
+                          for k, i, t, v, ids in f["recs"]}
+        key = lambda f: {int(g): t for g, t in f["streams"].items()}  # noqa
+        held, firsts, drift = hold_to(key(ref), recs(ref), key(fl[0]),
+                                      recs(fl[0]))
+        L = cfg.n_layers
+        want = {k: 0 for k in fl[0]["launches"]}
+        want["flash_fwd_sm90"] = L * fl[0]["prefills"]
+        want["flash_decode"] = L * fl[0]["decode_rounds"]
+        checks = {
+            "all_done": all(len(f["streams"]) == f["n_requests"]
+                            for f in fl),
+            "crashed_and_recovered": all(
+                f["crashed"] and f["n_live_at_crash"] > 0
+                and f["recovered"] == f["n_live_at_crash"] for f in fl),
+            "reconcile": all(f["reconcile"] for f in fl),
+            "no_slot_leak": all(f["leak_free"] for f in fl),
+            "ranks_same_streams": all(f["streams"] == fl[0]["streams"]
+                                      for f in fl),
+            "ranks_same_decisions": all(f["digests"] == fl[0]["digests"]
+                                        for f in fl),
+            "launches": all(f["launches"] == want for f in fl)
+            and fl[0]["prefills"] > 0 and fl[0]["decode_rounds"] > 0,
+            "tokens_held": held["diverged"] == 0,
+            "fits": max(r["peak"] for r in ranks) < 80e9}
+        return {"arch": cfg.arch_id, "layers": L, "policy": "bf16",
+                "world": len(ranks), "mode": ranks[0]["mode"],
+                "chaos_seed": FLEET_TP_CHAOS, "crash_after_appends":
+                FLEET_CRASH_AT, "crash_router_step":
+                fl[0]["crash_router_step"],
+                "live_at_crash": fl[0]["n_live_at_crash"],
+                "injected": fl[0]["injected"],
+                "failovers": fl[0]["failovers"],
+                "decisions": fl[0]["decisions"],
+                "digests_equal_unsharded": fl[0]["digests"]
+                == ref["digests"],
+                "tokens_vs_unsharded": held, "first_differences": firsts,
+                "top_logit_drift": drift, "gate": "2 bf16 ulps",
+                "prefills": fl[0]["prefills"],
+                "decode_rounds": fl[0]["decode_rounds"],
+                "launches_rank0": fl[0]["launches"],
+                "expected_launches": want,
+                "unsharded_launches": ref["launches"],
+                "wall_s": [f["wall_s"] for f in fl],
+                "unsharded_wall_s": ref["wall_s"],
+                "max_memory_allocated_bytes": [r["peak"] for r in ranks],
+                "checks": checks}
 
     def _serve_tp_b_reference(self, cfg, tmp: str) -> tuple:
         """``serve_tp`` (b)'s config (``cfg`` at ``TP_B_LAYERS`` layers,
@@ -1720,7 +1962,7 @@ class Smoke:
         can flip at them."""
         from repro_torch.kernels.flash import ops as flash_ops
         L = cfg.n_layers
-        fwd = "flash_fwd_sm90" if flash_ops.fwd_route(
+        fwd = "flash_fwd_sm90" if cfg.mla is None and flash_ops.fwd_route(
             self.torch.bfloat16 if policy == "bf16" else self.torch.float32,
             cfg.head_dim) == "sm90" else "flash_fwd"
         out = {"arch": cfg.arch_id, "layers": L, "policy": policy,
@@ -1760,7 +2002,20 @@ class Smoke:
                 t["decode_rel_own_cache"] if gate_own_cache else 0.0,
                 t["decode_rel_ref_cache"]) <= bounds["decode"]
             out["own_cache_gated"] = gate_own_cache
-            if policy == "full":
+            if policy == "full" and cfg.mla is not None:
+                # the bf16 latents within one rounding step of the
+                # unsharded run's and the prefill's bound beyond it, 1 / n
+                # a rank; greedy equal from the unsharded run's cache
+                checks["latents_within_bound"] = all(
+                    max(c["mla_lat_excess_rel"], c["mla_rope_excess_rel"])
+                    <= bounds["prefill"] for c in t["cache_vs_unsharded"])
+                checks["latents_split"] = all(
+                    c["latent_bytes"] * len(ranks)
+                    == c["unsharded_latent_bytes"]
+                    for c in t["cache_vs_unsharded"])
+                checks["greedy_equal"] = \
+                    t["greedy_equal_steps_ref_cache"] == TP_STEPS + 1
+            elif policy == "full":
                 checks["cache_within_one_step"] = all(
                     c["k_int8_max_steps"] <= 1 and c["v_int8_max_steps"] <= 1
                     for c in t["cache_vs_unsharded"])
@@ -1906,23 +2161,27 @@ class Smoke:
 
     @contextlib.contextmanager
     def _record_scores(self, engines, vocab: int, out: dict,
-                       temperature: float = 0.0):
+                       temperature: float = 0.0, replays=None):
         """Record through the engines' ``post_logits`` hook, for every
         token they draw, its logits' top value and the ``TOP_N`` best
         sampling scores with their token ids into ``out[(key_id,
         index)]``, in logit units (scores times T when sampling): the
         first token's from the prefill, the rest from each decode round.
-        A later draw of the same token (a replay) replaces an earlier one.
-        The values stay on the device until the run ends, so recording
-        adds a top-k a draw and no host sync."""
+        A later draw of the same token (a replay) replaces an earlier one;
+        ``replays[key_id]`` (when given) gathers the draws a prefill made
+        past the first (a replay's, ``hold_replayed``).  The values stay
+        on the device until the run ends, so recording adds a top-k a
+        draw and no host sync."""
         kept: list = []
         scale = temperature if temperature > 0.0 else 1.0
 
         def hook(e, logits, scores, rows):
             vals, ids = scores[..., :vocab].topk(TOP_N, dim=-1)
+            # a prefill draws one row, a decode round every slot's
             kept.append(({r: (q.key_id, len(q.tokens))
                           for r, q in rows.items()},
-                         logits[..., :vocab].amax(-1), vals, ids))
+                         logits[..., :vocab].amax(-1), vals, ids,
+                         logits.shape[0] == 1 < e.pool.max_slots))
 
         for e in engines:
             e.hooks["post_logits"] = hook
@@ -1931,12 +2190,15 @@ class Smoke:
         finally:
             for e in engines:
                 e.hooks.pop("post_logits", None)
-        for rows, top, vals, ids in kept:
+        for rows, top, vals, ids, prefill in kept:
             top = top.float().tolist()
             vals = (vals.double() * scale).tolist()
             ids = ids.tolist()
             for r, key in rows.items():
                 out[key] = (top[r], vals[r], ids[r])
+                if replays is not None:
+                    got = replays.setdefault(key[0], set())
+                    (got.add if prefill and key[1] else got.discard)(key[1])
 
     @staticmethod
     def _rates(summary: dict, hists: dict) -> dict:
@@ -1977,6 +2239,114 @@ class Smoke:
                 and got["flash_decode"] == n_layers * r > 0
                 and got["flash_fwd"] == got["flash_decode_bias"] == 0)
 
+    def _replay_drift(self, engine, cfg, prompts: dict,
+                      lengths: dict) -> dict:
+        """What a replay does to a draw: every request (``prompts[g]``,
+        ``lengths[g]`` tokens) decoded again on ``engine`` (fresh), and
+        then submitted again with ``emitted=`` its first j tokens of that
+        run, j its first, middle and last draw, and one token to go (a
+        re-prefill, as a replay makes): the prefill's draw j against the
+        decode's.  The readings: the largest move of the decoded draw's
+        TOP_N best logits and of its top logit, in bf16 ulps of the top
+        logit (which must stay within REPLAY_PREMISE_ULPS), the largest
+        |top logit difference|, the draws whose greedy token changed.
+        Then the planted replay: each request's middle draw again with
+        the last emitted token replaced by the next token id, which must
+        move a draw beyond REPLAY_PREMISE_ULPS."""
+        torch = self.torch
+        vocab = cfg.vocab
+
+        def run(reqs):
+            """{(g, j): the draw's logits} of ``reqs`` = [(g, n, emitted,
+            the draws to keep)] -> (those, {g: tokens})."""
+            kept: dict = {}
+            e = self._fresh([engine])[0]
+
+            def hook(e_, logits, scores, rows):
+                for r, q in rows.items():
+                    key = (q.key_id, len(q.tokens))
+                    if key in want:
+                        kept[key] = logits[r, :vocab].float().clone()
+
+            want = {(g, j) for g, _, _, js in reqs for j in js}
+            e.hooks["post_logits"] = hook
+            rids = {g: e.submit(prompts[g], n, key_id=g, emitted=em)
+                    for g, n, em, _ in reqs}
+            while e.scheduler.has_work():
+                e.step()
+            self.sync()
+            e.hooks.clear()
+            states = e.request_states()
+            return kept, {g: states[rid]["tokens"] for g, rid in rids.items()}
+
+        draws = {g: sorted({1, n // 2, n - 1} - {0, n})
+                 for g, n in lengths.items()}
+        decoded, toks = run([(g, n, None, draws[g])
+                             for g, n in lengths.items()])
+        prefilled, _ = run([(g, j + 1, toks[g][:j], [j])
+                            for g in draws for j in draws[g]])
+        planted = {g: js[len(js) // 2] for g, js in draws.items() if js}
+        bad, _ = run([(g, j + 1, toks[g][:j - 1]
+                       + [(toks[g][j - 1] + 1) % vocab], [j])
+                      for g, j in planted.items()])
+
+        def moved(key, other):
+            """The largest move of the decoded draw's TOP_N best logits
+            and of the top logit, in ulps of the top logit; the top
+            logit's move; whether the greedy token changed."""
+            a, b = decoded[key], other[key]
+            best = a.topk(TOP_N).indices
+            top = abs(float(a.max()) - float(b.max()))
+            return max(float((a[best] - b[best]).abs().max()), top) \
+                / bf16_ulp(float(a.max())), top, \
+                int(a.argmax()) != int(b.argmax())
+
+        keys = [(g, j) for g in draws for j in draws[g]]
+        reads = [moved(k, prefilled) for k in keys]
+        bad_reads = [moved(k, bad)[0] for k in planted.items()]
+        checks = {"draws_read": len(keys) > 0
+                  and all(k in decoded and k in prefilled for k in keys),
+                  "within_premise": max(r[0] for r in reads)
+                  <= REPLAY_PREMISE_ULPS,
+                  "planted_refused": len(bad_reads) == len(planted) > 0
+                  and min(bad_reads) > REPLAY_PREMISE_ULPS}
+        del decoded, prefilled, bad
+        torch.cuda.empty_cache()
+        return {"draws": len(keys),
+                "max_drift_ulps": max(r[0] for r in reads),
+                "median_drift_ulps": statistics.median(
+                    r[0] for r in reads),
+                "max_top_drift": max(r[1] for r in reads),
+                "greedy_changed": sum(r[2] for r in reads),
+                "premise_ulps": REPLAY_PREMISE_ULPS,
+                "planted_wrong_token": {
+                    "draws": len(planted),
+                    "min_moved_ulps": min(bad_reads, default=None),
+                    "median_moved_ulps": statistics.median(bad_reads)
+                    if bad_reads else None},
+                "checks": checks}
+
+    def _twins(self, engine, cfg, prompts: dict, ref: dict,
+               temperature: float = 0.0):
+        """-> ``hold_replayed``'s ``twin``: each case ``key: (j, i)``
+        submitted to ``engine`` (fresh) with ``emitted=ref[key][:j]`` and
+        ``i + 1`` tokens in all, the replay made again; -> (its stream,
+        its draws' scores)."""
+        def twin(cases):
+            recs: dict = {}
+            e = self._fresh([engine])[0]
+            with self._record_scores([e], cfg.vocab, recs, temperature):
+                rids = {k: e.submit(prompts[k], i + 1, key_id=k,
+                                    emitted=ref[k][:j])
+                        for k, (j, i) in cases.items()}
+                while e.scheduler.has_work():
+                    e.step()
+            self.sync()
+            states = e.request_states()
+            return {k: states[rid]["tokens"] for k, rid in rids.items()}, \
+                recs
+        return twin
+
     def run_fleet(self, model, cfg, trace, worker_kwargs: dict) -> dict:
         """The serving fleet over the serve phase's model and trace: (a) a
         fault-free 2-replica ``Router`` (greedy, request keys), recording
@@ -1987,8 +2357,8 @@ class Smoke:
         subprocess workers with their own weights, one SIGKILLed; (f) (b)
         again with tracers on the engines, the router and the journal.
         Tokens of (b)-(f) are held to (a)'s (or (d)'s unmigrated run's)
-        by ``hold_to``: equal, or first different at a near-tie in both
-        runs."""
+        by ``hold_replayed``: equal, or first different at a near-tie in
+        both runs, or, past a replay, held to the replay made again."""
         torch = self.torch
         from repro_torch.events import EventSink, read_events
         from repro_torch.kernels import build
@@ -2056,6 +2426,21 @@ class Smoke:
             near_ties=sum(v[0] - v[1] <= 2 * bf16_ulp(t)
                           for t, v, _ in recs.values()))
 
+        # the replay drift: every request re-prefilled over its prompt and
+        # its first j tokens (what a migration or a recovery replays), j
+        # its first, middle and last draw, the draw's logits against the
+        # same draw decoded; and where the near-tie gate is blind (the
+        # reference's draws with a top-2 gap within 2 ulps)
+        prompts = {g: router.request(g).prompt for g in ref}
+        replay = self._replay_drift(engines[0], cfg, prompts,
+                                    {g: len(t) for g, t in ref.items()})
+        replay["near_ties_2_ulps"] = sum(
+            v[0] - v[1] <= 2 * bf16_ulp(t) for t, v, _ in recs.values())
+        replay["reference_draws"] = len(recs)
+        lines["replay"] = self.record({
+            "phase": "fleet_replay", **replay,
+            "ok": all(replay["checks"].values())})
+
         def chaos(router, engines):
             plan = chaos_plan(FLEET_CHAOS["seed"], steps=FLEET_CHAOS["steps"],
                               replicas=2, n_events=FLEET_CHAOS["n_events"])
@@ -2065,11 +2450,11 @@ class Smoke:
                                 FaultPlan().nan_logits(step, slot=slot))
             return fleet_inj, inj
 
-        def chaos_checks(rec, summary, fleet_inj, inj, engines, held):
+        def chaos_checks(rec, summary, fleet_inj, inj, leaks, held):
             return {
                 "reconcile": summary["reconcile"]["ok"],
                 "all_done": rec["n_done"] == n_req,
-                "no_slot_leak": leak_free(engines),
+                "no_slot_leak": leaks,
                 "crash_landed": fleet_inj.injected["replica_crash"] == 1,
                 "sick_or_slow_landed":
                     fleet_inj.injected["replica_sick"]
@@ -2084,14 +2469,18 @@ class Smoke:
         zero()
         router = Router(self._fresh(engines))
         fleet_inj, inj = chaos(router, engines)
-        got_recs: dict = {}
-        with self._record_scores(engines, cfg.vocab, got_recs):
+        got_recs, replays = {}, {}
+        with self._record_scores(engines, cfg.vocab, got_recs,
+                                 replays=replays):
             summary, wall_b = timed_run(router, trace)
-        held, firsts, drift = hold_to(ref, recs, tokens_of(router), got_recs)
         rec = self._fleet_counts(router, summary, wall_b, kernel_launches(),
                                  engines)
+        leaks = leak_free(engines)
+        held, firsts, drift = hold_replayed(
+            ref, recs, tokens_of(router), got_recs, replays,
+            self._twins(engines[0], cfg, prompts, ref))
         emit_line("chaos", rec, chaos_checks(rec, summary, fleet_inj, inj,
-                                             engines, held),
+                                             leaks, held),
                   chaos=FLEET_CHAOS, nan_logits=FLEET_NAN,
                   injected={**fleet_inj.injected, **inj.injected},
                   tokens_vs_reference=held, first_differences=firsts,
@@ -2104,8 +2493,9 @@ class Smoke:
         journal = RequestJournal(path, snapshot_every=64)
         crash = crash_after_appends(journal, FLEET_CRASH_AT)
         router = Router(self._fresh(engines), journal=journal)
-        got_recs = {}
-        with self._record_scores(engines + fresh, cfg.vocab, got_recs):
+        got_recs, replays = {}, {}
+        with self._record_scores(engines + fresh, cfg.vocab, got_recs,
+                                 replays=replays):
             try:
                 router.run(trace)
             except SimulatedCrash:
@@ -2134,9 +2524,12 @@ class Smoke:
             self.sync()
             wall = time.time() - t0
         got = {**done_before, **tokens_of(router)}
-        held, firsts, drift = hold_to(ref, recs, got, got_recs)
         rec = self._fleet_counts(router, summary, wall, kernel_launches(),
                                  fresh)
+        leaks = leak_free(fresh) and leak_free(engines)
+        held, firsts, drift = hold_replayed(
+            ref, recs, got, got_recs, replays,
+            self._twins(engines[0], cfg, prompts, ref))
         rounds = (pre[0] + rec["prefills"], pre[1] + rec["decode_rounds"])
         checks = {
             "crashed": crash["fired"] and n_live > 0,
@@ -2144,7 +2537,7 @@ class Smoke:
             "reconcile": summary["reconcile"]["ok"]
             and summary["reconcile"]["checks"]["journal_accounted"],
             "all_done": len(got) == n_req,
-            "no_slot_leak": leak_free(fresh) and leak_free(engines),
+            "no_slot_leak": leaks,
             "tokens_held": held["diverged"] == 0,
             "launches": self._launches_follow(rec, L, *rounds)}
         emit_line("recover", rec, checks, crash_after_appends=FLEET_CRASH_AT,
@@ -2180,9 +2573,10 @@ class Smoke:
         states = a.request_states()
         s_ref = {k: states[rid]["tokens"] for k, rid in rids.items()}
         a, b = self._fresh(sampled)
-        got_recs = {}
+        got_recs, replays = {}, {}
         zero()
-        with self._record_scores(sampled, cfg.vocab, got_recs, temperature):
+        with self._record_scores(sampled, cfg.vocab, got_recs, temperature,
+                                 replays=replays):
             rids = submit_all(a)
             for _ in range(FLEET_EVICT_AFTER):
                 a.step()
@@ -2211,7 +2605,10 @@ class Smoke:
         s_got = {k: states[rid]["tokens"] for k, rid in rids.items()
                  if rid != victim}
         s_got[moved.key_id] = b.request_states()[new]["tokens"]
-        held, firsts, drift = hold_to(s_ref, s_recs, s_got, got_recs)
+        held, firsts, drift = hold_replayed(
+            s_ref, s_recs, s_got, got_recs, replays, self._twins(
+                sampled[0], cfg, {k: r.prompt for k, r in zip(kids, sub)},
+                s_ref, temperature))
         emit_line("request_keys", rec, {
             "victim_held": held["diverged"] == 0,
             "sampled": len({t for v in s_ref.values() for t in v}) > 1,
@@ -2232,7 +2629,10 @@ class Smoke:
         libs = set(build.BUILD_DIR.glob("*.so"))
         sub = sorted(trace, key=lambda r: r.arrival_step)[:FLEET_SLOTS]
         t0 = time.time()
-        workers = spawn_workers(2, kwargs={
+        # the children import this file for their factory
+        os.environ["PYTHONPATH"] = os.pathsep.join(
+            [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p])
+        workers = spawn_workers(2, "chip_smoke:fleet_worker", kwargs={
             **worker_kwargs, "max_slots": FLEET_SLOTS, "max_len": FLEET_LEN,
             "prompt_buckets": fresh[0].buckets, "policy_name": "bf16",
             "quantized": True, "kv_splits": 4, "sampler_keys": "request",
@@ -2240,7 +2640,8 @@ class Smoke:
         spawn_s = time.time() - t0
         try:
             ready = [w.kernel_launches() for w in workers]
-            router = Router(workers)
+            failovers = _Replays()
+            router = Router(workers, sink=failovers)
             fleet_inj = FleetFaultInjector(
                 router, FaultPlan().worker_sigkill(FLEET_SIGKILL_STEP,
                                                    replica=1))
@@ -2258,9 +2659,12 @@ class Smoke:
                 rpc_ms[op] = statistics.median(times)
             runs = [{k: e_[k] - r_[k] for k in e_} for r_, e_ in
                     zip(ready, end)]
-            held, firsts, _ = hold_to({g: ref[g] for g in range(len(sub))},
-                                      recs, tokens_of(router))
             rec = self._fleet_counts(router, summary, wall, runs[0], [])
+            leaks = leak_free(workers)
+            held, firsts, _ = hold_replayed(
+                {g: ref[g] for g in range(len(sub))}, recs,
+                tokens_of(router), None, failovers.replays,
+                self._twins(fresh[0], cfg, prompts, ref))
             survivor = runs[0]
             emit_line("workers", rec, {
                 "reconcile": summary["reconcile"]["ok"],
@@ -2271,7 +2675,7 @@ class Smoke:
                 and rec["failovers"] >= 1,
                 "survivor_ran_kernels": survivor["flash_fwd_sm90"] > 0
                 and survivor["flash_decode"] > 0,
-                "no_slot_leak": leak_free(workers),
+                "no_slot_leak": leaks,
                 "no_nvcc_in_children":
                     set(build.BUILD_DIR.glob("*.so")) == libs,
                 "tokens_held": held["diverged"] == 0},
@@ -2297,16 +2701,22 @@ class Smoke:
         router.tracer = Tracer(sink, pid="router")
         journal.tracer = Tracer(sink, pid="journal")
         fleet_inj, inj = chaos(router, fresh)
-        got_recs = {}
+        got_recs, replays = {}, {}
         try:
-            with self._record_scores(fresh, cfg.vocab, got_recs):
+            with self._record_scores(fresh, cfg.vocab, got_recs,
+                                     replays=replays):
                 summary, wall = timed_run(router, trace)
         finally:
             for e in fresh:
                 e.tracer = None
             journal.close()
             sink.close()
-        held, firsts, drift = hold_to(ref, recs, tokens_of(router), got_recs)
+        rec = self._fleet_counts(router, summary, wall, kernel_launches(),
+                                 fresh)
+        leaks = leak_free(fresh)
+        held, firsts, drift = hold_replayed(
+            ref, recs, tokens_of(router), got_recs, replays,
+            self._twins(fresh[0], cfg, prompts, ref))
         ends = {e["sid"]: e["ts"] for e in read_events(ev, "span_end")}
         begins = read_events(ev, "span_begin")
         spans: dict = {}
@@ -2314,9 +2724,7 @@ class Smoke:
             spans[e["name"]] = spans.get(e["name"], 0) + 1
         step_ms = [(ends[e["sid"]] - e["ts"]) * 1e3 for e in begins
                    if e["name"] == "step" and e["sid"] in ends]
-        rec = self._fleet_counts(router, summary, wall, kernel_launches(),
-                                 fresh)
-        checks = chaos_checks(rec, summary, fleet_inj, inj, fresh, held)
+        checks = chaos_checks(rec, summary, fleet_inj, inj, leaks, held)
         checks["spans_closed"] = len(ends) == len(begins)
         emit_line("traced", rec, checks, spans=spans,
                   step_span_median_ms=statistics.median(step_ms),
@@ -2336,7 +2744,6 @@ class Smoke:
                                 for n in ("reference", "chaos", "recover",
                                           "request_keys", "traced"))}
         return lines
-
 
     def _profile(self, fn, host: bool = True):
         """``torch.profiler`` over ``fn()``: (wall s, device busy s, rows of
@@ -2832,8 +3239,9 @@ class Smoke:
                 and cfg.n_layers > 1:
             cfg = dataclasses.replace(cfg, n_layers=cfg.n_layers // 2)
         local = _local_params(cfg, world)
+        heads = cfg.n_heads if cfg.mla is not None else cfg.n_kv
         mode = "no attention" if cfg.n_kv == 0 else \
-            "heads" if cfg.n_kv % world == 0 else "seq"
+            "heads" if heads % world == 0 else "seq"
         if faults is None:
             faults = [f for f in TPT_FAULTS
                       if (f != "copy_seq_attn" or mode == "seq")
@@ -2893,12 +3301,13 @@ class Smoke:
         # the SSD chunk, twice a layer a step under remat, their backward
         # once
         dt = torch.float32 if policy == "full" else torch.bfloat16
-        fwd = flash_ops.fwd_route(dt, cfg.head_dim) if cfg.n_kv else None
-        bwd = flash_ops.bwd_route(dt, dt, dt, cfg.head_dim) if cfg.n_kv \
+        flash = cfg.n_kv and cfg.mla is None     # MLA runs no kernel
+        fwd = flash_ops.fwd_route(dt, cfg.head_dim) if flash else None
+        bwd = flash_ops.bwd_route(dt, dt, dt, cfg.head_dim) if flash \
             else None
         L = cfg.n_layers
         want = {k: 0 for k in self._all_counters()}
-        if cfg.mixer in ("attn", "hybrid"):
+        if cfg.mixer in ("attn", "hybrid") and flash:
             want["flash_fwd_sm90" if fwd == "sm90" else "flash_fwd"] = \
                 2 * L * timed
             sfx = "_sm90" if bwd == "sm90" else ""
@@ -3187,8 +3596,12 @@ class Smoke:
         bpp = getattr(self, "train_bytes_per_param", None) or \
             TRAIN_PEAK_FALLBACK / self._held_params(dataclasses.replace(
                 llama, n_layers=TRAIN_LAYERS))
-        base = {"a": hy, "b": m2, "c": wh, "d_hymba": hy, "d_whisper": wh}
-        cut = {p: dataclasses.replace(c, n_layers=SSM_TP_LAYERS[p])
+        mla = configs.get_config(MLA_ARCH)
+        base = {"a": hy, "b": m2, "c": wh, "d_hymba": hy, "d_whisper": wh,
+                "f": mla, "g": mla, "h": hy}
+        depth = {**SSM_TP_LAYERS, "f": MLA_TP_LAYERS, "g": MLA_TP_LAYERS,
+                 "h": TWO_TIER_TP_LAYERS}
+        cut = {p: dataclasses.replace(c, n_layers=depth[p])
                for p, c in base.items()}
         for p in ("c", "d_whisper"):
             cut[p] = dataclasses.replace(cut[p], encoder=dataclasses.replace(
@@ -3200,7 +3613,8 @@ class Smoke:
             ts = time.time()
             refs, controls = {}, {}
             for p, prompt in (("d_hymba", SSM_TP_PROMPT),
-                              ("d_whisper", WHISPER_TP_PROMPT)):
+                              ("d_whisper", WHISPER_TP_PROMPT),
+                              ("g", MLA_TP_PROMPT)):
                 m = transformer.init_params(cut[p], self.args.seed,
                                             device=self.dev,
                                             dtype=torch.float32)
@@ -3213,14 +3627,17 @@ class Smoke:
                 del m
                 gc.collect()
                 torch.cuda.empty_cache()
-            secs["d_unsharded"] = time.time() - ts
+            secs["d_g_unsharded"] = time.time() - ts
+            ts = time.time()
+            refs["h"] = self._two_tier_reference(cut["h"], tmp)
+            secs["h_unsharded"] = time.time() - ts
+            seqs = {"c": WHISPER_CTX, "f": MLA_TP_SEQ}
             plans = {p: self._tpt_prepare(
-                f"ssm_{p}", cut[p], "full",
-                WHISPER_CTX if p == "c" else SSM_TP_SEQ, world, 0,
-                SSM_TP_STEPS, bpp, tmp, faults=list(SSM_TP_FAULTS[p]),
+                f"ssm_{p}", cut[p], "full", seqs.get(p, SSM_TP_SEQ), world,
+                0, SSM_TP_STEPS, bpp, tmp, faults=list(SSM_TP_FAULTS[p]),
                 bounds=MOE_TP_BOUNDS, final=True,
                 batch=WHISPER_TP_BATCH if p == "c" else 1)
-                for p, world in (("a", 2), ("b", 4), ("c", 2))}
+                for p, world in (("a", 2), ("b", 4), ("c", 2), ("f", 2))}
 
             def references():
                 for p in plans:
@@ -3229,25 +3646,35 @@ class Smoke:
                     secs[f"{p}_unsharded"] = time.time() - tr
 
             ts = time.time()
+            serve = ("d_hymba", "d_whisper", "g")
             ranks = self._spawn_tp(
                 [(plans[p]["spec"], w) for p, w in (("a", 2), ("b", 4),
-                                                    ("c", 2))]
+                                                    ("c", 2), ("f", 2))]
                 + [(dict(part=f"ssm_{p}", cfg=cut[p], policy="full",
                          ref=refs[p], bf16_ref=refs[p + "_bf16"],
                          engine=False, faults=SSM_TP_FAULTS[p]), 2)
-                   for p in ("d_hymba", "d_whisper")],
+                   for p in serve]
+                + [(dict(part="ssm_h", cfg=cut["h"], policy="full",
+                         ref=refs["h"], engine=False, two_tier=True,
+                         faults=SSM_TP_FAULTS["h"]), 2)],
                 tmp, join_s=TPT_JOIN_S, meanwhile=references)
             spawn_s = time.time() - ts
             secs["ranks"] = spawn_s
-            for p, rk in zip("abc", ranks):
-                parts[p] = self._tpt_finish(plans[p], rk, spawn_s,
+            ranks = dict(zip(("a", "b", "c", "f", *serve, "h"), ranks))
+            for p in "abcf":
+                parts[p] = self._tpt_finish(plans[p], ranks[p], spawn_s,
                                             margin=FAULT_MARGIN)
-            for p, rk in zip(("d_hymba", "d_whisper"), ranks[3:]):
+            for p in serve:
+                # the decode path gated from the unsharded run's cache;
+                # from the rank's own (hymba's int8 cache, MLA's bf16
+                # latents, each a rounding step off where an f32 reorder
+                # crossed a boundary) reported
                 parts[p] = self._tp_part(
-                    rk, cut[p], "full", engine=None, bounds=MOE_TP_F32_BOUNDS,
-                    control=controls[p], margin=FAULT_MARGIN,
-                    gate_own_cache=False)
+                    ranks[p], cut[p], "full", engine=None,
+                    bounds=MOE_TP_F32_BOUNDS, control=controls[p],
+                    margin=FAULT_MARGIN, gate_own_cache=False)
                 parts[p]["mesh"] = "(1, 2)"
+            parts["h"] = self._two_tier_part(ranks["h"], cut["h"])
             te = time.time()
             parts["e"] = self._lockstep_finish(lock)
             secs["e_wait"] = time.time() - te
@@ -3267,6 +3694,95 @@ class Smoke:
                          "and the sub-phases' 12 ranks share the card and "
                          "the host: the times are a correctness run's",
             "phase_seconds": secs, "seconds": time.time() - t0})
+
+    def _two_tier_reference(self, cfg, tmp: str) -> str:
+        """``ssm_tp`` (h)'s unsharded side here, f32: the uniform prefill of
+        TP_BATCH x P seeded tokens (P the largest multiple of the SSD chunk
+        within TWO_TIER_TP_PROMPT), its K / V copied into a two-tier cache
+        of TWO_TIER_TP_PROMPT + TP_STEPS slots (the window tier holds the
+        prompt's slots 0..P-1: P <= the window, so no slot has rolled yet),
+        the conv tail and SSM state carried over, greedy decode steps of
+        ``decode_step_two_tier`` on to position TWO_TIER_TP_PROMPT, then
+        TP_STEPS more; the cache before those, their fed tokens and logits
+        saved for the ranks, every device tensor freed after.  -> the
+        file."""
+        torch = self.torch
+        from repro_torch.core.mixed_precision import Policy
+        from repro_torch.models import transformer as tf
+        b = TP_BATCH
+        p = TWO_TIER_TP_PROMPT // cfg.ssm.chunk * cfg.ssm.chunk
+        if TWO_TIER_TP_PROMPT > cfg.window:
+            raise ValueError("ssm_tp (h): the prompt must fit the window")
+        model = tf.init_params(cfg, self.args.seed, device=self.dev,
+                               dtype=torch.float32)
+        gen = torch.Generator(device=self.dev).manual_seed(self.args.seed)
+        prompts = torch.randint(0, cfg.vocab, (b, p), generator=gen,
+                                device=self.dev, dtype=torch.int32)
+        with torch.no_grad():
+            logits, aux = tf.forward(model, cfg, {"tokens": prompts},
+                                     policy=Policy.full(), build_cache=True,
+                                     return_hidden=False)
+        uni = aux["cache"]
+        cache = tf.init_cache_two_tier(cfg, b, TWO_TIER_TP_PROMPT + TP_STEPS,
+                                       device=self.dev)
+        for i, (tier, k) in enumerate(tf._tier_slots(cfg)):
+            for leaf in ("k", "v", "k_scale", "v_scale"):
+                cache[f"{tier}{leaf}"][k][:, :, :p] = uni[leaf][i]
+        cache.update(conv=uni["conv"], ssm=uni["ssm"], pos=uni["pos"])
+        tok = logits[:, -1, :cfg.vocab].argmax(-1)
+        del aux, uni, logits
+        with torch.no_grad():
+            for _ in range(TWO_TIER_TP_PROMPT - p):
+                step, cache = tf.decode_step_two_tier(
+                    model, cfg, cache, tok.to(torch.int32),
+                    policy=Policy.full(), kvq_splits=TP_SPLITS)
+                tok = step[:, :cfg.vocab].argmax(-1)
+        cache["first"] = tok
+        saved = {k: v.to("cpu", copy=True) for k, v in cache.items()}
+        out, tokens = two_tier_forced(model, cfg, cache, None)
+        path = os.path.join(tmp, "ssm_h.ref.pt")
+        torch.save({"cache": saved, "tokens": tokens, "logits": out}, path)
+        del model, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+        return path
+
+    def _two_tier_part(self, ranks: list, cfg) -> dict:
+        """``ssm_tp`` (h)'s ranks against the unsharded two-tier decode:
+        launches (the decode kernel once a layer a step, by length), each
+        tier's slots a rank, the logits of every step within (d)'s decode
+        bound, the greedy tokens equal, the ranks alike, each planted fault
+        beyond the bound by more than FAULT_MARGIN x."""
+        tf_ = [r["tf"] for r in ranks]
+        bound = MOE_TP_F32_BOUNDS["decode"]
+        want = {k: 0 for k in tf_[0]["launches"]}
+        want["flash_decode"] = cfg.n_layers * TP_STEPS
+        faults = {f: max(r["faults"][f]["max_rel"] for r in ranks)
+                  for f in ranks[0]["faults"]}
+        checks = {
+            "launches": all(t["launches"] == want for t in tf_),
+            "decode_within_bound": max(t["max_rel"] for t in tf_) <= bound,
+            "greedy_equal": min(t["greedy_equal"] for t in tf_) == TP_STEPS,
+            "ranks_agree": all(t["digest"] == tf_[0]["digest"] for t in tf_),
+            "tiers_split": all(
+                t["slots"] == {"gk": (TWO_TIER_TP_PROMPT + TP_STEPS) // 2,
+                               "wk": cfg.window // 2} for t in tf_),
+            "fits": max(r["peak"] for r in ranks) < 80e9}
+        for f, v in faults.items():
+            checks[f"fault_{f}_beyond_{FAULT_MARGIN:g}x"] = \
+                v > FAULT_MARGIN * bound
+        return {"arch": cfg.arch_id, "layers": cfg.n_layers,
+                "policy": "full", "world": len(ranks), "mesh": "(1, 2)",
+                "mode": "seq", "prompt": TWO_TIER_TP_PROMPT,
+                "steps": TP_STEPS, "window": cfg.window,
+                "slots_rank0": tf_[0]["slots"],
+                "decode_rel": max(t["max_rel"] for t in tf_),
+                "greedy_equal_steps": min(t["greedy_equal"] for t in tf_),
+                "bound": bound, "faults": faults,
+                "launches_rank0": tf_[0]["launches"],
+                "expected_launches": want,
+                "max_memory_allocated_bytes": [r["peak"] for r in ranks],
+                "checks": checks}
 
     def _lockstep_start(self, tmp: str) -> dict:
         """``ssm_tp`` (e)'s processes, started at once: ``launch/serve.py``
@@ -5550,9 +6066,14 @@ def tp_forced(model, cfg, policy: str, prompts, mesh=None, forced=None,
     TP_STEPS slots, then TP_STEPS decode steps (``TP_SPLITS`` splits),
     each fed ``forced[:, t]`` or, without it, the greedy token of the step
     before.  ``cache`` (this rank's layout) replaces the prefill's own
-    cache before the decode steps.  -> (logits (TP_STEPS + 1, B, V) f32
-    on the host, V the live vocab (the padded tail's -1e30 cut off), the
-    fed tokens (B, TP_STEPS), the prefill's cache on the host)."""
+    cache before the decode steps.  Under policy ``full`` MLA's latents
+    (bf16 in the prefill's cache, the reference's) go to f32 before the
+    decode steps, which then write f32 latents, so an f32 reading of the
+    decode path is not hidden by their rounding (from the unsharded
+    run's cache no run's rounding differs).  -> (logits (TP_STEPS + 1,
+    B, V) f32 on the host, V the live vocab (the padded tail's -1e30 cut
+    off), the fed tokens (B, TP_STEPS), the prefill's cache on the
+    host)."""
     import torch
     from repro_torch.core.mixed_precision import get_policy
     from repro_torch.models import transformer
@@ -5561,6 +6082,7 @@ def tp_forced(model, cfg, policy: str, prompts, mesh=None, forced=None,
     batch = {"tokens": prompts}
     if frames is not None:
         batch["frames"] = frames
+    f32_latents = policy == "full" and cfg.mla is not None
     if mesh is None:
         prefill = serve_step.build_prefill_step(
             cfg, policy_name=policy, s_max=p + TP_STEPS)
@@ -5580,6 +6102,9 @@ def tp_forced(model, cfg, policy: str, prompts, mesh=None, forced=None,
         kept = {k: v.to("cpu", copy=True) for k, v in own.items()}
         if cache is not None:
             own = {k: v.to(prompts.device) for k, v in cache.items()}
+        if f32_latents:
+            own = {k: v.float() if k in ("mla_lat", "mla_rope") else v
+                   for k, v in own.items()}
         out, fed = [logits[:, :cfg.vocab].float().cpu()], []
         for t in range(TP_STEPS):
             tok = (logits.argmax(-1) if forced is None
@@ -5684,7 +6209,28 @@ def _tf_compare(got, ref) -> dict:
 def _cache_diff(own: dict, ref: dict) -> dict:
     """This rank's prefill cache against its block of the unsharded
     run's: int8 entries that differ (and by how many steps), and the
-    largest relative difference of the f32 scales."""
+    largest relative difference of the f32 scales; MLA's bf16 latents:
+    the largest difference beyond one bf16 rounding step of the larger
+    of the two values (the step an f32 reorder at a rounding boundary
+    moves a latent), over the block's largest |value|, the latents that
+    differ, and the bytes of both."""
+    if "mla_lat" in own:
+        import torch
+        names = ("mla_lat", "mla_rope")
+        out = {}
+        for n in names:
+            a, b = own[n].float(), ref[n].float()
+            # |x| = m 2^e, m in [0.5, 1): bf16's 8 significant bits step
+            # by 2^(e - 8)
+            e = torch.frexp(torch.maximum(a.abs(), b.abs())).exponent
+            step = torch.ldexp(torch.ones_like(a), e - 8)
+            out[f"{n}_excess_rel"] = float(
+                ((a - b).abs() - step).clamp(min=0).max()
+                / b.abs().max())
+            out[f"{n}_differ"] = int((a != b).sum())
+        out["latent_bytes"] = sum(own[n].numel() * own[n].element_size()
+                                  for n in names)
+        return out
     out = {}
     for name in ("k", "v"):
         d = (own[name].int() - ref[name].int()).abs()
@@ -5743,6 +6289,196 @@ def _planted(fault: str, model, mesh, rank: int):
         collectives._group_merge = merge
         for w, v in saved:
             w.data.copy_(v)
+
+
+def _cache_block(cache: dict, cfg, mesh, rank: int) -> dict:
+    """This rank's block of an unsharded decode cache (uniform, MLA's or
+    two-tier), as ``transformer.cache_specs`` places it."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import coords
+    from repro_torch.models import transformer
+    where = coords(mesh, rank)
+    specs = transformer.cache_specs(cfg, cache, mesh)
+    return {k: v if k == "pos" else shd.shard_leaf(v, specs[k], mesh, where)
+            for k, v in cache.items()}
+
+
+def two_tier_forced(model, cfg, cache, tokens, mesh=None):
+    """``ssm_tp`` (h): TP_STEPS decode steps of ``decode_step_two_tier``
+    (policy full, ``TP_SPLITS`` splits) from ``cache`` (moved to the
+    model's device), each fed ``tokens[:, t]`` or, with ``tokens`` None,
+    the greedy token of the step before (the first fed the cache's
+    ``first``).  -> (logits (TP_STEPS, B, V) f32 on the host, the live
+    vocab; the fed tokens (B, TP_STEPS))."""
+    import torch
+    from repro_torch.core.mixed_precision import Policy
+    from repro_torch.models import transformer
+    dev = model.embed.device
+    cache = {k: v.to(dev, copy=True) for k, v in cache.items()}
+    tok = cache.pop("first")
+    out, fed = [], []
+    with torch.no_grad():
+        for t in range(TP_STEPS):
+            if tokens is not None:
+                tok = tokens[:, t].to(dev)
+            tok = tok.to(torch.int32)
+            fed.append(tok.cpu())
+            logits, cache = transformer.decode_step_two_tier(
+                model, cfg, cache, tok, policy=Policy.full(),
+                kvq_splits=TP_SPLITS, mesh=mesh)
+            out.append(logits[:, :cfg.vocab].float().cpu())
+            tok = logits.argmax(-1)
+    return torch.stack(out), torch.stack(fed, 1)
+
+
+def _two_tier_rank(spec, model, cfg, mesh, dev, zero, read) -> dict:
+    """``ssm_tp`` (h) on one rank: this rank's block of the parent's
+    two-tier cache, the decode steps fed the parent's tokens against its
+    logits, then again under each planted fault."""
+    import torch
+    from repro_torch.launch.mesh import coords
+    ref = torch.load(spec["ref"])
+    rank = coords(mesh)["model"]
+    block = _cache_block({k: v for k, v in ref["cache"].items()
+                          if k != "first"}, cfg, mesh, rank)
+    block["first"] = ref["cache"]["first"]
+    zero()
+    logits, _ = two_tier_forced(model, cfg, block, ref["tokens"], mesh)
+    out = {"tf": {**_tf_compare(logits, ref["logits"]), "launches": read(),
+                  "slots": {k: int(block[k].shape[3])
+                            for k in ("gk", "wk")}},
+           "faults": {}}
+    for fault in spec.get("faults", ()):
+        with _planted(fault, model, mesh, rank):
+            logits, _ = two_tier_forced(model, cfg, block, ref["tokens"],
+                                        mesh)
+        out["faults"][fault] = {
+            k: v for k, v in _tf_compare(logits, ref["logits"]).items()
+            if k in ("decode_rel", "max_rel")}
+    return out
+
+
+def fleet_tp_run(model, cfg, mesh, path: str, seed: int, zero, read,
+                 sync) -> dict:
+    """``serve_tp`` (e) on one side (``mesh`` None: the unsharded fleet
+    here; else one rank): 2 warmed engines of the serve cell on ``mesh``
+    behind a ``Router`` with the journal at ``path`` (on a mesh rank 0
+    writes it and the others mirror it: ``launch/serve.py``
+    ``_open_journal``), the serve CLI's chaos plan, the ranks' decisions
+    compared before every router step; killed at journal append
+    FLEET_CRASH_AT, then the journal reopened and the fleet recovered on
+    the same engines, the rest of the trace served.  The launch counters
+    are zeroed after the warm-up and read at the end.  -> the streams,
+    each draw's scores (``_record_scores``), the digests and counts."""
+    from repro_torch.launch import serve
+    from repro_torch.serve import (DONE, TERMINAL, FleetFaultInjector,
+                                   Router, ServeEngine, SimulatedCrash,
+                                   chaos_plan, crash_after_appends,
+                                   synthetic_trace)
+    trace = synthetic_trace(16, seed=0, vocab=cfg.vocab, mean_prompt=256,
+                            max_prompt=1024, mean_gen=32, max_gen=64)
+    engines = [ServeEngine(model, cfg, max_slots=FLEET_SLOTS,
+                           max_len=FLEET_LEN,
+                           prompt_buckets=serve._fleet_buckets(FLEET_LEN),
+                           policy_name="bf16", quantized=True, kv_splits=4,
+                           sampler_keys="request", seed=seed, mesh=mesh)
+               for _ in range(2)]
+    for e in engines:
+        e.warmup()
+    sync()
+    zero()
+
+    def tokens_of(router):
+        return {g: list(fr.tokens) for g, fr in router._reqs.items()
+                if fr.state == DONE}
+
+    recs: dict = {}
+    t0 = time.time()
+    with Smoke._record_scores(None, engines, cfg.vocab, recs):
+        journal = serve._open_journal(path, mesh)
+        crash = crash_after_appends(journal, FLEET_CRASH_AT)
+        router = Router(engines, journal=journal, digest_decisions=True)
+        fleet_inj = FleetFaultInjector(router, chaos_plan(
+            FLEET_TP_CHAOS, steps=max(8, len(trace)), replicas=2,
+            n_events=3))
+        serve._check_every_step(router, mesh)
+        try:
+            router.run(trace)
+        except SimulatedCrash:
+            pass
+        done = tokens_of(router)
+        crash_step, digests = router.step_no, [router.decision_digest()]
+        pre = [sum(e.n_prefills for e in engines),
+               sum(e.n_decode_rounds for e in engines)]
+        journal.close()
+        for e in engines:                 # kill -9: the requests vanish
+            for rid, st in list(e.request_states().items()):
+                if st["state"] not in TERMINAL:
+                    e.evict_request(rid)
+            e.reset()
+        journal = serve._open_journal(path, mesh)
+        n_live, n_sub = journal.state.n_live, journal.state.next_gid
+        router = Router(engines, journal=journal, digest_decisions=True)
+        info = router.recover()
+        serve._check_decisions(router, mesh, "in the recovery")
+        rest = [dataclasses.replace(r, arrival_step=max(
+            0, r.arrival_step - crash_step)) for r in sorted(
+            trace, key=lambda r: r.arrival_step)[n_sub:]]
+        serve._check_every_step(router, mesh)
+        summary = router.run(rest)
+        serve._check_decisions(router, mesh, "over the trace")
+        journal.close()
+    sync()
+    wall = time.time() - t0
+    digests.append(router.decision_digest())
+    return {"streams": {str(g): t for g, t in {
+                **done, **tokens_of(router)}.items()},
+            "recs": [[k, i, *v] for (k, i), v in recs.items()],
+            "n_requests": len(trace), "crashed": crash["fired"],
+            "n_live_at_crash": n_live, "recovered": info["n_recovered"],
+            "crash_router_step": crash_step,
+            "injected": dict(fleet_inj.injected),
+            "reconcile": summary["reconcile"]["ok"]
+            and summary["reconcile"]["checks"]["journal_accounted"],
+            "leak_free": all(e.pool.occupancy == 0
+                             and e.pool.allocs == e.pool.frees
+                             for e in engines),
+            "launches": read(), "prefills": pre[0] + sum(
+                e.n_prefills for e in engines),
+            "decode_rounds": pre[1] + sum(e.n_decode_rounds
+                                          for e in engines),
+            "digests": digests, "decisions": router.n_decisions,
+            "failovers": summary["fleet"]["failovers"], "wall_s": wall}
+
+
+def _fleet_rank(spec, model, cfg, mesh, dev, zero, read) -> dict:
+    """``serve_tp`` (e) on one rank: :func:`fleet_tp_run` on the mesh,
+    the journal beside the spec's files (rank 0 alone writes it)."""
+    import torch
+    path = os.path.join(os.path.dirname(spec["out"]), "e_wal.jsonl")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    return {"fleet": fleet_tp_run(model, cfg, mesh, path, spec["seed"],
+                                  zero, read, sync)}
+
+
+def fleet_worker(n_layers: int, init_seed: int = 0, **engine_kwargs):
+    """The fleet's subprocess replica (``serve/worker.py``'s factory,
+    ``chip_smoke:fleet_worker``, called in the child): the serve cell's
+    llama3-8b at ``n_layers`` from ``init_seed`` on the card, bf16, the
+    weights ``run_serve`` gives the in-process replicas."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    from repro_torch.serve import ServeEngine
+    cfg = dataclasses.replace(configs.get_config("llama3-8b"),
+                              n_layers=n_layers)
+    model = transformer.init_params(cfg, init_seed,
+                                    device=torch.device("cuda", 0),
+                                    dtype=torch.bfloat16)
+    return ServeEngine(model, cfg, **engine_kwargs)
 
 
 def _spec_cfg(fields: dict):
@@ -5807,7 +6543,8 @@ def tp_child(arg: str) -> int:
         _seed_biases(model, cfg, spec["seed"], mesh)
         kernels = Smoke._all_counters()
         out = {"rank": rank,
-               "mode": shd.serve_kv_shard(mesh, cfg.n_kv, 2048)}
+               "mode": "seq (latents)" if cfg.mla is not None
+               else shd.serve_kv_shard(mesh, cfg.n_kv, 2048)}
 
         def zero():
             for k in kernels.values():
@@ -5821,7 +6558,12 @@ def tp_child(arg: str) -> int:
                 torch.cuda.synchronize(dev)
 
         frames = None
-        if spec["ref"]:
+        if spec.get("two_tier"):
+            out.update(_two_tier_rank(spec, model, cfg, mesh, dev, zero,
+                                      read))
+        elif spec.get("fleet"):
+            out.update(_fleet_rank(spec, model, cfg, mesh, dev, zero, read))
+        elif spec["ref"]:
             ref = torch.load(spec["ref"])
             zero()
             routing = []
@@ -5840,12 +6582,12 @@ def tp_child(arg: str) -> int:
             # the decode steps again from this rank's block of the
             # unsharded run's prefill cache: the decode path's own
             # arithmetic, without the caches' rounding of the prefill
-            where = coords(mesh, rank)
-            block = {k: v if k == "pos" else shd.shard_leaf(
-                         v, shd.serve_cache_specs(cfg, {k: v.shape},
-                                                  mesh)[k], mesh, where)
-                     for k, v in ref["cache"].items()}
+            block = _cache_block(ref["cache"], cfg, mesh, rank)
             out["tf"]["cache"] = _cache_diff(own, block)
+            if cfg.mla is not None:
+                out["tf"]["cache"]["unsharded_latent_bytes"] = sum(
+                    ref["cache"][n].numel() * ref["cache"][n].element_size()
+                    for n in ("mla_lat", "mla_rope"))
             logits, _, _ = tp_forced(model, cfg, spec["policy"],
                                      ref["prompts"].to(dev), mesh=mesh,
                                      forced=ref["tokens"], cache=block,
@@ -5884,7 +6626,7 @@ def tp_child(arg: str) -> int:
         # the serving peak, before the faults' copies of w_down
         out["peak"] = torch.cuda.max_memory_allocated(dev) \
             if dev.type == "cuda" else 0
-        if spec["ref"]:
+        if spec["ref"] and not spec.get("two_tier"):
             # the same teacher-forced run under each planted fault: what
             # the gates must refuse
             ref = torch.load(spec["ref"])
@@ -5940,8 +6682,10 @@ def _tpt_leaves(cfg) -> list:
     MoE (``moe_tp``) the router, ``w_gate``, ``w_down``, the shared
     experts' ``shared_gate`` / ``shared_down``, the embedding, the head
     and a norm; for ``ssm_tp`` the SSM's leaves (whole on every rank), the
-    hybrid's mix norm and FFN, and the encoder-decoder's attention,
-    cross-attention, GELU MLP (``b2`` too) and an encoder layer's."""
+    hybrid's mix norm and FFN, the encoder-decoder's attention,
+    cross-attention, GELU MLP (``b2`` too) and an encoder layer's, and
+    MLA's down-projections, a latent norm, ``q_b`` / ``kv_b`` / ``wo``
+    and ``w_down``."""
     mid = f"blocks.{cfg.n_layers // 2}"
     if cfg.encoder is not None:     # ssm_tp: the encoder-decoder
         enc = f"enc_blocks.{cfg.encoder.n_layers // 2}"
@@ -5959,6 +6703,10 @@ def _tpt_leaves(cfg) -> list:
         return [f"{mid}.attn.wq", f"{mid}.ssm.in_proj", f"{mid}.ssm.out_proj",
                 f"{mid}.mix_norm_ssm", f"{mid}.ffn.w_up", f"{mid}.ffn.w_down",
                 "embed", "lm_head", f"{mid}.ln2"]
+    if cfg.mla is not None:         # ssm_tp (f): MLA's split and whole
+        return [f"{mid}.attn.{n}" for n in ("q_a", "kv_a", "kv_a_norm",
+                                            "q_b", "kv_b", "wo")] \
+            + [f"{mid}.ffn.w_down", "embed", "lm_head", f"{mid}.ln2"]
     if cfg.moe is not None:         # moe_tp: the router, experts, a norm
         shared = ["shared_gate", "shared_down"] if cfg.moe.num_shared \
             else []
@@ -6223,7 +6971,10 @@ def _moe_fault(fault: str, model, mesh):
 
 #: the planted faults of ssm_tp (_mixer_fault)
 MIXER_FAULTS = ("ffn_partial_dropped", "b2_per_rank", "ssm_input_copied",
-                "xattn_unreduced", "band_local_positions")
+                "xattn_unreduced", "band_local_positions",
+                "mla_rope_uncopied", "mla_wo_unreduced",
+                "mla_latent_uncopied", "mla_latent_local_positions",
+                "window_write_local")
 
 
 @contextlib.contextmanager
@@ -6239,7 +6990,14 @@ def _mixer_fault(fault: str, model, mesh):
     ``xattn_unreduced``, the cross-attention's ``wo`` partials left
     unsummed; ``band_local_positions``, the sequence-split decode reads a
     windowed layer's band at the local positions of its shard, not the
-    global ones."""
+    global ones; ``mla_rope_uncopied`` / ``mla_latent_uncopied``, MLA's
+    rope key / its two latents enter the heads without ``copy_to_model``
+    (their gradient this rank's heads' partial: the loss exact);
+    ``mla_wo_unreduced``, MLA's ``wo`` partials left unsummed;
+    ``mla_latent_local_positions``, every rank writes a decode step's
+    latent at the slot's local index in its block, owning it or not;
+    ``window_write_local``, the two-tier window's rolling write likewise
+    (every rank at ``(pos % W) % W_l``)."""
     from repro_torch.distributed import collectives
     from repro_torch.models import attention, layers, transformer
     from repro_torch.models import ssm as ssm_mod
@@ -6281,6 +7039,44 @@ def _mixer_fault(fault: str, model, mesh):
             if bias is not None:          # every shard reads columns 0..S_l
                 bias = bias[:, :k_q.shape[2]].repeat(1, n)
             return real(q, k_q, *args, bias=bias, **kw)
+        where, name = collectives, "sp_decode_attention_int8"
+    elif fault in ("mla_rope_uncopied", "mla_latent_uncopied",
+                   "mla_wo_unreduced"):
+        real, copy, reduce = attention.mla_block, \
+            collectives.copy_to_model, collectives.reduce_from_model
+        # the rope key is (B, S, 1, dr), each latent (B, S, r)
+        skip = 4 if fault == "mla_rope_uncopied" else 3
+
+        def patched(*args, **kw):
+            if fault == "mla_wo_unreduced":
+                collectives.reduce_from_model = lambda x, m, axis="model": x
+            else:
+                collectives.copy_to_model = lambda x, m, axis="model": \
+                    x if x.ndim == skip else copy(x, m, axis)
+            try:
+                return real(*args, **kw)
+            finally:
+                collectives.copy_to_model = copy
+                collectives.reduce_from_model = reduce
+        where, name = attention, "mla_block"
+    elif fault == "mla_latent_local_positions":
+        real = collectives.write_seq_shard
+        r = collectives.model_axis(mesh)[2]
+
+        def patched(cache, new, at, mesh, axis="model"):
+            s_l = cache.shape[1]          # every rank owns its local slot
+            return real(cache, new, r * s_l + at % s_l, mesh, axis)
+        where, name = collectives, "write_seq_shard"
+    elif fault == "window_write_local":
+        real = collectives.sp_decode_attention_int8
+        n, r = mesh.shape["model"], collectives.model_axis(mesh)[2]
+        window = model.cfg.window
+
+        def patched(q, k_q, k_s, v_q, v_s, write, write_at, mesh, **kw):
+            s_l = k_q.shape[2]
+            if s_l * n == window:         # the window tier's rolling write
+                write_at = r * s_l + write_at % s_l
+            return real(q, k_q, k_s, v_q, v_s, write, write_at, mesh, **kw)
         where, name = collectives, "sp_decode_attention_int8"
     else:
         raise ValueError(f"unknown fault {fault!r}")

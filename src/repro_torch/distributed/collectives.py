@@ -33,6 +33,10 @@ mesh, communicates nothing.
     axis: each rank's unnormalised softmax partials (m_i, l_i, o_i)
     merged by :func:`merge_partials` with one MAX and two SUM
     all-reduces over (B, H)-sized statistics, never the cache.
+  * :func:`write_seq_shard` / :func:`merge_model_partials` -- the same
+    for MLA's latent cache (``attention.mla_decode``): the new token's
+    latent written by the rank that owns its slot, the latent-space
+    partials merged over the axis.
 """
 from __future__ import annotations
 
@@ -200,6 +204,13 @@ def _group_merge(o, m, l, group):
         total=lambda t: all_reduce_f32(t, dist.ReduceOp.SUM, group))
 
 
+def merge_model_partials(o, m, l, mesh, axis: str = "model"):
+    """:func:`merge_partials` of this rank's (o, m, l) with every other
+    rank's over ``axis`` (one MAX and two SUM all-reduces of f32): the
+    whole softmax's output, the same on every rank."""
+    return _group_merge(o, m, l, model_axis(mesh, axis)[0])
+
+
 def _seq_offset(mesh, s_local: int, axis: str) -> tuple:
     group, n, r = model_axis(mesh, axis)
     if n == 1:
@@ -235,6 +246,25 @@ def _write_local(cache, new, local_at, own):
     cur = cache[rows, :, local_at]
     own = own.reshape((-1,) + (1,) * (cur.ndim - 1))
     cache[rows, :, local_at] = torch.where(own, new.to(cache.dtype), cur)
+
+
+def write_seq_shard(cache, new, at, mesh, axis: str = "model"):
+    """In place: token ``new`` (B, ...) written at global slot ``at`` (0-d
+    or (B,) int) of ``cache`` (B, S_l, ...), this rank's block ``[r S_l,
+    (r+1) S_l)`` of a sequence split over ``axis`` (MLA's latent cache):
+    only the rank that owns the slot writes, at its local index, in the
+    cache's dtype (bf16 or f32); the other ranks write their slot's
+    current value back (no host sync).  The twin of :func:`_write_local`
+    for a cache whose sequence is dim 1."""
+    s_l = cache.shape[1]
+    off = model_axis(mesh, axis)[2] * s_l
+    at = at.to(torch.int64).expand(cache.shape[0])
+    own = (at >= off) & (at < off + s_l)
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    local_at = torch.clamp(at - off, 0, s_l - 1)
+    cur = cache[rows, local_at]
+    own = own.reshape((-1,) + (1,) * (cur.ndim - 1))
+    cache[rows, local_at] = torch.where(own, new.to(cache.dtype), cur)
 
 
 def sp_decode_attention_int8(q, k_q, k_s, v_q, v_s, write, write_at, mesh,

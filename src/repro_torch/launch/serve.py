@@ -62,18 +62,30 @@ and writes events:
 
 An MoE arch serves there with its experts split over the model axis
 (TP-experts, or expert parallelism under ``expert_mode="ep"``; the
-``experts:`` banner names which).  On a model axis > 1 the engine exits
-2 for the fleet (``--replicas`` > 1, ``--workers``, ``--journal``), for
-an arch it does not take (MLA, the SSM mixers, the encoder, as on one
-device), an MoE whose split dims do not divide the axis and a mesh whose
-axis splits neither the KV heads nor ``--max-len``.
+``experts:`` banner names which).  The fleet (``--replicas`` > 1,
+``--journal``) serves there too, as the reference's ``run_fleet`` does:
+every replica is an engine on the mesh, every rank runs the same router
+and chaos harness over its blocks of them, and the ranks' decision
+digests (``Router.decision_digest``) are compared before every router
+step (before the engines' collectives could diverge), after a recovery
+and at the end: a difference raises on every rank.  Only rank 0 writes
+the journal; the others keep a mirror of it in memory
+(``RequestJournal.mirror``), from rank 0's state broadcast when it is
+opened, so on ``--recover`` every router rebuilds the same requests with
+no shared file system.  On a
+model axis > 1 the engine exits 2 for an arch it does not take (MLA, the
+SSM mixers, the encoder, as on one device), an MoE whose split dims do
+not divide the axis and a mesh whose axis splits neither the KV heads
+nor ``--max-len``.
 
 Lockstep mode (no ``--engine``) runs unsharded on any mesh, as the
 reference's ``run`` gives it no mesh: rank 0 serves on its device and
 prints; every other rank builds no model, touches no card, and waits for
 rank 0's exit code (a gloo broadcast, the ranks' only traffic), which it
-returns silently.  So the archs the engine refuses serve on a host with
-more than one device:
+returns silently.  ``--workers`` does the same: the subprocess replicas
+stay unsharded, as the reference's, spawned by rank 0, which runs the
+router.  So the archs the engine refuses serve on a host with more than
+one device:
 
     torchrun --nproc-per-node 2 -m repro_torch.launch.serve --device cpu \
         --smoke --arch mamba2-130m
@@ -217,9 +229,68 @@ def _install_obs_hook(obj, sink, memstat, every: int, snapshot_fn) -> None:
     obj.hooks["pre_step"] = _hook
 
 
-def run_fleet(args, cfg, model) -> int:
+def _open_journal(path: str, mesh=None):
+    """The fleet's write-ahead journal; with ``mesh`` (the fleet's engines
+    on a mesh, every rank running a router) rank 0 opens it and
+    broadcasts its state, and every other rank keeps a mirror that
+    writes nothing."""
+    from repro_torch.serve import JournalState, RequestJournal
+    if mesh is None:
+        return RequestJournal(path, snapshot_every=64)
+    journal = RequestJournal(path, snapshot_every=64) \
+        if dist.get_rank() == 0 else None
+    box = [None if journal is None else journal.state.to_json()]
+    dist.broadcast_object_list(box, src=0)
+    return journal or RequestJournal.mirror(JournalState.from_json(box[0]),
+                                            snapshot_every=64)
+
+
+def _check_decisions(router, mesh, at: str) -> None:
+    """Raise, on every rank, unless every rank's router has made the same
+    decisions: its decision count and the head of its
+    ``decision_digest``, reduced with one MAX over the world (of each
+    value and its negation) on the replicas' device, where the group's
+    backend takes it (NCCL has no host tensors); the ranks' digests are
+    gathered into the error."""
+    if mesh is None:
+        return
+    mine = torch.tensor([router.n_decisions,
+                         int(router.decision_digest()[:15], 16)],
+                        device=router.engines[0].device)
+    span = torch.cat([mine, -mine])
+    dist.all_reduce(span, op=dist.ReduceOp.MAX)
+    if torch.equal(span[:2], -span[2:]):
+        return
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (router.n_decisions,
+                                   router.decision_digest()))
+    raise RuntimeError(f"fleet: the ranks' routers decided differently "
+                       f"{at} (decisions, digest by rank: {every})")
+
+
+def _check_every_step(router, mesh) -> None:
+    """Chain :func:`_check_decisions` onto the router's ``pre_step`` hook,
+    after the chaos harness's and the metrics': a rank whose router
+    decided otherwise raises before its engines step, where its
+    collectives would no longer match the other ranks'."""
+    if mesh is None:
+        return
+    prev = router.hooks.get("pre_step")
+
+    def hook(r, _prev=prev):
+        if _prev is not None:
+            _prev(r)
+        _check_decisions(r, mesh, f"by router step {r.step_no}")
+
+    router.hooks["pre_step"] = hook
+
+
+def run_fleet(args, cfg, model, mesh=None) -> int:
     """N engine replicas behind the health-routing Router, optionally
-    under the seeded chaos harness, the journal and subprocess workers."""
+    under the seeded chaos harness, the journal and subprocess workers.
+    With ``mesh`` every replica is an engine on it (``model`` this rank's
+    block), and every rank runs the same router (the module
+    docstring)."""
     from repro_torch.serve import supports
     if not supports(cfg):
         print(f"fleet: {cfg.arch_id} is not engine-eligible")
@@ -231,8 +302,7 @@ def run_fleet(args, cfg, model) -> int:
     sink = _open_sink(args)
     journal = None
     if args.journal:
-        from repro_torch.serve import RequestJournal
-        journal = RequestJournal(args.journal, snapshot_every=64)
+        journal = _open_journal(args.journal, mesh)
         print(f"journal: write-ahead log at {args.journal} "
               f"({journal.state.n_live} live requests on open)")
     t0 = time.time()
@@ -249,15 +319,21 @@ def run_fleet(args, cfg, model) -> int:
         engines = []
         for i in range(args.replicas):
             e = _build_engine(args, cfg, model, sink=sink,
-                              sampler_keys="request", replay_buckets=True)
+                              sampler_keys="request", replay_buckets=True,
+                              mesh=mesh)
             e.metrics.replica = i
             e.warmup()
             engines.append(e)
         print(f"fleet: {args.replicas} replicas warmed in "
               f"{time.time()-t0:.1f}s "
               f"({engines[0].pool.max_slots} slots each)")
+        if mesh is not None:
+            print(f"fleet: every replica on the mesh {describe(mesh)}, kv "
+                  f"cache sharded over '"
+                  f"{shd.serve_kv_shard(mesh, cfg.n_kv, args.max_len)}'; "
+                  f"one router a rank")
     try:
-        return _serve_fleet(args, cfg, engines, journal, sink)
+        return _serve_fleet(args, cfg, engines, journal, sink, mesh)
     finally:
         if journal is not None:
             journal.close()
@@ -268,7 +344,7 @@ def run_fleet(args, cfg, model) -> int:
             sink.close()
 
 
-def _serve_fleet(args, cfg, engines, journal, sink) -> int:
+def _serve_fleet(args, cfg, engines, journal, sink, mesh=None) -> int:
     from repro_torch.serve import (BreakerConfig, FleetFaultInjector, Router,
                                    chaos_plan, kernel_launches)
     breaker = BreakerConfig(
@@ -280,7 +356,8 @@ def _serve_fleet(args, cfg, engines, journal, sink) -> int:
     router = Router(engines, policy=args.route, breaker=breaker,
                     max_migrations=args.max_migrations, sink=sink,
                     journal=journal,
-                    journal_tokens_every=args.journal_tokens_every)
+                    journal_tokens_every=args.journal_tokens_every,
+                    digest_decisions=mesh is not None)
     if _want_trace(args, sink):
         # tracers attach after warmup (the warmup probe must not trace)
         # and before recover() so recovery replays get root spans;
@@ -298,6 +375,7 @@ def _serve_fleet(args, cfg, engines, journal, sink) -> int:
               f"journal ({info['n_done']} already complete on disk, "
               f"{info['n_placed']} re-placed, {info['n_pending']} pending, "
               f"{info['n_failed']} failed)")
+        _check_decisions(router, mesh, "in the recovery")
     if args.chaos_seed >= 0:
         plan = chaos_plan(args.chaos_seed, steps=max(8, args.requests),
                           replicas=args.replicas,
@@ -312,9 +390,11 @@ def _serve_fleet(args, cfg, engines, journal, sink) -> int:
         _install_obs_hook(router, sink, memstat, args.metrics_every,
                           router.registry_snapshot)
     trace = _make_trace(args, cfg, engines[0])
+    _check_every_step(router, mesh)
     t0 = time.time()
     summary = router.run(trace)
     wall = time.time() - t0
+    _check_decisions(router, mesh, "over the trace")
     fleet = summary["fleet"]
     print(f"fleet trace: {args.requests} requests in {wall:.2f}s; "
           f"health={summary['health']}")
@@ -337,6 +417,9 @@ def _serve_fleet(args, cfg, engines, journal, sink) -> int:
              else str(kernel_launches())))
     if memstat is not None and memstat.samples:
         print(memstat.banner())
+    if mesh is not None:
+        print(f"decisions: {router.n_decisions}, equal on every rank "
+              f"(digest {router.decision_digest()[:16]})")
     if journal is not None:
         st = journal.state
         print(f"journal: {journal.appends} appends, "
@@ -514,10 +597,6 @@ def _mesh_refusal(args, cfg, mesh) -> str | None:
     """Why the engine does not serve ``args`` on a model axis > 1, or
     None."""
     n = mesh.shape["model"]
-    if args.replicas > 1 or args.workers or args.journal:
-        return (f"mesh: {describe(mesh)}: the serving fleet (--replicas, "
-                f"--workers, --journal) over a model axis is later work "
-                f"(ROADMAP.md section 1); pass --max-model 1")
     try:
         transformer.check_mesh(cfg, mesh)
     except (NotImplementedError, ValueError) as e:
@@ -525,9 +604,10 @@ def _mesh_refusal(args, cfg, mesh) -> str | None:
     from repro_torch.serve import supports
     if not supports(cfg):
         return (f"mesh: {describe(mesh)}: the engine does not take "
-                f"{cfg.arch_id} (SSM, hybrid or encoder-decoder; as on one "
-                f"device): drop --engine, lockstep serves it unsharded on "
-                f"any mesh, or pass --max-model 1")
+                f"{cfg.arch_id}, which is not engine-eligible (MLA's latent "
+                f"cache, SSM, hybrid or encoder-decoder; as on one device): "
+                f"drop --engine, lockstep serves it unsharded on any mesh, "
+                f"or pass --max-model 1")
     if shd.serve_kv_shard(mesh, cfg.n_kv, args.max_len) == "none":
         return (f"mesh: {describe(mesh)}: neither {cfg.n_kv} KV heads nor "
                 f"--max-len {args.max_len} split over a model axis of {n}")
@@ -535,9 +615,9 @@ def _mesh_refusal(args, cfg, mesh) -> str | None:
 
 
 def run(args) -> int:
-    if not args.engine and "RANK" in os.environ \
+    if (not args.engine or args.workers) and "RANK" in os.environ \
             and "WORLD_SIZE" in os.environ:
-        return _lockstep_ranks(args)
+        return _rank0_serves(args)
     rank, world, device = init_distributed(args.device)
     try:
         if rank == 0:
@@ -558,9 +638,10 @@ def run(args) -> int:
             dist.destroy_process_group()
 
 
-def _lockstep_ranks(args) -> int:
-    """Lockstep under ``torchrun``'s environment, unsharded on any mesh
-    (the reference's ``run`` gives lockstep no mesh): the ranks join a
+def _rank0_serves(args) -> int:
+    """Lockstep, or the fleet of subprocess workers, under ``torchrun``'s
+    environment, unsharded on any mesh (the reference's ``run`` gives
+    lockstep no mesh, and its workers stay unsharded): the ranks join a
     gloo group; rank 0 serves on its device (``cuda:LOCAL_RANK``, or the
     CPU) and prints; every other rank builds nothing, touches no card and
     waits for rank 0's exit code, broadcast when rank 0 has ended (1 if
@@ -595,7 +676,11 @@ def _run(args, world: int, device) -> int:
     if not args.engine and mesh.size > 1:
         print(f"lockstep: unsharded on rank 0's device; the other "
               f"{mesh.size - 1} ranks wait")
-    tp = args.engine and mesh.shape["model"] > 1
+    if args.engine and args.workers and mesh.size > 1:
+        print(f"fleet: subprocess workers, unsharded, spawned by rank 0; "
+              f"the other {mesh.size - 1} ranks wait")
+    on_mesh = args.engine and not args.workers and mesh.size > 1
+    tp = on_mesh and mesh.shape["model"] > 1
     if tp:
         why = _mesh_refusal(args, cfg, mesh)
         if why is not None:
@@ -608,12 +693,12 @@ def _run(args, world: int, device) -> int:
           + (f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else ""))
     if args.engine:
+        on = mesh if on_mesh else None
         if args.replicas > 1 or args.workers or args.journal:
             # journal and worker modes always go through the router: a
             # single replica is a fleet of one
-            return run_fleet(args, cfg, model)
-        return run_engine(args, cfg, model,
-                          mesh if mesh.size > 1 else None)
+            return run_fleet(args, cfg, model, on)
+        return run_engine(args, cfg, model, on)
     return run_lockstep(args, cfg, model, device)
 
 

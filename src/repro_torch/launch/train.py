@@ -35,8 +35,9 @@ rank waits at a barrier after a save, and every rank restores its block.
 The GQA attention archs train on a model axis > 1, the MoE archs among
 them (TP-experts, or expert parallelism under ``expert_mode="ep"``; the
 banner's ``experts:`` names which), and the SSM mixers (mamba2-130m,
-hymba-1.5b: every ``ssm`` leaf whole on every rank); MLA and an MoE
-whose split dims do not divide the axis exit 2 there, and an encoder
+hymba-1.5b: every ``ssm`` leaf whole on every rank) and MLA
+(minicpm3-4b: ``q_b`` / ``kv_b`` / ``wo`` by heads); an MoE whose split
+dims do not divide the axis exits 2 there, and an encoder
 arch exits 2 on any mesh (this trainer's stream has no frames).  Without
 that environment the trainer runs one rank, as the mesh (data 1, model
 1).

@@ -37,7 +37,21 @@ the heads' partial input gradients.  Sequence mode (the heads do not
 divide the axis): the projections are whole on every rank, the prefill
 attends over the whole prompt, and :func:`attn_decode` (``kv_shard=
 "seq"``) reads this rank's slice of the cache's sequence through
-``collectives.sp_decode_attention_int8``.
+``collectives.sp_decode_attention_int8`` (a rolling window buffer of
+the two-tier cache too).
+
+MLA over the model axis: ``q_b`` / ``kv_b`` hold this rank's heads and
+``wo`` their rows; ``q_a`` / ``kv_a``, both latent norms, the latents
+and the one rope key are whole on every rank.  In training the query
+latent, the KV latent and the rope key each enter the column-parallel
+half through ``collectives.copy_to_model`` -- every head reads the one
+rope key, so its gradient from this rank's heads is only a partial sum
+-- and ``wo``'s partials are summed.  In decode the latent cache holds
+this rank's block of the sequence: each rank's absorbed queries are
+gathered over the axis, every head scores this rank's slots, the
+latent-space softmax partials are merged over the axis, and each rank
+finishes its own heads (``wv_b``, ``wo``, the row-parallel sum): only
+(B, H, kv_lora)-sized tensors cross ranks, never the cache.
 """
 from __future__ import annotations
 
@@ -258,15 +272,16 @@ def attn_decode(p, x_t, cfg, cache_k, cache_s_k, cache_v, cache_s_v, pos,
     KV heads (the weights hold the same heads; ``wo`` is row-parallel);
     "seq", this rank's slice of the sequence (S_l of the mask's S slots),
     read and written by ``collectives.sp_decode_attention_int8`` (a
-    quantized, non-rolling cache only); "none", the whole cache.
+    quantized cache only; a rolling buffer's slots too, the write at
+    ``pos % S`` on the rank owning it); "none", the whole cache.
     Returns (attn_out (B, D_model), (k, k_scale, v, v_scale))."""
     b, _ = x_t.shape
     hd = cfg.head_dim
     h, hkv = p.wq.shape[1] // hd, p.wk.shape[1] // hd
     seq = kv_shard == "seq"
-    if seq and (rolling or not quantized):
+    if seq and not quantized:
         raise ValueError("attn_decode: a sequence-sharded cache is the "
-                         "serve pool's int8 layout, never rolling")
+                         "int8 layout")
     per_row = pos.ndim == 1
     q = (x_t @ p.wq).reshape(b, 1, h, hd)
     k_t = (x_t @ p.wk).reshape(b, 1, hkv, hd)
@@ -321,42 +336,50 @@ def attn_decode(p, x_t, cfg, cache_k, cache_s_k, cache_v, cache_s_v, pos,
 # ---------------------------------------------------------------------------
 # MLA (MiniCPM3 / DeepSeek-V2 style multi-head latent attention).
 # ---------------------------------------------------------------------------
-def mla_block(p, x, cfg, *, positions):
+def mla_block(p, x, cfg, *, positions, mesh=None):
     """Latent-compressed attention (``repro.models.attention.mla_block``):
     x (B, S, D_model); p holds q_a, q_a_norm, q_b, kv_a, kv_a_norm, kv_b,
     wo, cast to ``x.dtype`` here.  The query and the keys' no-rope part
     come up from their latents (each ``rms_norm``-ed), RoPE turns only the
     ``qk_rope_dim`` part, the one rope key is shared by every head, and
-    the scale is ``(qk_nope_dim + qk_rope_dim) ** -0.5``.  Returns
+    the scale is ``(qk_nope_dim + qk_rope_dim) ** -0.5``.  The head count
+    is the weights': this rank's heads on ``mesh``'s model axis (the
+    module docstring), ``wo``'s partial products then summed.  Returns
     (out, (kv_latent (B, S, kv_lora), k_rope (B, S, 1, dr)))."""
     m = cfg.mla
     b, s, _ = x.shape
-    h = cfg.n_heads
     dn, dr, dv = m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim
+    h = p.q_b.shape[1] // (dn + dr)
     dt = x.dtype
     eps, bf = cfg.norm_eps, cfg.norm_bf16_grad
 
     q_lat = rms_norm(x @ p.q_a.to(dt), p.q_a_norm.to(dt), eps, bf16_grad=bf)
-    q = (q_lat @ p.q_b.to(dt)).reshape(b, s, h, dn + dr)
-    q_nope, q_rope = q[..., :dn], q[..., dn:]
-
     kv_all = x @ p.kv_a.to(dt)                          # (B, S, kv_lora + dr)
     kv_lat = rms_norm(kv_all[..., :m.kv_lora_rank], p.kv_a_norm.to(dt), eps,
                       bf16_grad=bf)
-    k_rope = kv_all[..., m.kv_lora_rank:].reshape(b, s, 1, dr)
+    k_rope = apply_rope(kv_all[..., m.kv_lora_rank:].reshape(b, s, 1, dr),
+                        positions, cfg.rope_theta)
+    cache = (kv_lat, k_rope)
+    if h != cfg.n_heads:        # this rank's heads: column-parallel q_b, kv_b
+        q_lat, kv_lat, k_rope = (collectives.copy_to_model(t, mesh)
+                                 for t in (q_lat, kv_lat, k_rope))
+    q = (q_lat @ p.q_b.to(dt)).reshape(b, s, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
     kv = (kv_lat @ p.kv_b.to(dt)).reshape(b, s, h, dn + dv)
     k_nope, v = kv[..., :dn], kv[..., dn:]
 
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-    k_rope = apply_rope(k_rope, positions, cfg.rope_theta)
     qf = torch.cat([q_nope, q_rope], dim=-1)
     kf = torch.cat([k_nope, k_rope.expand(b, s, h, dr)], dim=-1)
     out = gqa_attention(qf, kf, v, q_pos=positions, k_pos=positions,
                         sm_scale=(dn + dr) ** -0.5)
-    return out.reshape(b, s, h * dv) @ p.wo.to(dt), (kv_lat, k_rope)
+    out = out.reshape(b, s, h * dv) @ p.wo.to(dt)
+    if h != cfg.n_heads:                                # row-parallel wo
+        out = collectives.reduce_from_model(out, mesh)
+    return out, cache
 
 
-def mla_decode(p, x_t, cfg, cache_lat, cache_rope, pos):
+def mla_decode(p, x_t, cfg, cache_lat, cache_rope, pos, mesh=None):
     """One-token MLA decode with weight absorption
     (``repro.models.attention.mla_decode``), in the latent space:
 
@@ -364,16 +387,29 @@ def mla_decode(p, x_t, cfg, cache_lat, cache_rope, pos):
       out   = (softmax . kv_lat) @ Wv_b
 
     x_t: (B, D_model); cache_lat (B, S, kv_lora) and cache_rope (B, S, dr),
-    bf16 under every policy; pos: 0-d int32 (lockstep: every row at one
-    position).  The new token's latent and rope key are written into the
-    caches IN PLACE at ``pos`` (the reference returns updated copies), and
-    slots ``<= pos`` are attended.  Returns (out (B, D_model),
-    (cache_lat, cache_rope))."""
+    bf16 under every policy (or f32 where the prefill kept them so);
+    pos: 0-d int32 (lockstep: every row at one position).  The new
+    token's latent and rope key are written into the caches IN PLACE at
+    ``pos`` (the reference returns updated copies), and slots ``<= pos``
+    are attended.
+
+    ``mesh`` (a model axis n > 1): the caches hold this rank's block
+    ``[r S_l, (r+1) S_l)`` of the S = n S_l slots, written only where the
+    rank owns ``pos`` (``collectives.write_seq_shard``), and the weights
+    this rank's heads (or every head, where they do not divide the axis).
+    Each rank's absorbed queries (``q_abs``, ``q_rope``) are gathered
+    whole over the axis, every head scores this rank's slots, the
+    (m, l, o_lat) softmax partials are merged over the axis
+    (``collectives.merge_model_partials``), and each rank multiplies its
+    own heads' ``o_lat`` by its ``Wv_b`` and ``wo`` blocks, the partials
+    summed.  Returns (out (B, D_model), (cache_lat, cache_rope))."""
     m = cfg.mla
     b = x_t.shape[0]
-    h = cfg.n_heads
     dn, dr, dv = m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim
-    s_max = cache_lat.shape[1]
+    h = p.q_b.shape[1] // (dn + dr)
+    _, n, r = collectives.model_axis(mesh)
+    s_l = cache_lat.shape[1]
+    s_max = s_l * n
     eps, bf = cfg.norm_eps, cfg.norm_bf16_grad
 
     q_lat = rms_norm(x_t @ p.q_a, p.q_a_norm, eps, bf16_grad=bf)
@@ -388,21 +424,42 @@ def mla_decode(p, x_t, cfg, cache_lat, cache_rope, pos):
     kr_new = apply_rope(kv_all[..., m.kv_lora_rank:][:, None, None],
                         pos_arr, cfg.rope_theta)[:, 0, 0]
     at = pos.clamp(0, s_max - 1)          # as dynamic_update_slice clamps
-    cache_lat[:, at] = lat_new.to(cache_lat.dtype)
-    cache_rope[:, at] = kr_new.to(cache_rope.dtype)
+    if n == 1:
+        cache_lat[:, at] = lat_new.to(cache_lat.dtype)
+        cache_rope[:, at] = kr_new.to(cache_rope.dtype)
+    else:
+        collectives.write_seq_shard(cache_lat, lat_new, at, mesh)
+        collectives.write_seq_shard(cache_rope, kr_new, at, mesh)
 
     kv_b = p.kv_b.reshape(m.kv_lora_rank, h, dn + dv)
     wk_b, wv_b = kv_b[..., :dn].float(), kv_b[..., dn:].float()
     q_abs = torch.einsum("bhd,lhd->bhl", q_nope.float(), wk_b)
+    q_rope = q_rope.float()
+    split = h != cfg.n_heads
+    if split:                    # every head scores this rank's slots
+        q_abs = collectives.model_all_gather(q_abs, mesh, dim=1)
+        q_rope = collectives.model_all_gather(q_rope, mesh, dim=1)
     cl = cache_lat.float()
     scores = torch.einsum("bhl,bsl->bhs", q_abs, cl)
-    scores = scores + torch.einsum("bhd,bsd->bhs", q_rope.float(),
+    scores = scores + torch.einsum("bhd,bsd->bhs", q_rope,
                                    cache_rope.float())
     scores = scores * (dn + dr) ** -0.5
-    valid = torch.arange(s_max, device=x_t.device)[None, :] <= pos
+    slots = r * s_l + torch.arange(s_l, device=x_t.device)
+    valid = slots[None, :] <= pos
     scores = torch.where(valid[:, None], scores, NEG_INF)
-    pr = torch.softmax(scores, dim=-1)
-    o_lat = torch.einsum("bhs,bsl->bhl", pr, cl)
+    if n == 1:
+        pr = torch.softmax(scores, dim=-1)
+        o_lat = torch.einsum("bhs,bsl->bhl", pr, cl)
+    else:
+        m_i = scores.amax(-1)
+        pr = torch.where(valid[:, None], torch.exp(scores - m_i[..., None]),
+                         0.0)
+        o_lat = collectives.merge_model_partials(
+            torch.einsum("bhs,bsl->bhl", pr, cl), m_i, pr.sum(-1), mesh)
+        if split:                                    # this rank's heads
+            o_lat = o_lat[:, r * h:(r + 1) * h]
     out = torch.einsum("bhl,lhd->bhd", o_lat, wv_b)
-    out = out.reshape(b, h * dv).to(x_t.dtype)
-    return out @ p.wo, (cache_lat, cache_rope)
+    out = out.reshape(b, h * dv).to(x_t.dtype) @ p.wo
+    if split:                                        # row-parallel wo
+        out = collectives.reduce_from_model(out, mesh)
+    return out, (cache_lat, cache_rope)

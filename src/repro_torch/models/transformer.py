@@ -49,7 +49,12 @@ gradient are whole there: no collective), hymba's attention beside it
 split as any GQA layer's, and its conv and SSM state are whole too.  The
 encoder-decoder's encoder layers split as the decoder's, and each
 decoder layer's cross-attention by heads (or whole in sequence mode),
-over the encoder's output, whole on every rank.  MLA raises.
+over the encoder's output, whole on every rank.  MLA splits ``q_b`` /
+``kv_b`` by heads and ``wo``'s rows likewise (the down-projections, both
+latent norms and the rope key whole on every rank; the block whole where
+the heads do not divide the axis), and its latent cache by sequence
+(``attention.mla_decode``).  The two-tier cache places each tier by KV
+heads, else by sequence (:func:`init_cache_two_tier`).
 
 Training over the model axis runs the same forward under autograd: the
 row-parallel sums are ``collectives.reduce_from_model`` (backward: the
@@ -289,20 +294,13 @@ def _model_n(mesh) -> int:
 
 
 def check_mesh(cfg: ModelConfig, mesh) -> None:
-    """Raise unless ``cfg`` runs over ``mesh``'s model axis: a model axis
-    of 1 runs every arch; a larger one every arch but MLA -- the GQA
-    attention archs, the SSM mixers (whole on every rank) and the
-    encoder-decoder, and the MoE where each of its split dims divides the
-    axis (the reference's ``shard_map`` takes no other; a ValueError
-    naming the leaf)."""
-    n = _model_n(mesh)
-    if n == 1:
-        return
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: MLA (latent attention) is not sharded over a "
-            f"model axis > 1")
-    check_moe_split(cfg, mesh)
+    """Raise unless ``cfg`` runs over ``mesh``'s model axis.  Every arch
+    does -- the GQA attention archs, MLA, the SSM mixers (whole on every
+    rank) and the encoder-decoder -- and the MoE where each of its split
+    dims divides the axis (the reference's ``shard_map`` takes no other;
+    a ValueError naming the leaf)."""
+    if _model_n(mesh) > 1:
+        check_moe_split(cfg, mesh)
 
 
 def check_moe_split(cfg: ModelConfig, mesh) -> None:
@@ -336,11 +334,16 @@ def param_shard_specs(cfg: ModelConfig, shapes, mesh) -> dict:
     model axis (``sharding.flash_shard_specs`` splits no heads): sequence
     mode, where each rank attends over the whole prompt and its slice of
     the cache.  The cross-attention's projections (``xattn``) follow the
-    self-attention's, the encoder's too.  The reference leaves that
-    layout to XLA (``repro/models/attention.py:111-116``).  Every SSM leaf
-    is whole (``sharding.param_specs``)."""
+    self-attention's, the encoder's too.  MLA's heads are its query
+    heads (its ``n_kv`` names no leaf): ``q_b`` / ``kv_b`` split by head
+    and ``wo`` by its rows where ``n_heads`` divides the axis, else the
+    block whole, where the reference would cut a head's columns.  The
+    reference leaves that layout to XLA
+    (``repro/models/attention.py:111-116``).  Every SSM leaf is whole
+    (``sharding.param_specs``)."""
     specs = shd.param_specs(cfg, shapes, mesh)
-    split = shd.flash_shard_specs(mesh, 1, cfg.n_heads, cfg.n_kv)
+    split = shd.flash_shard_specs(mesh, 1, cfg.n_heads,
+                                  cfg.n_heads if cfg.mla else cfg.n_kv)
     if split is None or split[1] is None:
         for name in specs:
             parts = name.split(".")
@@ -695,7 +698,7 @@ def forward(model: Transformer, cfg: ModelConfig, batch: dict, *,
         entry, a_out, s_out = {}, None, None
         if isinstance(blk.attn, MLA):
             a_out, (lat, kr) = attn.mla_block(blk.attn, h, cfg,
-                                              positions=positions)
+                                              positions=positions, mesh=mesh)
             if build_cache:
                 entry.update(mla_lat=lat, mla_rope=kr[:, :, 0])
         elif blk.attn is not None:
@@ -882,34 +885,25 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, *,
     self-attention: the cross-attention's K / V are projected from
     ``enc_out`` at every step, as in the reference.  With ``mesh`` each
     leaf has this rank's block's shape under
-    ``sharding.serve_cache_specs``: the KV heads or the ``s_max`` slots
-    over the model axis (the serve pool's layout); the conv tail and the
-    SSM state are whole on every rank (``sharding.cache_specs`` splits
-    them over DP only)."""
+    :func:`cache_specs`: the KV heads or the ``s_max`` slots over the
+    model axis (the serve pool's layout), MLA's latents by sequence; the
+    conv tail and the SSM state are whole on every rank
+    (``sharding.cache_specs`` splits them over DP only)."""
     L = cfg.n_layers
-    specs = None
-    if _model_n(mesh) > 1:
-        check_mesh(cfg, mesh)
-        if cfg.mixer in ("attn", "hybrid"):
-            shape = (L, batch, cfg.n_kv, s_max, cfg.head_dim)
-            specs = shd.serve_cache_specs(
-                cfg, {"k": shape, "k_scale": shape[:-1]}, mesh)
-
-    def z(shp, dt, name=None):
-        if specs is not None and name in ("k", "k_scale"):
-            shp = shd.local_shape(shp, specs[name], mesh)
-        return torch.zeros(shp, dtype=dt, device=device)
+    check_mesh(cfg, mesh)
+    z = functools.partial(_block_zeros, cfg, mesh, device)
     cache = {"pos": z((), torch.int32)}
     if cfg.mla is not None:
         m = cfg.mla
-        cache.update(mla_lat=z((L, batch, s_max, m.kv_lora_rank), dtype),
-                     mla_rope=z((L, batch, s_max, m.qk_rope_dim), dtype))
+        cache.update(
+            mla_lat=z((L, batch, s_max, m.kv_lora_rank), dtype, "mla_lat"),
+            mla_rope=z((L, batch, s_max, m.qk_rope_dim), dtype, "mla_rope"))
     elif cfg.mixer in ("attn", "hybrid"):
         shape = (L, batch, cfg.n_kv, s_max, cfg.head_dim)
         kv_dtype = torch.int8 if quantized else dtype
-        cache.update(k=z(shape, kv_dtype, "k"), v=z(shape, kv_dtype, "k"),
+        cache.update(k=z(shape, kv_dtype, "k"), v=z(shape, kv_dtype, "v"),
                      k_scale=z(shape[:-1], torch.float32, "k_scale"),
-                     v_scale=z(shape[:-1], torch.float32, "k_scale"))
+                     v_scale=z(shape[:-1], torch.float32, "v_scale"))
     if cfg.mixer in ("ssm", "hybrid"):
         s = cfg.ssm
         cache["conv"] = z((L, batch, s.conv_kernel - 1,
@@ -919,15 +913,55 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, *,
     return cache
 
 
+def _block_zeros(cfg: ModelConfig, mesh, device, shape, dtype, name=None):
+    """Zeros of this rank's block of the cache leaf ``name`` of global
+    ``shape`` on ``mesh`` (:func:`cache_specs`); the whole leaf without a
+    model axis or a name."""
+    if _model_n(mesh) > 1 and name is not None:
+        shape = shd.local_shape(shape, cache_specs(cfg, {name: shape},
+                                                   mesh)[name], mesh)
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def cache_specs(cfg: ModelConfig, cache: dict, mesh) -> dict:
+    """``{name: spec}`` of a decode cache's leaves (``{name: tensor or
+    shape}``) on ``mesh``'s model axis: ``sharding.serve_cache_specs``
+    (the KV heads, or the sequence, over the axis) for the uniform
+    cache's K / V, the same for each tier of the two-tier cache's (``gk``
+    ... ``wv_scale``, by its own slots: a rolling window whose slots do
+    not divide the axis stays whole, as in the reference's
+    ``cache_specs``), and MLA's latents by sequence (a ValueError where
+    the slots do not divide); every other leaf whole."""
+    n = _model_n(mesh)
+    out = {}
+    for name, leaf in cache.items():
+        shape = tuple(getattr(leaf, "shape", leaf))
+        base = name[1:] if name[:1] in ("g", "w") and name[1:] in (
+            "k", "v", "k_scale", "v_scale") else name
+        if name in ("mla_lat", "mla_rope") and n > 1:
+            if shape[2] % n:
+                raise ValueError(f"{cfg.arch_id}: MLA's {shape[2]} latent "
+                                 f"cache slots do not split over a model "
+                                 f"axis of {n}")
+            out[name] = (None, None, "model", None)
+        else:
+            out[name] = shd.serve_cache_specs(cfg, {base: shape}, mesh)[base]
+    return out
+
+
 def seq_block(cfg: ModelConfig, mesh, s_max: int) -> tuple[int, int]:
     """(first global position, slots) of this rank's block of an
     ``s_max``-slot cache (:func:`init_cache` with ``mesh``): ``(r s_max /
     n, s_max / n)`` when the model axis splits the sequence
-    (``sharding.serve_kv_shard``), ``(0, s_max)`` otherwise."""
+    (``sharding.serve_kv_shard``; always for MLA's latents), ``(0,
+    s_max)`` otherwise."""
     n = _model_n(mesh)
     if n == 1:
         return 0, s_max
-    kv = shd.serve_kv_shard(mesh, cfg.n_kv, s_max)
+    if cfg.mla is not None:
+        kv = "none" if s_max % n else "seq"
+    else:
+        kv = shd.serve_kv_shard(mesh, cfg.n_kv, s_max)
     if kv == "none":
         raise ValueError(f"neither {cfg.n_kv} KV heads nor {s_max} cache "
                          f"slots split over a model axis of {n}")
@@ -995,8 +1029,9 @@ def decode_step(model: Transformer, cfg: ModelConfig, cache: dict, tokens_t,
     blocks (:func:`init_params`, :func:`init_cache` with ``mesh``); the
     cache's layout is ``sharding.serve_kv_shard``'s -- "heads", or "seq"
     (this rank holds S_l of the S slots and every layer decodes through
-    ``collectives.sp_decode_attention_int8``) -- and the logits are whole
-    on every rank."""
+    ``collectives.sp_decode_attention_int8``; MLA's latents always by
+    sequence, ``attention.mla_decode``) -- and the logits are whole on
+    every rank."""
     check_mesh(cfg, mesh)
     pos = cache["pos"]
     per_slot = pos.ndim == 1
@@ -1022,7 +1057,8 @@ def decode_step(model: Transformer, cfg: ModelConfig, cache: dict, tokens_t,
         def attend(h, blk=blk, i=i, window=window):
             if isinstance(blk.attn, MLA):
                 return attn.mla_decode(blk.attn, h, cfg, cache["mla_lat"][i],
-                                       cache["mla_rope"][i], pos)[0]
+                                       cache["mla_rope"][i], pos,
+                                       mesh=mesh)[0]
             if window not in masks:
                 masks[window] = attn.decode_mask(pos, x.shape[0], s_all,
                                                  window)
@@ -1107,28 +1143,38 @@ def init_cache_two_tier(cfg: ModelConfig, batch: int, s_max: int, *,
     slots) and ``w`` (the window layers, ``min(window, s_max)`` slots):
     ``{tier}k`` / ``{tier}v`` (n_tier, B, Hkv, S_tier, hd) int8 (``dtype``
     when not quantized) and ``{tier}k_scale`` / ``{tier}v_scale`` f32; for
-    the hybrid, ``conv`` and ``ssm`` as :func:`init_cache`'s.  Not sharded:
-    a ``mesh`` whose model axis is > 1 raises."""
-    if _model_n(mesh) > 1:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the two-tier cache is not sharded over a model "
-            f"axis > 1; serve over a mesh with init_cache(mesh=)")
+    the hybrid, ``conv`` and ``ssm`` as :func:`init_cache`'s.
+
+    With ``mesh`` (a model axis > 1) each tier is this rank's block as
+    the reference's ``cache_specs`` places it (:func:`cache_specs`): by
+    KV heads where they divide the axis; else by sequence where the
+    tier's slots divide it (a rolling window whose slots do not stays
+    whole, every rank reading all of it); the global tier's ``s_max``
+    slots must divide then (a ValueError: :func:`decode_step_two_tier`
+    reads the window tier's layout off the global tier's).  The conv
+    tail and the SSM state are whole on every rank."""
+    n = _model_n(mesh)
+    check_mesh(cfg, mesh)
+    if n > 1 and shd.serve_kv_shard(mesh, cfg.n_kv, s_max) == "none":
+        raise ValueError(f"{cfg.arch_id}: neither {cfg.n_kv} KV heads "
+                         f"nor the global tier's {s_max} slots split over "
+                         f"a model axis of {n}")
     if not (cfg.window > 0 and cfg.global_layers
             and cfg.mixer in ("attn", "hybrid")):
         raise ValueError(f"{cfg.arch_id}: the two-tier cache needs a "
                          f"windowed attention arch with global layers")
     L = cfg.n_layers
     n_g = len([g for g in cfg.global_layers if g < L])
-    z = lambda shp, dt: torch.zeros(shp, dtype=dt, device=device)  # noqa
+    z = functools.partial(_block_zeros, cfg, mesh, device)
     kv_dtype = torch.int8 if quantized else dtype
     cache = {"pos": z((), torch.int32)}
     for tier, n_t, s_t in (("g", n_g, s_max),
                            ("w", L - n_g, min(cfg.window, s_max))):
         shape = (n_t, batch, cfg.n_kv, s_t, cfg.head_dim)
-        cache[f"{tier}k"] = z(shape, kv_dtype)
-        cache[f"{tier}v"] = z(shape, kv_dtype)
-        cache[f"{tier}k_scale"] = z(shape[:-1], torch.float32)
-        cache[f"{tier}v_scale"] = z(shape[:-1], torch.float32)
+        for leaf in ("k", "v"):
+            cache[f"{tier}{leaf}"] = z(shape, kv_dtype, f"{tier}{leaf}")
+            cache[f"{tier}{leaf}_scale"] = z(shape[:-1], torch.float32,
+                                             f"{tier}{leaf}_scale")
     if cfg.mixer == "hybrid":
         s = cfg.ssm
         cache["conv"] = z((L, batch, s.conv_kernel - 1,
@@ -1138,21 +1184,46 @@ def init_cache_two_tier(cfg: ModelConfig, batch: int, s_max: int, *,
     return cache
 
 
+def _tier_layouts(cfg: ModelConfig, cache: dict, mesh) -> dict:
+    """{tier: (layout, its global slots)} of a two-tier cache on ``mesh``
+    (:func:`init_cache_two_tier`'s placement): "heads", "seq" or "none"
+    (``attention.attn_decode``'s ``kv_shard``)."""
+    s_g = cache["gk"].shape[3]
+    if shd.serve_kv_shard(mesh, cfg.n_kv, s_g) != "heads":
+        s_g *= _model_n(mesh)           # the global tier by sequence
+    tiers = {"g": s_g, "w": min(cfg.window, s_g)}
+    return {t: (shd.serve_kv_shard(mesh, cfg.n_kv, s), s)
+            for t, s in tiers.items()}
+
+
 def decode_step_two_tier(model: Transformer, cfg: ModelConfig, cache: dict,
                          tokens_t, *, policy: Policy = Policy.full(),
-                         quantized: bool = True, kvq_splits: int = 1):
+                         quantized: bool = True, kvq_splits: int = 1,
+                         mesh=None):
     """One token over a two-tier cache (:func:`init_cache_two_tier`).
 
     Every layer masks by length and builds no bias: a window layer rolls
     its buffer (writes at ``pos % W``, ``lengths = min(pos + 1, W)``), a
     global layer reads ``lengths = pos + 1``.  The cache's leaves are
     updated in place; returns (logits (B, V), the cache with ``pos``
-    advanced)."""
+    advanced).
+
+    ``mesh`` (a model axis > 1): ``model`` and ``cache`` are this rank's
+    blocks.  The FFN and the MoE split over the axis as in
+    :func:`decode_step`, the SSM whole on every rank, the attention by
+    heads where the cache is, else whole with each tier read over its
+    block of the slots through ``collectives.sp_decode_attention_int8``
+    -- a rolling window too: its slots fill in order and are then
+    overwritten, and the softmax over them does not depend on their
+    order, so the write lands at ``pos % W`` on the rank owning that
+    slot and the lengths are ``min(pos + 1, W)`` -- and the logits are
+    whole on every rank."""
     pos = cache["pos"]
-    x = model.embed[tokens_t]
+    x = _embed(model, cfg, tokens_t, mesh)
     b = x.shape[0]
-    masks = {"g": attn.decode_mask(pos, b, cache["gk"].shape[3], 0),
-             "w": attn.rolling_mask(pos, b, cache["wk"].shape[3])}
+    tiers = _tier_layouts(cfg, cache, mesh)
+    masks = {"g": attn.decode_mask(pos, b, tiers["g"][1], 0),
+             "w": attn.rolling_mask(pos, b, tiers["w"][1])}
     for i, (blk, (tier, k)) in enumerate(zip(model.blocks,
                                              _tier_slots(cfg))):
         def attend(h, blk=blk, tier=tier, k=k):
@@ -1161,9 +1232,9 @@ def decode_step_two_tier(model: Transformer, cfg: ModelConfig, cache: dict,
                 cache[f"{tier}k_scale"][k], cache[f"{tier}v"][k],
                 cache[f"{tier}v_scale"][k], pos, mask=masks[tier],
                 quantized=quantized, splits=kvq_splits,
-                rolling=tier == "w")[0]
+                rolling=tier == "w", mesh=mesh, kv_shard=tiers[tier][0])[0]
 
-        x = _decode_block(blk, cfg, x, cache, i, attend)
+        x = _decode_block(blk, cfg, x, cache, i, attend, mesh=mesh)
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1
-    return _decode_logits(model, cfg, x, policy), new_cache
+    return _decode_logits(model, cfg, x, policy, mesh), new_cache

@@ -9,7 +9,8 @@ planned peak.  On the card ``live_bytes`` is the caching allocator's
 ``device_peak_bytes`` its ``max_memory_allocated``; ``n_arrays`` counts
 its live allocations.  On the CPU there is no such counter and
 ``live_bytes`` is -1, as the JAX package's is on a backend without
-live-array support.
+live-array support.  ``replica`` (a fleet replica's index) is put on
+every record, as the reference's ``MemStat(replica=)`` does.
 """
 from __future__ import annotations
 
@@ -18,10 +19,11 @@ import torch
 
 class MemStat:
     def __init__(self, *, sink=None, registry=None, plan_bytes=None,
-                 device=None) -> None:
+                 device=None, replica=None) -> None:
         self.sink = sink
         self.registry = registry
         self.plan_bytes = plan_bytes
+        self.replica = replica
         self.device = None if device is None else torch.device(device)
         self.peak_bytes = 0
         self.samples = 0
@@ -43,6 +45,8 @@ class MemStat:
             rec["plan_bytes"] = int(self.plan_bytes)
             rec["frac_of_plan"] = round(live / self.plan_bytes, 4) \
                 if live >= 0 else None
+        if self.replica is not None:
+            rec["replica"] = self.replica
         self.samples += 1
         if live > self.peak_bytes:
             self.peak_bytes = live

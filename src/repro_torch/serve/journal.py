@@ -46,6 +46,12 @@ long the journal has been running.  The journal file itself stays
 append-only (crash-safe by construction); the snapshot is the
 compaction.
 
+A fleet served over a mesh runs one router on every rank, and only one
+rank writes the journal: the others hold a :meth:`RequestJournal.mirror`
+of it, built from the writer's state (broadcast when the journal is
+opened), which reduces the same appends in memory and writes nothing, so
+every rank's router reads the same durable token counts.
+
 ``hooks["post_append"]`` is the crash-at-every-point seam: the fault
 harness (``serve/faults.py``) installs a hook that raises
 :class:`~repro_torch.serve.faults.SimulatedCrash` after the N-th append —
@@ -184,15 +190,20 @@ class RequestJournal:
     without re-reading the file.
     """
 
-    def __init__(self, path: str, *, fsync: bool = True,
-                 flush_every: int = 1, snapshot_every: int = 0):
+    def __init__(self, path: str | None, *, fsync: bool = True,
+                 flush_every: int = 1, snapshot_every: int = 0,
+                 state: JournalState | None = None):
         if snapshot_every < 0:
             raise ValueError("RequestJournal: snapshot_every must be >= 0")
         self.path = path
         self.snapshot_every = snapshot_every
-        self.state, _ = load_state(path) if os.path.exists(path) \
-            else (JournalState(), 0)
-        self._sink = EventSink(path, fsync=fsync, flush_every=flush_every)
+        if path is None:                        # a mirror: no file
+            self.state, self._sink = state or JournalState(), None
+        else:
+            self.state, _ = load_state(path) if os.path.exists(path) \
+                else (JournalState(), 0)
+            self._sink = EventSink(path, fsync=fsync,
+                                   flush_every=flush_every)
         self.appends = 0
         self.snapshots = 0
         #: crash-at-every-point seam: fn(journal, kind, rec), called
@@ -204,13 +215,21 @@ class RequestJournal:
         #: paying for it
         self.tracer = None
 
+    @classmethod
+    def mirror(cls, state: JournalState, *,
+               snapshot_every: int = 0) -> "RequestJournal":
+        """A journal that writes nothing: ``state`` (the writer's, as it
+        was opened) reduced by the same appends, in memory.  Its appends,
+        snapshots and ``post_append`` hook count as the writer's do."""
+        return cls(None, snapshot_every=snapshot_every, state=state)
+
     # -- append side -------------------------------------------------------
     def _append(self, kind: str, **fields) -> None:
-        if self.tracer is not None:
+        if self._sink is not None and self.tracer is not None:
             with self.tracer.span("journal_append", trace=fields.get("gid"),
                                   wal=kind):
                 self._sink.emit(kind, **fields)
-        else:
+        elif self._sink is not None:
             self._sink.emit(kind, **fields)
         self.state.apply(kind, fields)
         self.appends += 1
@@ -250,6 +269,9 @@ class RequestJournal:
         """Atomically write the compaction snapshot (state + covered
         offset) to ``path + ".snap"``.  Recovery after this point reads
         the snapshot plus only the journal tail."""
+        if self._sink is None:                  # a mirror writes nothing
+            self.snapshots += 1
+            return ""
         sid = None if self.tracer is None else \
             self.tracer.begin("journal_snapshot", live=self.state.n_live)
         offset = self._sink.tell()
@@ -265,7 +287,8 @@ class RequestJournal:
         return self.path + ".snap"
 
     def close(self) -> None:
-        self._sink.close()
+        if self._sink is not None:
+            self._sink.close()
 
     def __enter__(self) -> "RequestJournal":
         return self

@@ -75,6 +75,14 @@ Durability — the write-ahead journal and whole-router crashes
     ``sampler_keys="request"``.  ``reconcile()`` then additionally
     proves every journaled SUBMIT reached exactly one TERMINAL.
 
+    Served over a mesh, every rank runs its own router over its blocks
+    of the same replicas; the routers must decide alike.  Every decision
+    goes through one seam (``_event``: placements, failovers, health
+    transitions, terminals, drops, recoveries), which, for a router
+    built with ``digest_decisions``, folds it into
+    :meth:`Router.decision_digest`, so the launcher can compare the
+    ranks' digests (``launch/serve.py``).
+
     Subprocess replicas (:class:`~repro_torch.serve.worker.WorkerProxy`) slot
     into the same fleet: ``kill()`` becomes a real SIGKILL, and the
     stall detector treats a dead worker holding work as stalled (its
@@ -84,6 +92,8 @@ Durability — the write-ahead journal and whole-router crashes
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 from collections import deque
 from typing import Callable, Optional, Sequence
 
@@ -151,7 +161,8 @@ class Router:
     def __init__(self, engines: Sequence, *, policy: str = "least_loaded",
                  breaker: Optional[BreakerConfig] = None,
                  max_migrations: int = 2, sink=None, journal=None,
-                 journal_tokens_every: int = 1):
+                 journal_tokens_every: int = 1,
+                 digest_decisions: bool = False):
         if journal_tokens_every < 1:
             raise ValueError("Router: journal_tokens_every must be >= 1")
         if not engines:
@@ -211,6 +222,11 @@ class Router:
         self.journal_tokens_every = journal_tokens_every
         self._recovered_done = 0        # DONE straight from the journal
         self._journal_recovered: list[int] = []   # gids recover() rebuilt
+        #: with ``digest_decisions``, every decision (``_event``'s kind,
+        #: step and fields), hashed in order: equal digests mean equal
+        #: decision logs
+        self._decisions = hashlib.sha256() if digest_decisions else None
+        self.n_decisions = 0
 
     # legacy counters, now registry-backed ----------------------------------
     @property
@@ -241,8 +257,19 @@ class Router:
 
     # -- events ------------------------------------------------------------
     def _event(self, kind: str, **fields) -> None:
+        if self._decisions is not None:
+            self._decisions.update(json.dumps(
+                [kind, self._step_no, fields], sort_keys=True,
+                default=str).encode())
+        self.n_decisions += 1
         if self.sink is not None:
             self.sink.emit(kind, step=self._step_no, **fields)
+
+    def decision_digest(self) -> Optional[str]:
+        """The hex digest of every decision so far (see ``_event``); None
+        unless the router was built with ``digest_decisions``."""
+        return None if self._decisions is None \
+            else self._decisions.hexdigest()
 
     def _set_health(self, i: int, state: str, reason: str = "") -> None:
         if self.health[i] == state:

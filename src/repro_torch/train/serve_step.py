@@ -31,7 +31,8 @@ def build_prefill_step(cfg: ModelConfig, *, policy_name: str = "bf16",
     generation) before it is returned (``transformer.grow_cache``; the
     prompt's length without it).  Only the last position goes through the
     head.  With ``mesh`` the cache is in the decode layout of this rank:
-    its KV heads, or its block of the slots (``transformer.seq_block``)."""
+    its KV heads, or its block of the slots (``transformer.seq_block``;
+    MLA's latents by sequence)."""
     policy = get_policy(policy_name)
 
     def prefill_step(model, batch):

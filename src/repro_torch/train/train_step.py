@@ -34,8 +34,10 @@ of (data, model) axes, inside an initialized process group of
     group, and the finite flag is reduced with MIN over the whole world,
     so every rank takes the same update or the same skip.
 
-Every arch but MLA trains on a model axis > 1 (``transformer.check_mesh``
-refuses MLA): the GQA attention archs, the MoE among them (TP-experts or
+Every arch trains on a model axis > 1: the GQA attention archs, MLA
+(``q_b`` / ``kv_b`` / ``wo`` by heads; the latents and the rope key
+whole, each entering the heads through ``copy_to_model``), the MoE
+among them (TP-experts or
 expert parallelism, ``models/moe.py``; its ``moe_aux`` term is part of
 each data shard's loss, so it is averaged over the data group with the
 loss and never summed over the model axis), the SSM mixers (every ``ssm``

@@ -371,8 +371,8 @@ def test_trainer_refuses_a_model_axis():
     with pytest.raises(RuntimeError, match="process group"):
         ts.build_train_step(cfg, ts.TrainConfig(),
                             mesh=tmesh.Mesh(data=1, model=2))
-    # MLA does not shard over the model axis (the MoE does)
-    with pytest.raises(NotImplementedError, match="MLA"):
+    # MLA shards over the model axis too: it needs the process group
+    with pytest.raises(RuntimeError, match="process group"):
         ts.build_train_step(configs.smoke_config("minicpm3-4b"),
                             ts.TrainConfig(),
                             mesh=tmesh.Mesh(data=1, model=2))

@@ -27,8 +27,8 @@ weights from JAX's ``init_params(PRNGKey(0))`` carried across with
     ``kvq_backend="ref"``): tokens exact; hymba's global layer decodes by
     length over a sequence-split cache on (1, 4), its windowed layer by
     the band's bias (positions 24-31 pass the 16-slot window);
-  * the placement (every ``ssm`` leaf whole), the two-tier cache's
-    refusal of a model axis, the remat plan of ``make_train_step(mesh=)``
+  * the placement (every ``ssm`` leaf whole), the remat plan of
+    ``make_train_step(mesh=)``
     against the reference's, the SSD op's forward and backward
     bit-repeatable;
   * the CLIs under torchrun's environment (2 ranks, ``--device cpu
@@ -479,17 +479,6 @@ def test_remat_plan_on_a_model_axis_equals_reference(arch):
 # --------------------------------------------------------------------------
 # Pieces that need no ranks.
 # --------------------------------------------------------------------------
-def test_two_tier_cache_refuses_a_model_axis():
-    from repro_torch.launch.mesh import Mesh
-    from repro_torch.models import transformer
-    cfg = _cfg(HY)
-    transformer.init_cache_two_tier(cfg, 2, 64, device="cpu",
-                                    mesh=Mesh(data=2, model=1))
-    with pytest.raises(NotImplementedError, match="two-tier"):
-        transformer.init_cache_two_tier(cfg, 2, 64, device="cpu",
-                                        mesh=Mesh(data=1, model=2))
-
-
 def test_ssd_forward_and_backward_are_bit_repeatable():
     """Every rank runs the SSM whole, so its leaves' gradients are the same
     bits on each only if the op is deterministic: the chunk, the
