@@ -136,6 +136,28 @@ JSON object per line:
    then 5 timed steps with the launch counters zeroed before and read
    after (the forward and the backward's dQ / dKV on the tensor-core
    kernels only), then ``torch.profiler`` over one more step;
+7a. ``dryrun``: ``launch/dryrun.py``'s predictions held against the
+   card, one line a sub-phase: (a) ``dryrun_train``, the ``train`` cell
+   (llama3-8b at 4 layers, 1 x 4096, bf16 policy, f32 masters, remat
+   every block, AdamW, no mesh): the dry run's fake-tensor trace of one
+   step on the host (``dryrun.build_lowerable`` / ``trace_step``), then
+   one real step of the same step function from ``--seed`` on the card
+   under ``FlopCounterMode``: the traced kernel calls must equal the
+   launch counters' deltas and the traced FLOPs the real step's,
+   exactly, and the traced peak of live bytes must be within
+   ``DRYRUN_PEAK_TOL`` (10%) of ``max_memory_allocated`` after
+   ``reset_peak_memory_stats`` (the bytes held before the state was
+   built taken off), while a control -- the prediction less the AdamW
+   moments (2 x 4 bytes a parameter) -- must miss it; (b)
+   ``dryrun_decode``, one decode step of full-depth llama3-8b (bf16
+   weights from ``--seed``, 8 slots x 2048 int8, ``kv_splits`` 4, no
+   mesh, ``make_serve_steps``): the same checks (32 ``flash_decode``
+   launches, the splits merged in PyTorch), the control the prediction
+   less the 32 blocks' weights; (c) ``dryrun_cli``, ``python -m
+   repro_torch.launch.dryrun --arch llama3-8b --shape decode_32k
+   --json`` in a subprocess on the (data 16, model 16) mesh: exit 0,
+   one cell OK, and that process never initialized CUDA (its
+   ``torch.cuda.memory_allocated()`` 0); the seconds of each part;
 7b. ``train_dp``: data-parallel training (``train_step`` with a
    ``launch/mesh.py`` ``Mesh``): (a) the ``train`` cell through
    ``make_train_step(mesh=Mesh(data=1, model=1))`` in a world-1 NCCL
@@ -485,6 +507,8 @@ BWD_TPU = {"delta": "src/repro/kernels/flash/kernel.py:418",
            "dkv": "src/repro/kernels/flash/kernel.py:478"}
 TRAIN_LAYERS, TRAIN_SEQ = 4, 4096   # full width, depth cut to 4 layers
 TRAIN_PLAN_STEPS = 3                # timed steps of each train_plan run
+DRYRUN_PEAK_TOL = 0.10              # dryrun: predicted vs measured peak
+DRYRUN_SLOTS, DRYRUN_LEN = 8, 2048  # dryrun (b): the decode step's cache
 CE_CHUNK = 512                      # train_plan (h)'s chunk of the CE
 #: cuBLAS / CUTLASS GEMM kernel names on Hopper (nvjet: cuBLAS 12.8's)
 GEMM_NAME = re.compile(r"gemm|nvjet|xmma|cutlass", re.I)
@@ -2977,6 +3001,150 @@ class Smoke:
                         else None,
                         "top_kernels_ms": [[name[:80], round(us / 1e3, 3), c]
                                            for us, name, c in rows[:40]]}})
+
+    # -- the dry run's predictions against the card (dryrun) -------------
+    def run_dryrun(self) -> list:
+        """(a) the ``train`` cell's step and (b) a full-depth decode step,
+        each traced by ``launch/dryrun.py`` on fake tensors and then run
+        for real here; (c) the dry run's CLI in a subprocess."""
+        from repro_torch import configs
+        from repro_torch.models import transformer
+        torch = self.torch
+        meta = functools.partial(torch.empty, dtype=torch.int32,
+                                 device="meta")
+        cfg = dataclasses.replace(configs.get_config("llama3-8b"),
+                                  n_layers=TRAIN_LAYERS)
+        train = self._dryrun_part(
+            "dryrun_train", cfg, "train_4k",
+            {"tokens": meta((1, TRAIN_SEQ)), "labels": meta((1, TRAIN_SEQ))},
+            # the AdamW moments: 2 f32 a parameter
+            control=lambda args: 8 * sum(
+                p.numel() for p in args[0].parameters()),
+            control_of="adamw_moments")
+        cfg = configs.get_config("llama3-8b")
+        decode = self._dryrun_part(
+            "dryrun_decode", cfg, "decode_32k",
+            {"tokens_t": meta((DRYRUN_SLOTS,)),
+             "cache": transformer.init_cache(cfg, DRYRUN_SLOTS, DRYRUN_LEN,
+                                             device="meta")},
+            kvq_splits=4,
+            control=lambda args: sum(
+                p.numel() * p.element_size()
+                for blk in args[0].blocks for p in blk.parameters()),
+            control_of="block_weights")
+        return [train, decode, self._dryrun_cli()]
+
+    def _dryrun_part(self, phase: str, cfg, shape: str, specs: dict, *,
+                     control, control_of: str, kvq_splits: int = 1) -> dict:
+        """One step of ``shape``'s kind at ``specs``: the dry run's trace
+        of it on fake tensors, then the same step made from ``--seed`` on
+        the card and run once under ``FlopCounterMode``, with the launch
+        counters and the peak read around it.  ``control(args)``: bytes
+        the prediction less which must miss the peak gate."""
+        torch = self.torch
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        from torch.utils.flop_counter import FlopCounterMode
+        from repro_torch.launch import dryrun
+        t0 = time.time()
+        with FakeTensorMode():
+            step, args = dryrun.build_lowerable(
+                cfg, shape, None, accum=1, kvq_splits=kvq_splits,
+                specs=specs)
+            pred = dryrun.trace_step(step, args)
+            control_bytes = control(args)
+            del step, args
+        trace_s = time.time() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(self.dev)
+        t0 = time.time()
+        step, args = dryrun.build_lowerable(
+            cfg, shape, None, accum=1, kvq_splits=kvq_splits, specs=specs,
+            device=self.dev, seed=self.args.seed)
+        self.sync()
+        resident = torch.cuda.memory_allocated(self.dev) - base
+        counters = self._all_counters()
+        before = {n: k.launches for n, k in counters.items()}
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        flop = FlopCounterMode(display=False)
+        with flop:
+            step(*args)
+        self.sync()
+        peak = torch.cuda.max_memory_allocated(self.dev) - base
+        step_s = time.time() - t0
+        launches = {n: k.launches - before[n] for n, k in counters.items()
+                    if k.launches != before[n]}
+        del step, args
+        gc.collect()
+        torch.cuda.empty_cache()
+        flops = float(flop.get_total_flops())
+        err = abs(pred["peak"] - peak) / peak
+        control_err = abs(pred["peak"] - control_bytes - peak) / peak
+        checks = {"launches_exact": launches == pred["kernel_calls"],
+                  "flops_exact": flops == pred["flops"],
+                  "peak_within_tol": err <= DRYRUN_PEAK_TOL,
+                  "control_misses": control_err > DRYRUN_PEAK_TOL}
+        return self.record({
+            "phase": phase, "ok": all(checks.values()), "checks": checks,
+            "arch": cfg.arch_id, "n_layers": cfg.n_layers,
+            "kind": dryrun.configs.SHAPES[shape]["kind"],
+            "inputs": {k: list(v.shape) for k, v in specs.items()
+                       if k != "cache"},
+            "cache_len": DRYRUN_LEN if "cache" in specs else None,
+            "kv_splits": kvq_splits if "cache" in specs else None,
+            "predicted_kernel_calls": pred["kernel_calls"],
+            "launches": launches, "predicted_flops": pred["flops"],
+            "flops": flops, "predicted_peak_bytes": pred["peak"],
+            "max_memory_allocated_bytes": peak, "base_bytes": base,
+            "peak_rel_err": err, "predicted_resident_bytes":
+            pred["resident"], "resident_bytes": resident,
+            "control": control_of, "control_bytes": control_bytes,
+            "control_rel_err": control_err, "tol": DRYRUN_PEAK_TOL,
+            "predicted_op_bytes": pred["bytes"],
+            "trace_s": trace_s, "card_s": step_s})
+
+    def _dryrun_cli(self) -> dict:
+        """The dry run's CLI on the production mesh in a subprocess that
+        reports whether it touched the card."""
+        t0 = time.time()
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "cell.json")
+            argv = ["dryrun", "--arch", "llama3-8b", "--shape", "decode_32k",
+                    "--json", out]
+            code = (
+                "import runpy, sys, torch\n"
+                f"sys.argv = {argv!r}\n"
+                "rc = 0\n"
+                "try:\n"
+                "    runpy.run_module('repro_torch.launch.dryrun', "
+                "run_name='__main__')\n"
+                "except SystemExit as e:\n"
+                "    rc = e.code\n"
+                "print('CARD', torch.cuda.is_initialized(), "
+                "torch.cuda.memory_allocated())\n"
+                "sys.exit(rc)\n")
+            proc = subprocess.run(
+                [sys.executable, "-c", code], capture_output=True,
+                text=True, timeout=600, cwd=ROOT,
+                env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+            res = json.loads(pathlib.Path(out).read_text()) \
+                if os.path.exists(out) else {"results": [], "failures": []}
+        card = proc.stdout.split("CARD")[-1].split() if "CARD" in \
+            proc.stdout else ["?", "-1"]
+        r = res["results"][0] if res["results"] else {}
+        checks = {"exit_0": proc.returncode == 0,
+                  "one_cell_ok": "1 cells OK, 0 failed" in proc.stdout
+                  and len(res["results"]) == 1,
+                  "card_untouched": card == ["False", "0"]}
+        return self.record({
+            "phase": "dryrun_cli", "ok": all(checks.values()),
+            "checks": checks, "mesh": r.get("mesh"),
+            "cuda_initialized": card[0], "memory_allocated": int(card[1]),
+            "bytes_per_device": r.get("bytes_per_device"),
+            "kernel_calls": r.get("kernel_calls"),
+            "bottleneck": r.get("bottleneck"),
+            "stderr_tail": proc.stderr[-600:] if proc.returncode else "",
+            "seconds": time.time() - t0})
 
     def run_train_dp(self) -> dict:
         """Data-parallel training (``train/train_step.py`` with a mesh):
@@ -7447,6 +7615,7 @@ def main(argv=None) -> int:
     smoke.check_model()
     smoke.run_serve()
     smoke.run_train()
+    smoke.run_dryrun()
     smoke.run_train_dp()
     smoke.run_train_tp()
     smoke.run_moe_tp()

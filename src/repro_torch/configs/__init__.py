@@ -55,3 +55,67 @@ def smoke_config(arch_id: str) -> ModelConfig:
     if cfg.mrope_sections is not None:
         kw["mrope_sections"] = (4, 2, 2)
     return dataclasses.replace(cfg, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Assigned input shapes (the reference's ``SHAPES``), and the dry run's
+# stand-ins for every model input of a cell.
+# ---------------------------------------------------------------------------
+SHAPES = {
+    "train_4k": dict(kind="train", seq=4096, batch=256),
+    "prefill_32k": dict(kind="prefill", seq=32768, batch=32),
+    "decode_32k": dict(kind="decode", seq=32768, batch=128),
+    "long_500k": dict(kind="decode", seq=524288, batch=1),
+}
+
+
+def applicable_shapes(cfg: ModelConfig) -> list[str]:
+    """long_500k only for the sub-quadratic archs, as in the reference."""
+    shapes = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.subquadratic:
+        shapes.append("long_500k")
+    return shapes
+
+
+def input_specs(cfg: ModelConfig, shape_name: str, *,
+                reduced: bool = False) -> dict:
+    """``device="meta"`` stand-ins for every model input of this cell, at
+    the reference's global shapes and dtypes (its ``ShapeDtypeStruct``s):
+
+    ``kind='train'``   -> {tokens, labels[, frames / patches, positions]}
+    ``kind='prefill'`` -> {tokens[, frames / patches, positions]}
+    ``kind='decode'``  -> {tokens_t, cache[, enc_out]}, the cache
+    ``transformer.init_cache(quantized=True)``'s, whole.
+
+    ``reduced`` caps seq at 64 and batch at 4."""
+    import torch
+    sh = dict(SHAPES[shape_name])
+    if reduced:
+        sh.update(seq=min(sh["seq"], 64), batch=min(sh["batch"], 4))
+    b, s = sh["batch"], sh["seq"]
+    f32, i32 = torch.float32, torch.int32
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if sh["kind"] in ("train", "prefill"):
+        specs = {"tokens": meta((b, s), i32)}
+        if sh["kind"] == "train":
+            specs["labels"] = meta((b, s), i32)
+        if cfg.encoder is not None:
+            specs["frames"] = meta((b, cfg.encoder.n_frames, cfg.d_model),
+                                   f32)
+        if cfg.family == "vlm":
+            specs["patches"] = meta((b, min(1024, s // 4), cfg.d_model), f32)
+            specs["positions"] = meta((3, b, s), i32)
+        return specs
+
+    # decode: one new token against a cache of length seq (the steps
+    # continue text only: a VLM's positions are tracked 1-D)
+    from repro_torch.models import transformer
+    specs = {"tokens_t": meta((b,), i32),
+             "cache": transformer.init_cache(cfg, b, s, quantized=True,
+                                             device="meta")}
+    if cfg.encoder is not None:
+        specs["enc_out"] = meta((b, cfg.encoder.n_frames, cfg.d_model), f32)
+    return specs

@@ -16,11 +16,20 @@ kernels mask the ragged tail themselves.
 saves (q, k, v, o, m, l) -- O(S*D) per head, never the S x S
 probabilities -- and its backward recomputes the probabilities from the
 f32 row stats (the counterpart of the JAX package's ``custom_vjp``).
+
+The forward (``repro_torch::flash_fwd``) and the backward's three kernels
+(``repro_torch::flash_bwd``) are each one operator to the dispatcher,
+with a fake that gives the kernels' outputs and a FLOP formula that
+counts the products of the tiles the kernels visit
+(``torch.utils.flop_counter``).  Inside ``core.device.trace_for_card``
+the wrappers take fake tensors down the card's route to those fakes.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.core import device
 from repro_torch.kernels import build, tiling
 from repro_torch.kernels.flash import ref
 
@@ -118,9 +127,29 @@ def expected_bwd_counts(s: int, group: int, *, causal: bool = True,
             [group * c for c in tiling.q_visits(n, **kw)])
 
 
+def fwd_flops(bh: int, s: int, d: int, *, causal: bool = True,
+              window: int = 0) -> int:
+    """The forward kernel's products (QK^T and PV, 4 BQ BK D a visited
+    tile) over the tiles it visits for ``bh`` rows of length S: the
+    forward term of ``plan.flash_attn_flop_report``."""
+    return 4 * bh * BQ * BK * d * sum(expected_counts(s, causal=causal,
+                                                      window=window))
+
+
+def bwd_flops(bh: int, s: int, d: int, *, causal: bool = True,
+              window: int = 0, kv_len: int | None = None) -> int:
+    """The backward kernels' products over the tiles they visit: dQ's
+    score recompute, dP and dS K (6 BQ BK D a tile), dKV's recompute,
+    P^T dO, dP and dS^T Q (8); the delta's row sums are no product.  The
+    backward terms of ``plan.flash_attn_flop_report``."""
+    dq, dkv = expected_bwd_counts(s, 1, causal=causal, window=window,
+                                  kv_len=kv_len)
+    return bh * BQ * BK * d * (6 * sum(dq) + 8 * sum(dkv))
+
+
 def _check_cuda(q, k, v) -> str:
     """Check a CUDA forward's inputs; return :func:`fwd_route`'s route."""
-    if not (q.is_cuda and k.is_cuda and v.is_cuda):
+    if not device.on_one_card(q, k, v):
         raise ValueError("flash_attention_fwd: q, k, v must all be on the "
                          "same device")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -129,7 +158,7 @@ def _check_cuda(q, k, v) -> str:
     route = fwd_route(q.dtype, q.shape[-1])
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention_fwd: q, k, v must be contiguous")
-    if route == "sm90" and any(t.data_ptr() % 16 for t in (q, k, v)):
+    if route == "sm90" and any(device.misaligned(t) for t in (q, k, v)):
         raise ValueError("flash_attention_fwd: the tensor-core kernel loads "
                          "q, k, v by TMA and needs them 16-byte aligned")
     return route
@@ -157,7 +186,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"flash_attention_fwd: kv_len {kv_len} outside "
                          f"[0, {s}]")
     scale = float(sm_scale) if sm_scale is not None else d ** -0.5
-    if not q.is_cuda:
+    if not device.on_card(q):
         if counts:
             raise ValueError("flash_attention_fwd: counts come from the CUDA "
                              "kernel; the plain version runs no tiles")
@@ -178,7 +207,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
 
 def _check_bwd_cuda(q, k, v, o, m, l, do, grad_dtypes):
     tensors = (q, k, v, o, m, l, do)
-    if not all(t.is_cuda and t.device == q.device for t in tensors):
+    if not device.on_one_card(*tensors):
         raise ValueError("flash_attention_bwd: every input must be on one "
                          "CUDA device")
     if len(set(grad_dtypes)) != 1:
@@ -197,9 +226,10 @@ def _check_bwd_cuda(q, k, v, o, m, l, do, grad_dtypes):
     if not all(t.is_contiguous() for t in (q, k, v, o, m, l)):
         raise ValueError("flash_attention_bwd: q, k, v, o, m, l must be "
                          "contiguous")
-    if route == "sm90" and any(t.data_ptr() % 16 for t in (q, k, v, do)):
+    if route == "sm90" and any(device.misaligned(t) for t in (q, k, v, do)):
         raise ValueError("flash_attention_bwd: the tensor-core kernels load "
                          "q, k, v, dO by TMA and need them 16-byte aligned")
+    return route
 
 
 def flash_attention_bwd(q, k, v, o, m, l, do, *, causal: bool = True,
@@ -232,7 +262,7 @@ def flash_attention_bwd(q, k, v, o, m, l, do, *, causal: bool = True,
     scale = float(sm_scale) if sm_scale is not None else d ** -0.5
     grad_dtypes = (q.dtype, k.dtype, v.dtype) if grad_dtypes is None \
         else tuple(grad_dtypes)
-    if not q.is_cuda:
+    if not device.on_card(q):
         if counts:
             raise ValueError("flash_attention_bwd: counts come from the "
                              "CUDA kernels; the plain version runs no tiles")
@@ -241,12 +271,23 @@ def flash_attention_bwd(q, k, v, o, m, l, do, *, causal: bool = True,
                                  kv_len=kv_len, grad_dtypes=grad_dtypes)
     do = do.contiguous()
     _check_bwd_cuda(q, k, v, o, m, l, do, grad_dtypes)
-    kw = dict(causal=causal, window=window, sm_scale=scale, kv_len=kv_len,
+    if counts:
+        return _bwd_kernels(q, k, v, o, m, l, do, causal, window, scale,
+                            kv_len, grad_dtypes[0], counts=True)
+    return _bwd_op(q, k, v, o, m, l, do, causal, window, scale, kv_len,
+                   grad_dtypes[0])
+
+
+def _bwd_kernels(q, k, v, o, m, l, do, causal, window, sm_scale, kv_len,
+                 dtype, counts: bool = False):
+    """The CUDA backward's three launches (delta, dQ, dKV) on inputs that
+    :func:`flash_attention_bwd` has checked: ``repro_torch::flash_bwd``'s
+    body, and with ``counts`` the kernels' counters too."""
+    kw = dict(causal=causal, window=window, sm_scale=sm_scale, kv_len=kv_len,
               counts=counts)
     delta = _bwd_delta(o, do)
-    dq, cnt_q = _bwd_dq(q, k, v, do, m, l, delta, dtype=grad_dtypes[0], **kw)
-    dk, dv, cnt_k = _bwd_dkv(q, k, v, do, m, l, delta, dtype=grad_dtypes[1],
-                             **kw)
+    dq, cnt_q = _bwd_dq(q, k, v, do, m, l, delta, dtype=dtype, **kw)
+    dk, dv, cnt_k = _bwd_dkv(q, k, v, do, m, l, delta, dtype=dtype, **kw)
     return (dq, dk, dv, cnt_q, cnt_k) if counts else (dq, dk, dv)
 
 
@@ -325,11 +366,49 @@ _LIB.impl("flash_fwd",
 
 @torch.library.register_fake("repro_torch::flash_fwd", lib=_LIB)
 def _(q, k, v, causal, window, sm_scale):
+    if device.card_trace_active():
+        device.count_card_call(FWD_SM90 if _check_cuda(q, k, v) == "sm90"
+                               else KERNEL)
     stats = q.new_empty(q.shape[:2], dtype=torch.float32)
     return torch.empty_like(q), stats, torch.empty_like(stats)
 
 
+@register_flop_formula(torch.ops.repro_torch.flash_fwd)
+def _(q, k, v, causal, window, sm_scale, *, out_shape=None, **kw):
+    return fwd_flops(q[0], q[1], q[2], causal=causal, window=window)
+
+
+# The backward's three launches as one operator, as the forward: a fake
+# for the dry run's trace, and a FLOP formula.  Called only from
+# flash_attention_bwd, on checked inputs (dO contiguous, one gradient
+# dtype).
+_LIB.define("flash_bwd(Tensor q, Tensor k, Tensor v, Tensor o, Tensor m, "
+            "Tensor l, Tensor do, bool causal, int window, float sm_scale, "
+            "int kv_len, ScalarType grad_dtype) -> (Tensor, Tensor, Tensor)")
+_LIB.impl("flash_bwd", _bwd_kernels, "CompositeExplicitAutograd")
+
+
+@torch.library.register_fake("repro_torch::flash_bwd", lib=_LIB)
+def _(q, k, v, o, m, l, do, causal, window, sm_scale, kv_len, grad_dtype):
+    if device.card_trace_active():
+        sm90 = _route(q, do, grad_dtype) == "sm90"
+        for kern in (BWD_DELTA, BWD_DQ_SM90 if sm90 else BWD_DQ,
+                     BWD_DKV_SM90 if sm90 else BWD_DKV):
+            device.count_card_call(kern)
+    return (q.new_empty(q.shape, dtype=grad_dtype),
+            k.new_empty(k.shape, dtype=grad_dtype),
+            v.new_empty(v.shape, dtype=grad_dtype))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_bwd)
+def _(q, k, v, o, m, l, do, causal, window, sm_scale, kv_len, grad_dtype, *,
+      out_shape=None, **kw):
+    return bwd_flops(q[0], q[1], q[2], causal=causal, window=window,
+                     kv_len=kv_len)
+
+
 _fwd_op = torch.ops.repro_torch.flash_fwd.default
+_bwd_op = torch.ops.repro_torch.flash_bwd.default
 
 
 class _FlashFn(torch.autograd.Function):

@@ -12,11 +12,21 @@ band over a non-rolling cache) goes to the kernel's own bias entry point,
 ``partials=True`` returns the unnormalised (o, m, l) of the call instead,
 what a sequence-sharded decode merges across devices
 (``distributed/collectives.py`` ``sp_decode_attention_int8``).
+
+The launch (either entry point) is one operator to the dispatcher,
+``repro_torch::flash_decode``, whose fake gives the kernel's outputs (the
+split partials at the split count :func:`resolve_splits` picks) and whose
+FLOP formula counts the products of the KV tiles a full cache's rows visit
+(``tiling.decode_tile_step_counts``); the splits' merge stays in PyTorch.
+Inside ``core.device.trace_for_card`` the wrapper takes fake tensors down
+the card's route to that fake.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.core import device
 from repro_torch.kernels import build, tiling
 from repro_torch.kernels.kvq import ref
 from repro_torch.kernels.kvq.ref import (combine_splits,  # noqa: F401
@@ -45,7 +55,7 @@ def resolve_splits(s: int, splits: int,
 def _check_cuda(qg, k_q, k_s, v_q, v_s, mask, block_s):
     """``mask`` is the (B,) int32 lengths or the (B, S) f32 bias."""
     tensors = (qg, k_q, k_s, v_q, v_s, mask)
-    if not all(t.is_cuda and t.device == qg.device for t in tensors):
+    if not device.on_one_card(*tensors):
         raise ValueError("decode_attention: q, cache and mask must all be "
                          "on one CUDA device")
     if k_q.dtype != torch.int8 or v_q.dtype != torch.int8:
@@ -72,7 +82,7 @@ def _check_cuda(qg, k_q, k_s, v_q, v_s, mask, block_s):
                          f"{MAX_BLOCK_S}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("decode_attention: operands must be contiguous")
-    if k_q.data_ptr() % 16 or v_q.data_ptr() % 16:
+    if device.misaligned(k_q) or device.misaligned(v_q):
         raise ValueError("decode_attention: int8 cache must be 16-byte "
                          "aligned")
 
@@ -107,7 +117,7 @@ def decode_attention(q, k_q, k_s, v_q, v_s, *, lengths=None, bias=None,
     g = h // hkv
     sm = float(sm_scale) if sm_scale is not None else d ** -0.5
     qg = q.float().reshape(b, hkv, g, d)
-    if not q.is_cuda:
+    if not device.on_card(q):
         if counts:
             raise ValueError("decode_attention: counts come from the CUDA "
                              "kernel; the plain version runs no tiles")
@@ -121,35 +131,107 @@ def decode_attention(q, k_q, k_s, v_q, v_s, *, lengths=None, bias=None,
     if bias is None and lengths is None:
         lengths = torch.full((b,), s, dtype=torch.int32, device=q.device)
     mask = lengths if bias is None else bias
-    kernel = KERNEL if bias is None else BIAS_KERNEL
     block_s = tiling.DEFAULT_DECODE_BS if block_s is None else block_s
     qg = qg.contiguous()
-    if qg.data_ptr() % 16:          # the kernel bulk-copies q's rows
+    if device.misaligned(qg):       # the kernel bulk-copies q's rows
         qg = qg.clone()
     _check_cuda(qg, k_q, k_s, v_q, v_s, mask, block_s)
+    if counts:
+        out, m_p, l_p, cnt = _launch(qg, k_q, k_s, v_q, v_s, mask, sm,
+                                     block_s, splits, partials, counts=True)
+    else:
+        out, *ml = _decode_op(qg, k_q, k_s, v_q, v_s, mask, sm, block_s,
+                              splits, partials)
+        m_p, l_p = ml or (None, None)
+        cnt = None
+    if partials:
+        o, m, l = merge_splits(out, m_p, l_p)
+        out = (o.reshape(b, h, d), m.reshape(b, h), l.reshape(b, h))
+        return (out, cnt) if counts else out
+    if m_p is not None:
+        out = combine_splits(out, m_p, l_p, torch.float32)
+    out = out.reshape(b, h, d)
+    return (out, cnt) if counts else out
+
+
+def _outputs(qg, s: int, block_s: int, splits: int,
+             partials: bool) -> list:
+    """The shapes of the kernel's f32 output buffers for qg (B, Hkv, G, D)
+    and a length-S cache: the output (B, Hkv, G, D) at one split without
+    ``partials``, else the split partials (B, Hkv, n_sp, G, D) and their m
+    and l (B, Hkv, n_sp, G), n_sp the split count :func:`resolve_splits`
+    picks."""
+    b, hkv, g, d = qg.shape
+    n_sp = resolve_splits(s, splits, block_s)
+    if n_sp == 1 and not partials:
+        return [(b, hkv, g, d)]
+    return [(b, hkv, n_sp, g, d), (b, hkv, n_sp, g), (b, hkv, n_sp, g)]
+
+
+def _launch(qg, k_q, k_s, v_q, v_s, mask, sm_scale, block_s, splits,
+            partials, counts: bool = False):
+    """One launch of the entry point ``mask`` selects (lengths (B,) int32:
+    ``KERNEL``; bias (B, S) f32: ``BIAS_KERNEL``) on inputs
+    :func:`decode_attention` has checked -> (out, m, l, counts), m / l None
+    at one split without ``partials``, counts None without ``counts``."""
+    b, hkv, g, d = qg.shape
+    s = k_q.shape[2]
+    kernel = KERNEL if mask.ndim == 1 else BIAS_KERNEL
     bs, ns, n_sp, spt = tiling.resolve_decode_grid(s, block_s=block_s,
                                                    splits=splits)
-    dev = q.device
-    if n_sp == 1 and not partials:
-        out = torch.empty((b, hkv, g, d), dtype=torch.float32, device=dev)
-        m_p = l_p = None
-    else:
-        out = torch.empty((b, hkv, n_sp, g, d), dtype=torch.float32,
-                          device=dev)
-        m_p = torch.empty((b, hkv, n_sp, g), dtype=torch.float32, device=dev)
-        l_p = torch.empty_like(m_p)
+    dev = qg.device
+    shapes = _outputs(qg, s, block_s, splits, partials)
+    bufs = [torch.empty(sh, dtype=torch.float32, device=dev)
+            for sh in shapes]
+    out, m_p, l_p = (bufs + [None, None])[:3]
     cnt = (torch.empty((b, hkv, n_sp), dtype=torch.int32, device=dev)
            if counts else None)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     kernel(qg.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
            v_s.data_ptr(), mask.data_ptr(), out.data_ptr(), ptr(m_p),
-           ptr(l_p), ptr(cnt), b, hkv, g, s, d, bs, ns, spt, n_sp, sm,
+           ptr(l_p), ptr(cnt), b, hkv, g, s, d, bs, ns, spt, n_sp, sm_scale,
            torch.cuda.current_stream(dev).cuda_stream)
-    if partials:
-        o, m, l = merge_splits(out, m_p, l_p)
-        out = (o.reshape(b, h, d), m.reshape(b, h), l.reshape(b, h))
-        return (out, cnt) if counts else out
-    if n_sp > 1:
-        out = combine_splits(out, m_p, l_p, torch.float32)
-    out = out.reshape(b, h, d)
-    return (out, cnt) if counts else out
+    return out, m_p, l_p, cnt
+
+
+def decode_flops(b: int, hkv: int, g: int, s: int, d: int, *,
+                 block_s: int = tiling.DEFAULT_DECODE_BS,
+                 splits: int = 1) -> int:
+    """The decode kernel's products (QK^T and PV, 4 G D BS a KV tile and
+    KV head) over the tiles of ``b`` rows of a full length-S cache
+    (``tiling.decode_tile_step_counts`` without lengths): what
+    ``plan.decode_tile_report`` counts a layer."""
+    c = tiling.decode_tile_step_counts(s, None, block_s=block_s,
+                                       splits=splits)
+    return b * c["visited"] * 4 * g * d * c["bs"] * hkv
+
+
+# The launch as one operator to the dispatcher: the dry run's trace reaches
+# its fake, and torch.utils.flop_counter its formula.  Called only from
+# decode_attention, on checked inputs; returns [out] at one split without
+# partials, else [out, m, l] (the partials the caller merges).
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("flash_decode(Tensor qg, Tensor k_q, Tensor k_s, Tensor v_q, "
+            "Tensor v_s, Tensor mask, float sm_scale, int block_s, "
+            "int splits, bool partials) -> Tensor[]")
+_LIB.impl("flash_decode",
+          lambda *args: [t for t in _launch(*args)[:3] if t is not None],
+          "CompositeExplicitAutograd")
+
+
+@torch.library.register_fake("repro_torch::flash_decode", lib=_LIB)
+def _(qg, k_q, k_s, v_q, v_s, mask, sm_scale, block_s, splits, partials):
+    if device.card_trace_active():
+        device.count_card_call(KERNEL if mask.ndim == 1 else BIAS_KERNEL)
+    shapes = _outputs(qg, k_q.shape[2], block_s, splits, partials)
+    return [qg.new_empty(sh, dtype=torch.float32) for sh in shapes]
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_decode)
+def _(qg, k_q, k_s, v_q, v_s, mask, sm_scale, block_s, splits, partials, *,
+      out_shape=None, **kw):
+    b, hkv, g, d = qg
+    return decode_flops(b, hkv, g, k_q[2], d, block_s=block_s, splits=splits)
+
+
+_decode_op = torch.ops.repro_torch.flash_decode.default

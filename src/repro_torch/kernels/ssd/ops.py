@@ -23,6 +23,13 @@ No route falls back to another: a shape no kernel takes raises, and so does
 a kernel that fails to build or launch.  The inter-chunk state recurrence
 (T steps over (N, P) states), its fold and the ``y_inter`` product stay in
 PyTorch under autograd, as the JAX op keeps them out of its kernel.
+
+Both directions are operators to the dispatcher (``repro_torch::ssd_chunk``,
+``repro_torch::ssd_chunk_bwd``), each with a fake that gives the kernel's
+outputs and a FLOP formula that counts the chunk's products
+(:func:`chunk_flops`, :func:`chunk_bwd_flops`).  Inside
+``core.device.trace_for_card`` fake tensors take the card's route to those
+fakes.
 """
 from __future__ import annotations
 
@@ -30,7 +37,9 @@ import contextlib
 
 import torch
 from torch.profiler import record_function
+from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.core import device
 from repro_torch.kernels import build
 from repro_torch.kernels.ssd import ref
 
@@ -91,7 +100,7 @@ def _check_cuda(c, b, xbar, acum, *grads) -> str:
     dstate); return :func:`ssd_route`'s route (the backward's
     :func:`ssd_bwd_route` is the same)."""
     tensors = (c, b, xbar, acum, *grads)
-    if not all(t.is_cuda and t.device == xbar.device for t in tensors):
+    if not device.on_one_card(*tensors):
         raise ValueError("ssd_chunk: operands must all be on one CUDA device")
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError("ssd_chunk: the CUDA kernel takes float32 operands")
@@ -111,7 +120,7 @@ def _check_cuda(c, b, xbar, acum, *grads) -> str:
         raise ValueError(f"ssd_chunk: gradients do not match: dy "
                          f"{tuple(grads[0].shape)}, dstate "
                          f"{tuple(grads[1].shape)}")
-    if not all(x.is_contiguous() and x.data_ptr() % 16 == 0
+    if not all(x.is_contiguous() and not device.misaligned(x)
                for x in tensors):
         raise ValueError("ssd_chunk: operands must be contiguous and "
                          "16-byte aligned")
@@ -123,7 +132,7 @@ def _chunk_fwd(c, b, xbar, acum):
     route's CTAs walk :func:`heads_per_cta`'s group of heads."""
     g, t, q, p = xbar.shape
     heads = g // c.shape[0]
-    if not xbar.is_cuda:
+    if not device.on_card(xbar):
         if heads > 1:
             c = c.repeat_interleave(heads, dim=0)
             b = b.repeat_interleave(heads, dim=0)
@@ -155,14 +164,20 @@ def ssd_chunk_bwd(c, b, xbar, acum, dy, dstate):
     ``ref.ssd_chunk_bwd_ref``; CUDA tensors the kernel of
     :func:`ssd_bwd_route`: ``ssd_bwd_sm90.cu`` at head_p 64,
     ``ssd_bwd.cu`` at head_p 16."""
-    if not xbar.is_cuda:
+    if not device.on_card(xbar):
         return ref.ssd_chunk_bwd_ref(c, b, xbar, acum, dy, dstate)
-    route = _check_cuda(c, b, xbar, acum, dy, dstate)
+    _check_cuda(c, b, xbar, acum, dy, dstate)
+    return _bwd_op(c, b, xbar, acum, dy, dstate)
+
+
+def _chunk_bwd(c, b, xbar, acum, dy, dstate):
+    """``repro_torch::ssd_chunk_bwd``'s body: one launch of the kernel of
+    :func:`ssd_bwd_route` on operands :func:`ssd_chunk_bwd` has checked."""
     g, t, q, p = xbar.shape
     n = c.shape[-1]
     dc, db = torch.empty_like(c), torch.empty_like(b)
     dx, da = torch.empty_like(xbar), torch.empty_like(acum)
-    kernel = KERNEL_BWD_SM90 if route == "sm90" else KERNEL_BWD
+    kernel = KERNEL_BWD_SM90 if ssd_bwd_route(n, p) == "sm90" else KERNEL_BWD
     kernel(*(z.data_ptr() for z in (c, b, xbar, acum, dy, dstate, dx, da, dc,
                                     db)),
            g, t, q, n, p, g // c.shape[0],
@@ -185,12 +200,62 @@ _LIB.impl("ssd_chunk", _chunk_fwd, "CompositeExplicitAutograd")
 
 @torch.library.register_fake("repro_torch::ssd_chunk", lib=_LIB)
 def _(c, b, xbar, acum):
+    if device.card_trace_active():
+        device.count_card_call(KERNEL_SM90 if _check_cuda(c, b, xbar, acum)
+                               == "sm90" else KERNEL)
     g, t, q, p = xbar.shape
     return (xbar.new_empty((g, t, q, p)),
             xbar.new_empty((g, t, c.shape[-1], p)))
 
 
+def chunk_flops(g: int, t: int, q: int, n: int, p: int) -> int:
+    """The chunk's products for ``g`` folded rows of ``t`` chunks of
+    ``q``: the scores C B^T (2 Q^2 N), y_intra = (scores o decay) xbar
+    (2 Q^2 P) and the chunk-end state B^T (w o xbar) (2 Q N P), a row and
+    chunk; the scores counted for every row (head), as the plain version
+    computes them."""
+    return g * t * (2 * q * q * n + 2 * q * q * p + 2 * q * n * p)
+
+
+def chunk_bwd_flops(g: int, t: int, q: int, n: int, p: int) -> int:
+    """The chunk backward's products, a row and chunk: the scores
+    recomputed (2 Q^2 N), dxbar from dy and from dstate (2 Q^2 P + 2 Q N
+    P), d(scores) = dy xbar^T (2 Q^2 P), dc and db from it (4 Q^2 N), db's
+    term from dstate (2 Q N P)."""
+    return g * t * (6 * q * q * n + 4 * q * q * p + 4 * q * n * p)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_chunk)
+def _(c, b, xbar, acum, *, out_shape=None, **kw):
+    g, t, q, p = xbar
+    return chunk_flops(g, t, q, c[-1], p)
+
+
+# The backward's launch as one operator too, with a fake and a FLOP
+# formula; called only from ssd_chunk_bwd, on checked operands.
+_LIB.define("ssd_chunk_bwd(Tensor c, Tensor b, Tensor xbar, Tensor acum, "
+            "Tensor dy, Tensor dstate) -> (Tensor, Tensor, Tensor, Tensor)")
+_LIB.impl("ssd_chunk_bwd", _chunk_bwd, "CompositeExplicitAutograd")
+
+
+@torch.library.register_fake("repro_torch::ssd_chunk_bwd", lib=_LIB)
+def _(c, b, xbar, acum, dy, dstate):
+    if device.card_trace_active():
+        device.count_card_call(
+            KERNEL_BWD_SM90 if ssd_bwd_route(c.shape[-1], xbar.shape[-1])
+            == "sm90" else KERNEL_BWD)
+    return (torch.empty_like(c), torch.empty_like(b),
+            torch.empty_like(xbar), torch.empty_like(acum))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_chunk_bwd)
+def _(c, b, xbar, acum, dy, dstate, *, out_shape=None, **kw):
+    g, t, q, p = xbar
+    return chunk_bwd_flops(g, t, q, c[-1], p)
+
+
 _chunk_op = torch.ops.repro_torch.ssd_chunk.default
+_bwd_op = torch.ops.repro_torch.ssd_chunk_bwd.default
 
 
 class _SSDChunkFn(torch.autograd.Function):

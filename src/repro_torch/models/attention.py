@@ -216,11 +216,14 @@ def _write_token(cache, new, at):
     its own length).  The JAX version returns an updated copy; the port
     writes into the pool's buffer on purpose, so a decode step moves one
     token per row instead of copying the cache.  Indices clamp to the last
-    slot, as ``dynamic_update_slice`` does."""
+    slot, as ``dynamic_update_slice`` does.  A 0-d ``at`` is written by
+    ``index_copy_`` (indexing with a 0-d tensor would read it on the
+    host)."""
     s = cache.shape[2]
     at = at.clamp(0, s - 1)
     if at.ndim == 0:
-        cache[:, :, at] = new.to(cache.dtype)
+        cache.index_copy_(2, at.reshape(1).long(),
+                          new.to(cache.dtype).unsqueeze(2))
     else:
         rows = torch.arange(cache.shape[0], device=cache.device)
         cache[rows, :, at] = new.to(cache.dtype)

@@ -87,9 +87,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     inv, rot = rope_freqs(d, theta, fraction, device=x.device)
     if mrope_sections is not None:
         assert sum(mrope_sections) == rot // 2, (mrope_sections, rot)
-        stream = torch.repeat_interleave(
-            torch.arange(3, device=x.device),
-            torch.tensor(mrope_sections, device=x.device))  # (rot/2,)
+        stream = torch.tensor([i for i, n in enumerate(mrope_sections)
+                               for _ in range(n)], device=x.device)  # (rot/2,)
         # (..., S, 3) -> each frequency's stream: the reference's one-hot
         # einsum, exactly (a product by 1.0 and sums of zeros)
         ang = positions.float().movedim(0, -1)[..., stream] * inv

@@ -67,7 +67,12 @@ def router_topk(x: torch.Tensor, w_router: torch.Tensor, k: int):
     top_p, top_i = torch.topk(probs, k, dim=-1)
     weights = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
     e = w_router.shape[-1]
-    f = torch.bincount(top_i.reshape(-1), minlength=e).float()
+    # the assignments each expert got: a scatter of ones into E counts
+    # (static shapes, so a fake-tensor trace runs it); small integers in
+    # f32, the same bits in any order of the sum
+    idx = top_i.reshape(-1)
+    f = torch.zeros(e, dtype=torch.float32, device=idx.device).scatter_add_(
+        0, idx, torch.ones(idx.shape, dtype=torch.float32, device=idx.device))
     f = f / f.sum().clamp_min(1.0)
     aux = e * (f * probs.mean(0)).sum()
     return weights, top_i, aux
@@ -95,7 +100,10 @@ def dispatch_slots(top_i: torch.Tensor, e: int, cap: int):
     flat_e = top_i.reshape(-1)
     mine = (flat_e >= 0) & (flat_e < e)
     flat_e = flat_e.clamp(0, e - 1)
-    oh = F.one_hot(flat_e, e) * mine[:, None]                 # (Tk, e)
+    # the one-hots as a comparison (F.one_hot reads the indices' range on
+    # the host off the card)
+    oh = (flat_e[:, None] == torch.arange(e, device=flat_e.device)) \
+        .to(torch.int64) * mine[:, None]                      # (Tk, e)
     pos = (oh.cumsum(0) * oh).sum(-1) - 1                     # rank in expert
     keep = (pos < cap) & mine
     dst = torch.where(keep, flat_e * cap + pos,
@@ -188,7 +196,9 @@ def moe_capacity(weights: dict, x: torch.Tensor, cfg, mesh=None,
     with _part("moe.dispatch"):
         dst, keep = dispatch_slots(top_i - offset, e, cap)
         keep_x = keep[:, None].to(xe.dtype)
-        xs = xe.repeat_interleave(k, dim=0) * keep_x          # (Tk, D)
+        # each token's row k times over, as repeat_interleave lays them
+        # out (a static expand: no host read of the repeat counts)
+        xs = xe[:, None].expand(t, k, d).reshape(t * k, d) * keep_x
         # one spare row takes the drops (the reference's out-of-range
         # index under mode="drop"); only its value is undefined, and it is
         # cut off
